@@ -1,0 +1,431 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. ``card``    — the GPU, its power limit, and the torch/CUDA versions.
+2. ``build``   — nvcc builds every kernel source for sm_90a, all at once.
+3. ``kernel``  — each kernel against its plain PyTorch version at the main
+   path's shapes and one ragged shape: the error against a float64 reference
+   within the stated tolerance, and CUDA-event times of the kernel, the
+   plain version and one library call that computes the same function.
+4. ``main``    — ``train_rl_netes`` on pendulum at N = 1000 (the paper's
+   policy, D = 4481), once on Erdős–Rényi p = 0.1 (auto picks sparse) and
+   once fully connected (auto picks dense), with one eval each. Every
+   kernel's launch counter is zeroed just before each run and read just
+   after; the kernel of the run's representation must have launched.
+5. ``parity``  — one NetES step at N = 64 on the GPU and on the CPU from the
+   same parameters and draws must agree.
+
+Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
+and last ``{"ok": true, "device": {...}}``. Any failure raises, so the
+script exits non-zero and prints no result. It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import functools
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks from NVIDIA's data sheet: float32 on the CUDA
+# cores, and HBM3 bandwidth. Both assume the full 700 W power limit.
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+# |kernel − float64 reference| ≤ TOL_REL · S elementwise, where S is the
+# same sum taken over absolute values (Σ|a w θ_i| + σΣ|a w ε_i| + |wsum θ_j|).
+# Rounding each of the ≤ 2N f32 additions in any order leaves an error that
+# random-walks to ≈ √(2N)·u/√3·S ≈ 1.5e-6·S at N = 1000 (u = 6e-8); 3e-5 is
+# 20 of those, while dropping a single source term is ≈ S/N = 1e-3·S.
+TOL_REL = 3e-5
+
+MAIN_N, MAIN_P_ER, MAIN_ITERS, EVAL_EPISODES = 1000, 0.1, 4, 16
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+L2_FLUSH_BYTES = 64 << 20   # above the H100's 50 MB L2
+
+
+def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Median over ``iters`` launches of CUDA-event time, after warm-up.
+
+    Before each timed launch a 64 MB buffer is written, outside the
+    events, so every launch starts with a cold L2, as on the main path,
+    where the rollout runs between two mixing updates.
+    """
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _operands(n: int, p: int, seed: int):
+    """θ at the policy's init scale, ε ~ N(0, 1) and the antithetic
+    centered-rank weights R̃ of random returns, as one NetES step makes."""
+    import torch
+
+    from repro_torch.core import es_utils
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    theta = 0.3 * torch.randn(n, p, device="cuda", generator=g)
+    eps = torch.randn(n, p, device="cuda", generator=g)
+    ranks = es_utils.centered_rank(
+        torch.randn(2 * n, device="cuda", generator=g))
+    shaped = (ranks[:n] - ranks[n:]).contiguous()
+    return theta, eps, shaped
+
+
+def _graph(n: int, family: str, p: float, seed: int):
+    from repro_torch.core.topology import TopologySpec
+    return TopologySpec(family=family, n_agents=n, p=p, seed=seed).build()
+
+
+def _check_against_f64(name, out, adj64, w, theta, eps, sigma):
+    """The S-scaled bound above, against Eq. 3 in float64 on the dense
+    adjacency (the sparse function equals the dense one on its graph)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    w64, th64, ep64 = w.double(), theta.double(), eps.double()
+    exact = ref.netes_mixing_ref(adj64, w64, w64, th64, ep64, sigma=sigma)
+    wa = adj64.abs() * w64.abs()[None, :]
+    scale = (wa @ th64.abs() + abs(sigma) * (wa @ ep64.abs())
+             + (adj64 * w64[None, :]).sum(1).abs()[:, None] * th64.abs())
+    excess = ((out.double() - exact).abs() - TOL_REL * scale).max().item()
+    ratio = ((out.double() - exact).abs() / scale.clamp_min(1e-30)).max()
+    check(excess <= 0.0, f"{name}: error above {TOL_REL}·S "
+          f"(worst |err|/S = {ratio.item():.3g})")
+    return ratio.item()
+
+
+def kernel_phase(results: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.core.topology_repr import sparse_neighbors
+    from repro_torch.kernels import netes_mixing as nm
+    from repro_torch.kernels import netes_sparse_mixing as nsm
+    from repro_torch.kernels import ref
+
+    sigma = 0.1
+    cases = [  # (kernel, label, family, density, n, p, main-path shape?)
+        ("netes_mixing", "fc_main", "fully_connected", 1.0, MAIN_N, 4481, True),
+        ("netes_mixing", "er_ragged", "erdos_renyi", 0.3, 257, 700, False),
+        ("netes_sparse_mixing", "er_main", "erdos_renyi", MAIN_P_ER, MAIN_N,
+         4481, True),
+        ("netes_sparse_mixing", "er_ragged", "erdos_renyi", 0.3, 257, 700,
+         False),
+    ]
+    for kname, label, family, dens, n, p, main in cases:
+        adj_np = _graph(n, family, dens, seed=0)
+        theta, eps, w = _operands(n, p, seed=n + p)
+        adj64 = torch.as_tensor(adj_np, dtype=torch.float64, device="cuda")
+        if kname == "netes_mixing":
+            adj = torch.as_tensor(adj_np, device="cuda")
+            args = (adj, w, w, theta, eps)
+            kernel = functools.partial(nm.netes_mixing, *args, sigma=sigma)
+            plain = functools.partial(ref.netes_mixing_ref, *args, sigma=sigma)
+            nnz, k_max = int(np.count_nonzero(adj_np)), n
+            topo_bytes = 4 * n * n
+        else:
+            idx_np, mask_np = sparse_neighbors(adj_np)
+            idx = torch.as_tensor(idx_np, device="cuda")
+            mask = torch.as_tensor(mask_np, device="cuda")
+            args = (idx, mask, w, w, theta, eps)
+            kernel = functools.partial(nsm.netes_sparse_mixing, *args,
+                                       sigma=sigma)
+            plain = functools.partial(ref.sparse_mixing_ref, *args,
+                                      sigma=sigma)
+            nnz, k_max = int(np.count_nonzero(mask_np)), idx_np.shape[1]
+            topo_bytes = 8 * n * k_max
+        out_k, out_p = kernel(), plain()
+        torch.cuda.synchronize()
+        check(torch.isfinite(out_k).all().item(), f"{kname}/{label}: non-finite")
+        rel_k = _check_against_f64(f"{kname}/{label}", out_k, adj64, w, theta,
+                                   eps, sigma)
+        rel_p = _check_against_f64(f"{kname}/{label} plain", out_p, adj64, w,
+                                   theta, eps, sigma)
+        max_abs = (out_k - out_p).abs().max().item()
+
+        # The library yardstick: ONE PyTorch call computing the same map,
+        # out = W @ [θ; ε] with W = [a⊙R̃θ − diag(wsum) | σ·a⊙R̃ε] (N, 2N);
+        # W and the stacked operand are built outside the timed call.
+        a = torch.as_tensor(adj_np, device="cuda")
+        wt = a * w[None, :]
+        big_w = torch.cat([wt - torch.diag(wt.sum(1)), sigma * wt], dim=1)
+        stacked = torch.cat([theta, eps], dim=0)
+        if kname == "netes_mixing":
+            lib_name = "torch.matmul (f32, TF32 off)"
+            lib = functools.partial(torch.matmul, big_w, stacked)
+        else:
+            lib_name = "torch.sparse.mm (CSR)"
+            big_csr = big_w.to_sparse_csr()
+            lib = functools.partial(torch.sparse.mm, big_csr, stacked)
+        rel_l = _check_against_f64(f"{kname}/{label} library", lib(), adj64,
+                                   w, theta, eps, sigma)
+
+        flops = 4.0 * nnz * p          # two FMAs per edge and column
+        moved = 4.0 * (3 * n * p + 2 * n) + topo_bytes
+        t_ops, t_bytes = flops / F32_FLOPS, moved / HBM_BYTES_PER_S
+        row = {"phase": "kernel", "name": kname, "shape": label, "n": n,
+               "p": p, "k_max": k_max, "nnz": nnz,
+               "max_abs_err": max_abs, "max_err_over_S": rel_k,
+               "plain_err_over_S": rel_p, "library_err_over_S": rel_l,
+               "tol_over_S": TOL_REL,
+               "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+               "library": lib_name, "library_ms": time_ms(lib),
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "gflop": flops / 1e9, "mbytes": moved / 1e6}
+        emit(row)
+        if main:
+            results[kname] = row
+        del out_k, out_p, args, big_w, stacked
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+KERNEL_OF = {"dense": "netes_mixing", "sparse": "netes_sparse_mixing"}
+
+
+def _counters():
+    from repro_torch.kernels import netes_mixing as nm
+    from repro_torch.kernels import netes_sparse_mixing as nsm
+    return {"netes_mixing": nm.KERNEL, "netes_sparse_mixing": nsm.KERNEL}
+
+
+def main_phase(launches: dict) -> None:
+    import math
+
+    import torch
+
+    from repro_torch.core import netes
+    from repro_torch.core.netes import NetESConfig
+    from repro_torch.core.topology import TopologySpec
+    from repro_torch.envs import resolve_task
+    from repro_torch.train.loop import (TrainConfig, build_topology,
+                                        train_rl_netes)
+
+    cfg = NetESConfig(alpha=0.05, sigma=0.1)   # the launcher's defaults
+    for family, dens in (("erdos_renyi", MAIN_P_ER), ("fully_connected", 1.0)):
+        tc = TrainConfig(
+            n_agents=MAIN_N, iters=MAIN_ITERS, eval_every=MAIN_ITERS,
+            eval_episodes=EVAL_EPISODES, seed=0, netes=cfg,
+            topology=TopologySpec(family=family, n_agents=MAIN_N, p=dens,
+                                  seed=0))
+        topo = build_topology(tc, device="cuda")
+        counters = _counters()
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = train_rl_netes("pendulum", tc, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in counters.items()}
+        kname = KERNEL_OF[topo.kind]
+        check(counts[kname] > 0,
+              f"{family}: {kname} never launched on the main path")
+        launches[kname] = counts[kname]
+        rewards = hist["reward_mean"] + hist["reward_max"] + hist["eval"]
+        check(len(hist["reward_mean"]) == MAIN_ITERS
+              and len(hist["eval"]) == 1, f"{family}: history has wrong length")
+        check(all(math.isfinite(r) for r in rewards),
+              f"{family}: non-finite rewards {rewards}")
+
+        # steady-state step time and its two parts, outside the counted run
+        reward_fn, dim, init_fn, _, _ = resolve_task("pendulum")
+        state = netes.init_state(MAIN_N, dim, seed=1, init_fn=init_fn,
+                                 device="cuda")
+        step_ms = 1e3 * _host_time(
+            functools.partial(netes.netes_step, state, topo, reward_fn, cfg),
+            3)
+        cand = torch.cat([state.thetas, state.thetas])
+        resets = reward_fn.draw(state.generator, 2 * MAIN_N)
+        rollout_ms = 1e3 * _host_time(
+            functools.partial(reward_fn, cand, resets), 3)
+        eps = torch.randn_like(state.thetas)
+        shaped = torch.rand(MAIN_N, device="cuda") - 0.5
+        mixing_ms = time_ms(
+            functools.partial(netes.mixing_update, topo, state.thetas, eps,
+                              shaped, cfg))
+        emit({"phase": "main", "task": "pendulum", "family": family,
+              "density": dens, "representation": topo.kind,
+              "k_max": topo.k_max, "n_agents": MAIN_N, "dim": dim,
+              "iters": MAIN_ITERS, "wall_s": wall,
+              "ms_per_iter_incl_build_and_eval": 1e3 * wall / MAIN_ITERS,
+              "step_ms": step_ms, "rollout_2n_ms": rollout_ms,
+              "mixing_update_ms": mixing_ms,
+              "reward_mean": hist["reward_mean"],
+              "reward_max": hist["reward_max"], "eval": hist["eval"],
+              "eval_iter": hist["eval_iter"], "launches": counts})
+
+
+def _host_time(fn, iters: int) -> float:
+    """Median host-clock seconds of ``fn`` run to completion, after one
+    warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: GPU against CPU on a small input
+# ---------------------------------------------------------------------------
+
+def parity_phase() -> None:
+    import torch
+
+    from repro_torch.core import netes
+    from repro_torch.core.netes import Draws, NetESConfig
+    from repro_torch.core.topology import TopologySpec
+    from repro_torch.core.topology_repr import from_spec
+    from repro_torch.envs import resolve_task
+
+    n, cfg = 64, NetESConfig(alpha=0.05, sigma=0.1)
+    reward_fn, dim, init_fn, _, _ = resolve_task("pendulum")
+    cpu = netes.init_state(n, dim, seed=3, init_fn=init_fn, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    draws = Draws(eps=torch.randn(n, dim, generator=g),
+                  beta=torch.tensor(0.9),    # ≥ p_b: no broadcast, so θ' is Eq. 3's
+                  evals=reward_fn.draw(g, n))
+    for dens in (0.1, 0.5):
+        spec = TopologySpec(family="erdos_renyi", n_agents=n, p=dens, seed=0)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            state = netes.NetESState(
+                thetas=cpu.thetas.to(dev), generator=None,
+                step=cpu.step.to(dev), best_reward=cpu.best_reward.to(dev),
+                best_theta=cpu.best_theta.to(dev))
+            d = Draws(eps=draws.eps.to(dev), beta=draws.beta.to(dev),
+                      evals=draws.evals.to(dev))
+            topo = from_spec(spec, device=dev)
+            new, m = netes.netes_step(state, topo, reward_fn, cfg, draws=d)
+            outs[dev] = (topo.kind, new.thetas.cpu(), m["best_idx"].item(),
+                         m["reward_max"].item())
+        kind, th_cpu, bi_cpu, rmax_cpu = outs["cpu"]
+        _, th_gpu, bi_gpu, rmax_gpu = outs["cuda"]
+        # Rollouts on two devices round sin/cos differently (≈1e-6 relative
+        # on returns, as between the JAX reference and float64), which
+        # leaves the centered ranks unchanged unless two returns nearly tie;
+        # the mixing sums then differ only in f32 summation order (≈1e-7 of
+        # |θ|), so 1e-5·max(1, max|θ|) leaves a 100× margin.
+        err = (th_gpu - th_cpu).abs().max().item()
+        check(bi_cpu == bi_gpu, f"parity {kind}: best agent {bi_gpu} on the "
+              f"GPU vs {bi_cpu} on the CPU")
+        check(err <= 1e-5 * max(1.0, th_cpu.abs().max().item()),
+              f"parity {kind}: θ differs by {err} (a near-tie of two "
+              f"returns reorders the centered ranks; compare the rewards)")
+        emit({"phase": "parity", "representation": kind, "n": n, "dim": dim,
+              "max_abs_theta_err": err, "tol": "1e-5·max(1, max|θ|)",
+              "reward_max_cpu": rmax_cpu, "reward_max_gpu": rmax_gpu})
+
+
+# ---------------------------------------------------------------------------
+
+SOURCE_OF = {
+    "netes_mixing": ("src/repro_torch/csrc/netes_mixing.cu",
+                     "src/repro/kernels/netes_mixing.py:55"),
+    "netes_sparse_mixing": ("src/repro_torch/csrc/netes_sparse_mixing.cu",
+                            "src/repro/kernels/netes_sparse_mixing.py:62"),
+}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails outside the repository)
+    from repro_torch.kernels import _build
+
+    smi = nvidia_smi()
+    emit({"phase": "card", "nvidia_smi": smi,
+          "device": torch.cuda.get_device_name(0),
+          "capability": list(torch.cuda.get_device_capability(0)),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0]})
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    ptxas = {name: [ln.strip() for ln in _build.log_path(name).read_text()
+                    .splitlines() if "registers" in ln or "spill" in ln]
+             for name in libs}
+    emit({"phase": "build", "target": "sm_90a", "seconds":
+          time.perf_counter() - t0, "libraries": sorted(libs),
+          "ptxas": ptxas})
+
+    results, launches = {}, {}
+    kernel_phase(results)
+    main_phase(launches)
+    parity_phase()
+    rows = []
+    for name in ("netes_mixing", "netes_sparse_mixing"):
+        r = results[name]
+        source, replaces = SOURCE_OF[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
+    emit({"kernels": rows})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,246 @@
+"""Physical representations of a topology for the NetES mixing update.
+
+The port of ``repro.core.topology_repr`` (DESIGN.md §3). A ``Topology`` is a
+dataclass of tensors in one of three representations:
+
+``dense``
+    ``adj (N, N)`` float32; mixing runs the dense Eq. 3 kernel
+    (``kernels/netes_mixing``).
+``sparse``
+    Padded neighbor list ``neighbor_idx (N, K_max)`` int32 and
+    ``neighbor_mask (N, K_max)`` float32 holding the edge weight a_ji (0 on
+    padding; padded slots index row j itself, so every gather stays in
+    bounds); mixing runs the sparse Eq. 3 kernel
+    (``kernels/netes_sparse_mixing``).
+``circulant``
+    Static generator offsets of a symmetric self-looped ring graph; mixing
+    is a chain of ``torch.roll``s and needs no kernel.
+
+The constructors are host-side numpy, run once at launch, and must agree with
+the reference slot for slot (tests/test_torch_topology.py).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from . import topology as topo_gen
+
+# Max degree at or below which the neighbor list is preferred over dense
+# (the reference's cutoff: past it the padded K_max approaches N).
+SPARSE_DENSITY_CUTOFF = 0.25
+
+# A circulant roll chain costs one pass per signed offset; past this
+# fraction of the ring it stops beating the dense contraction.
+CIRCULANT_OFFSET_CUTOFF = 0.25
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """A communication topology with an explicit physical representation.
+
+    Exactly one representation's payload is set: ``adj`` (dense),
+    ``neighbor_idx``/``neighbor_mask`` (sparse) or ``offsets`` (circulant).
+    ``deg (N,)`` float32 (row degrees, self-loop included) is always set;
+    ``normalization="degree"`` needs it whatever the representation.
+    """
+
+    kind: str                                       # dense | sparse | circulant
+    n: int
+    deg: torch.Tensor
+    adj: Optional[torch.Tensor] = None              # (N, N)      [dense]
+    neighbor_idx: Optional[torch.Tensor] = None     # (N, K_max)  [sparse]
+    neighbor_mask: Optional[torch.Tensor] = None    # (N, K_max)  [sparse]
+    offsets: Optional[Tuple[int, ...]] = None       # [circulant]
+
+    @property
+    def k_max(self) -> int:
+        return 0 if self.neighbor_idx is None else self.neighbor_idx.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.deg.device
+
+    def to_dense(self) -> torch.Tensor:
+        """Materialize the (N, N) float32 adjacency."""
+        if self.kind == "dense":
+            return self.adj
+        if self.kind == "circulant":
+            return torch.as_tensor(
+                topo_gen.circulant_from_offsets(self.n, list(self.offsets)),
+                device=self.device)
+        # sparse: each (j, i) edge appears once per row and padded slots add
+        # weight 0 at (j, j), so the scatter-add is exact.
+        n, k = self.neighbor_idx.shape
+        rows = torch.arange(n, device=self.device).repeat_interleave(k)
+        cols = self.neighbor_idx.reshape(-1).long()
+        out = torch.zeros((n, n), dtype=torch.float32, device=self.device)
+        return out.index_put_((rows, cols), self.neighbor_mask.reshape(-1),
+                              accumulate=True)
+
+
+# ---------------------------------------------------------------------------
+# host-side constructors (numpy, as in the reference)
+# ---------------------------------------------------------------------------
+
+def sparse_neighbors(adj: np.ndarray, k_max: Optional[int] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Padded neighbor list from a dense adjacency.
+
+    Returns ``(neighbor_idx (N, K_max) int32, neighbor_mask (N, K_max)
+    float32)``: row j lists its neighbors in ascending order (``nonzero``),
+    the mask carries ``adj[j, i]``, and padded slots index j with weight 0.
+    """
+    adj = np.asarray(adj)
+    n = adj.shape[0]
+    degs = (adj != 0).sum(axis=1)
+    if k_max is None:
+        k_max = max(int(degs.max()), 1)
+    elif k_max < int(degs.max()):
+        raise ValueError(f"k_max={k_max} < max degree {int(degs.max())}")
+    idx = np.tile(np.arange(n, dtype=np.int32)[:, None], (1, k_max))
+    mask = np.zeros((n, k_max), np.float32)
+    for j in range(n):
+        nbrs = np.nonzero(adj[j] != 0)[0]
+        idx[j, :len(nbrs)] = nbrs
+        mask[j, :len(nbrs)] = adj[j, nbrs]
+    return idx, mask
+
+
+def _exact_circulant_offsets(adj: np.ndarray):
+    """Offsets iff the graph is exactly the symmetric, self-looped circulant
+    they generate (the roll chain adds the self term and both ±d shifts
+    with unit weight, so nothing else may take that path)."""
+    offs = topo_gen.circulant_offsets(adj)
+    if offs is None:
+        return None
+    rebuilt = topo_gen.circulant_from_offsets(adj.shape[0], offs)
+    return offs if np.array_equal(np.asarray(adj, np.float32),
+                                  rebuilt) else None
+
+
+def select_representation(adj: np.ndarray) -> str:
+    """The cheapest representation a graph admits: circulant if it is an
+    exact circulant with few enough signed offsets, sparse if its max
+    degree is at most ``SPARSE_DENSITY_CUTOFF``·N, else dense."""
+    adj = np.asarray(adj)
+    n = adj.shape[0]
+    offs = _exact_circulant_offsets(adj)
+    if offs is not None and n > 2:
+        signed = len(offs) * 2 - (1 if n % 2 == 0 and (n // 2) in offs
+                                  else 0)
+        if signed <= CIRCULANT_OFFSET_CUTOFF * n:
+            return "circulant"
+    k_max = int((adj != 0).sum(axis=1).max())
+    if k_max <= SPARSE_DENSITY_CUTOFF * n:
+        return "sparse"
+    return "dense"
+
+
+def from_dense(adj, representation: str = "auto",
+               device: Union[str, torch.device] = "cuda") -> Topology:
+    """Build a ``Topology`` on ``device`` from a dense adjacency.
+
+    ``representation`` ∈ {auto, dense, sparse, circulant}; ``auto`` runs
+    ``select_representation``; ``circulant`` on a non-circulant graph raises.
+    """
+    dev = resolve_device(device)
+    adj_np = np.asarray(adj, dtype=np.float32)
+    n = adj_np.shape[0]
+    deg = torch.as_tensor(adj_np.sum(axis=1), device=dev)
+    if representation == "auto":
+        representation = select_representation(adj_np)
+    if representation == "dense":
+        return Topology(kind="dense", n=n, deg=deg,
+                        adj=torch.as_tensor(adj_np, device=dev))
+    if representation == "sparse":
+        idx, mask = sparse_neighbors(adj_np)
+        return Topology(kind="sparse", n=n, deg=deg,
+                        neighbor_idx=torch.as_tensor(idx, device=dev),
+                        neighbor_mask=torch.as_tensor(mask, device=dev))
+    if representation == "circulant":
+        offs = _exact_circulant_offsets(adj_np)
+        if offs is None:
+            raise ValueError(
+                "adjacency is not a symmetric self-looped circulant")
+        return Topology(kind="circulant", n=n, deg=deg, offsets=tuple(offs))
+    raise ValueError(f"unknown representation {representation!r}")
+
+
+def from_spec(spec: topo_gen.TopologySpec, representation: str = "auto",
+              device: Union[str, torch.device] = "cuda") -> Topology:
+    """TopologySpec → generated graph → representation-selected Topology."""
+    return from_dense(spec.build(), representation=representation,
+                      device=device)
+
+
+def as_topology(t: Union[Topology, torch.Tensor, np.ndarray],
+                device: Union[str, torch.device] = "cuda") -> Topology:
+    """Coerce a raw (N, N) adjacency to a dense ``Topology``; a
+    ``Topology`` passes through unchanged."""
+    if isinstance(t, Topology):
+        return t
+    adj = torch.as_tensor(t, dtype=torch.float32,
+                          device=resolve_device(device))
+    return Topology(kind="dense", n=adj.shape[0], deg=adj.sum(dim=1),
+                    adj=adj)
+
+
+# ---------------------------------------------------------------------------
+# representation-dispatched primitives (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def signed_offsets(offsets: Sequence[int], n: int):
+    """±Δ as distinct nonzero shifts mod n (offset n/2 is self-paired)."""
+    out = []
+    for d in offsets:
+        out.append(d % n)
+        if (-d) % n != d % n:
+            out.append((-d) % n)
+    return sorted(set(out) - {0})
+
+
+def _col(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """(N,) → (N, 1, ..., 1) to broadcast against an (N, ...) operand."""
+    return v.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def weighted_neighbor_sum(topo: Topology, coeff: torch.Tensor,
+                          values: torch.Tensor) -> torch.Tensor:
+    """``out_j = Σ_i a_ji · coeff_i · values_i`` — the Eq. 3 contraction.
+
+    ``coeff (N,)``, ``values (N, ...)`` → ``(N, ...)``: one matmul (dense),
+    a K_max-slot gather-accumulate (sparse) or a chain of rolls
+    (circulant).
+    """
+    src = _col(coeff.to(values.dtype), values.ndim) * values
+    if topo.kind == "dense":
+        flat = src.reshape(topo.n, -1)
+        return (topo.adj.to(values.dtype) @ flat).reshape(values.shape)
+    if topo.kind == "circulant":
+        acc = src  # d = 0 (self-loop)
+        for d in signed_offsets(topo.offsets, topo.n):
+            acc = acc + torch.roll(src, -d, dims=0)
+        return acc
+    idx = topo.neighbor_idx.long()
+    wnb = (topo.neighbor_mask * coeff[idx]).to(values.dtype)    # (N, K)
+    acc = torch.zeros_like(values)
+    for c in range(idx.shape[1]):
+        acc = acc + _col(wnb[:, c], values.ndim) * values[idx[:, c]]
+    return acc
+
+
+def weighted_row_sum(topo: Topology, coeff: torch.Tensor) -> torch.Tensor:
+    """``Σ_i a_ji · coeff_i`` per row j — Eq. 3's self-correction weight."""
+    if topo.kind == "dense":
+        return topo.adj @ coeff
+    if topo.kind == "circulant":
+        acc = coeff
+        for d in signed_offsets(topo.offsets, topo.n):
+            acc = acc + torch.roll(coeff, -d)
+        return acc
+    return (topo.neighbor_mask * coeff[topo.neighbor_idx.long()]).sum(dim=1)

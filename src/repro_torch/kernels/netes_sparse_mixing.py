@@ -1,0 +1,58 @@
+"""Sparse NetES mixing (paper Eq. 3 over a padded neighbor list): the
+wrapper of ``csrc/netes_sparse_mixing.cu``.
+
+    out_j = Σ_k m_jk R̃θ_{i_jk} (θ_{i_jk} − θ_j) + σ Σ_k m_jk R̃ε_{i_jk} ε_{i_jk}
+
+Replaces the TPU kernel
+``repro/kernels/netes_sparse_mixing.py::netes_sparse_mixing``. On CUDA
+tensors it launches the hand-written sm_90a kernel (one block per receiver
+and column tile, see the source's note); on CPU tensors it runs the plain
+version ``ref.sparse_mixing_ref``. There is no other path.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import ref
+from ._build import CudaKernel
+from ._checks import check_operand, on_cpu
+
+KERNEL = CudaKernel(
+    "netes_sparse_mixing", "netes_sparse_mixing_f32",
+    [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p])
+
+
+def netes_sparse_mixing(neighbor_idx: torch.Tensor,
+                        neighbor_mask: torch.Tensor, w_theta: torch.Tensor,
+                        w_eps: torch.Tensor, theta: torch.Tensor,
+                        eps: torch.Tensor, *, sigma: float) -> torch.Tensor:
+    """Eq. 3 over a padded neighbor list, before the α/(Nσ²) scale.
+
+    neighbor_idx (N, K_max) int32 with entries in [0, N); neighbor_mask
+    (N, K_max) float32 edge weights (0 on padding); w_theta, w_eps (N,);
+    theta, eps (N, P); float32 and contiguous on one device. Returns
+    (N, P) float32.
+    """
+    operands = (neighbor_idx, neighbor_mask, w_theta, w_eps, theta, eps)
+    if on_cpu(operands):
+        return ref.sparse_mixing_ref(*operands, sigma=sigma)
+    n, p = theta.shape
+    k_max = neighbor_idx.shape[1] if neighbor_idx.dim() == 2 else -1
+    check_operand("neighbor_idx", neighbor_idx, torch.int32, (n, k_max))
+    for name, t, shape in (("neighbor_mask", neighbor_mask, (n, k_max)),
+                           ("w_theta", w_theta, (n,)), ("w_eps", w_eps, (n,)),
+                           ("theta", theta, (n, p)), ("eps", eps, (n, p))):
+        check_operand(name, t, torch.float32, shape)
+    out = torch.empty_like(theta)
+    if out.numel() == 0:
+        return out
+    if k_max == 0:
+        return out.zero_()
+    KERNEL.launch(neighbor_idx.data_ptr(), neighbor_mask.data_ptr(),
+                  w_theta.data_ptr(), w_eps.data_ptr(), theta.data_ptr(),
+                  eps.data_ptr(), out.data_ptr(), float(sigma), n, k_max, p,
+                  torch.cuda.current_stream(theta.device).cuda_stream)
+    return out

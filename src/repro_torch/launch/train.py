@@ -1,0 +1,61 @@
+"""Training launcher of the port (the paper's RL experiments).
+
+  python -m repro_torch.launch.train rl --task pendulum \
+      --topology erdos_renyi --density 0.1 --agents 1000 --iters 100
+
+Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
+CPU instead.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+
+from ..core.netes import NetESConfig
+from ..core.topology import TopologySpec
+from ..train.loop import TrainConfig, train_rl_netes
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("kind", choices=["rl"])
+    ap.add_argument("--task", default="pendulum")
+    ap.add_argument("--topology", default="erdos_renyi")
+    ap.add_argument("--density", type=float, default=0.5)
+    ap.add_argument("--representation", default="auto",
+                    choices=["auto", "dense", "sparse", "circulant"],
+                    help="physical topology representation")
+    ap.add_argument("--topo-seed", type=int, default=0)
+    ap.add_argument("--agents", type=int, default=32)
+    ap.add_argument("--iters", type=int, default=100)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--alpha", type=float, default=0.05)
+    ap.add_argument("--sigma", type=float, default=0.1)
+    ap.add_argument("--p-broadcast", type=float, default=0.8)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    tc = TrainConfig(
+        n_agents=args.agents, iters=args.iters,
+        topology=TopologySpec(family=args.topology, n_agents=args.agents,
+                              p=args.density, seed=args.topo_seed),
+        representation=args.representation, seed=args.seed,
+        netes=NetESConfig(alpha=args.alpha, sigma=args.sigma,
+                          p_broadcast=args.p_broadcast))
+
+    def log(d):
+        print(json.dumps(d), flush=True)
+
+    hist = train_rl_netes(args.task, tc, log=log, device=args.device)
+    print(f"final eval: {hist['final_eval']}, max eval: "
+          f"{hist['max_eval']} ({hist['wall_s']:.1f}s)")
+    if args.out:
+        path = pathlib.Path(args.out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps({"args": vars(args), "history": hist}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,169 @@
+"""The paper's experiment: NetES over a population on an RL task (or a
+synthetic landscape), with the §5.2 evaluation protocol — periodic
+noise-free evaluation of the best perturbed parameters seen so far.
+
+The port of ``repro.train.loop``'s RL half. Steps run one after another on
+the device; their metrics stay there and are drained to the host once per
+chunk of ``METRIC_DRAIN_CHUNK`` iterations and at eval points.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..core import netes, topology_repr
+from ..core.netes import Draws, NetESConfig, NetESState
+from ..core.topology import TopologySpec
+from ..envs import resolve_task
+from ..envs.rollout import evaluate_best
+
+# Iterations whose device metrics accumulate before one host transfer.
+METRIC_DRAIN_CHUNK = 8
+
+# TrainConfig fields of the reference that later slices of the port carry.
+_NOT_YET_PORTED = ("schedule", "channel", "shards", "probes",
+                   "checkpoint_dir", "trace")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    n_agents: int = 32
+    iters: int = 100
+    # The topology travels as a TopologySpec; (family, density, seed) is
+    # constructor sugar folded into ``topology`` in __post_init__.
+    topology: Optional[TopologySpec] = None
+    representation: str = "auto"    # auto | dense | sparse | circulant
+    topology_family: str = "erdos_renyi"
+    density: float = 0.5
+    topo_seed: int = 0
+    seed: int = 0
+    eval_every: int = 0             # 0 ⇒ paper protocol (prob 0.08)
+    eval_episodes: int = 16
+    netes: NetESConfig = dataclasses.field(default_factory=NetESConfig)
+    # Reference fields this slice does not carry: setting one raises.
+    schedule: Optional[object] = None
+    channel: Optional[object] = None
+    shards: Optional[int] = None
+    probes: Optional[object] = None
+    checkpoint_dir: Optional[str] = None
+    trace: Optional[str] = None
+
+    def __post_init__(self):
+        unported = [f for f in _NOT_YET_PORTED if getattr(self, f) is not None]
+        if unported:
+            raise NotImplementedError(
+                f"TrainConfig fields not ported yet: {', '.join(unported)}")
+        if self.topology is None:
+            self.topology = TopologySpec(
+                family=self.topology_family, n_agents=self.n_agents,
+                p=self.density, seed=self.topo_seed)
+        else:
+            self.n_agents = self.topology.n_agents
+            self.topology_family = self.topology.family
+            self.density = self.topology.p
+            self.topo_seed = self.topology.seed
+
+
+def build_topology(tc: TrainConfig,
+                   device: Union[str, torch.device] = "cuda"
+                   ) -> topology_repr.Topology:
+    """TopologySpec → representation-selected Topology on ``device``."""
+    return topology_repr.from_spec(tc.topology,
+                                   representation=tc.representation,
+                                   device=device)
+
+
+def eval_iterations(tc: TrainConfig) -> List[int]:
+    """The §5.2 eval points, decided up front on the host: a fixed cadence,
+    or each iteration with probability 0.08 from
+    ``np.random.default_rng(seed + 999)``; the last iteration always."""
+    if tc.eval_every:
+        its = list(range(tc.eval_every - 1, tc.iters, tc.eval_every))
+    else:
+        draw = np.random.default_rng(tc.seed + 999)
+        its = [it for it in range(tc.iters) if draw.random() < 0.08]
+    if tc.iters > 0 and tc.iters - 1 not in its:
+        its.append(tc.iters - 1)
+    return its
+
+
+def train_rl_netes(task: str, tc: TrainConfig,
+                   log: Optional[Callable[[Dict], None]] = None, *,
+                   device: Union[str, torch.device] = "cuda",
+                   state: Optional[NetESState] = None,
+                   step_draws: Optional[Callable[[int], Draws]] = None,
+                   eval_draws: Optional[Callable[[int], torch.Tensor]] = None
+                   ) -> Dict:
+    """The paper experiment. ``task``: env name or 'landscape:<name>'.
+
+    Returns a history dict: per-iteration ``reward_mean``/``reward_max``,
+    the eval trace ``eval``/``eval_iter``, ``final_eval``, ``max_eval`` and
+    ``wall_s``.
+
+    ``state`` replaces the initial population drawn from ``tc.seed`` (the
+    tests start from the reference's θ⁽⁰⁾). ``step_draws(it)`` and
+    ``eval_draws(it)`` replace the draws of iteration ``it`` and of the
+    eval at ``it`` (for an RL task, reset states (E, S)); absent, they come
+    from generators seeded with ``tc.seed`` and ``tc.seed + 999``.
+    """
+    dev = resolve_device(device)
+    reward_fn, dim, init_fn, env, policy = resolve_task(task)
+    topo = build_topology(tc, device=dev)
+    if state is None:
+        state = netes.init_state(tc.n_agents, dim, seed=tc.seed,
+                                 init_fn=init_fn, device=dev)
+    eval_gen = torch.Generator(device=dev).manual_seed(tc.seed + 999)
+    history: Dict[str, List] = {"reward_mean": [], "reward_max": [],
+                                "eval": [], "eval_iter": []}
+    t0 = time.time()
+
+    pending: List[Dict[str, torch.Tensor]] = []
+    evals_pending: List = []
+
+    def drain():
+        """One host transfer for the pending metrics and eval scores."""
+        if pending:
+            stacked = torch.stack([torch.stack([m["reward_mean"],
+                                                m["reward_max"]])
+                                   for m in pending]).cpu().double()
+            history["reward_mean"].extend(stacked[:, 0].tolist())
+            history["reward_max"].extend(stacked[:, 1].tolist())
+            pending.clear()
+        if evals_pending:
+            scores = torch.stack([s for _, s in evals_pending]).cpu()
+            history["eval"].extend(scores.double().tolist())
+            history["eval_iter"].extend(it for it, _ in evals_pending)
+            evals_pending.clear()
+
+    eval_set = set(eval_iterations(tc))
+    for it in range(tc.iters):
+        draws = step_draws(it) if step_draws is not None else None
+        state, m = netes.netes_step(state, topo, reward_fn, tc.netes, draws)
+        pending.append(m)
+        if it in eval_set:
+            resets = eval_draws(it) if eval_draws is not None else None
+            if env is not None:
+                score = evaluate_best(env, policy, state.best_theta, resets,
+                                      episodes=tc.eval_episodes,
+                                      generator=eval_gen)
+            else:
+                if resets is None:
+                    resets = reward_fn.draw(eval_gen, 1)
+                score = reward_fn(state.best_theta[None], resets)[0]
+            evals_pending.append((it, score))
+        if (len(pending) >= METRIC_DRAIN_CHUNK
+                or (it in eval_set and log is not None)):
+            drain()
+        if it in eval_set and log is not None:
+            log({"iter": it, "eval": history["eval"][-1],
+                 "reward_mean": history["reward_mean"][-1]})
+    drain()
+    history["final_eval"] = history["eval"][-1] if history["eval"] else None
+    history["max_eval"] = max(history["eval"]) if history["eval"] else None
+    history["wall_s"] = time.time() - t0
+    return history

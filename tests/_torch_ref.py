@@ -1,0 +1,105 @@
+"""Helpers for the port's parity tests: the JAX reference's own random
+draws, made exactly as the reference makes them, handed to the port as
+numpy arrays through its draw seam (``repro_torch.core.netes.Draws`` and the
+reward functions' ``evals``)."""
+import functools
+
+import jax
+import numpy as np
+import torch
+
+from repro_torch.core.netes import Draws
+
+# The parity tests step tiny tensors through thousands of small ops, where
+# PyTorch's intra-op thread pool only adds contention: pytest-xdist runs
+# several workers on the same cores, each with a pool the size of the box.
+torch.set_num_threads(1)
+
+
+@functools.partial(jax.jit, static_argnums=(0, 2, 3))
+def _reset_states(env, k_eval, m, episodes_per_eval):
+    keys = jax.random.split(k_eval, m)
+
+    def one(key):
+        eps_keys = jax.random.split(key, episodes_per_eval)
+        return jax.vmap(lambda k: env.reset(jax.random.split(k)[0]))(eps_keys)
+
+    return jax.vmap(one)(keys)
+
+
+def reset_states(env, k_eval, m, episodes_per_eval=1):
+    """The reset states ``make_env_reward_fn(env, policy)(params, k_eval)``
+    starts its M episodes from (envs/rollout.py:21-22, 45, 51): split the
+    key M ways, then ``episodes_per_eval`` ways, then ``split(·)[0]`` is the
+    reset key. Returns (M, episodes_per_eval, S)."""
+    return np.array(_reset_states(env, k_eval, m, episodes_per_eval))
+
+
+def eval_reset_states(env, k_eval, episodes):
+    """The reset states of ``evaluate_best(env, policy, θ, k_eval,
+    episodes)``: (episodes, S)."""
+    return np.array(_eval_reset_states(env, k_eval, episodes))
+
+
+@functools.partial(jax.jit, static_argnums=(0, 2))
+def _eval_reset_states(env, k_eval, episodes):
+    keys = jax.random.split(k_eval, episodes)
+    return jax.vmap(lambda k: env.reset(jax.random.split(k)[0]))(keys)
+
+
+def step_draws(state_key, n, dim, env=None):
+    """The draws ``repro.core.netes.netes_step`` makes from ``state.key``
+    (core/netes.py:156, 158, 205), as numpy: ε (N, D), β, and for an RL
+    task the N reset states of ``k_eval``."""
+    _, k_eps, k_eval, k_beta = jax.random.split(state_key, 4)
+    eps, beta = _normal_uniform(k_eps, k_beta, n, dim)
+    resets = None if env is None else reset_states(env, k_eval, n)
+    return np.array(eps), np.array(beta), resets
+
+
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def _normal_uniform(k_eps, k_beta, n, dim):
+    return jax.random.normal(k_eps, (n, dim)), jax.random.uniform(k_beta)
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted(fn):
+    return jax.jit(fn)
+
+
+def to_draws(eps, beta, resets, device="cpu"):
+    return Draws(eps=torch.as_tensor(eps, device=device),
+                 beta=torch.as_tensor(beta, device=device),
+                 evals=None if resets is None
+                 else torch.as_tensor(resets, device=device))
+
+
+def rounding_spread(ref_fn, params, key, samples=8, seed=0):
+    """How far the reference's own f32 returns move when every parameter
+    moves by one ulp: the standard deviation of ``ref_fn`` over ``samples``
+    random ±1-ulp perturbations of ``params`` (M, D), per return.
+
+    Episodes that pass near an unstable equilibrium amplify rounding: on
+    such an episode the JAX f32 return and a float64 run of the same
+    dynamics were measured to differ by up to 2e-3 relative, while most
+    episodes agree to 1e-6. Any two f32 implementations differ there by
+    about this spread, so the parity tolerance is scaled by it."""
+    rng = np.random.default_rng(seed)
+    params = np.asarray(params, np.float32)
+    fn = _jitted(ref_fn)
+    outs = []
+    for _ in range(samples):
+        toward = np.where(rng.random(params.shape) < 0.5, np.inf, -np.inf)
+        bumped = np.nextafter(params, toward.astype(np.float32))
+        outs.append(np.asarray(fn(bumped, key)))
+    return np.std(np.stack(outs), axis=0)
+
+
+def assert_returns_close(got, want, spread, rtol=1e-5):
+    """|port − reference| ≤ rtol·|reference| + 6·(one-ulp rounding spread)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    tol = rtol * np.abs(want) + 6.0 * np.asarray(spread, np.float64)
+    bad = np.abs(got - want) > tol
+    assert not bad.any(), (
+        f"returns differ beyond rtol {rtol} + 6·spread at {np.nonzero(bad)[0]}:"
+        f" port {got[bad]}, reference {want[bad]}, spread {spread[bad]}")

@@ -1,0 +1,180 @@
+"""The port's first slice as a whole: ``train_rl_netes`` against the JAX
+reference's training loop, plus the port's package-level contracts.
+
+``repro.train.loop`` does not import on this jax (ROADMAP queue 3, item a),
+so the reference run is composed here from ``repro.core.netes.netes_step``
+and ``repro.envs.rollout.evaluate_best`` exactly as ``train/loop.py:231-367``
+composes them. The port runs pendulum at N = 16 on a sparse Erdős–Rényi
+graph (p = 0.3), 6 iterations with an eval every 3, starting from the
+reference's θ⁽⁰⁾ with the reference's draws injected for every step and
+every eval.
+
+Tolerances: ``eval_iter`` EQUAL; ``reward_mean``, ``reward_max`` and
+``eval`` within rtol 1e-5 plus six times the reference's one-ulp rounding
+spread of the returns (see tests/_torch_ref.py), measured at each eval
+point for ``eval`` and set from the largest per-step spread for the
+training rewards.
+"""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.envs as ref_envs
+from _torch_ref import (assert_returns_close, eval_reset_states,
+                        rounding_spread, step_draws, to_draws)
+from repro.core import netes as ref_netes
+from repro.core import topology as ref_topology
+from repro.core import topology_repr as ref_repr
+from repro.envs.rollout import evaluate_best as ref_evaluate_best
+from repro_torch import convert
+from repro_torch.core.netes import NetESConfig
+from repro_torch.core.topology import TopologySpec
+from repro_torch.launch import train as launch_train
+from repro_torch.train import loop
+
+N, ITERS, EVAL_EVERY, EPISODES, SEED = 16, 6, 3, 4, 0
+SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
+
+
+def _reference_run(spec_kw, cfg_kw):
+    """``train_rl_netes`` of the reference, composed from its parts; also
+    returns the draws it made, for the port's seam."""
+    ref_fn, dim, init_fn, env, policy = ref_envs.resolve_task("pendulum")
+    cfg = ref_netes.NetESConfig(**cfg_kw)
+    topo = ref_repr.from_spec(ref_topology.TopologySpec(**spec_kw), "sparse")
+    state = ref_netes.init_state(jax.random.PRNGKey(SEED), N, dim,
+                                 init_fn=init_fn)
+    init = state
+    eval_key = jax.random.PRNGKey(SEED + 999)
+    eval_iters = list(range(EVAL_EVERY - 1, ITERS, EVAL_EVERY))
+    hist = {"reward_mean": [], "reward_max": [], "eval": [], "eval_iter": []}
+    draws, eval_resets, spreads, eval_spreads = {}, {}, [], []
+
+    def one_eval(th, k):
+        return ref_evaluate_best(env, policy, th[0], k, EPISODES)[None]
+
+    for it in range(ITERS):
+        draws[it] = step_draws(state.key, N, dim, env)
+        th = np.asarray(state.thetas)
+        eps = draws[it][0]
+        k_eval = jax.random.split(state.key, 4)[2]
+        for sign in (1, -1):
+            spreads.append(rounding_spread(
+                ref_fn, (th + sign * cfg.sigma * eps).astype(np.float32),
+                k_eval, samples=4).max())
+        state, m = ref_netes.netes_step(state, topo, ref_fn, cfg)
+        hist["reward_mean"].append(float(m["reward_mean"]))
+        hist["reward_max"].append(float(m["reward_max"]))
+        if it in eval_iters:
+            eval_key, k_eval = jax.random.split(eval_key)
+            eval_resets[it] = eval_reset_states(env, k_eval, EPISODES)
+            hist["eval"].append(float(ref_evaluate_best(
+                env, policy, state.best_theta, k_eval, EPISODES)))
+            hist["eval_iter"].append(it)
+            eval_spreads.append(rounding_spread(
+                one_eval, np.asarray(state.best_theta)[None], k_eval)[0])
+    return hist, init, draws, eval_resets, max(spreads), eval_spreads
+
+
+def test_train_rl_netes_matches_reference():
+    spec_kw = dict(family="erdos_renyi", n_agents=N, p=0.3, seed=0)
+    cfg_kw = dict(alpha=0.05, sigma=0.1, p_broadcast=0.8)
+    want, init, draws, eval_resets, spread, eval_spreads = _reference_run(
+        spec_kw, cfg_kw)
+
+    tc = loop.TrainConfig(iters=ITERS, eval_every=EVAL_EVERY,
+                          eval_episodes=EPISODES, seed=SEED,
+                          representation="sparse",
+                          topology=TopologySpec(**spec_kw),
+                          netes=NetESConfig(**cfg_kw))
+    assert loop.build_topology(tc, device="cpu").kind == "sparse"
+    state = convert.state_from_reference(
+        np.asarray(init.thetas), np.asarray(init.best_theta),
+        np.asarray(init.best_reward), np.asarray(init.step), device="cpu")
+    got = loop.train_rl_netes(
+        "pendulum", tc, device="cpu", state=state,
+        step_draws=lambda it: to_draws(*draws[it]),
+        eval_draws=lambda it: torch.as_tensor(eval_resets[it]))
+
+    assert got["eval_iter"] == want["eval_iter"] == [2, 5]
+    for k in ("reward_mean", "reward_max"):
+        assert len(got[k]) == ITERS
+        assert_returns_close(np.array(got[k]), np.array(want[k]),
+                             np.full(ITERS, spread))
+    assert_returns_close(np.array(got["eval"]), np.array(want["eval"]),
+                         np.array(eval_spreads))
+    assert got["final_eval"] == got["eval"][-1]
+    assert got["max_eval"] == max(got["eval"])
+
+
+def test_paper_eval_protocol_iterations():
+    """eval_every = 0: each iteration with probability 0.08 from
+    np.random.default_rng(seed + 999), plus the last (train/loop.py:231-237)."""
+    for seed, iters in ((0, 50), (3, 120)):
+        tc = loop.TrainConfig(iters=iters, seed=seed)
+        draw = np.random.default_rng(seed + 999)
+        want = [it for it in range(iters) if draw.random() < 0.08]
+        if iters - 1 not in want:
+            want.append(iters - 1)
+        assert loop.eval_iterations(tc) == want
+    assert loop.eval_iterations(loop.TrainConfig(iters=0)) == []
+
+
+@pytest.mark.parametrize("field,value", [
+    ("schedule", "resample_er(period=8)"), ("channel", "quantize(bits=8)"),
+    ("shards", 2), ("probes", "all"), ("checkpoint_dir", "ckpt"),
+    ("trace", "trace.jsonl")])
+def test_unported_train_config_fields_raise(field, value):
+    with pytest.raises(NotImplementedError, match=field):
+        loop.TrainConfig(**{field: value})
+
+
+def test_cuda_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the check is for GPU-less hosts")
+    tc = loop.TrainConfig(n_agents=8, iters=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        loop.train_rl_netes("pendulum", tc)
+    with pytest.raises(RuntimeError, match="cuda"):
+        loop.build_topology(tc)
+
+
+def test_launcher_runs_on_cpu(tmp_path, capsys):
+    out = tmp_path / "hist.json"
+    launch_train.main(["rl", "--task", "landscape:sphere", "--agents", "8",
+                       "--iters", "3", "--density", "0.3", "--device", "cpu",
+                       "--out", str(out)])
+    printed = capsys.readouterr().out
+    assert "final eval:" in printed and out.exists()
+
+
+def test_port_imports_no_jax_and_no_reference():
+    """Import every module of the port in a fresh interpreter: neither jax
+    nor the reference package may be loaded. The sources (and
+    chip_smoke.py) hold no such import statement either."""
+    pkg = SRC / "repro_torch"
+    mods = []
+    for p in sorted(pkg.rglob("*.py")):
+        parts = p.relative_to(SRC).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'repro'))\nassert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert len(mods) >= 20
+
+    pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
+                         r"(\.|\s+import\b))", re.MULTILINE)
+    for path in [*pkg.rglob("*.py"), SRC.parent / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
