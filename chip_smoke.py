@@ -3,21 +3,30 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line per case:
 
 1. ``card``    — the GPU, its power limit, and the torch/CUDA versions.
 2. ``build``   — nvcc builds every kernel source for sm_90a, all at once.
 3. ``kernel``  — each kernel against its plain PyTorch version at the main
    path's shapes and one ragged shape: the error against a float64 reference
-   within the stated tolerance, and CUDA-event times of the kernel, the
-   plain version and one library call that computes the same function.
+   within the stated tolerance (the broadcast select: equal), and CUDA-event
+   times of the kernel, the plain version and one library call that
+   computes the same function. ``kernel_masked``: the two Eq. 3 kernels
+   given a dropout-masked weight operand, against their plain versions.
 4. ``main``    — ``train_rl_netes`` on pendulum at N = 1000 (the paper's
    policy, D = 4481), once on Erdős–Rényi p = 0.1 (auto picks sparse) and
    once fully connected (auto picks dense), with one eval each. Every
    kernel's launch counter is zeroed just before each run and read just
    after; the kernel of the run's representation must have launched.
-5. ``parity``  — one NetES step at N = 64 on the GPU and on the CPU from the
-   same parameters and draws must agree.
+5. ``channel`` — the same at N = 1000 through a lossy channel: (a) ER
+   p = 0.1 with q8 and dropout (auto picks sparse and the wire form: both
+   fused kernels launch on every step), (b) fully connected with event
+   triggering, q4 and dropout (dense, fake-quant payload: the dense
+   kernel and the fused broadcast select launch). The drop fraction must
+   lie within binomial bounds of p.
+6. ``parity``  — one NetES step at N = 64 on the GPU and on the CPU from the
+   same parameters and draws must agree, without and with a channel (whose
+   dropout masks, drawn on each device, must be equal).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -46,9 +55,19 @@ HBM_BYTES_PER_S = 3.35e12
 # Rounding each of the ≤ 2N f32 additions in any order leaves an error that
 # random-walks to ≈ √(2N)·u/√3·S ≈ 1.5e-6·S at N = 1000 (u = 6e-8); 3e-5 is
 # 20 of those, while dropping a single source term is ≈ S/N = 1e-3·S.
+# The fused wire sum Σ_k ws_jk·codes[idx_jk] is held to the same bound with
+# S = Σ_k |ws_jk·codes[idx_jk]|: it adds K_max ≤ 130 terms (≈ 7e-7·S), and
+# dropping one is ≈ S/K_max ≈ 8e-3·S.
 TOL_REL = 3e-5
 
 MAIN_N, MAIN_P_ER, MAIN_ITERS, EVAL_EPISODES = 1000, 0.1, 4, 16
+
+# The main path through a lossy channel: (run, family, density, channel).
+CHANNEL_RUNS = (
+    ("a", "erdos_renyi", MAIN_P_ER, "quantize(bits=8)|dropout(p=0.1,seed=0)"),
+    ("b", "fully_connected", 1.0,
+     "event_triggered(threshold=0.01)|quantize(bits=4)|dropout(p=0.1,seed=0)"),
+)
 
 
 def emit(obj) -> None:
@@ -69,22 +88,27 @@ def nvidia_smi() -> str:
 
 
 L2_FLUSH_BYTES = 64 << 20   # above the H100's 50 MB L2
+SELECT_ITERS = 100          # timed launches of the broadcast select
 
 
-def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median over ``iters`` launches of CUDA-event time, after warm-up.
+def time_stats(fn, warmup: int = 3, iters: int = 20) -> dict:
+    """CUDA-event times of ``iters`` launches after warm-up: the median
+    ``ms`` and the quartiles ``ms_q1``, ``ms_q3``.
 
-    Before each timed launch a 64 MB buffer is written, outside the
-    events, so every launch starts with a cold L2, as on the main path,
-    where the rollout runs between two mixing updates.
+    Before each timed launch a 64 MB buffer is read, outside the events,
+    so every launch starts with a cold L2, as on the main path, where the
+    rollout runs between two mixing updates. The flush reads rather than
+    writes: it leaves the L2 holding clean lines only, so no write-back
+    of the flush's own lines lands inside the timed launch.
     """
     import torch
-    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    sink = torch.empty((), device="cuda")
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(iters):
-        flush.zero_()
+        torch.sum(flush, dim=0, out=sink)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -92,7 +116,14 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    q1, med, q3 = statistics.quantiles(
+        [s.elapsed_time(e) for s, e in pairs], n=4)
+    return {"ms": med, "ms_q1": q1, "ms_q3": q3}
+
+
+def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """The median of :func:`time_stats`."""
+    return time_stats(fn, warmup, iters)["ms"]
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +242,7 @@ def kernel_phase(results: dict) -> None:
                "max_abs_err": max_abs, "max_err_over_S": rel_k,
                "plain_err_over_S": rel_p, "library_err_over_S": rel_l,
                "tol_over_S": TOL_REL,
-               "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+               **time_stats(kernel), "plain_ms": time_ms(plain),
                "library": lib_name, "library_ms": time_ms(lib),
                "bound_ms": 1e3 * max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -223,6 +254,194 @@ def kernel_phase(results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def _dropout_mask(topo, p: float, seed: int = 0):
+    """The channel's own dropout draw 0 for ``topo``."""
+    import torch
+
+    from repro_torch.comm import channel
+    dev = topo.device
+    key = channel.step_key(torch.tensor(seed, device=dev),
+                           torch.tensor(0, device=dev))
+    return channel.dropout_mask(key, topo, p)
+
+
+def _check_fused_f64(name, out, idx, ws, codes):
+    """|out − Σ_k ws·codes[idx]| ≤ TOL_REL·Σ_k |ws·codes[idx]| against a
+    float64 sum over the same folded float32 weights."""
+    import torch
+    idx_l = idx.long()
+    ws64, c64 = ws.double(), codes.double()
+    exact = torch.zeros(codes.shape, dtype=torch.float64, device=codes.device)
+    scale = torch.zeros_like(exact)
+    for k in range(idx.shape[1]):
+        g = c64[idx_l[:, k]]
+        exact += ws64[:, k, None] * g
+        scale += ws64[:, k, None].abs() * g.abs()
+    err = (out.double() - exact).abs()
+    excess = (err - TOL_REL * scale).max().item()
+    ratio = (err / scale.clamp_min(1e-30)).max().item()
+    check(excess <= 0.0, f"{name}: error above {TOL_REL}·S "
+          f"(worst |err|/S = {ratio:.3g})")
+    return ratio
+
+
+def wire_kernel_phase(results: dict) -> None:
+    """The two fused wire kernels: q8 codes from ``encode`` of a payload at
+    the policy's scale, the channel's dropout mask folded into the slot
+    weights, at the main path's shapes and a ragged one."""
+    import torch
+
+    from repro_torch.core import wire_format
+    from repro_torch.core.topology_repr import from_dense
+    from repro_torch.kernels import netes_fused_mixing as nfm
+    from repro_torch.kernels import ref
+
+    for label, dens, n, d, main in (("er_main", MAIN_P_ER, MAIN_N, 4481, True),
+                                    ("er_ragged", 0.3, 257, 700, False)):
+        topo = from_dense(_graph(n, "erdos_renyi", dens, seed=0), "sparse",
+                          device="cuda")
+        theta, eps, w = _operands(n, d, seed=n + d)
+        wp = wire_format.encode(theta + 0.1 * eps, 8, batched=True)
+        em = _dropout_mask(topo, 0.1)
+        args = (topo.neighbor_idx, topo.neighbor_mask, w, wp.codes, wp.scale,
+                em)
+        kernel = functools.partial(nfm.fused_neighbor_sum, *args)
+        plain = functools.partial(ref.fused_neighbor_sum_ref, *args)
+        out_k, out_p = kernel(), plain()
+        torch.cuda.synchronize()
+        check(torch.isfinite(out_k).all().item(),
+              f"fused_neighbor_sum/{label}: non-finite")
+        ws = ref.folded_weights(*args[:3], wp.scale, em)
+        rel_k = _check_fused_f64(f"fused_neighbor_sum/{label}", out_k,
+                                 topo.neighbor_idx, ws, wp.codes)
+        rel_p = _check_fused_f64(f"fused_neighbor_sum/{label} plain", out_p,
+                                 topo.neighbor_idx, ws, wp.codes)
+        # library: one CSR product of the folded (N, N) weights with the
+        # codes widened to float32; both made outside the timed call
+        rows = torch.arange(n, device="cuda").repeat_interleave(topo.k_max)
+        big = torch.zeros(n, n, device="cuda").index_put_(
+            (rows, topo.neighbor_idx.reshape(-1).long()), ws.reshape(-1),
+            accumulate=True).to_sparse_csr()
+        codes_f32 = wp.codes.float()
+        lib = functools.partial(torch.sparse.mm, big, codes_f32)
+        rel_l = _check_fused_f64(f"fused_neighbor_sum/{label} library",
+                                 lib(), topo.neighbor_idx, ws, wp.codes)
+        nnz, k_max = int((ws != 0).sum().item()), topo.k_max
+        # the CUDA kernel alone, on weights folded beforehand
+        ws_c, out_buf = ws.contiguous(), torch.empty_like(out_k)
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel_only = functools.partial(
+            nfm.NEIGHBOR_SUM.launch, topo.neighbor_idx.data_ptr(),
+            ws_c.data_ptr(), wp.codes.data_ptr(), out_buf.data_ptr(), n,
+            k_max, d, stream)
+        kernel_only()
+        torch.cuda.synchronize()
+        check(torch.equal(out_buf, out_k), "fused_neighbor_sum: the kernel "
+              "alone differs from its wrapper")
+        flops = 2.0 * nnz * d
+        moved = n * d + 4.0 * n * d + 12.0 * n * k_max + 8.0 * n
+        t_ops, t_bytes = flops / F32_FLOPS, moved / HBM_BYTES_PER_S
+        row = {"phase": "kernel", "name": "fused_neighbor_sum",
+               "shape": label, "n": n, "d": d, "k_max": k_max,
+               "nnz_after_dropout": nnz, "bits": 8,
+               "max_abs_err": (out_k - out_p).abs().max().item(),
+               "max_err_over_S": rel_k, "plain_err_over_S": rel_p,
+               "library_err_over_S": rel_l, "tol_over_S": TOL_REL,
+               **time_stats(kernel), "kernel_only_ms": time_ms(kernel_only),
+               "plain_ms": time_ms(plain),
+               "library": "torch.sparse.mm (CSR, codes cast to f32 outside)",
+               "library_ms": time_ms(lib),
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "gflop": flops / 1e9, "mbytes": moved / 1e6}
+        emit(row)
+        if main:
+            results["fused_neighbor_sum"] = row
+
+        # the broadcast of the best agent: equal to the plain version
+        best = wire_format.encode(theta[3] + 0.1 * eps[3], 8, batched=False)
+        sel, sel_err = {}, 0.0
+        for flag in (False, True):
+            f = torch.tensor(flag, device="cuda")
+            sargs = (best.codes, best.scale, f, theta)
+            kernel = functools.partial(nfm.fused_broadcast_select, *sargs)
+            plain = functools.partial(ref.broadcast_select_ref, *sargs)
+            out_k, out_p = kernel(), plain()
+            torch.cuda.synchronize()
+            check(torch.equal(out_k, out_p),
+                  f"fused_broadcast_select/{label} flag={flag}: differs from "
+                  f"its plain version by {(out_k - out_p).abs().max().item()}")
+            decoded = wire_format.decode(best.codes, best.scale)
+            lib = functools.partial(torch.where, f, decoded[None, :], theta)
+            check(torch.equal(lib(), out_p), "torch.where disagrees")
+            sel_err = max(sel_err, (out_k - out_p).abs().max().item())
+            # flag set: codes read, out written; clear: θ read, out written
+            moved = (4.0 * n * d + d + 5 if flag else 8.0 * n * d + d + 5)
+            # a 10–40 µs launch: 100 samples, with the quartiles beside
+            lib_t = time_stats(lib, iters=SELECT_ITERS)
+            sel[flag] = {**time_stats(kernel, iters=SELECT_ITERS),
+                         "plain_ms": time_ms(plain, iters=SELECT_ITERS),
+                         "library_ms": lib_t["ms"],
+                         "library_ms_q1": lib_t["ms_q1"],
+                         "library_ms_q3": lib_t["ms_q3"],
+                         "bound_ms": 1e3 * moved / HBM_BYTES_PER_S,
+                         "mbytes": moved / 1e6}
+        row = {"phase": "kernel", "name": "fused_broadcast_select",
+               "shape": label, "n": n, "d": d, "max_abs_err": sel_err,
+               "equal_to_plain": True, "timed_launches": SELECT_ITERS,
+               "library": "torch.where (decoded row made outside)",
+               **sel[False], "bound_by": "bytes",
+               "flag_set": sel[True]}
+        emit(row)
+        if main:
+            results["fused_broadcast_select"] = row
+        del out_k, out_p, out_buf, big, codes_f32, theta, eps
+        torch.cuda.empty_cache()
+
+
+def masked_kernel_phase() -> None:
+    """The two Eq. 3 kernels given a dropout-masked weight operand (what
+    a lossy channel hands them), against their plain versions and float64,
+    at the main path's shapes."""
+    import torch
+
+    from repro_torch.core.topology_repr import from_dense
+    from repro_torch.kernels import netes_mixing as nm
+    from repro_torch.kernels import netes_sparse_mixing as nsm
+    from repro_torch.kernels import ref
+
+    sigma = 0.1
+    for kname, family, dens, rep in (
+            ("netes_mixing", "fully_connected", 1.0, "dense"),
+            ("netes_sparse_mixing", "erdos_renyi", MAIN_P_ER, "sparse")):
+        adj_np = _graph(MAIN_N, family, dens, seed=0)
+        topo = from_dense(adj_np, rep, device="cuda")
+        theta, eps, w = _operands(MAIN_N, 4481, seed=7)
+        em = _dropout_mask(topo, 0.1)
+        # the same links fail in the dense form of the graph
+        dense = from_dense(adj_np, "dense", device="cuda")
+        adj64 = (dense.adj * _dropout_mask(dense, 0.1)).double()
+        if rep == "dense":
+            args = (topo.adj * em, w, w, theta, eps)
+            out_k = nm.netes_mixing(*args, sigma=sigma)
+            out_p = ref.netes_mixing_ref(*args, sigma=sigma)
+        else:
+            args = (topo.neighbor_idx, topo.neighbor_mask * em, w, w, theta,
+                    eps)
+            out_k = nsm.netes_sparse_mixing(*args, sigma=sigma)
+            out_p = ref.sparse_mixing_ref(*args, sigma=sigma)
+        torch.cuda.synchronize()
+        rel_k = _check_against_f64(f"{kname} masked", out_k, adj64, w, theta,
+                                   eps, sigma)
+        rel_p = _check_against_f64(f"{kname} masked plain", out_p, adj64, w,
+                                   theta, eps, sigma)
+        emit({"phase": "kernel_masked", "name": kname, "representation": rep,
+              "dropout_p": 0.1, "links_kept": float(em.mean().item()),
+              "max_err_over_S": rel_k, "plain_err_over_S": rel_p,
+              "max_abs_err": (out_k - out_p).abs().max().item(),
+              "tol_over_S": TOL_REL})
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -231,9 +450,12 @@ KERNEL_OF = {"dense": "netes_mixing", "sparse": "netes_sparse_mixing"}
 
 
 def _counters():
+    from repro_torch.kernels import netes_fused_mixing as nfm
     from repro_torch.kernels import netes_mixing as nm
     from repro_torch.kernels import netes_sparse_mixing as nsm
-    return {"netes_mixing": nm.KERNEL, "netes_sparse_mixing": nsm.KERNEL}
+    return {"netes_mixing": nm.KERNEL, "netes_sparse_mixing": nsm.KERNEL,
+            "fused_neighbor_sum": nfm.NEIGHBOR_SUM,
+            "fused_broadcast_select": nfm.BROADCAST_SELECT}
 
 
 def main_phase(launches: dict) -> None:
@@ -303,6 +525,96 @@ def main_phase(launches: dict) -> None:
               "eval_iter": hist["eval_iter"], "launches": counts})
 
 
+def channel_phase(launches: dict) -> None:
+    """``train_rl_netes`` at N = 1000 through each of ``CHANNEL_RUNS``,
+    with the launch counters zeroed just before and read just after."""
+    import math
+
+    import torch
+
+    from repro_torch.comm import channel as chan
+    from repro_torch.core import netes
+    from repro_torch.core.netes import NetESConfig
+    from repro_torch.core.topology import TopologySpec
+    from repro_torch.envs import resolve_task
+    from repro_torch.train.loop import (TrainConfig, build_channel,
+                                        build_topology, train_rl_netes)
+
+    cfg = NetESConfig(alpha=0.05, sigma=0.1)
+    expect = {"a": ("fused_neighbor_sum", "fused_broadcast_select"),
+              "b": ("netes_mixing", "fused_broadcast_select")}
+    for run, family, dens, text in CHANNEL_RUNS:
+        tc = TrainConfig(
+            n_agents=MAIN_N, iters=MAIN_ITERS, eval_every=MAIN_ITERS,
+            eval_episodes=EVAL_EPISODES, seed=0, netes=cfg, channel=text,
+            topology=TopologySpec(family=family, n_agents=MAIN_N, p=dens,
+                                  seed=0))
+        topo, ch = build_topology(tc, device="cuda"), build_channel(tc)
+        counters = _counters()
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = train_rl_netes("pendulum", tc, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in counters.items()}
+        for kname in expect[run]:
+            check(counts[kname] == MAIN_ITERS,
+                  f"channel run ({run}): {kname} launched {counts[kname]} "
+                  f"times in {MAIN_ITERS} iterations")
+        if run == "a":
+            launches.update({k: counts[k] for k in expect[run]})
+        rewards = hist["reward_mean"] + hist["reward_max"] + hist["eval"]
+        check(all(math.isfinite(r) for r in rewards),
+              f"channel run ({run}): non-finite rewards {rewards}")
+        # the drop fraction against Binomial(links, p) over the run: all
+        # sources trigger here, so it is the fraction of links dropped
+        p = ch.dropout_stage.p
+        links = int(chan.realized_messages(topo, None, None).item()) // 2
+        drop = sum(hist["drop_frac"]) / MAIN_ITERS
+        sd = math.sqrt(p * (1 - p) / (links * MAIN_ITERS))
+        check(abs(drop - p) <= 5 * sd, f"channel run ({run}): drop fraction "
+              f"{drop} is more than 5 sd = {5 * sd:.3g} from p = {p}")
+        check(hist["realized_msgs"] > 0, "no realized messages")
+
+        # steady-state step and its parts, outside the counted run
+        reward_fn, dim, init_fn, _, _ = resolve_task("pendulum")
+        state = netes.init_state(MAIN_N, dim, seed=1, init_fn=init_fn,
+                                 device="cuda")
+        cstate = ch.init(state.thetas)
+        step_ms = 1e3 * _host_time(
+            functools.partial(netes.netes_step, state, topo, reward_fn, cfg,
+                              channel=ch, chan_state=cstate), 3)
+        cand = torch.cat([state.thetas, state.thetas])
+        resets = reward_fn.draw(state.generator, 2 * MAIN_N)
+        rollout_ms = 1e3 * _host_time(
+            functools.partial(reward_fn, cand, resets), 3)
+        eps = torch.randn_like(state.thetas)
+        payload = state.thetas + cfg.sigma * eps
+        apply = ch.apply_wire if ch.wire_fused(topo) else ch.apply
+        apply_ms = time_ms(functools.partial(apply, cstate, topo, payload))
+        wire, em, _, _ = apply(cstate, topo, payload)
+        shaped = torch.rand(MAIN_N, device="cuda") - 0.5
+        mixing_ms = time_ms(functools.partial(
+            netes.mixing_update, topo, state.thetas, eps, shaped, cfg,
+            payload=wire, edge_mask=em))
+        emit({"phase": "channel", "run": run, "task": "pendulum",
+              "family": family, "density": dens, "channel": text,
+              "label": ch.spec.label(), "representation": topo.kind,
+              "wire_fused": ch.wire_fused(topo), "k_max": topo.k_max,
+              "n_agents": MAIN_N, "dim": dim, "iters": MAIN_ITERS,
+              "wall_s": wall, "step_ms": step_ms, "rollout_2n_ms": rollout_ms,
+              "channel_apply_ms": apply_ms, "mixing_update_ms": mixing_ms,
+              "realized_msgs": hist["realized_msgs"],
+              "realized_wire_bytes": hist["realized_wire_bytes"],
+              "msgs": hist["msgs"], "drop_frac_mean": drop,
+              "drop_frac_5sd": 5 * sd, "links": links,
+              "trigger_frac_mean": sum(hist["trigger_frac"]) / MAIN_ITERS,
+              "reward_mean": hist["reward_mean"], "eval": hist["eval"],
+              "launches": counts})
+
+
 def _host_time(fn, iters: int) -> float:
     """Median host-clock seconds of ``fn`` run to completion, after one
     warm-up call."""
@@ -319,12 +631,13 @@ def _host_time(fn, iters: int) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: GPU against CPU on a small input
+# phase 6: GPU against CPU on a small input
 # ---------------------------------------------------------------------------
 
 def parity_phase() -> None:
     import torch
 
+    from repro_torch.comm import channel as chan
     from repro_torch.core import netes
     from repro_torch.core.netes import Draws, NetESConfig
     from repro_torch.core.topology import TopologySpec
@@ -369,6 +682,48 @@ def parity_phase() -> None:
               "max_abs_theta_err": err, "tol": "1e-5·max(1, max|θ|)",
               "reward_max_cpu": rmax_cpu, "reward_max_gpu": rmax_gpu})
 
+    # through a lossy channel: each device draws its own dropout mask from
+    # the same seed; the masks must be equal, θ′ as above
+    for dens, text in ((0.1, "quantize(bits=8)|dropout(p=0.1,seed=0)"),
+                       (0.5, "event_triggered(threshold=0.01)|"
+                             "quantize(bits=4)|dropout(p=0.1,seed=0)")):
+        spec = TopologySpec(family="erdos_renyi", n_agents=n, p=dens, seed=0)
+        ch = chan.compile_channel(text, n)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            state = netes.NetESState(
+                thetas=cpu.thetas.to(dev), generator=None,
+                step=cpu.step.to(dev), best_reward=cpu.best_reward.to(dev),
+                best_theta=cpu.best_theta.to(dev))
+            d = Draws(eps=draws.eps.to(dev), beta=draws.beta.to(dev),
+                      evals=draws.evals.to(dev))
+            topo = from_spec(spec, device=dev, channel=ch)
+            cstate = ch.init(state.thetas)
+            mask = chan.dropout_mask(
+                chan.step_key(cstate.seed, cstate.draws), topo,
+                ch.dropout_stage.p)
+            new, cstate, m = netes.netes_step(state, topo, reward_fn, cfg,
+                                              draws=d, channel=ch,
+                                              chan_state=cstate)
+            outs[dev] = (topo.kind, new.thetas.cpu(), m["best_idx"].item(),
+                         mask.cpu(), m["msgs"].item(), cstate.msgs.item())
+        kind, th_cpu, bi_cpu, mask_cpu, msgs_cpu, tot_cpu = outs["cpu"]
+        _, th_gpu, bi_gpu, mask_gpu, msgs_gpu, tot_gpu = outs["cuda"]
+        check(torch.equal(mask_cpu, mask_gpu),
+              f"parity {text}: the dropout masks differ between CPU and GPU")
+        check(msgs_cpu == msgs_gpu and tot_cpu == tot_gpu,
+              f"parity {text}: messages {msgs_gpu} on the GPU vs {msgs_cpu}")
+        check(bi_cpu == bi_gpu, f"parity {text}: best agent {bi_gpu} on the "
+              f"GPU vs {bi_cpu} on the CPU")
+        err = (th_gpu - th_cpu).abs().max().item()
+        check(err <= 1e-5 * max(1.0, th_cpu.abs().max().item()),
+              f"parity {text}: θ differs by {err}")
+        emit({"phase": "parity", "representation": kind, "channel": text,
+              "wire_fused": ch.wire_fused(topo), "n": n, "dim": dim,
+              "masks_equal": True, "mask_shape": list(mask_cpu.shape),
+              "links_kept": float(mask_cpu.mean()), "msgs": msgs_gpu,
+              "max_abs_theta_err": err, "tol": "1e-5·max(1, max|θ|)"})
+
 
 # ---------------------------------------------------------------------------
 
@@ -377,6 +732,10 @@ SOURCE_OF = {
                      "src/repro/kernels/netes_mixing.py:55"),
     "netes_sparse_mixing": ("src/repro_torch/csrc/netes_sparse_mixing.cu",
                             "src/repro/kernels/netes_sparse_mixing.py:62"),
+    "fused_neighbor_sum": ("src/repro_torch/csrc/netes_fused_mixing.cu",
+                           "src/repro/kernels/netes_fused_mixing.py:112"),
+    "fused_broadcast_select": ("src/repro_torch/csrc/netes_fused_mixing.cu",
+                               "src/repro/kernels/netes_fused_mixing.py:192"),
 }
 
 
@@ -407,10 +766,13 @@ def main() -> int:
 
     results, launches = {}, {}
     kernel_phase(results)
+    wire_kernel_phase(results)
+    masked_kernel_phase()
     main_phase(launches)
+    channel_phase(launches)
     parity_phase()
     rows = []
-    for name in ("netes_mixing", "netes_sparse_mixing"):
+    for name in SOURCE_OF:
         r = results[name]
         source, replaces = SOURCE_OF[name]
         rows.append({"name": name, "route": "cuda", "source": source,

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .comm.channel import ChannelState
 from .core.netes import NetESState
 from .core.topology_repr import Topology
 
@@ -53,3 +54,25 @@ def topology_from_reference(kind: str, n: int, deg, *, adj=None,
                     neighbor_idx=t(neighbor_idx, np.int32),
                     neighbor_mask=t(neighbor_mask, np.float32),
                     offsets=None if offsets is None else tuple(offsets))
+
+
+def channel_state_from_reference(last_sent, msgs, *, seed: int = 0,
+                                 draws: int = 0,
+                                 device: Union[str, torch.device] = "cuda"
+                                 ) -> ChannelState:
+    """The reference's ``ChannelState`` leaves → the port's state.
+    ``last_sent`` is the payload-shaped array, or None (the reference's
+    ``()``) without an event stage; ``msgs`` the cumulative count. The
+    threefry key has no counterpart: the port's dropout PRF is keyed by
+    ``seed`` (the dropout stage's seed) and the count ``draws`` of masks
+    drawn so far, so the port draws other masks than the reference from
+    here on; a comparison injects the reference's masks
+    (``core.netes.Draws.edge_mask``)."""
+    dev = resolve_device(device)
+    has_last = last_sent is not None and np.size(last_sent) > 0
+    return ChannelState(
+        seed=torch.tensor(seed, dtype=torch.int64, device=dev),
+        draws=torch.tensor(draws, dtype=torch.int64, device=dev),
+        last_sent=(torch.as_tensor(np.array(last_sent, np.float32),
+                                   device=dev) if has_last else None),
+        msgs=torch.as_tensor(np.array(msgs, np.float32), device=dev))

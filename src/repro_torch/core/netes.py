@@ -10,10 +10,18 @@ hand-written kernels (``kernels/netes_mixing``, ``kernels/netes_sparse_mixing``)
 circulant ones through a chain of rolls. With probability p_b per iteration
 every agent adopts the best perturbed parameters of the iteration.
 
-Every random draw of a step (ε, the broadcast draw β and the episode reset
-states) enters through one seam, ``Draws``: absent, the step draws them from
-the state's generator; present, the caller's draws are used as they are —
-the tests hand the port the JAX reference's own draws there.
+With a lossy ``channel`` (``comm.channel``, DESIGN.md §11–12) the per-source
+payloads θ_i + σε_i and the broadcast pass through the channel's stages,
+dropped links leave the contraction, and the step returns the advanced
+channel state and the realized traffic. A quantizing channel on a sparse
+graph mixes straight from the int8 wire codes (``kernels/netes_fused_mixing``),
+and its broadcast is one fused select.
+
+Every random draw of a step (ε, the broadcast draw β, the episode reset
+states and, with a channel, the dropout mask) enters through one seam,
+``Draws``: absent, the step draws them from the state's generator (the mask
+from the channel's own PRF); present, the caller's draws are used as they
+are — the tests hand the port the JAX reference's own draws there.
 
 The step keeps everything on the device: no ``.item()``, no host sync.
 """
@@ -25,9 +33,10 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 
 from .._device import resolve_device
+from ..kernels.netes_fused_mixing import fused_broadcast_select
 from ..kernels.netes_mixing import netes_mixing
 from ..kernels.netes_sparse_mixing import netes_sparse_mixing
-from . import es_utils, topology_repr
+from . import es_utils, topology_repr, wire_format
 from .topology_repr import Topology
 
 
@@ -60,12 +69,15 @@ class Draws:
     ``eps (N, D)`` standard normal; ``beta ()`` uniform in [0, 1) (the
     broadcast happens iff β < p_b); ``evals`` what the reward function's
     ``draw`` returns for N agents (episode reset states for an RL task),
-    shared by the +ε and −ε halves as in the reference.
+    shared by the +ε and −ε halves as in the reference; ``edge_mask``, for
+    a channel with a dropout stage, the live-link mask to use in place of
+    the channel's own draw (``comm.channel.dropout_mask``).
     """
 
     eps: torch.Tensor
     beta: torch.Tensor
     evals: Optional[torch.Tensor]
+    edge_mask: Optional[torch.Tensor] = None
 
 
 def init_state(n_agents: int, dim: int, *, seed: int = 0,
@@ -116,27 +128,49 @@ def shape_fitness(returns: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def mixing_update(topo: Topology, thetas: torch.Tensor, eps: torch.Tensor,
-                  shaped: torch.Tensor, cfg: NetESConfig) -> torch.Tensor:
-    """Eq. 3 on the perturbed parameters θ + σε, by representation:
+                  shaped: torch.Tensor, cfg: NetESConfig, *,
+                  payload=None,
+                  edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. 3, by representation, on the payloads x_i the receivers see:
 
-        u_j = scale_j · Σ_i a_ji R̃_i (θ_i + σ ε_i − θ_j)
-            = scale_j · (Σ_i a_ji R̃_i θ_i + σ Σ_i a_ji R̃_i ε_i − (Σ_i a_ji R̃_i) θ_j)
+        u_j = scale_j · Σ_i a_ji em_ji R̃_i (x_i − θ_j)
+            = scale_j · (Σ_i a_ji em_ji R̃_i x_i − (Σ_i a_ji em_ji R̃_i) θ_j)
 
-    Dense and sparse run their kernel with w_θ = w_ε = R̃ on the operands
-    (θ, ε, σ); circulant runs the roll chain of ``topology_repr``.
+    ``payload`` None means x = θ + σε: dense and sparse run their kernel
+    with w_θ = w_ε = R̃ on the operands (θ, ε, σ). A channel's payload x (a
+    tensor) runs the same kernels on (θ, x − θ, 1), which adds one rounding
+    of x − θ to each term. A ``WirePayload`` goes through
+    ``topology_repr.weighted_neighbor_sum``, which sends a sparse graph to
+    the fused wire kernel. ``edge_mask`` (a channel's live-link mask)
+    multiplies the adjacency or the neighbor weights before the kernel, so
+    a dropped link leaves both the neighbor sum and the row sum. Circulant
+    graphs run the plain roll chain of ``topology_repr``.
     """
     n = thetas.shape[0]
-    if topo.kind == "dense":
-        mixed = netes_mixing(topo.adj, shaped, shaped, thetas, eps,
-                             sigma=cfg.sigma)
-    elif topo.kind == "sparse":
-        mixed = netes_sparse_mixing(topo.neighbor_idx, topo.neighbor_mask,
-                                    shaped, shaped, thetas, eps,
-                                    sigma=cfg.sigma)
+    if isinstance(payload, wire_format.WirePayload):
+        mixed = (topology_repr.weighted_neighbor_sum(topo, shaped, payload,
+                                                     edge_mask)
+                 - topology_repr.weighted_row_sum(topo, shaped,
+                                                  edge_mask)[:, None]
+                 * thetas)
+    elif topo.kind in ("dense", "sparse"):
+        src, sigma = ((eps, cfg.sigma) if payload is None
+                      else (payload - thetas, 1.0))
+        if topo.kind == "dense":
+            adj = topo.adj if edge_mask is None else topo.adj * edge_mask
+            mixed = netes_mixing(adj, shaped, shaped, thetas, src,
+                                 sigma=sigma)
+        else:
+            mask = (topo.neighbor_mask if edge_mask is None
+                    else topo.neighbor_mask * edge_mask)
+            mixed = netes_sparse_mixing(topo.neighbor_idx, mask, shaped,
+                                        shaped, thetas, src, sigma=sigma)
     elif topo.kind == "circulant":
-        perturbed = thetas + cfg.sigma * eps
-        mixed = (topology_repr.weighted_neighbor_sum(topo, shaped, perturbed)
-                 - topology_repr.weighted_row_sum(topo, shaped)[:, None]
+        perturbed = thetas + cfg.sigma * eps if payload is None else payload
+        mixed = (topology_repr.weighted_neighbor_sum(topo, shaped, perturbed,
+                                                     edge_mask)
+                 - topology_repr.weighted_row_sum(topo, shaped,
+                                                  edge_mask)[:, None]
                  * thetas)
     else:
         raise ValueError(f"unknown topology kind {topo.kind!r}")
@@ -148,8 +182,8 @@ def mixing_update(topo: Topology, thetas: torch.Tensor, eps: torch.Tensor,
 
 
 def netes_step(state: NetESState, topo: Topology, reward_fn,
-               cfg: NetESConfig, draws: Optional[Draws] = None
-               ) -> Tuple[NetESState, Dict[str, torch.Tensor]]:
+               cfg: NetESConfig, draws: Optional[Draws] = None,
+               channel=None, chan_state=None):
     """One NetES iteration (paper Algorithm 1).
 
     ``reward_fn`` evaluates a batch: ``reward_fn(params (M, D), evals) ->
@@ -157,6 +191,17 @@ def netes_step(state: NetESState, topo: Topology, reward_fn,
     antithetic sampling both ±ε halves are evaluated in one batch of 2N
     from the same N eval draws, and both compete for the broadcast argmax.
     Returns the new state and a dict of 0-d device tensors.
+
+    ``channel`` (a ``comm.channel.Channel``) with its ``chan_state``: the
+    payloads θ_i + σε_i pass through the channel (``apply_wire`` when
+    ``channel.wire_fused(topo)``, else ``apply``), dropped links leave the
+    mixing, and the broadcast payload goes through the channel's codec
+    (one ``fused_broadcast_select`` when the channel is fused and
+    wire-quantized). The return value is then ``(state, chan_state,
+    metrics)`` and the metrics gain ``msgs`` (this step's realized
+    messages, the broadcast's N included), ``trigger_frac`` and
+    ``drop_frac``. A lossless channel gives the channel-free step's state
+    bit for bit.
     """
     n, dim = state.thetas.shape
     if draws is None:
@@ -175,18 +220,37 @@ def netes_step(state: NetESState, topo: Topology, reward_fn,
         rewards = reward_fn(candidates, draws.evals)
         shaped = shape_fitness(rewards, cfg.fitness_shaping)
 
-    update = mixing_update(topo, state.thetas, eps, shaped, cfg)
+    payload = edge_mask = info = None
+    if channel is not None:
+        chan_apply = (channel.apply_wire if channel.wire_fused(topo)
+                      else channel.apply)
+        wire, edge_mask, chan_state, info = chan_apply(
+            chan_state, topo, candidates[:n], edge_mask=draws.edge_mask)
+        # a lossless or dropout-only channel passes θ + σε through: the
+        # kernels keep reading it as (θ, ε, σ)
+        if channel.transforms_payload:
+            payload = wire
+    update = mixing_update(topo, state.thetas, eps, shaped, cfg,
+                           payload=payload, edge_mask=edge_mask)
     update = es_utils.apply_weight_decay(state.thetas, update,
                                          cfg.weight_decay)
     new_thetas = state.thetas + update
 
-    # broadcast event (exploit): argmax takes the first maximum, as jnp's
+    # broadcast event (exploit): argmax takes the first maximum, as jnp's.
+    # Through a channel the receivers adopt the degraded payload; the
+    # best-θ bookkeeping keeps the true one.
     best_idx = torch.argmax(rewards)
     iter_best_theta = candidates[best_idx]
     iter_best_reward = rewards[best_idx]
     do_broadcast = draws.beta < cfg.p_broadcast
-    new_thetas = torch.where(do_broadcast, iter_best_theta[None, :],
-                             new_thetas)
+    if channel is not None and channel.fused and channel.wire_quantized:
+        wp = channel.encode_wire(iter_best_theta, batched=False)
+        new_thetas = fused_broadcast_select(wp.codes, wp.scale,
+                                            do_broadcast, new_thetas)
+    else:
+        bcast = (iter_best_theta if channel is None
+                 else channel.codec(iter_best_theta, batched=False))
+        new_thetas = torch.where(do_broadcast, bcast[None, :], new_thetas)
 
     better = iter_best_reward > state.best_reward
     new_state = NetESState(
@@ -203,18 +267,34 @@ def netes_step(state: NetESState, topo: Topology, reward_fn,
         "theta_spread": new_thetas.var(dim=0, correction=0).sum(),
         "best_idx": best_idx,
     }
-    return new_state, metrics
+    if channel is None:
+        return new_state, metrics
+    # the broadcast is one message fanned out to the population
+    bcast_msgs = do_broadcast.to(torch.float32) * n
+    chan_state = dataclasses.replace(chan_state,
+                                     msgs=chan_state.msgs + bcast_msgs)
+    metrics["msgs"] = info["msgs"] + bcast_msgs
+    metrics["trigger_frac"] = info["trigger_frac"]
+    metrics["drop_frac"] = info["drop_frac"]
+    return new_state, chan_state, metrics
 
 
 def run(state: NetESState, topo: Topology, reward_fn, cfg: NetESConfig,
-        num_iters: int) -> Tuple[NetESState, Dict[str, torch.Tensor]]:
+        num_iters: int, channel=None, chan_state=None):
     """``num_iters`` steps; the metrics come back stacked per iteration,
-    still on the device."""
+    still on the device. With a ``channel`` the return value is
+    ``(state, chan_state, metrics)``."""
     history = []
     for _ in range(num_iters):
-        state, m = netes_step(state, topo, reward_fn, cfg)
+        if channel is None:
+            state, m = netes_step(state, topo, reward_fn, cfg)
+        else:
+            state, chan_state, m = netes_step(state, topo, reward_fn, cfg,
+                                              channel=channel,
+                                              chan_state=chan_state)
         history.append(m)
-    if not history:
-        return state, {}
-    return state, {k: torch.stack([m[k] for m in history])
-                   for k in history[0]}
+    stacked = ({} if not history else
+               {k: torch.stack([m[k] for m in history]) for k in history[0]})
+    if channel is None:
+        return state, stacked
+    return state, chan_state, stacked

@@ -1,7 +1,7 @@
 """Physical representations of a topology for the NetES mixing update.
 
-The port of ``repro.core.topology_repr`` (DESIGN.md §3). A ``Topology`` is a
-dataclass of tensors in one of three representations:
+The port of ``repro.core.topology_repr`` (DESIGN.md §3, §12). A ``Topology``
+is a dataclass of tensors in one of three representations:
 
 ``dense``
     ``adj (N, N)`` float32; mixing runs the dense Eq. 3 kernel
@@ -11,13 +11,21 @@ dataclass of tensors in one of three representations:
     ``neighbor_mask (N, K_max)`` float32 holding the edge weight a_ji (0 on
     padding; padded slots index row j itself, so every gather stays in
     bounds); mixing runs the sparse Eq. 3 kernel
-    (``kernels/netes_sparse_mixing``).
+    (``kernels/netes_sparse_mixing``), or, for a quantizing channel's wire
+    form, the fused kernel (``kernels/netes_fused_mixing``).
 ``circulant``
     Static generator offsets of a symmetric self-looped ring graph; mixing
     is a chain of ``torch.roll``s and needs no kernel.
 
+``weighted_neighbor_sum`` and ``weighted_row_sum`` take an optional
+``edge_mask`` from a lossy channel (``comm.channel.dropout_mask``), matched
+to the representation: dense (N, N), sparse (N, K_max), circulant
+(|±Δ|, N). ``weighted_neighbor_sum`` also takes a ``WirePayload``: sparse
+graphs contract it with the fused kernel, dense and circulant decode it.
+
 The constructors are host-side numpy, run once at launch, and must agree with
-the reference slot for slot (tests/test_torch_topology.py).
+the reference slot for slot (tests/test_torch_topology.py). A fused-eligible
+channel raises the sparse cutoff of ``select_representation``.
 """
 from __future__ import annotations
 
@@ -29,10 +37,16 @@ import torch
 
 from .._device import resolve_device
 from . import topology as topo_gen
+from . import wire_format
 
 # Max degree at or below which the neighbor list is preferred over dense
 # (the reference's cutoff: past it the padded K_max approaches N).
 SPARSE_DENSITY_CUTOFF = 0.25
+
+# The cutoff under a fused-eligible quantizing channel: the fused kernel's
+# int8 gathers are 4× narrower than the f32 operands, so denser graphs keep
+# the neighbor list (the reference's value).
+FUSED_SPARSE_DENSITY_CUTOFF = 0.5
 
 # A circulant roll chain costs one pass per signed offset; past this
 # fraction of the ring it stops beating the dense contraction.
@@ -123,10 +137,14 @@ def _exact_circulant_offsets(adj: np.ndarray):
                                   rebuilt) else None
 
 
-def select_representation(adj: np.ndarray) -> str:
+def select_representation(adj: np.ndarray, channel=None) -> str:
     """The cheapest representation a graph admits: circulant if it is an
     exact circulant with few enough signed offsets, sparse if its max
-    degree is at most ``SPARSE_DENSITY_CUTOFF``·N, else dense."""
+    degree is at most ``SPARSE_DENSITY_CUTOFF``·N, else dense.
+
+    ``channel`` (a ``comm.channel.Channel``, read by duck typing): when it
+    is ``fused`` and ``wire_quantized``, the sparse cutoff rises to
+    ``FUSED_SPARSE_DENSITY_CUTOFF``."""
     adj = np.asarray(adj)
     n = adj.shape[0]
     offs = _exact_circulant_offsets(adj)
@@ -135,25 +153,31 @@ def select_representation(adj: np.ndarray) -> str:
                                   else 0)
         if signed <= CIRCULANT_OFFSET_CUTOFF * n:
             return "circulant"
+    cutoff = SPARSE_DENSITY_CUTOFF
+    if (channel is not None and getattr(channel, "fused", False)
+            and getattr(channel, "wire_quantized", False)):
+        cutoff = FUSED_SPARSE_DENSITY_CUTOFF
     k_max = int((adj != 0).sum(axis=1).max())
-    if k_max <= SPARSE_DENSITY_CUTOFF * n:
+    if k_max <= cutoff * n:
         return "sparse"
     return "dense"
 
 
 def from_dense(adj, representation: str = "auto",
-               device: Union[str, torch.device] = "cuda") -> Topology:
+               device: Union[str, torch.device] = "cuda",
+               channel=None) -> Topology:
     """Build a ``Topology`` on ``device`` from a dense adjacency.
 
     ``representation`` ∈ {auto, dense, sparse, circulant}; ``auto`` runs
-    ``select_representation``; ``circulant`` on a non-circulant graph raises.
+    ``select_representation`` (with ``channel``, see there); ``circulant``
+    on a non-circulant graph raises.
     """
     dev = resolve_device(device)
     adj_np = np.asarray(adj, dtype=np.float32)
     n = adj_np.shape[0]
     deg = torch.as_tensor(adj_np.sum(axis=1), device=dev)
     if representation == "auto":
-        representation = select_representation(adj_np)
+        representation = select_representation(adj_np, channel=channel)
     if representation == "dense":
         return Topology(kind="dense", n=n, deg=deg,
                         adj=torch.as_tensor(adj_np, device=dev))
@@ -172,10 +196,11 @@ def from_dense(adj, representation: str = "auto",
 
 
 def from_spec(spec: topo_gen.TopologySpec, representation: str = "auto",
-              device: Union[str, torch.device] = "cuda") -> Topology:
+              device: Union[str, torch.device] = "cuda",
+              channel=None) -> Topology:
     """TopologySpec → generated graph → representation-selected Topology."""
     return from_dense(spec.build(), representation=representation,
-                      device=device)
+                      device=device, channel=channel)
 
 
 def as_topology(t: Union[Topology, torch.Tensor, np.ndarray],
@@ -204,43 +229,90 @@ def signed_offsets(offsets: Sequence[int], n: int):
     return sorted(set(out) - {0})
 
 
+def circulant_shifts(topo: Topology):
+    """The ring shifts of a circulant topology's roll chain."""
+    return signed_offsets(topo.offsets, topo.n)
+
+
 def _col(v: torch.Tensor, ndim: int) -> torch.Tensor:
     """(N,) → (N, 1, ..., 1) to broadcast against an (N, ...) operand."""
     return v.reshape((-1,) + (1,) * (ndim - 1))
 
 
-def weighted_neighbor_sum(topo: Topology, coeff: torch.Tensor,
-                          values: torch.Tensor) -> torch.Tensor:
-    """``out_j = Σ_i a_ji · coeff_i · values_i`` — the Eq. 3 contraction.
+def weighted_neighbor_sum(topo: Topology, coeff: torch.Tensor, values,
+                          edge_mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """``out_j = Σ_i a_ji · em_ji · coeff_i · values_i`` — the Eq. 3
+    contraction.
 
     ``coeff (N,)``, ``values (N, ...)`` → ``(N, ...)``: one matmul (dense),
     a K_max-slot gather-accumulate (sparse) or a chain of rolls
-    (circulant).
+    (circulant). ``values`` may be a ``WirePayload`` (see
+    ``_wire_neighbor_sum``). ``edge_mask`` drops links as if a_ji were 0
+    this step; it multiplies the adjacency (dense), the slot weights before
+    ``coeff`` (sparse) or each shifted term (circulant), as the reference.
     """
+    if isinstance(values, wire_format.WirePayload):
+        return _wire_neighbor_sum(topo, coeff, values, edge_mask)
     src = _col(coeff.to(values.dtype), values.ndim) * values
     if topo.kind == "dense":
+        adj = topo.adj if edge_mask is None else topo.adj * edge_mask
         flat = src.reshape(topo.n, -1)
-        return (topo.adj.to(values.dtype) @ flat).reshape(values.shape)
+        return (adj.to(values.dtype) @ flat).reshape(values.shape)
     if topo.kind == "circulant":
         acc = src  # d = 0 (self-loop)
-        for d in signed_offsets(topo.offsets, topo.n):
-            acc = acc + torch.roll(src, -d, dims=0)
+        for k, d in enumerate(circulant_shifts(topo)):
+            term = torch.roll(src, -d, dims=0)
+            if edge_mask is not None:
+                term = term * _col(edge_mask[k].to(values.dtype), values.ndim)
+            acc = acc + term
         return acc
     idx = topo.neighbor_idx.long()
-    wnb = (topo.neighbor_mask * coeff[idx]).to(values.dtype)    # (N, K)
+    mask = (topo.neighbor_mask if edge_mask is None
+            else topo.neighbor_mask * edge_mask)
+    wnb = (mask * coeff[idx]).to(values.dtype)                  # (N, K)
     acc = torch.zeros_like(values)
     for c in range(idx.shape[1]):
         acc = acc + _col(wnb[:, c], values.ndim) * values[idx[:, c]]
     return acc
 
 
-def weighted_row_sum(topo: Topology, coeff: torch.Tensor) -> torch.Tensor:
-    """``Σ_i a_ji · coeff_i`` per row j — Eq. 3's self-correction weight."""
+def _wire_neighbor_sum(topo: Topology, coeff: torch.Tensor,
+                       wp: wire_format.WirePayload,
+                       edge_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The wire-form case of ``weighted_neighbor_sum``. Sparse: the int8
+    codes and per-source scales go straight to the fused kernel (trailing
+    payload dims flatten to one D axis). Dense and circulant decode once
+    and recurse: they build no per-edge gather to fuse away."""
+    if topo.kind != "sparse":
+        return weighted_neighbor_sum(topo, coeff,
+                                     wire_format.decode_payload(wp),
+                                     edge_mask=edge_mask)
+    # imported here: the kernels' plain versions import this module
+    from ..kernels.netes_fused_mixing import fused_neighbor_sum
+    n = wp.codes.shape[0]
+    out = fused_neighbor_sum(topo.neighbor_idx, topo.neighbor_mask, coeff,
+                             wp.codes.reshape(n, -1), wp.scale.reshape(n, -1),
+                             edge_mask)
+    return out.reshape(wp.codes.shape).to(wp.dtype)
+
+
+def weighted_row_sum(topo: Topology, coeff: torch.Tensor,
+                     edge_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """``Σ_i a_ji · em_ji · coeff_i`` per row j — Eq. 3's self-correction
+    weight. ``edge_mask`` must be the one the neighbor sum saw."""
     if topo.kind == "dense":
-        return topo.adj @ coeff
+        adj = topo.adj if edge_mask is None else topo.adj * edge_mask
+        return adj @ coeff
     if topo.kind == "circulant":
         acc = coeff
-        for d in signed_offsets(topo.offsets, topo.n):
-            acc = acc + torch.roll(coeff, -d)
+        for k, d in enumerate(circulant_shifts(topo)):
+            term = torch.roll(coeff, -d)
+            if edge_mask is not None:
+                term = term * edge_mask[k]
+            acc = acc + term
         return acc
-    return (topo.neighbor_mask * coeff[topo.neighbor_idx.long()]).sum(dim=1)
+    mask = (topo.neighbor_mask if edge_mask is None
+            else topo.neighbor_mask * edge_mask)
+    return (mask * coeff[topo.neighbor_idx.long()]).sum(dim=1)

@@ -1,0 +1,100 @@
+"""Fused decode∘mask∘neighbor-sum over quantized wire payloads, and the
+fused broadcast select (DESIGN.md §12): the wrappers of
+``csrc/netes_fused_mixing.cu``.
+
+    fused_neighbor_sum:     out_j = Σ_k ws_jk · codes[i_jk],
+                            ws_jk = ((m_jk · coeff[i_jk]) · em_jk) · scale[i_jk]
+    fused_broadcast_select: out = where(flag, codes · scale, θ)
+
+Replace the TPU kernels ``repro/kernels/netes_fused_mixing.py::
+fused_neighbor_sum`` and ``::fused_broadcast_select``. The wrapper of the
+first forms the folded weights ``ws`` outside the kernel, in the
+reference's order (``ref.folded_weights``), so the kernel reads only the
+int8 codes and one weight per slot. On CUDA tensors each wrapper launches
+its hand-written sm_90a kernel (see the source's note); on CPU tensors it
+runs the plain version in ``kernels/ref.py``. There is no other path.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import ref
+from ._build import CudaKernel
+from ._checks import check_operand, on_cpu
+
+NEIGHBOR_SUM = CudaKernel(
+    "netes_fused_mixing", "fused_neighbor_sum_f32",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+BROADCAST_SELECT = CudaKernel(
+    "netes_fused_mixing", "fused_broadcast_select_f32",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def fused_neighbor_sum(neighbor_idx: torch.Tensor,
+                       neighbor_mask: torch.Tensor, coeff: torch.Tensor,
+                       codes: torch.Tensor, scale: torch.Tensor,
+                       edge_mask: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Eq. 3's neighbor contraction straight from int8 wire codes.
+
+    neighbor_idx (N, K_max) int32; neighbor_mask and edge_mask (N, K_max)
+    float32; coeff (N,) float32; codes (N, D) int8; scale (N, 1) float32,
+    the per-message decode scale; all on one device. Returns (N, D)
+    float32.
+    """
+    operands = [neighbor_idx, neighbor_mask, coeff, codes, scale]
+    if edge_mask is not None:
+        operands.append(edge_mask)
+    if on_cpu(operands):
+        return ref.fused_neighbor_sum_ref(neighbor_idx, neighbor_mask, coeff,
+                                          codes, scale, edge_mask)
+    n, d = codes.shape
+    k_max = neighbor_idx.shape[1] if neighbor_idx.dim() == 2 else -1
+    check_operand("neighbor_idx", neighbor_idx, torch.int32, (n, k_max))
+    check_operand("codes", codes, torch.int8, (n, d))
+    for name, t, shape in (("neighbor_mask", neighbor_mask, (n, k_max)),
+                           ("coeff", coeff, (n,)), ("scale", scale, (n, 1)),
+                           ("edge_mask", edge_mask, (n, k_max))):
+        if t is not None:
+            check_operand(name, t, torch.float32, shape)
+    ws = ref.folded_weights(neighbor_idx, neighbor_mask, coeff, scale,
+                            edge_mask).contiguous()
+    out = torch.empty((n, d), dtype=torch.float32, device=codes.device)
+    if out.numel() == 0:
+        return out
+    if k_max == 0:
+        return out.zero_()
+    NEIGHBOR_SUM.launch(neighbor_idx.data_ptr(), ws.data_ptr(),
+                        codes.data_ptr(), out.data_ptr(), n, k_max, d,
+                        torch.cuda.current_stream(codes.device).cuda_stream)
+    return out
+
+
+def fused_broadcast_select(codes: torch.Tensor, scale: torch.Tensor,
+                           do_broadcast: torch.Tensor,
+                           thetas: torch.Tensor) -> torch.Tensor:
+    """``where(do_broadcast, codes · scale, thetas)`` in one pass: every
+    agent adopts the decoded broadcast payload when the flag is set.
+
+    codes (D,) int8; scale (1,) float32; do_broadcast () bool, read on the
+    device; thetas (N, D) float32. Returns a new (N, D) float32 tensor.
+    """
+    operands = (codes, scale, do_broadcast, thetas)
+    if on_cpu(operands):
+        return ref.broadcast_select_ref(codes, scale, do_broadcast, thetas)
+    n, d = thetas.shape
+    check_operand("codes", codes, torch.int8, (d,))
+    check_operand("scale", scale, torch.float32, (1,))
+    check_operand("do_broadcast", do_broadcast, torch.bool, ())
+    check_operand("thetas", thetas, torch.float32, (n, d))
+    out = torch.empty_like(thetas)
+    if out.numel() == 0:
+        return out
+    BROADCAST_SELECT.launch(codes.data_ptr(), scale.data_ptr(),
+                            do_broadcast.data_ptr(), thetas.data_ptr(),
+                            out.data_ptr(), n, d,
+                            torch.cuda.current_stream(thetas.device).cuda_stream)
+    return out

@@ -1,15 +1,22 @@
 """Plain PyTorch versions of the port's kernels (the correctness contract).
 
-Each function has its kernel's signature and computes Eq. 3 through the
-topology's own plain contractions, ``weighted_neighbor_sum`` and
+Each function has its kernel's signature. The two Eq. 3 mixings go through
+the topology's own plain contractions, ``weighted_neighbor_sum`` and
 ``weighted_row_sum``:
 
     out_j = Σ_i a_ji R̃θ_i θ_i + σ Σ_i a_ji R̃ε_i ε_i − (Σ_i a_ji R̃θ_i) θ_j.
+
+The two wire-form functions widen the int8 codes one gathered row at a
+time, with the decode scale folded into the slot weight as the kernel does.
 
 The kernel wrappers run them for CPU tensors; on the card, ``chip_smoke.py``
 holds each kernel against them. They are no yardstick of speed.
 """
 from __future__ import annotations
+
+from typing import Optional
+
+import torch
 
 from ..core.topology_repr import (Topology, weighted_neighbor_sum,
                                   weighted_row_sum)
@@ -35,3 +42,36 @@ def sparse_mixing_ref(neighbor_idx, neighbor_mask, w_theta, w_eps, theta,
                     deg=neighbor_mask.sum(dim=1), neighbor_idx=neighbor_idx,
                     neighbor_mask=neighbor_mask)
     return _eq3(topo, w_theta, w_eps, theta, eps, sigma)
+
+
+def folded_weights(neighbor_idx, neighbor_mask, coeff, scale,
+                   edge_mask: Optional[torch.Tensor] = None):
+    """(N, K) float32 slot weights with the decode scale folded in,
+    ``ws = ((m · coeff[idx]) · em) · scale[idx]``, in the reference's order
+    (``repro/kernels/netes_fused_mixing.py:_folded_weights``)."""
+    idx = neighbor_idx.long()
+    w = neighbor_mask * coeff.to(torch.float32)[idx]
+    if edge_mask is not None:
+        w = w * edge_mask
+    return w * scale.reshape(-1)[idx]
+
+
+def fused_neighbor_sum_ref(neighbor_idx, neighbor_mask, coeff, codes, scale,
+                           edge_mask: Optional[torch.Tensor] = None):
+    """``out_j = Σ_k ws_jk · codes[idx_jk]`` over the folded weights, in
+    slot order: Eq. 3's neighbor contraction of a wire payload. codes
+    (N, D) int8, scale (N, 1) float32 → (N, D) float32."""
+    ws = folded_weights(neighbor_idx, neighbor_mask, coeff, scale, edge_mask)
+    idx = neighbor_idx.long()
+    acc = torch.zeros(codes.shape, dtype=torch.float32, device=codes.device)
+    for k in range(idx.shape[1]):
+        acc = acc + ws[:, k, None] * codes[idx[:, k]].to(torch.float32)
+    return acc
+
+
+def broadcast_select_ref(codes, scale, do_broadcast, thetas):
+    """``where(do_broadcast, codes · scale, θ)``: every agent adopts the
+    decoded broadcast payload when the flag is set. codes (D,) int8,
+    scale (1,) float32, do_broadcast () bool, thetas (N, D)."""
+    dec = (codes.to(torch.float32) * scale).to(thetas.dtype)
+    return torch.where(do_broadcast, dec[None, :], thetas)

@@ -1,7 +1,8 @@
 """Training launcher of the port (the paper's RL experiments).
 
   python -m repro_torch.launch.train rl --task pendulum \
-      --topology erdos_renyi --density 0.1 --agents 1000 --iters 100
+      --topology erdos_renyi --density 0.1 --agents 1000 --iters 100 \
+      [--channel 'quantize(bits=8)|dropout(p=0.1,seed=0)']
 
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead.
@@ -27,6 +28,11 @@ def main(argv=None) -> None:
                     choices=["auto", "dense", "sparse", "circulant"],
                     help="physical topology representation")
     ap.add_argument("--topo-seed", type=int, default=0)
+    ap.add_argument("--channel", default=None,
+                    help="lossy agent-link channel pipeline, e.g. "
+                         "'quantize(bits=8)' or 'event_triggered("
+                         "threshold=0.01)|quantize(bits=4)|dropout("
+                         "p=0.1,seed=0)' (DESIGN.md §11)")
     ap.add_argument("--agents", type=int, default=32)
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
@@ -41,7 +47,8 @@ def main(argv=None) -> None:
         n_agents=args.agents, iters=args.iters,
         topology=TopologySpec(family=args.topology, n_agents=args.agents,
                               p=args.density, seed=args.topo_seed),
-        representation=args.representation, seed=args.seed,
+        representation=args.representation, channel=args.channel,
+        seed=args.seed,
         netes=NetESConfig(alpha=args.alpha, sigma=args.sigma,
                           p_broadcast=args.p_broadcast))
 
@@ -51,6 +58,9 @@ def main(argv=None) -> None:
     hist = train_rl_netes(args.task, tc, log=log, device=args.device)
     print(f"final eval: {hist['final_eval']}, max eval: "
           f"{hist['max_eval']} ({hist['wall_s']:.1f}s)")
+    if "realized_msgs" in hist:
+        print(f"realized messages: {hist['realized_msgs']:.0f} "
+              f"({hist['realized_wire_bytes']} wire bytes)")
     if args.out:
         path = pathlib.Path(args.out)
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -4,7 +4,14 @@ noise-free evaluation of the best perturbed parameters seen so far.
 
 The port of ``repro.train.loop``'s RL half. Steps run one after another on
 the device; their metrics stay there and are drained to the host once per
-chunk of ``METRIC_DRAIN_CHUNK`` iterations and at eval points.
+chunk of ``METRIC_DRAIN_CHUNK`` iterations and at eval points. With
+``TrainConfig.channel`` every inter-agent message rides a lossy channel
+(``comm.channel``), and the history gains the realized traffic.
+
+Not ported yet (setting one raises ``NotImplementedError``): the
+``schedule`` (slice 3), ``probes`` and ``trace`` (slice 4), ``shards``
+(slice 7) and ``checkpoint_dir`` (resume) fields of the reference's
+``TrainConfig``.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..comm.channel import Channel, ChannelSpec, compile_channel
 from ..core import netes, topology_repr
 from ..core.netes import Draws, NetESConfig, NetESState
 from ..core.topology import TopologySpec
@@ -26,8 +34,8 @@ from ..envs.rollout import evaluate_best
 METRIC_DRAIN_CHUNK = 8
 
 # TrainConfig fields of the reference that later slices of the port carry.
-_NOT_YET_PORTED = ("schedule", "channel", "shards", "probes",
-                   "checkpoint_dir", "trace")
+_NOT_YET_PORTED = ("schedule", "shards", "probes", "checkpoint_dir",
+                   "trace")
 
 
 @dataclasses.dataclass
@@ -45,9 +53,15 @@ class TrainConfig:
     eval_every: int = 0             # 0 ⇒ paper protocol (prob 0.08)
     eval_episodes: int = 16
     netes: NetESConfig = dataclasses.field(default_factory=NetESConfig)
+    # Lossy communication channel (DESIGN.md §11): a ChannelSpec, or its
+    # string form ("quantize(bits=8)|dropout(p=0.1)"). None ⇒ the
+    # channel-free path, which "lossless" reproduces bit for bit.
+    channel: Optional[Union[ChannelSpec, str]] = None
+    # Fused wire-form dispatch for quantizing channels (DESIGN.md §12);
+    # False keeps the decode-then-contract path. Same semantics either way.
+    channel_fused: bool = True
     # Reference fields this slice does not carry: setting one raises.
     schedule: Optional[object] = None
-    channel: Optional[object] = None
     shards: Optional[int] = None
     probes: Optional[object] = None
     checkpoint_dir: Optional[str] = None
@@ -67,15 +81,27 @@ class TrainConfig:
             self.topology_family = self.topology.family
             self.density = self.topology.p
             self.topo_seed = self.topology.seed
+        if isinstance(self.channel, str):
+            self.channel = ChannelSpec.parse(self.channel)
 
 
 def build_topology(tc: TrainConfig,
                    device: Union[str, torch.device] = "cuda"
                    ) -> topology_repr.Topology:
-    """TopologySpec → representation-selected Topology on ``device``."""
+    """TopologySpec → representation-selected Topology on ``device``. The
+    run's channel biases ``auto``: a fused-eligible quantizing channel
+    raises the sparse cutoff (DESIGN.md §12)."""
     return topology_repr.from_spec(tc.topology,
                                    representation=tc.representation,
-                                   device=device)
+                                   device=device, channel=build_channel(tc))
+
+
+def build_channel(tc: TrainConfig) -> Optional[Channel]:
+    """``tc.channel`` compiled for the run's population, or None for a
+    channel-free run."""
+    if tc.channel is None:
+        return None
+    return compile_channel(tc.channel, tc.n_agents, fused=tc.channel_fused)
 
 
 def eval_iterations(tc: TrainConfig) -> List[int]:
@@ -103,7 +129,10 @@ def train_rl_netes(task: str, tc: TrainConfig,
 
     Returns a history dict: per-iteration ``reward_mean``/``reward_max``,
     the eval trace ``eval``/``eval_iter``, ``final_eval``, ``max_eval`` and
-    ``wall_s``.
+    ``wall_s``. With ``tc.channel`` it also holds the per-iteration
+    realized messages ``msgs`` (and the channel's ``drop_frac`` and
+    ``trigger_frac``), and the totals ``realized_msgs`` and
+    ``realized_wire_bytes`` (messages × the encoded bytes of one message).
 
     ``state`` replaces the initial population drawn from ``tc.seed`` (the
     tests start from the reference's θ⁽⁰⁾). ``step_draws(it)`` and
@@ -117,9 +146,15 @@ def train_rl_netes(task: str, tc: TrainConfig,
     if state is None:
         state = netes.init_state(tc.n_agents, dim, seed=tc.seed,
                                  init_fn=init_fn, device=dev)
+    channel = build_channel(tc)
+    cstate = channel.init(state.thetas) if channel is not None else None
     eval_gen = torch.Generator(device=dev).manual_seed(tc.seed + 999)
     history: Dict[str, List] = {"reward_mean": [], "reward_max": [],
                                 "eval": [], "eval_iter": []}
+    drained = ["reward_mean", "reward_max"]
+    if channel is not None:
+        drained += ["msgs", "drop_frac", "trigger_frac"]
+        history.update({k: [] for k in drained[2:]})
     t0 = time.time()
 
     pending: List[Dict[str, torch.Tensor]] = []
@@ -128,11 +163,11 @@ def train_rl_netes(task: str, tc: TrainConfig,
     def drain():
         """One host transfer for the pending metrics and eval scores."""
         if pending:
-            stacked = torch.stack([torch.stack([m["reward_mean"],
-                                                m["reward_max"]])
+            stacked = torch.stack([torch.stack([m[k].float()
+                                                for k in drained])
                                    for m in pending]).cpu().double()
-            history["reward_mean"].extend(stacked[:, 0].tolist())
-            history["reward_max"].extend(stacked[:, 1].tolist())
+            for c, k in enumerate(drained):
+                history[k].extend(stacked[:, c].tolist())
             pending.clear()
         if evals_pending:
             scores = torch.stack([s for _, s in evals_pending]).cpu()
@@ -143,7 +178,13 @@ def train_rl_netes(task: str, tc: TrainConfig,
     eval_set = set(eval_iterations(tc))
     for it in range(tc.iters):
         draws = step_draws(it) if step_draws is not None else None
-        state, m = netes.netes_step(state, topo, reward_fn, tc.netes, draws)
+        if channel is None:
+            state, m = netes.netes_step(state, topo, reward_fn, tc.netes,
+                                        draws)
+        else:
+            state, cstate, m = netes.netes_step(
+                state, topo, reward_fn, tc.netes, draws, channel=channel,
+                chan_state=cstate)
         pending.append(m)
         if it in eval_set:
             resets = eval_draws(it) if eval_draws is not None else None
@@ -165,5 +206,10 @@ def train_rl_netes(task: str, tc: TrainConfig,
     drain()
     history["final_eval"] = history["eval"][-1] if history["eval"] else None
     history["max_eval"] = max(history["eval"]) if history["eval"] else None
+    if channel is not None:
+        total_msgs = float(np.sum(history["msgs"], dtype=np.float64))
+        history["realized_msgs"] = total_msgs
+        history["realized_wire_bytes"] = int(
+            round(total_msgs * channel.payload_bytes(dim)))
     history["wall_s"] = time.time() - t0
     return history

@@ -8,6 +8,7 @@ import jax
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.core.netes import Draws
 
 # The parity tests step tiny tensors through thousands of small ops, where
@@ -67,11 +68,38 @@ def _jitted(fn):
     return jax.jit(fn)
 
 
-def to_draws(eps, beta, resets, device="cpu"):
+def to_draws(eps, beta, resets, device="cpu", edge_mask=None):
     return Draws(eps=torch.as_tensor(eps, device=device),
                  beta=torch.as_tensor(beta, device=device),
                  evals=None if resets is None
-                 else torch.as_tensor(resets, device=device))
+                 else torch.as_tensor(resets, device=device),
+                 edge_mask=None if edge_mask is None
+                 else torch.tensor(np.asarray(edge_mask), device=device))
+
+
+def port_topology(ref_topo, device="cpu"):
+    """The reference ``Topology`` carried across to the port."""
+    def arr(a):
+        return None if a is None else np.asarray(a)
+
+    return convert.topology_from_reference(
+        ref_topo.kind, ref_topo.n, np.asarray(ref_topo.deg),
+        adj=arr(ref_topo.adj), neighbor_idx=arr(ref_topo.neighbor_idx),
+        neighbor_mask=arr(ref_topo.neighbor_mask), offsets=ref_topo.offsets,
+        device=device)
+
+
+def reference_edge_mask(ref_channel, chan_state, ref_topo):
+    """The dropout mask the reference's ``Channel.apply`` draws from
+    ``chan_state.key`` this step (comm/channel.py: ``key, sub =
+    split(key)``, then ``dropout_mask(sub, topo, p)``), or None without a
+    dropout stage."""
+    from repro.comm import channel as ref_cc
+    stage = ref_channel.dropout_stage
+    if stage is None:
+        return None
+    sub = jax.random.split(chan_state.key)[1]
+    return np.asarray(ref_cc.dropout_mask(sub, ref_topo, stage.p))
 
 
 def rounding_spread(ref_fn, params, key, samples=8, seed=0):

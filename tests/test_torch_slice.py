@@ -1,5 +1,6 @@
-"""The port's first slice as a whole: ``train_rl_netes`` against the JAX
-reference's training loop, plus the port's package-level contracts.
+"""The port's slices as a whole: ``train_rl_netes`` against the JAX
+reference's training loop, without and with a lossy channel, plus the
+port's package-level contracts.
 
 ``repro.train.loop`` does not import on this jax (ROADMAP queue 3, item a),
 so the reference run is composed here from ``repro.core.netes.netes_step``
@@ -13,8 +14,10 @@ Tolerances: ``eval_iter`` EQUAL; ``reward_mean``, ``reward_max`` and
 ``eval`` within rtol 1e-5 plus six times the reference's one-ulp rounding
 spread of the returns (see tests/_torch_ref.py), measured at each eval
 point for ``eval`` and set from the largest per-step spread for the
-training rewards.
+training rewards. With a channel, the per-step message counts and
+``realized_msgs`` EQUAL as well.
 """
+import json
 import os
 import pathlib
 import re
@@ -28,7 +31,9 @@ import torch
 
 import repro.envs as ref_envs
 from _torch_ref import (assert_returns_close, eval_reset_states,
-                        rounding_spread, step_draws, to_draws)
+                        reference_edge_mask, rounding_spread, step_draws,
+                        to_draws)
+from repro.comm import channel as ref_cc
 from repro.core import netes as ref_netes
 from repro.core import topology as ref_topology
 from repro.core import topology_repr as ref_repr
@@ -43,9 +48,10 @@ N, ITERS, EVAL_EVERY, EPISODES, SEED = 16, 6, 3, 4, 0
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 
 
-def _reference_run(spec_kw, cfg_kw):
+def _reference_run(spec_kw, cfg_kw, channel=None):
     """``train_rl_netes`` of the reference, composed from its parts; also
-    returns the draws it made, for the port's seam."""
+    returns the draws it made, for the port's seam (with a channel, the
+    dropout masks go in the history's ``edge_masks``)."""
     ref_fn, dim, init_fn, env, policy = ref_envs.resolve_task("pendulum")
     cfg = ref_netes.NetESConfig(**cfg_kw)
     topo = ref_repr.from_spec(ref_topology.TopologySpec(**spec_kw), "sparse")
@@ -54,14 +60,20 @@ def _reference_run(spec_kw, cfg_kw):
     init = state
     eval_key = jax.random.PRNGKey(SEED + 999)
     eval_iters = list(range(EVAL_EVERY - 1, ITERS, EVAL_EVERY))
-    hist = {"reward_mean": [], "reward_max": [], "eval": [], "eval_iter": []}
+    hist = {"reward_mean": [], "reward_max": [], "eval": [], "eval_iter": [],
+            "msgs": [], "edge_masks": []}
     draws, eval_resets, spreads, eval_spreads = {}, {}, [], []
+    ch = (None if channel is None
+          else ref_cc.compile_channel(channel, N, fused=True))
+    cstate = None if ch is None else ch.init(state.thetas)
 
     def one_eval(th, k):
         return ref_evaluate_best(env, policy, th[0], k, EPISODES)[None]
 
     for it in range(ITERS):
         draws[it] = step_draws(state.key, N, dim, env)
+        if ch is not None:
+            hist["edge_masks"].append(reference_edge_mask(ch, cstate, topo))
         th = np.asarray(state.thetas)
         eps = draws[it][0]
         k_eval = jax.random.split(state.key, 4)[2]
@@ -69,7 +81,12 @@ def _reference_run(spec_kw, cfg_kw):
             spreads.append(rounding_spread(
                 ref_fn, (th + sign * cfg.sigma * eps).astype(np.float32),
                 k_eval, samples=4).max())
-        state, m = ref_netes.netes_step(state, topo, ref_fn, cfg)
+        if ch is None:
+            state, m = ref_netes.netes_step(state, topo, ref_fn, cfg)
+        else:
+            state, cstate, m = ref_netes.netes_step(state, topo, ref_fn, cfg,
+                                                    ch, cstate)
+            hist["msgs"].append(float(m["msgs"]))
         hist["reward_mean"].append(float(m["reward_mean"]))
         hist["reward_max"].append(float(m["reward_max"]))
         if it in eval_iters:
@@ -114,6 +131,50 @@ def test_train_rl_netes_matches_reference():
     assert got["max_eval"] == max(got["eval"])
 
 
+def test_train_rl_netes_with_channel_matches_reference():
+    """The lossy-channel slice end to end: sign quantization (q1) and link
+    dropout on the sparse graph, so ``auto`` keeps the neighbor list and
+    every step mixes from the wire form (the fused neighbor sum and the
+    fused broadcast select), with the reference's dropout masks injected.
+    q1 is the quantizer whose codes no ulp-level difference of the
+    payload can change (its one boundary is 0); the q8 and q4 paths are
+    held step by step in tests/test_torch_netes.py."""
+    text = "quantize(bits=1)|dropout(p=0.2,seed=0)"
+    spec_kw = dict(family="erdos_renyi", n_agents=N, p=0.3, seed=0)
+    cfg_kw = dict(alpha=0.05, sigma=0.1, p_broadcast=0.8)
+    want, init, draws, eval_resets, spread, eval_spreads = _reference_run(
+        spec_kw, cfg_kw, channel=text)
+
+    tc = loop.TrainConfig(iters=ITERS, eval_every=EVAL_EVERY,
+                          eval_episodes=EPISODES, seed=SEED, channel=text,
+                          topology=TopologySpec(**spec_kw),
+                          netes=NetESConfig(**cfg_kw))
+    topo = loop.build_topology(tc, device="cpu")
+    assert topo.kind == "sparse" and loop.build_channel(tc).wire_fused(topo)
+    state = convert.state_from_reference(
+        np.asarray(init.thetas), np.asarray(init.best_theta),
+        np.asarray(init.best_reward), np.asarray(init.step), device="cpu")
+    got = loop.train_rl_netes(
+        "pendulum", tc, device="cpu", state=state,
+        step_draws=lambda it: to_draws(*draws[it],
+                                       edge_mask=want["edge_masks"][it]),
+        eval_draws=lambda it: torch.as_tensor(eval_resets[it]))
+
+    assert got["eval_iter"] == want["eval_iter"]
+    assert got["msgs"] == want["msgs"]
+    assert got["realized_msgs"] == sum(want["msgs"])
+    assert got["realized_wire_bytes"] == int(round(
+        sum(want["msgs"]) * ref_cc.compile_channel(text, N).payload_bytes(
+            4481)))
+    assert len(got["drop_frac"]) == ITERS
+    assert all(0.0 < f < 1.0 for f in got["drop_frac"])
+    for k in ("reward_mean", "reward_max"):
+        assert_returns_close(np.array(got[k]), np.array(want[k]),
+                             np.full(ITERS, spread))
+    assert_returns_close(np.array(got["eval"]), np.array(want["eval"]),
+                         np.array(eval_spreads))
+
+
 def test_paper_eval_protocol_iterations():
     """eval_every = 0: each iteration with probability 0.08 from
     np.random.default_rng(seed + 999), plus the last (train/loop.py:231-237)."""
@@ -128,9 +189,8 @@ def test_paper_eval_protocol_iterations():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("schedule", "resample_er(period=8)"), ("channel", "quantize(bits=8)"),
-    ("shards", 2), ("probes", "all"), ("checkpoint_dir", "ckpt"),
-    ("trace", "trace.jsonl")])
+    ("schedule", "resample_er(period=8)"), ("shards", 2), ("probes", "all"),
+    ("checkpoint_dir", "ckpt"), ("trace", "trace.jsonl")])
 def test_unported_train_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         loop.TrainConfig(**{field: value})
@@ -153,6 +213,19 @@ def test_launcher_runs_on_cpu(tmp_path, capsys):
                        "--out", str(out)])
     printed = capsys.readouterr().out
     assert "final eval:" in printed and out.exists()
+
+
+def test_launcher_runs_a_channel_on_cpu(tmp_path, capsys):
+    out = tmp_path / "hist.json"
+    launch_train.main(["rl", "--task", "landscape:sphere", "--agents", "8",
+                       "--iters", "3", "--density", "0.3", "--device", "cpu",
+                       "--channel", "quantize(bits=8)|dropout(p=0.1,seed=0)",
+                       "--out", str(out)])
+    printed = capsys.readouterr().out
+    assert "realized messages:" in printed
+    hist = json.loads(out.read_text())["history"]
+    assert len(hist["msgs"]) == 3
+    assert hist["realized_msgs"] == sum(hist["msgs"])
 
 
 def test_port_imports_no_jax_and_no_reference():
