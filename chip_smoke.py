@@ -11,8 +11,11 @@ Phases, each printing one JSON line per case:
    path's shapes and one ragged shape: the error against a float64 reference
    within the stated tolerance (the broadcast select: equal), and CUDA-event
    times of the kernel, the plain version and one library call that
-   computes the same function. ``kernel_masked``: the two Eq. 3 kernels
-   given a dropout-masked weight operand, against their plain versions.
+   computes the same function. The flash-attention kernel runs at
+   mistral-nemo-12b's prefill of serve run (a) and four ragged shapes
+   (window, chunk, Sq ≠ Sk, rows without a key, head_dim 64).
+   ``kernel_masked``: the two Eq. 3 kernels given a dropout-masked weight
+   operand, against their plain versions.
 4. ``main``    — ``train_rl_netes`` on pendulum at N = 1000 (the paper's
    policy, D = 4481), once on Erdős–Rényi p = 0.1 (auto picks sparse) and
    once fully connected (auto picks dense), with one eval each. Every
@@ -27,6 +30,19 @@ Phases, each printing one JSON line per case:
 6. ``parity``  — one NetES step at N = 64 on the GPU and on the CPU from the
    same parameters and draws must agree, without and with a channel (whose
    dropout masks, drawn on each device, must be equal).
+7. ``serve_parity`` — mistral-nemo-12b at full width and 2 layers, B = 2,
+   a 256-token prompt, 8 new tokens: the prefill and decode logits of the
+   kernel path against the port's plain full ``forward`` in float64 on
+   the card (bf16 attention must fail the same tolerance).
+8. ``serve_cpu_parity`` — the smoke model's greedy serving on the GPU
+   against the CPU from the same weights.
+9. ``serve`` — ``ServeEngine.generate`` of mistral-nemo-12b at full width
+   and full depth (40 layers, 46.3 GB of float32 weights drawn on the
+   card from a seed), 16 greedy tokens: (a) B = 1 with an 8192-token
+   prompt, (b) B = 8 with 512-token prompts. The launch counters are
+   zeroed just before each ``generate`` and read just after: 40 flash
+   launches each. Then the same steps timed with CUDA events (prefill,
+   each decode step) and profiled with ``torch.profiler``.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -443,6 +459,142 @@ def masked_kernel_phase() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the flash-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# |kernel − float64 reference| ≤ TOL_ATTN elementwise, with q, k, v of unit
+# normal entries. Each output is a convex combination of rows of v; float32
+# rounding of the scores, the exp and the ≤ 8192-term sums of the online
+# softmax leaves a few 1e-6, so 2e-5 is a margin of about ten. bf16
+# attention (8-bit mantissa) misses by ≈ 1e-2; the main row computes it and
+# checks that it fails.
+TOL_ATTN = 2e-5
+
+ATTN_CASES = (  # (label, B, Sq, Sk, H, Hkv, hd, causal, window, chunk, main)
+    # mistral-nemo-12b's prefill of serve run (a)
+    ("nemo_prefill_8192", 1, 8192, 8192, 32, 8, 128, True, 0, 0, True),
+    ("window256_g4", 2, 1000, 1000, 32, 8, 128, True, 256, 0, False),
+    ("chunk128_g1", 1, 300, 300, 8, 8, 128, True, 0, 128, False),
+    ("noncausal_sq200_sk333", 1, 200, 333, 32, 8, 128, False, 0, 0, False),
+    # query rows 163 .. 299 have no valid key: the mean of v
+    ("rows_without_a_key_hd64", 1, 300, 100, 4, 2, 64, True, 64, 0, False),
+)
+
+
+def _attn_mask(sq, sk, causal, window, chunk):
+    """(Sq, Sk) bool: the keys each query position may attend to."""
+    import torch
+    qp = torch.arange(sq, device="cuda")[:, None]
+    kp = torch.arange(sk, device="cuda")[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device="cuda")
+    if causal:
+        ok &= qp >= kp
+    if window:
+        ok &= (qp - kp) < window
+    if chunk:
+        ok &= (qp // chunk) == (kp // chunk)
+    return ok
+
+
+def _attention_f64(q, k, v, ok, scale):
+    """Naive masked softmax attention in float64, one (batch, KV head) at
+    a time so that the (G, Sq, Sk) scores fit."""
+    import torch
+    b, _, h, _ = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for bi in range(b):
+        for j in range(hkv):
+            heads = slice(j * g, (j + 1) * g)
+            s = torch.einsum("qgd,kd->gqk", q[bi, :, heads].double(),
+                             k[bi, :, j].double()) * scale
+            p = torch.softmax(torch.where(ok, s, -1e30), dim=-1)
+            out[bi, :, heads] = torch.einsum("gqk,kd->qgd", p,
+                                             v[bi, :, j].double())
+    return out
+
+
+def attention_kernel_phase(results: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    for (label, b, sq, sk, h, hkv, hd, causal, window, chunk,
+         main) in ATTN_CASES:
+        g = torch.Generator(device="cuda").manual_seed(sq + sk + h)
+        q = torch.randn(b, sq, h, hd, device="cuda", generator=g)
+        k = torch.randn(b, sk, hkv, hd, device="cuda", generator=g)
+        v = torch.randn(b, sk, hkv, hd, device="cuda", generator=g)
+        scale = hd ** -0.5
+        kw = dict(causal=causal, window=window, chunk=chunk, scale=scale)
+        kernel = functools.partial(fa.flash_attention, q, k, v, **kw)
+        plain = functools.partial(ref.flash_attention_ref, q, k, v, **kw)
+        out_k, out_p = kernel(), plain()
+        torch.cuda.synchronize()
+        check(torch.isfinite(out_k).all().item(),
+              f"flash_attention/{label}: non-finite")
+        ok = _attn_mask(sq, sk, causal, window, chunk)
+        exact = _attention_f64(q, k, v, ok, scale)
+        err_k = (out_k.double() - exact).abs().max().item()
+        err_p = (out_p.double() - exact).abs().max().item()
+        check(err_k <= TOL_ATTN, f"flash_attention/{label}: |err| {err_k} "
+              f"above {TOL_ATTN}")
+        check(err_p <= TOL_ATTN, f"flash_attention/{label} plain: |err| "
+              f"{err_p} above {TOL_ATTN}")
+
+        # the library yardstick: one scaled_dot_product_attention call on
+        # (B, H, S, hd) operands with the KV heads repeated, made outside
+        # the timed call; a row with no valid key is NaN there, so its
+        # error is taken over the other rows
+        gq = h // hkv
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(gq, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(gq, dim=2).transpose(1, 2).contiguous()
+        if causal and not window and not chunk and sq == sk:
+            lib = functools.partial(F.scaled_dot_product_attention, qt, kt,
+                                    vt, is_causal=True, scale=scale)
+        else:
+            lib = functools.partial(F.scaled_dot_product_attention, qt, kt,
+                                    vt, attn_mask=ok, scale=scale)
+        rows = ok.any(dim=1)
+        lib_err = (lib().transpose(1, 2).double() - exact)[:, rows]
+        pairs = int(ok.sum().item())
+        flops = 4.0 * b * h * hd * pairs
+        moved = 4.0 * (2 * b * sq * h * hd + 2 * b * sk * hkv * hd)
+        t_ops, t_bytes = flops / F32_FLOPS, moved / HBM_BYTES_PER_S
+        row = {"phase": "kernel", "name": "flash_attention", "shape": label,
+               "b": b, "sq": sq, "sk": sk, "h": h, "hkv": hkv, "hd": hd,
+               "causal": causal, "window": window, "chunk": chunk,
+               "allowed_pairs": pairs,
+               "rows_without_a_key": int((~rows).sum().item()),
+               "max_abs_err": (out_k - out_p).abs().max().item(),
+               "max_err_f64": err_k, "plain_err_f64": err_p,
+               "library_err_f64": lib_err.abs().max().item(),
+               "tol_f64": TOL_ATTN, **time_stats(kernel),
+               "plain_ms": time_ms(plain),
+               "library": "F.scaled_dot_product_attention (f32, KV heads "
+                          "repeated outside)",
+               "library_ms": time_ms(lib),
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "gflop": flops / 1e9, "mbytes": moved / 1e6}
+        if main:
+            bf16 = F.scaled_dot_product_attention(
+                qt.bfloat16(), kt.bfloat16(), vt.bfloat16(), is_causal=True,
+                scale=scale).transpose(1, 2).double()
+            row["bf16_library_err_f64"] = (bf16 - exact).abs().max().item()
+            check(row["bf16_library_err_f64"] > TOL_ATTN,
+                  "bf16 attention passes the float32 tolerance: tighten it")
+            results["flash_attention"] = row
+        emit(row)
+        del q, k, v, out_k, out_p, exact, qt, kt, vt, ok
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -450,12 +602,14 @@ KERNEL_OF = {"dense": "netes_mixing", "sparse": "netes_sparse_mixing"}
 
 
 def _counters():
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import netes_fused_mixing as nfm
     from repro_torch.kernels import netes_mixing as nm
     from repro_torch.kernels import netes_sparse_mixing as nsm
     return {"netes_mixing": nm.KERNEL, "netes_sparse_mixing": nsm.KERNEL,
             "fused_neighbor_sum": nfm.NEIGHBOR_SUM,
-            "fused_broadcast_select": nfm.BROADCAST_SELECT}
+            "fused_broadcast_select": nfm.BROADCAST_SELECT,
+            "flash_attention": fa.KERNEL}
 
 
 def main_phase(launches: dict) -> None:
@@ -726,6 +880,327 @@ def parity_phase() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 7–9: LM serving of mistral-nemo-12b
+# ---------------------------------------------------------------------------
+
+ARCH = "mistral-nemo-12b"
+SERVE_RUNS = (("a", 1, 8192), ("b", 8, 512))   # (run, batch, prompt tokens)
+NEW_TOKENS = 16
+PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 2, 256, 8
+# Serve parity: |kernel path − float64 forward| ≤ TOL_LOGITS · max(1,
+# max|logit|) over every logit of the prefill and of each decode step. In
+# float32 the full-width products (5120- and 14336-term sums) leave ≈ 1e-6
+# of the logit scale; bf16 attention leaves ≈ 1e-3 to 1e-2 of it. 1e-4 sits
+# between the two, and the phase checks that bf16 attention fails it.
+TOL_LOGITS = 1e-4
+# GPU against CPU at the smoke size: both in float32, summed in other
+# orders; the CPU tests' 2e-5 (rtol and atol) against the JAX reference.
+TOL_SMOKE = 2e-5
+
+
+def _cast(tree, **kw):
+    """The parameter tree with every tensor passed through ``.to(**kw)``."""
+    if isinstance(tree, dict):
+        return {key: _cast(val, **kw) for key, val in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(val, **kw) for val in tree]
+    return tree.to(**kw)
+
+
+def _greedy(params, cfg, prompts, new_tokens, timed=False):
+    """What ``ServeEngine.generate`` does, greedy, keeping the logits: the
+    prefill, then ``new_tokens − 1`` decode steps. With ``timed``, CUDA
+    events around the prefill and around each decode step. Returns
+    (tokens (B, new_tokens), [logits (B, V)] * new_tokens, times in ms)."""
+    import torch
+
+    from repro_torch.models import transformer
+    b, s = prompts.shape
+    dev = prompts.device
+    cache = transformer.init_cache(cfg, b, s + new_tokens, torch.float32,
+                                   dev)
+    events = []
+
+    def mark():
+        if timed:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+    with torch.no_grad():
+        mark()
+        last, cache = transformer.prefill(params, cfg, {"tokens": prompts},
+                                          cache)
+        mark()
+        logits = [last]
+        token = torch.argmax(last, dim=-1, keepdim=True)
+        tokens = [token]
+        for i in range(1, new_tokens):
+            pos = torch.full((b,), s + i - 1, dtype=torch.long, device=dev)
+            lg, cache = transformer.decode_step(params, cfg, token, cache,
+                                                pos)
+            mark()
+            logits.append(lg[:, 0])
+            token = torch.argmax(lg[:, 0], dim=-1, keepdim=True)
+            tokens.append(token)
+    if timed:
+        torch.cuda.synchronize()
+    times = [a.elapsed_time(z) for a, z in zip(events, events[1:])]
+    return torch.cat(tokens, dim=1), logits, times
+
+
+def _forward_bf16_attention(params, cfg, tokens):
+    """``transformer.forward`` with each layer's attention computed in bf16
+    (scaled_dot_product_attention on bf16 q, k, v): the computation the
+    serve-parity tolerance must reject."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention, layers, transformer
+    x = params["embed"][tokens]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for p, ls in zip(params["layers"], cfg.layer_specs()):
+        spec = transformer.attn_spec(cfg, ls)
+        h = layers.rmsnorm(p["norm1"], x)
+        q, k, v = attention._qkv(p["attn"], spec, h, positions)
+        g = spec.num_heads // spec.num_kv_heads
+        q, k, v = (t.transpose(1, 2).bfloat16() for t in (
+            q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)))
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           scale=spec.scale)
+        x = x + torch.einsum("bshk,hkd->bsd", o.transpose(1, 2).float(),
+                             p["attn"]["wo"])
+        x = x + layers.swiglu(p["ffn"], layers.rmsnorm(p["norm2"], x))
+    x = layers.rmsnorm(params["final_norm"], x)
+    return transformer.unembed(params, cfg, x)
+
+
+def serve_parity_phase() -> None:
+    """Full width, 2 layers: the kernel path's prefill and decode logits
+    against the port's plain full ``forward`` in float64 on the card over
+    the prompt plus the tokens fed back."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=PARITY_LAYERS)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT),
+                            generator=g, device="cuda")
+    fa.KERNEL.launches = 0
+    tokens, logits, _ = _greedy(params, cfg, prompts, PARITY_NEW)
+    check(fa.KERNEL.launches == PARITY_LAYERS, "serve parity: flash "
+          f"attention launched {fa.KERNEL.launches} times in one prefill")
+    engine = ServeEngine(cfg, params, max_len=PARITY_PROMPT + PARITY_NEW)
+    check(np.array_equal(engine.generate(prompts, new_tokens=PARITY_NEW),
+                         tokens.cpu().numpy()),
+          "serve parity: ServeEngine.generate differs from its own steps")
+    fed = torch.cat([prompts, tokens[:, :-1]], dim=1)
+    with torch.no_grad():
+        ref64 = transformer.forward(_cast(params, dtype=torch.float64), cfg,
+                                    {"tokens": fed})[:, PARITY_PROMPT - 1:]
+        plain32 = transformer.forward(params, cfg, {"tokens": fed})[
+            :, PARITY_PROMPT - 1:]
+        bf16 = _forward_bf16_attention(params, cfg, fed)[:, PARITY_PROMPT - 1:]
+    got = torch.stack(logits, dim=1).double()
+    scale = max(1.0, ref64.abs().max().item())
+    tol = TOL_LOGITS * scale
+    err = (got - ref64).abs().max().item()
+    err_plain = (plain32.double() - ref64).abs().max().item()
+    err_bf16 = (bf16.double() - ref64).abs().max().item()
+    check(torch.isfinite(got).all().item(), "serve parity: non-finite logits")
+    check(err <= tol, f"serve parity: logits differ from float64 by {err} "
+          f"(tolerance {tol})")
+    check(err_bf16 > tol, f"serve parity: bf16 attention ({err_bf16}) passes "
+          f"the tolerance {tol}: tighten it")
+    emit({"phase": "serve_parity", "arch": ARCH, "num_layers": PARITY_LAYERS,
+          "d_model": cfg.d_model, "batch": PARITY_BATCH,
+          "prompt": PARITY_PROMPT, "new_tokens": PARITY_NEW,
+          "max_abs_logit": scale, "max_abs_err": err,
+          "plain_forward_f32_err": err_plain, "bf16_attention_err": err_bf16,
+          "tol": tol, "tol_rel": TOL_LOGITS, "generate_equal": True,
+          "flash_launches": PARITY_LAYERS})
+    del params, logits, ref64, plain32, bf16, got, engine
+    torch.cuda.empty_cache()
+
+
+def serve_cpu_parity_phase() -> None:
+    """The smoke model's greedy serving on the GPU and on the CPU from the
+    same weights: tokens equal, logits within TOL_SMOKE."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+
+    cfg = get_config(ARCH + "-smoke")
+    cpu = transformer.init_params(cfg, seed=0, device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 24),
+                            generator=torch.Generator().manual_seed(2))
+    tok_c, lg_c, _ = _greedy(cpu, cfg, prompts, 8)
+    fa.KERNEL.launches = 0
+    tok_g, lg_g, _ = _greedy(_cast(cpu, device="cuda"), cfg, prompts.cuda(),
+                             8)
+    check(fa.KERNEL.launches == cfg.num_layers,
+          f"smoke parity: {fa.KERNEL.launches} flash launches")
+    check(torch.equal(tok_c, tok_g.cpu()), "smoke parity: greedy tokens "
+          f"differ between GPU {tok_g.tolist()} and CPU {tok_c.tolist()}")
+    got, want = torch.stack(lg_g, 1).cpu(), torch.stack(lg_c, 1)
+    excess = ((got - want).abs() - TOL_SMOKE - TOL_SMOKE * want.abs()).max()
+    check(excess.item() <= 0, "smoke parity: logits differ by more than "
+          f"{TOL_SMOKE} (rtol and atol)")
+    emit({"phase": "serve_cpu_parity", "arch": cfg.name, "batch": 2,
+          "prompt": 24, "new_tokens": 8, "head_dim": cfg.head_dim,
+          "tokens_equal": True,
+          "max_abs_err": (got - want).abs().max().item(),
+          "tol": TOL_SMOKE})
+
+
+def _profile(fn):
+    """Device time of ``fn`` from a torch.profiler trace: the busy time
+    (the sum of kernel times, one stream), the wall time on the host clock,
+    the time by kind (the flash kernel, cuBLAS matrix products, the rest)
+    and the six kernels that took the most. None where the trace holds no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kinds = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
+        name = evt.key.lower()
+        kind = ("flash_attention" if "flash_attention_kernel" in name
+                else "matmul" if any(w in name for w in (
+                    "gemm", "gemv", "xmma", "cutlass")) else "other")
+        kinds[kind] += ms
+        by_name[evt.key[:80]] = (by_name.get(evt.key[:80], (0.0, 0))[0] + ms,
+                                 evt.count)
+    busy = sum(kinds.values())
+    if busy == 0.0:
+        return {"wall_ms": wall_ms, "device_busy_ms": None,
+                "device_idle_share": None}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms, "by_kind_ms": kinds,
+            "top_kernels": [{"name": n, "ms": t, "count": c}
+                            for n, (t, c) in top]}
+
+
+def serve_phase(launches: dict) -> None:
+    """``ServeEngine.generate`` of mistral-nemo-12b at full width and full
+    depth (40 layers, random float32 weights from a seed), once per run of
+    SERVE_RUNS, the launch counters zeroed just before and read just
+    after; then the same steps timed with CUDA events, and profiled."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = cfg.count_params()
+    weight_bytes = 4 * n_params
+    floor_ms = 1e3 * weight_bytes / HBM_BYTES_PER_S
+    for run, b, s in SERVE_RUNS:
+        engine = ServeEngine(cfg, params, max_len=s + NEW_TOKENS)
+        g = torch.Generator(device="cuda").manual_seed(10 + b)
+        prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                device="cuda")
+        counters = _counters()
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, new_tokens=NEW_TOKENS)
+        wall = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        check(counts["flash_attention"] == cfg.num_layers,
+              f"serve run ({run}): flash_attention launched "
+              f"{counts['flash_attention']} times in one generate of "
+              f"{cfg.num_layers} layers")
+        check(out.shape == (b, NEW_TOKENS), f"serve run ({run}): {out.shape}")
+        if run == "a":
+            launches["flash_attention"] = counts["flash_attention"]
+
+        tokens, logits, times = _greedy(params, cfg, prompts, NEW_TOKENS,
+                                        timed=True)
+        finite = all(torch.isfinite(lg).all().item() for lg in logits)
+        check(finite, f"serve run ({run}): non-finite logits")
+        check(np.array_equal(tokens.cpu().numpy(), out),
+              f"serve run ({run}): the timed steps differ from generate")
+        prefill_ms, decode = times[0], times[1:]
+        q1, med, q3 = statistics.quantiles(decode, n=4)
+        # a profiled prefill, then 3 profiled decode steps on its cache
+        cache = transformer.init_cache(cfg, b, s + NEW_TOKENS, torch.float32,
+                                       "cuda")
+        state = {}
+
+        def prefill():
+            with torch.no_grad():
+                state["last"], _ = transformer.prefill(
+                    params, cfg, {"tokens": prompts}, cache)
+
+        def decode_3_steps():
+            token = torch.argmax(state["last"], dim=-1, keepdim=True)
+            with torch.no_grad():
+                for i in range(3):
+                    pos = torch.full((b,), s + i, dtype=torch.long,
+                                     device="cuda")
+                    lg, _ = transformer.decode_step(params, cfg, token, cache,
+                                                    pos)
+                    token = torch.argmax(lg[:, 0], dim=-1, keepdim=True)
+
+        prof = {"prefill": _profile(prefill),
+                "decode_3_steps": _profile(decode_3_steps)}
+        emit({"phase": "serve", "run": run, "arch": ARCH,
+              "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+              "params": n_params, "weight_gb": weight_bytes / 1e9,
+              "init_s": init_s, "batch": b, "prompt": s,
+              "new_tokens": NEW_TOKENS, "generate_wall_s": wall,
+              "prefill_ms": prefill_ms,
+              "prefill_tok_s": 1e3 * b * s / prefill_ms,
+              "decode_ms_per_step": med, "decode_ms_q1": q1,
+              "decode_ms_q3": q3, "decode_steps": len(decode),
+              "decode_tok_s": 1e3 * b / med,
+              "weight_bytes_floor_ms": floor_ms,
+              "max_memory_allocated_gb": peak / 1e9,
+              "logits_finite": finite, "launches": counts,
+              "profile": prof, "tokens_row0": out[0].tolist()})
+        del engine, logits, tokens, cache, state
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 SOURCE_OF = {
     "netes_mixing": ("src/repro_torch/csrc/netes_mixing.cu",
@@ -736,6 +1211,8 @@ SOURCE_OF = {
                            "src/repro/kernels/netes_fused_mixing.py:112"),
     "fused_broadcast_select": ("src/repro_torch/csrc/netes_fused_mixing.cu",
                                "src/repro/kernels/netes_fused_mixing.py:192"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:82"),
 }
 
 
@@ -767,10 +1244,14 @@ def main() -> int:
     results, launches = {}, {}
     kernel_phase(results)
     wire_kernel_phase(results)
+    attention_kernel_phase(results)
     masked_kernel_phase()
     main_phase(launches)
     channel_phase(launches)
     parity_phase()
+    serve_parity_phase()
+    serve_cpu_parity_phase()
+    serve_phase(launches)
     rows = []
     for name in SOURCE_OF:
         r = results[name]

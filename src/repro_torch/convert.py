@@ -1,20 +1,23 @@
-"""Carry NetES state across from the JAX reference, given as numpy arrays.
+"""Carry state across from the JAX reference, given as numpy arrays.
 
 The reference draws θ⁽⁰⁾ with ``init_state(PRNGKey(seed), n, dim,
-init_fn=policy.init)``; the port's generators give other numbers, so a
-comparison starts both packages from the reference's state through here.
+init_fn=policy.init)``, and LM weights with ``transformer.init_params``;
+the port's generators give other numbers, so a comparison starts both
+packages from the reference's state through here.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ._device import resolve_device
 from .comm.channel import ChannelState
+from .configs.base import ModelConfig
 from .core.netes import NetESState
 from .core.topology_repr import Topology
+from .models.transformer import check_ported, stack_plan
 
 
 def state_from_reference(thetas, best_theta, best_reward, step, *,
@@ -76,3 +79,65 @@ def channel_state_from_reference(last_sent, msgs, *, seed: int = 0,
         last_sent=(torch.as_tensor(np.array(last_sent, np.float32),
                                    device=dev) if has_last else None),
         msgs=torch.as_tensor(np.array(msgs, np.float32), device=dev))
+
+
+def _nest(flat: Mapping[str, Any], prefix: str, index: Optional[int],
+          dev: torch.device) -> Dict[str, Any]:
+    """The subtree of ``flat`` under ``prefix`` as nested dicts of tensors;
+    with ``index``, each leaf's slice ``[index]`` of its stacked axis."""
+    tree: Dict[str, Any] = {}
+    for key, arr in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        *path, leaf = key[len(prefix) + 1:].split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        a = np.asarray(arr)
+        node[leaf] = torch.as_tensor(a if index is None else a[index],
+                                     device=dev).contiguous()
+    return tree
+
+
+def lm_params_from_reference(flat: Mapping[str, Any], cfg: ModelConfig, *,
+                             device: Union[str, torch.device] = "cuda"
+                             ) -> Dict[str, Any]:
+    """The reference's ``transformer.init_params`` pytree → the port's
+    parameters.
+
+    ``flat`` maps each leaf's path, its dict keys and list indices joined
+    by "/", to a numpy array: ``embed``, ``final_norm/scale``,
+    ``layers_head/<i>/attn/wq``, ``layers_scan/<j>/ffn/w_up``, … . The
+    reference lays the layers out as ``stack_plan`` says: ``layers_head``
+    unrolled, then ``layers_scan``, one entry per layer of the scanned
+    period with every leaf stacked on a leading axis of its ``n_rep``
+    repetitions (a 40-layer uniform stack is one period of one layer, 40
+    times), then ``layers_tail``. They are unstacked here into the port's
+    plain list in layer order. Each weight keeps the reference's layout:
+    ``wq``/``wk``/``wv`` (d, heads, head_dim), ``wo`` (heads, head_dim, d),
+    the MLP matrices (d_in, d_out), ``embed`` (vocab, d).
+    """
+    check_ported(cfg)
+    dev = resolve_device(device)
+    head, period, n_rep, tail = stack_plan(cfg)
+    if n_rep == 1:
+        head, period, tail = cfg.num_layers, 0, 0
+    prefixes = ([f"layers_head/{i}" for i in range(head)]
+                + [f"layers_scan/{j}" for j in range(period)]
+                + [f"layers_tail/{i}" for i in range(tail)])
+    layers = [_nest(flat, f"layers_head/{i}", None, dev) for i in range(head)]
+    layers += [_nest(flat, f"layers_scan/{j}", r, dev)
+               for r in range(n_rep) for j in range(period)]
+    layers += [_nest(flat, f"layers_tail/{i}", None, dev) for i in range(tail)]
+    stray = [k for k in flat if k.startswith("layers_")
+             and not any(k.startswith(p + "/") for p in prefixes)]
+    if len(layers) != cfg.num_layers or not all(layers) or stray:
+        raise ValueError(f"the reference parameters are not the "
+                         f"{cfg.num_layers} layers of {cfg.name} laid out as "
+                         f"stack_plan {stack_plan(cfg)} says (stray: {stray})")
+    params: Dict[str, Any] = {
+        "embed": torch.as_tensor(np.asarray(flat["embed"]), device=dev),
+        "final_norm": _nest(flat, "final_norm", None, dev),
+        "layers": layers,
+    }
+    return params

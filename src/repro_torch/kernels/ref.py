@@ -8,6 +8,8 @@ the topology's own plain contractions, ``weighted_neighbor_sum`` and
 
 The two wire-form functions widen the int8 codes one gathered row at a
 time, with the decode scale folded into the slot weight as the kernel does.
+``flash_attention_ref`` is naive softmax attention: it materialises every
+(query, key) score.
 
 The kernel wrappers run them for CPU tensors; on the card, ``chip_smoke.py``
 holds each kernel against them. They are no yardstick of speed.
@@ -75,3 +77,33 @@ def broadcast_select_ref(codes, scale, do_broadcast, thetas):
     scale (1,) float32, do_broadcast () bool, thetas (N, D)."""
     dec = (codes.to(torch.float32) * scale).to(thetas.dtype)
     return torch.where(do_broadcast, dec[None, :], thetas)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        chunk: int = 0, scale=None):
+    """Naive softmax attention with the flash kernel's masks, in the
+    reference's op order (``repro/kernels/ref.py:68-90``). q (B, Sq, H, hd);
+    k, v (B, Sk, Hkv, hd); query head h reads KV head h // (H / Hkv).
+    A row with no valid key gets the mean of v over the Sk keys. Computes
+    in float32, or in float64 for float64 inputs (the full forward's
+    float64 reference)."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = scale or hd ** -0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qr = q.reshape(b, sq, hkv, g, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr.to(acc), k.to(acc)) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qpos >= kpos
+    if window:
+        ok &= (qpos - kpos) < window
+    if chunk:
+        ok &= (qpos // chunk) == (kpos // chunk)
+    s = torch.where(ok, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(acc))
+    return out.reshape(b, sq, h, hd).to(q.dtype)

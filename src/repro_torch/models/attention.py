@@ -1,0 +1,190 @@
+"""Attention: the port of ``repro/models/attention.py``. GQA with RoPE;
+full / sliding-window / chunked-local patterns; full-sequence attention,
+prefill that also fills the decode cache, and single-token decode.
+
+Prefill's attention runs through the hand-written flash kernel
+(``kernels.flash_attention``) in place of the reference's
+``blockwise_attention``. ``attention_block`` (the full forward's attention)
+is the kernel's plain version, naive softmax attention in the input's
+dtype, so that the full forward also runs in float64 as a reference on the
+card. Decode is plain PyTorch, as in the reference, where no Pallas kernel
+lies on it.
+
+Patterns (``kind``):
+  * ``full``     — causal.
+  * ``sliding``  — causal ∧ (i − j < window)
+  * ``chunked``  — causal ∧ (i//chunk == j//chunk)
+
+The caches are updated in place (the reference returns new arrays): a
+40-layer cache of 2.7 GB is not copied per token.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..kernels.flash_attention import flash_attention
+from ..kernels.ref import flash_attention_ref
+from . import layers
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    kind: str = "full"              # full | sliding | chunked
+    window: int = 0                 # for sliding / chunked
+    rope: bool = True
+    rope_theta: float = 10000.0
+    softmax_scale: Optional[float] = None
+
+    @property
+    def scale(self) -> float:
+        return self.softmax_scale or self.head_dim ** -0.5
+
+
+def attn_init(gen: torch.Generator, d_model: int, spec: AttnSpec, dtype):
+    return {
+        "wq": layers.dense_init(gen, (d_model, spec.num_heads, spec.head_dim), dtype),
+        "wk": layers.dense_init(gen, (d_model, spec.num_kv_heads, spec.head_dim), dtype),
+        "wv": layers.dense_init(gen, (d_model, spec.num_kv_heads, spec.head_dim), dtype),
+        "wo": layers.dense_init(gen, (spec.num_heads, spec.head_dim, d_model), dtype,
+                                scale=1.0 / (spec.num_heads * spec.head_dim) ** 0.5),
+    }
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float32 accumulation, or float64 for a float64 input."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _masks(spec: AttnSpec) -> dict:
+    """The pattern as the flash kernel's window and chunk arguments."""
+    return {"window": spec.window if spec.kind == "sliding" else 0,
+            "chunk": spec.window if spec.kind == "chunked" else 0}
+
+
+def _check_arange(positions: torch.Tensor, s: int) -> None:
+    # the attention's query and key positions are the indices 0 .. S−1
+    if not torch.equal(positions.cpu(), torch.arange(s)):
+        raise ValueError("full-sequence positions must be arange(S)")
+
+
+def _qkv(params, spec: AttnSpec, x: torch.Tensor, positions: torch.Tensor):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if spec.rope:
+        q = layers.apply_rope(q, positions, spec.rope_theta)
+        k = layers.apply_rope(k, positions, spec.rope_theta)
+    return q, k, v
+
+
+def attention_block(params, spec: AttnSpec, x: torch.Tensor,
+                    positions: torch.Tensor, causal: bool = True
+                    ) -> torch.Tensor:
+    """Self-attention over a full sequence (the full forward), as naive
+    softmax attention in plain PyTorch, in float64 for a float64 input."""
+    _check_arange(positions, x.shape[1])
+    q, k, v = _qkv(params, spec, x, positions)
+    out = flash_attention_ref(q, k, v, causal=causal, scale=spec.scale,
+                              **_masks(spec))
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def prefill_attention(params, spec: AttnSpec, x: torch.Tensor,
+                      positions: torch.Tensor, cache: dict
+                      ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence causal self-attention through the flash kernel that
+    ALSO writes the decode KV cache: exactly the slots S teacher-forced
+    ``decode_attention`` steps would have filled (slot = pos % L; of
+    positions sharing a slot only the latest survives, so only the last L
+    prompt positions are written).
+
+    FULL attention over a ring smaller than the prompt is not
+    decode-equivalent and is rejected, as in the reference."""
+    b, s, _ = x.shape
+    if spec.kind == "full" and s > cache["k"].shape[1]:
+        raise ValueError(
+            f"prefill of a {s}-token prompt into a {cache['k'].shape[1]}"
+            "-slot full-attention cache is not decode-equivalent; size "
+            "the cache to at least the prompt length")
+    _check_arange(positions, s)
+    q, k, v = _qkv(params, spec, x, positions)
+    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal=True, scale=spec.scale, **_masks(spec))
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+    length = cache["k"].shape[1]
+    start = max(0, s - length)
+    slots = torch.arange(start, s, device=x.device) % length
+    cache["k"][:, slots] = k[:, start:s].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, start:s].to(cache["v"].dtype)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# decode (single token against a cache)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(batch: int, spec: AttnSpec, max_len: int, dtype, device):
+    """Cache length for windowed/chunked patterns is bounded by the window."""
+    length = cache_length(spec, max_len)
+    shape = (batch, length, spec.num_kv_heads, spec.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_length(spec: AttnSpec, max_len: int) -> int:
+    if spec.kind in ("sliding", "chunked") and spec.window > 0:
+        return min(max_len, spec.window)
+    return max_len
+
+
+def decode_attention(params, spec: AttnSpec, x: torch.Tensor, cache: dict,
+                     pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One-token decode. x: (B, 1, D); pos: (B,) current absolute position.
+
+    The cache is a rolling buffer of length L = cache_length: slot = pos % L.
+    The new key and value go in by an indexed write, which gives the
+    reference's one-hot blend for a finite cache. For ``chunked`` the mask
+    drops entries from previous chunks.
+    """
+    b = x.shape[0]
+    length = cache["k"].shape[1]
+    q, k_new, v_new = _qkv(params, spec, x, pos[:, None])
+
+    slot = pos % length                                   # (B,)
+    rows = torch.arange(b, device=x.device)
+    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+    k, v = cache["k"], cache["v"]
+
+    # absolute position of every cache slot given current pos: slot s holds
+    # the largest p ≤ pos with p % L == s
+    idx = torch.arange(length, device=x.device)[None, :]  # (1, L)
+    cache_pos = pos[:, None] - ((pos[:, None] - idx) % length)
+    valid = cache_pos >= 0
+    if spec.kind == "sliding" and spec.window > 0:
+        valid &= (pos[:, None] - cache_pos) < spec.window
+    elif spec.kind == "chunked" and spec.window > 0:
+        valid &= (cache_pos // spec.window) == (pos[:, None] // spec.window)
+
+    hkv = spec.num_kv_heads
+    g = spec.num_heads // hkv
+    acc_t = _acc_dtype(x.dtype)
+    qr = q.reshape(b, 1, hkv, g, spec.head_dim)
+    s = torch.einsum("bqhgd,blhd->bhgql", qr.to(acc_t),
+                     k.to(acc_t)) * spec.scale
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgql,blhd->bqhgd", p.to(v.dtype).to(acc_t),
+                       v.to(acc_t))
+    out = out.reshape(b, 1, spec.num_heads, spec.head_dim).to(x.dtype)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y, cache

@@ -1,0 +1,266 @@
+"""Model assembly: the port of ``repro/models/transformer.py``, dense
+decoder branches only.
+
+A config-driven decoder: the per-layer ``LayerSpec`` picks the sequence
+mixer (full / sliding / chunked attention) and the channel mixer (swiglu /
+gelu). Parameters are nested dicts of tensors with the layers as a plain
+list (the reference stacks identical layers for ``lax.scan``;
+``convert.lm_params_from_reference`` unstacks them). The branches of the
+reference that the port does not have yet raise ``NotImplementedError``
+naming their slice (ROADMAP.md, queue 1).
+
+API:
+  init_params(cfg, seed, dtype, device)           -> params
+  forward(params, cfg, batch)                     -> logits (B, S, V)
+  init_cache(cfg, batch, max_len, dtype, device)  -> decode cache
+  prefill(params, cfg, batch, cache)              -> (logits (B, V), cache)
+  decode_step(params, cfg, token, cache, pos)     -> (logits (B, 1, V), cache)
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import torch
+
+from .._device import resolve_device
+from ..configs.base import LayerSpec, ModelConfig
+from . import attention, layers
+
+_SLICE_OF_MIXER = {"mamba": "slice 6c (mamba and the mamba_scan kernel)",
+                   "rwkv": "slice 6d (rwkv6 and the rwkv6_wkv kernel)"}
+_SLICE_OF_FFN = {"moe": "slice 6b (MoE layers and the moe_topk kernel)",
+                 "rwkv_channel": "slice 6d (rwkv6 and the rwkv6_wkv kernel)"}
+_FRONTENDS = "slice 6f (the vision and audio frontends)"
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the slice of the port that
+    brings any part of ``cfg`` this port cannot run yet."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder stack comes with {_FRONTENDS}")
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend comes with {_FRONTENDS}")
+    if cfg.learned_pos:
+        raise NotImplementedError(
+            f"{cfg.name}: learned positions come with {_FRONTENDS}")
+    if cfg.qk_norm:
+        raise NotImplementedError(
+            f"{cfg.name}: qk-norm comes with slice 6e (the sliding and "
+            "chunked attention configurations)")
+    if not cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"{cfg.name}: untied embeddings (no architecture of the "
+            "registry has them)")
+    for ls in cfg.layer_specs():
+        if ls.mixer in _SLICE_OF_MIXER:
+            raise NotImplementedError(
+                f"{cfg.name}: {ls.mixer} layers come with "
+                f"{_SLICE_OF_MIXER[ls.mixer]}")
+        if ls.ffn in _SLICE_OF_FFN:
+            raise NotImplementedError(
+                f"{cfg.name}: {ls.ffn} layers come with "
+                f"{_SLICE_OF_FFN[ls.ffn]}")
+
+
+# ---------------------------------------------------------------------------
+# spec builders
+# ---------------------------------------------------------------------------
+
+def attn_spec(cfg: ModelConfig, lspec: LayerSpec) -> attention.AttnSpec:
+    kind = {"attn_full": "full", "attn_sliding": "sliding",
+            "attn_chunked": "chunked"}[lspec.mixer]
+    return attention.AttnSpec(
+        num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim,
+        kind=kind,
+        window=lspec.window,
+        rope=cfg.use_rope,
+        rope_theta=cfg.rope_theta,
+    )
+
+
+def _norm_init(cfg: ModelConfig, d: int, dtype, device):
+    return (layers.layernorm_init(d, dtype, device) if cfg.norm == "layernorm"
+            else layers.rmsnorm_init(d, dtype, device))
+
+
+def stack_plan(cfg: ModelConfig):
+    """(head, period, n_rep, tail): the reference's layer stacking (layers
+    [0, head) unrolled, ``n_rep`` repetitions of a ``period``-layer body
+    stacked for ``lax.scan``, then ``tail`` layers unrolled). The port runs
+    the layers as a list; this tells ``convert`` how the reference's
+    parameters are laid out."""
+    specs = cfg.layer_specs()
+    length = len(specs)
+    best = (0, length, 1, 0)                       # fallback: all unrolled
+    for head in range(0, min(length, 3)):
+        for period in range(1, length - head + 1):
+            if all(specs[i] == specs[head + (i - head) % period]
+                   for i in range(head, length)):
+                n_rep = (length - head) // period
+                tail = (length - head) % period
+                if n_rep >= 4 and n_rep > best[2]:
+                    best = (head, period, n_rep, tail)
+                break                               # smallest period found
+    return best
+
+
+def _norm(cfg: ModelConfig, p, x):
+    return (layers.layernorm(p, x) if cfg.norm == "layernorm"
+            else layers.rmsnorm(p, x))
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _layer_init(gen: torch.Generator, cfg: ModelConfig, lspec: LayerSpec,
+                dtype) -> Dict[str, Any]:
+    dev = gen.device
+    p: Dict[str, Any] = {"norm1": _norm_init(cfg, cfg.d_model, dtype, dev),
+                         "norm2": _norm_init(cfg, cfg.d_model, dtype, dev)}
+    p["attn"] = attention.attn_init(gen, cfg.d_model, attn_spec(cfg, lspec),
+                                    dtype)
+    if lspec.ffn == "swiglu":
+        p["ffn"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    else:
+        p["ffn"] = layers.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
+                device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    """Random weights with the reference's statistics, drawn on ``device``
+    from a generator seeded with ``seed``."""
+    check_ported(cfg)
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    params: Dict[str, Any] = {
+        "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
+        "final_norm": _norm_init(cfg, cfg.d_model, dtype, gen.device),
+    }
+    params["layers"] = [_layer_init(gen, cfg, ls, dtype)
+                        for ls in cfg.layer_specs()]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _ffn(p, lspec: LayerSpec, h):
+    if lspec.ffn == "swiglu":
+        return layers.swiglu(p["ffn"], h)
+    if lspec.ffn == "gelu":
+        return layers.gelu_mlp(p["ffn"], h)
+    raise ValueError(lspec.ffn)
+
+
+def _layer_forward(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    h = _norm(cfg, p["norm1"], x)
+    x = x + attention.attention_block(p["attn"], attn_spec(cfg, lspec), h,
+                                      positions)
+    h = _norm(cfg, p["norm2"], x)
+    return x + _ffn(p, lspec, h)
+
+
+def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """Token embedding. Returns (x (B, S, D), positions (S,))."""
+    check_ported(cfg)
+    extra = sorted(set(batch) - {"tokens"})
+    if extra:
+        raise NotImplementedError(f"batch inputs {extra} come with "
+                                  f"{_FRONTENDS}")
+    tokens = batch["tokens"]
+    x = params["embed"][tokens]                       # (B, S, D)
+    positions = torch.arange(x.shape[1], device=x.device)
+    return x, positions
+
+
+def _backbone(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """Embed + all layers + final norm. Returns x (B, S, D)."""
+    x, positions = embed_inputs(params, cfg, batch)
+    for p, ls in zip(params["layers"], cfg.layer_specs(), strict=True):
+        x = _layer_forward(p, cfg, ls, x, positions)
+    return _norm(cfg, params["final_norm"], x)
+
+
+def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Tied embeddings: x @ embedᵀ."""
+    return torch.einsum("bsd,vd->bsv", x, params["embed"])
+
+
+def forward(params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Returns logits (B, S, V). Plain PyTorch throughout (no kernel), in
+    the parameters' dtype: in float64 it is the float64 reference."""
+    return unembed(params, cfg, _backbone(params, cfg, batch))
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def _layer_cache(cfg: ModelConfig, ls: LayerSpec, batch: int, max_len: int,
+                 dtype, device) -> Dict[str, Any]:
+    return {"kv": attention.init_kv_cache(batch, attn_spec(cfg, ls), max_len,
+                                          dtype, device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    """Decode cache: one entry per layer, in layer order."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    return {"layers": [_layer_cache(cfg, ls, batch, max_len, dtype, dev)
+                       for ls in cfg.layer_specs()]}
+
+
+def _decode_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, pos):
+    h = _norm(cfg, p["norm1"], x)
+    mix, kv = attention.decode_attention(p["attn"], attn_spec(cfg, ls), h,
+                                         c["kv"], pos)
+    x = x + mix
+    h = _norm(cfg, p["norm2"], x)
+    return x + _ffn(p, ls, h), {"kv": kv}
+
+
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
+                pos: torch.Tensor):
+    """One-token decode. token: (B, 1) int; pos: (B,) absolute position.
+    Returns (logits (B, 1, V), cache), the cache updated in place."""
+    x = params["embed"][token]                        # (B,1,D)
+    for i, (p, ls) in enumerate(zip(params["layers"], cfg.layer_specs(),
+                                    strict=True)):
+        x, cache["layers"][i] = _decode_layer(p, cfg, ls, x,
+                                              cache["layers"][i], pos)
+    x = _norm(cfg, params["final_norm"], x)
+    return unembed(params, cfg, x), cache
+
+
+def _prefill_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, positions):
+    """``_layer_forward`` through the flash kernel that also fills the
+    layer's decode cache."""
+    h = _norm(cfg, p["norm1"], x)
+    mix, kv = attention.prefill_attention(p["attn"], attn_spec(cfg, ls), h,
+                                          positions, c["kv"])
+    x = x + mix
+    h = _norm(cfg, p["norm2"], x)
+    return x + _ffn(p, ls, h), {"kv": kv}
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            cache: Dict):
+    """Prompt prefill: ONE full-sequence forward that writes the decode
+    cache directly. Returns ``(last-position logits (B, V), cache)`` — the
+    logits that predict the first generated token."""
+    x, positions = embed_inputs(params, cfg, batch)
+    for i, (p, ls) in enumerate(zip(params["layers"], cfg.layer_specs(),
+                                    strict=True)):
+        x, cache["layers"][i] = _prefill_layer(p, cfg, ls, x,
+                                               cache["layers"][i], positions)
+    x = _norm(cfg, params["final_norm"], x[:, -1:])
+    return unembed(params, cfg, x)[:, 0], cache

@@ -1,0 +1,323 @@
+"""The port's LM serving slice against the JAX reference.
+
+``repro.models`` does not import in this process (ROADMAP queue 3, item
+a), so a session fixture runs ``tests/_torch_lm_ref.py`` once in a
+subprocess and loads the npz it writes: the reference's weights for
+mistral-nemo-12b-smoke at 2 layers (unrolled) and 4 layers (scanned), its
+building blocks on fixed inputs, ``prefill_attention`` and
+``decode_attention`` with their caches, ``transformer.forward``,
+``prefill`` and 4 teacher-forced ``decode_step`` logits, and greedy
+``ServeEngine.generate`` tokens. The port takes the reference's weights
+through ``convert.lm_params_from_reference`` and runs on the CPU, where
+the flash kernel's wrapper runs its plain version.
+
+Tolerance: rtol = atol = 2e-5 for every float output (logits included).
+Both sides compute in float32 but sum in other orders (XLA's CPU
+reductions and dot products against PyTorch's), which moves the outputs by
+≈ 1e-6 at these widths; 2e-5 leaves a margin of 10 while staying far below
+any change of the computation (a missing mask, scale or RoPE term moves
+them by ≥ 1e-2). Greedy tokens are held EQUAL.
+"""
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as ref_configs
+from repro_torch import convert
+from repro_torch.configs import available_archs, get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import attention, layers, transformer
+from repro_torch.serve import ServeEngine
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+TESTS = pathlib.Path(__file__).resolve().parent
+SRC = TESTS.parent / "src"
+B, PROMPT, NEW, STEPS, MAX_LEN = 2, 8, 6, 4, 16
+SMOKE = "mistral-nemo-12b-smoke"
+
+
+@pytest.fixture(scope="session")
+def ref(tmp_path_factory):
+    path = tmp_path_factory.mktemp("lm_ref") / "ref.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, str(TESTS / "_torch_lm_ref.py"),
+                          str(path)], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def close(got, want):
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+
+
+def sub(ref, prefix):
+    return {k[len(prefix) + 1:]: a for k, a in ref.items()
+            if k.startswith(prefix + "/")}
+
+
+def cfg_of(n_layers):
+    return dataclasses.replace(get_config(SMOKE), num_layers=n_layers)
+
+
+def port_params(ref, n_layers):
+    return convert.lm_params_from_reference(
+        sub(ref, f"p{n_layers}/params"), cfg_of(n_layers), device="cpu")
+
+
+def reference_layer_cache(ref, prefix, cfg, i):
+    """Layer i's k and v from the reference's head/scan/tail cache."""
+    head, period, n_rep, _ = transformer.stack_plan(cfg)
+    if n_rep == 1 or i < head:
+        return (ref[f"{prefix}/head/{i}/kv/k"], ref[f"{prefix}/head/{i}/kv/v"])
+    r, j = divmod(i - head, period)
+    return (ref[f"{prefix}/scan/{j}/kv/k"][r], ref[f"{prefix}/scan/{j}/kv/v"][r])
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["mistral-nemo-12b", SMOKE,
+                                  "phi3-medium-14b", "phi3-medium-14b-smoke"])
+def test_config_equals_reference(name):
+    port, want = get_config(name), ref_configs.get_config(name)
+    assert dataclasses.asdict(port) == dataclasses.asdict(want)
+    assert ([dataclasses.asdict(s) for s in port.layer_specs()]
+            == [dataclasses.asdict(s) for s in want.layer_specs()])
+    assert port.count_params() == want.count_params()
+
+
+def test_registry_holds_only_ported_archs():
+    assert set(available_archs()) == {
+        "mistral-nemo-12b", SMOKE, "phi3-medium-14b", "phi3-medium-14b-smoke"}
+    assert get_config("mistral-nemo-12b").count_params() == 11_576_688_640
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("name", [n for n in ref_configs.available_archs()
+                                  if n not in {"mistral-nemo-12b", SMOKE,
+                                               "phi3-medium-14b",
+                                               "phi3-medium-14b-smoke"}])
+def test_unported_arch_raises_naming_its_slice(name):
+    with pytest.raises(NotImplementedError, match="slice"):
+        get_config(name)
+
+
+@pytest.mark.parametrize("change", [
+    dict(attn_every=2), dict(rwkv=True), dict(num_experts=4,
+                                              experts_per_token=1),
+    dict(encoder_layers=1), dict(frontend="vision"), dict(learned_pos=True),
+    dict(qk_norm=True), dict(tie_embeddings=False)])
+def test_unported_branches_raise(change):
+    cfg = dataclasses.replace(get_config(SMOKE), **change)
+    why = "untied" if "tie_embeddings" in change else "slice"
+    with pytest.raises(NotImplementedError, match=why):
+        transformer.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=why):
+        transformer.init_cache(cfg, 1, 8, torch.float32, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+
+def test_norms_match_reference(ref):
+    x, scale = t(ref["rmsnorm/x"]), t(ref["rmsnorm/scale"])
+    close(layers.rmsnorm({"scale": scale}, x), ref["rmsnorm/out"])
+    close(layers.layernorm({"scale": t(ref["layernorm/scale"]),
+                            "bias": t(ref["layernorm/bias"])}, x),
+          ref["layernorm/out"])
+
+
+def test_apply_rope_matches_reference(ref):
+    cfg = get_config(SMOKE)
+    got = layers.apply_rope(t(ref["rope/x"]), t(ref["rope/positions"]),
+                            cfg.rope_theta)
+    close(got, ref["rope/out"])
+
+
+def test_mlps_match_reference(ref):
+    x = t(ref["rmsnorm/x"])
+    params = port_params(ref, 2)
+    close(layers.swiglu(params["layers"][0]["ffn"], x), ref["swiglu/out"])
+    gelu = {k: t(a) for k, a in sub(ref, "gelu/params").items()}
+    close(layers.gelu_mlp(gelu, x), ref["gelu/out"])
+
+
+def test_prefill_and_decode_attention_match_reference(ref):
+    cfg = cfg_of(2)
+    spec = transformer.attn_spec(cfg, cfg.layer_specs()[0])
+    p = port_params(ref, 2)["layers"][0]["attn"]
+    kv = attention.init_kv_cache(B, spec, MAX_LEN - 4, torch.float32, "cpu")
+    y, kv = attention.prefill_attention(p, spec, t(ref["prefill_attention/x"]),
+                                        torch.arange(PROMPT), kv)
+    close(y, ref["prefill_attention/out"])
+    close(kv["k"], ref["prefill_attention/k"])
+    close(kv["v"], ref["prefill_attention/v"])
+    y, kv = attention.decode_attention(p, spec, t(ref["decode_attention/x"]),
+                                       kv, t(ref["decode_attention/pos"]).long())
+    close(y, ref["decode_attention/out"])
+    close(kv["k"], ref["decode_attention/k"])
+    close(kv["v"], ref["decode_attention/v"])
+
+
+def test_prefill_checks_positions_and_cache_length():
+    cfg = get_config(SMOKE)
+    spec = transformer.attn_spec(cfg, cfg.layer_specs()[0])
+    p = transformer.init_params(cfg, device="cpu")["layers"][0]["attn"]
+    x = torch.zeros(1, 6, cfg.d_model)
+    with pytest.raises(ValueError, match="decode-equivalent"):
+        attention.prefill_attention(
+            p, spec, x, torch.arange(6),
+            attention.init_kv_cache(1, spec, 4, torch.float32, "cpu"))
+    with pytest.raises(ValueError, match="arange"):
+        attention.prefill_attention(
+            p, spec, x, torch.arange(1, 7),
+            attention.init_kv_cache(1, spec, 8, torch.float32, "cpu"))
+
+
+def test_init_statistics():
+    gen = torch.Generator().manual_seed(0)
+    w = layers.dense_init(gen, (1024, 512), torch.float32)
+    scale = 1024 ** -0.5
+    assert w.abs().max() <= 2 * scale
+    # a standard normal cut to ±2 has sd 0.8796
+    assert abs(w.std().item() / scale - 0.8796) < 0.005
+    assert abs(w.mean().item()) < 0.005 * scale
+    e = layers.embed_init(gen, 1024, 512, torch.float32)
+    assert abs(e.std().item() - 0.02) < 2e-4 and abs(e.mean().item()) < 2e-4
+
+
+# ---------------------------------------------------------------------------
+# the model and serving
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_layers", [2, 4])
+def test_convert_unstacks_reference_layout(ref, n_layers):
+    params = port_params(ref, n_layers)
+    assert len(params["layers"]) == n_layers
+    head, period, n_rep, tail = transformer.stack_plan(cfg_of(n_layers))
+    assert (n_rep == 1) == (n_layers == 2)
+    for i, lay in enumerate(params["layers"]):
+        key = (f"p{n_layers}/params/layers_head/{i}/attn/wq" if n_rep == 1
+               else f"p{n_layers}/params/layers_scan/0/attn/wq")
+        want = ref[key] if n_rep == 1 else ref[key][i]
+        assert np.array_equal(lay["attn"]["wq"].numpy(), want)
+        assert lay["attn"]["wo"].shape == (4, 64, 256)
+
+
+@pytest.mark.parametrize("n_layers", [2, 4])
+def test_forward_matches_reference(ref, n_layers):
+    params = port_params(ref, n_layers)
+    logits = transformer.forward(
+        params, cfg_of(n_layers),
+        {"tokens": t(ref[f"p{n_layers}/forward_tokens"]).long()})
+    close(logits, ref[f"p{n_layers}/forward_logits"])
+
+
+@pytest.mark.parametrize("n_layers", [2, 4])
+def test_prefill_and_decode_steps_match_reference(ref, n_layers):
+    cfg, p = cfg_of(n_layers), f"p{n_layers}"
+    params = port_params(ref, n_layers)
+    cache = transformer.init_cache(cfg, B, MAX_LEN, torch.float32, "cpu")
+    fa.KERNEL.launches = 0
+    last, cache = transformer.prefill(params, cfg,
+                                      {"tokens": t(ref[f"{p}/prompts"]).long()},
+                                      cache)
+    assert fa.KERNEL.launches == 0          # the CPU runs the plain version
+    close(last, ref[f"{p}/prefill_logits"])
+    for i in range(n_layers):
+        k, v = reference_layer_cache(ref, f"{p}/prefill_cache", cfg, i)
+        close(cache["layers"][i]["kv"]["k"], k)
+        close(cache["layers"][i]["kv"]["v"], v)
+    steps = t(ref[f"{p}/decode_tokens"]).long()
+    for i in range(STEPS):
+        logits, cache = transformer.decode_step(
+            params, cfg, steps[:, i:i + 1], cache,
+            torch.full((B,), PROMPT + i, dtype=torch.long))
+        close(logits, ref[f"{p}/decode_logits"][i])
+    for i in range(n_layers):
+        k, v = reference_layer_cache(ref, f"{p}/decode_cache", cfg, i)
+        close(cache["layers"][i]["kv"]["k"], k)
+        close(cache["layers"][i]["kv"]["v"], v)
+
+
+@pytest.mark.parametrize("n_layers", [2, 4])
+def test_greedy_generate_equals_reference(ref, n_layers):
+    engine = ServeEngine(cfg_of(n_layers), port_params(ref, n_layers),
+                         max_len=MAX_LEN, device="cpu")
+    out = engine.generate(ref[f"p{n_layers}/prompts"], new_tokens=NEW)
+    assert out.dtype == np.int32
+    np.testing.assert_array_equal(out, ref[f"p{n_layers}/generate_tokens"])
+
+
+def test_sampling_draws_from_the_generator():
+    cfg = get_config(SMOKE)
+    engine = ServeEngine(cfg, transformer.init_params(cfg, device="cpu"),
+                         device="cpu")
+    prompts = np.arange(2 * 5).reshape(2, 5)
+
+    def sample(seed):
+        return engine.generate(prompts, new_tokens=5, temperature=1.0,
+                               generator=torch.Generator().manual_seed(seed))
+
+    np.testing.assert_array_equal(sample(1), sample(1))
+    assert not np.array_equal(sample(1), sample(2))
+    greedy = engine.generate(prompts, new_tokens=5)
+    np.testing.assert_array_equal(
+        greedy, engine.generate(prompts, new_tokens=5, temperature=1.0))
+
+
+def test_launcher_runs_on_cpu(capsys):
+    launch_serve.main(["--arch", SMOKE, "--batch", "2", "--prompt-len", "6",
+                       "--new-tokens", "3", "--device", "cpu"])
+    assert "generated (2, 3) tokens" in capsys.readouterr().out
+
+
+def test_trace_and_frontend_inputs_raise():
+    cfg = get_config(SMOKE)
+    params = transformer.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="trace"):
+        ServeEngine(cfg, params, device="cpu", trace="serve.jsonl")
+    engine = ServeEngine(cfg, params, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 6f"):
+        engine.generate(np.zeros((1, 4), np.int64),
+                        extra_batch={"patch_embeds": np.zeros((1, 2, 256))})
+
+
+def test_cuda_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the check is for GPU-less hosts")
+    cfg = get_config(SMOKE)
+    with pytest.raises(RuntimeError, match="cuda"):
+        transformer.init_params(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(cfg, transformer.init_params(cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_serve.main(["--arch", SMOKE, "--prompt-len", "4"])
+
+
+def test_engine_refuses_params_on_another_device_or_dtype():
+    cfg = get_config(SMOKE)
+    params = transformer.init_params(cfg, dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="float64"):
+        ServeEngine(cfg, params, device="cpu")
+
+
+def test_model_config_is_the_ports_own():
+    assert ModelConfig.__module__ == "repro_torch.configs.base"

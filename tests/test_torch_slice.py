@@ -246,6 +246,9 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert len(mods) >= 20
+    assert {"repro_torch.configs.base", "repro_torch.models.transformer",
+            "repro_torch.kernels.flash_attention", "repro_torch.serve.engine",
+            "repro_torch.launch.serve"} <= set(mods)
 
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s+import\b))", re.MULTILINE)
