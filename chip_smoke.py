@@ -13,7 +13,12 @@ Phases, each printing one JSON line per case:
    times of the kernel, the plain version and one library call that
    computes the same function. The flash-attention kernel runs at
    mistral-nemo-12b's prefill of serve run (a) and four ragged shapes
-   (window, chunk, Sq ≠ Sk, rows without a key, head_dim 64).
+   (window, chunk, Sq ≠ Sk, rows without a key, head_dim 64), and at
+   moonshot-v1-16b-a3b's prefill (G = 1). The MoE router ``moe_topk`` runs
+   at moonshot's prefill (8192 × 64 experts, top-6), decode (8 × 64) and
+   one ragged shape (1000 × 128, top-8): ids equal to the plain version's
+   except on rows whose top probabilities lie within 2 ulps of each other
+   (counted and printed), gates within 1e-6.
    ``kernel_masked``: the two Eq. 3 kernels given a dropout-masked weight
    operand, against their plain versions.
 4. ``main``    — ``train_rl_netes`` on pendulum at N = 1000 (the paper's
@@ -43,6 +48,21 @@ Phases, each printing one JSON line per case:
    zeroed just before each ``generate`` and read just after: 40 flash
    launches each. Then the same steps timed with CUDA events (prefill,
    each decode step) and profiled with ``torch.profiler``.
+10. ``moe_parity`` — moonshot-v1-16b-a3b at full width and 2 layers (the
+   dense layer 0, then one MoE layer of 64 experts, top-6), B = 2,
+   512-token prompts (one group of 512 per row, capacity 60: choices
+   drop), 8 new tokens: every prompt position's logits of the kernel path
+   against the float64 ``forward``, and each decode step's against the
+   float64 ``forward`` in groups of one token (as decode routes). Routing
+   decisions that differ between float32 and float64 are counted; each
+   must lie at a float64 margin below 1e-5, and the logits are compared on
+   the tokens whose routing agrees.
+11. ``moe_cpu_parity`` — the moonshot smoke model's greedy serving on the
+   GPU against the CPU from the same weights.
+12. ``serve`` of moonshot-v1-16b-a3b at full width and 24 of its 48 layers
+   (1 dense + 23 MoE, 53.9 GB of float32 weights; all 48 do not fit in
+   80 GB), after mistral's weights are freed, as in 9: 24 flash and
+   23 × 16 = 368 ``moe_topk`` launches per ``generate``.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -50,6 +70,7 @@ script exits non-zero and prints no result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import pathlib
@@ -105,6 +126,7 @@ def nvidia_smi() -> str:
 
 L2_FLUSH_BYTES = 64 << 20   # above the H100's 50 MB L2
 SELECT_ITERS = 100          # timed launches of the broadcast select
+SPIN_CYCLES = 2_000_000     # ≈ 1 ms of the card's clock
 
 
 def time_stats(fn, warmup: int = 3, iters: int = 20) -> dict:
@@ -115,7 +137,11 @@ def time_stats(fn, warmup: int = 3, iters: int = 20) -> dict:
     so every launch starts with a cold L2, as on the main path, where the
     rollout runs between two mixing updates. The flush reads rather than
     writes: it leaves the L2 holding clean lines only, so no write-back
-    of the flush's own lines lands inside the timed launch.
+    of the flush's own lines lands inside the timed launch. Then the card
+    spins for ≈ 1 ms (``torch.cuda._sleep``), so that the host has queued
+    the start event, the launch and the end event before the card reaches
+    them: the events time the card's work, not the host's path to the
+    launch (tens of µs, more than a small kernel takes).
     """
     import torch
     flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
@@ -125,6 +151,7 @@ def time_stats(fn, warmup: int = 3, iters: int = 20) -> dict:
     pairs = []
     for _ in range(iters):
         torch.sum(flush, dim=0, out=sink)
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -478,6 +505,9 @@ ATTN_CASES = (  # (label, B, Sq, Sk, H, Hkv, hd, causal, window, chunk, main)
     ("noncausal_sq200_sk333", 1, 200, 333, 32, 8, 128, False, 0, 0, False),
     # query rows 163 .. 299 have no valid key: the mean of v
     ("rows_without_a_key_hd64", 1, 300, 100, 4, 2, 64, True, 64, 0, False),
+    # moonshot-v1-16b-a3b's prefill of its serve run (a): G = 1
+    ("moonshot_prefill_8192_g1", 1, 8192, 8192, 16, 16, 128, True, 0, 0,
+     False),
 )
 
 
@@ -595,6 +625,95 @@ def attention_kernel_phase(results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the MoE router kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# Gates are probabilities renormalised over k ≤ 8 of them: the kernel and
+# the plain version round the same softmax and sums of ≤ 8 terms, ≈ 1e-7
+# apart; a wrong expert or a missing renormalisation moves a gate by ≥ 1e-3.
+TOL_GATES = 1e-6
+# Ids are held EQUAL except on a row where two neighbours among the plain
+# version's k + 1 largest probabilities lie within NEAR_TIE_ULPS float32
+# ulps: there the two sum the exps in another order, may round them to one
+# probability, and then break the tie toward the lower index.
+NEAR_TIE_ULPS = 2
+
+ROUTER_CASES = (  # (label, T, E, k, main)
+    ("moonshot_prefill_8192", 8192, 64, 6, True),
+    ("moonshot_decode_b8", 8, 64, 6, False),
+    ("ragged_1000_e128_k8", 1000, 128, 8, False),
+)
+
+
+def _near_tie_rows(logits, k: int):
+    """(T,) bool: rows where neighbours among the plain version's k + 1
+    largest probabilities lie within NEAR_TIE_ULPS ulps of the larger."""
+    import torch
+    p = torch.softmax(logits, dim=-1)
+    top = torch.sort(p, dim=-1, descending=True).values[:, :k + 1]
+    ulp = torch.finfo(torch.float32).eps * top[:, :-1]
+    return ((top[:, :-1] - top[:, 1:]) <= NEAR_TIE_ULPS * ulp).any(dim=1)
+
+
+def _router_library(logits, k: int):
+    """The yardstick: torch.softmax → torch.topk → renormalise, three
+    PyTorch calls (no single call computes the router)."""
+    import torch
+    vals, ids = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+    return vals / vals.sum(dim=-1, keepdim=True).clamp_min(1e-9), ids
+
+
+def router_kernel_phase(results: dict) -> None:
+    import torch
+
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import ref
+
+    for label, t, e, k, main in ROUTER_CASES:
+        g = torch.Generator(device="cuda").manual_seed(t + e + k)
+        logits = torch.randn(t, e, device="cuda", generator=g)
+        kernel = functools.partial(mr.moe_topk, logits, k)
+        plain = functools.partial(ref.moe_topk_ref, logits, k)
+        lib = functools.partial(_router_library, logits, k)
+        (gk, ik), (gp, ip) = kernel(), plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(gk).all()), f"moe_topk/{label}: non-finite")
+        near = _near_tie_rows(logits, k)
+        differ = (ik != ip).any(dim=1)
+        check(not bool((differ & ~near).any()),
+              f"moe_topk/{label}: ids differ from the plain version on "
+              f"{int((differ & ~near).sum())} rows without a near-tie")
+        gate_err = (gk - gp).abs().max().item()
+        check(gate_err <= TOL_GATES, f"moe_topk/{label}: gates differ by "
+              f"{gate_err} (tolerance {TOL_GATES})")
+        # against float64: the gates of the float64 top-k of these logits
+        g64, i64 = ref.moe_topk_ref(logits.double(), k)
+        same = (ik.long() == i64.long()).all(dim=1)
+        err64 = (gk.double() - g64)[same].abs().max().item()
+        _, il = lib()
+        moved = 4.0 * t * e + 8.0 * t * k
+        ops = float(t * e * (5 + k))   # max, subtract, exp, add, divide; k compares
+        t_ops, t_bytes = ops / F32_FLOPS, moved / HBM_BYTES_PER_S
+        row = {"phase": "kernel", "name": "moe_topk", "shape": label,
+               "t": t, "e": e, "k": k, "max_abs_err": gate_err,
+               "gates_err_f64": err64, "tol_gates": TOL_GATES,
+               "near_tie_rows": int(near.sum()),
+               "rows_ids_differ": int(differ.sum()),
+               "rows_ids_differ_f64": int((~same).sum()),
+               "library_rows_ids_differ": int((il != ip).any(dim=1).sum()),
+               **time_stats(kernel), "plain_ms": time_ms(plain),
+               "library": "torch.softmax → torch.topk → renormalise "
+                          "(three calls)",
+               "library_ms": time_ms(lib),
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "mops": ops / 1e6, "mbytes": moved / 1e6}
+        emit(row)
+        if main:
+            results["moe_topk"] = row
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -603,13 +722,14 @@ KERNEL_OF = {"dense": "netes_mixing", "sparse": "netes_sparse_mixing"}
 
 def _counters():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_router as mr
     from repro_torch.kernels import netes_fused_mixing as nfm
     from repro_torch.kernels import netes_mixing as nm
     from repro_torch.kernels import netes_sparse_mixing as nsm
     return {"netes_mixing": nm.KERNEL, "netes_sparse_mixing": nsm.KERNEL,
             "fused_neighbor_sum": nfm.NEIGHBOR_SUM,
             "fused_broadcast_select": nfm.BROADCAST_SELECT,
-            "flash_attention": fa.KERNEL}
+            "flash_attention": fa.KERNEL, "moe_topk": mr.KERNEL}
 
 
 def main_phase(launches: dict) -> None:
@@ -1030,25 +1150,29 @@ def serve_parity_phase() -> None:
     torch.cuda.empty_cache()
 
 
-def serve_cpu_parity_phase() -> None:
-    """The smoke model's greedy serving on the GPU and on the CPU from the
-    same weights: tokens equal, logits within TOL_SMOKE."""
+def serve_cpu_parity_phase(arch: str) -> None:
+    """``arch``'s smoke model's greedy serving on the GPU and on the CPU
+    from the same weights: tokens equal, logits within TOL_SMOKE."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_router as mr
     from repro_torch.models import transformer
 
-    cfg = get_config(ARCH + "-smoke")
+    cfg = get_config(arch + "-smoke")
+    n_moe = sum(ls.ffn == "moe" for ls in cfg.layer_specs())
     cpu = transformer.init_params(cfg, seed=0, device="cpu")
     prompts = torch.randint(0, cfg.vocab_size, (2, 24),
                             generator=torch.Generator().manual_seed(2))
     tok_c, lg_c, _ = _greedy(cpu, cfg, prompts, 8)
-    fa.KERNEL.launches = 0
+    fa.KERNEL.launches = mr.KERNEL.launches = 0
     tok_g, lg_g, _ = _greedy(_cast(cpu, device="cuda"), cfg, prompts.cuda(),
                              8)
     check(fa.KERNEL.launches == cfg.num_layers,
           f"smoke parity: {fa.KERNEL.launches} flash launches")
+    check(mr.KERNEL.launches == 8 * n_moe,
+          f"smoke parity: {mr.KERNEL.launches} moe_topk launches")
     check(torch.equal(tok_c, tok_g.cpu()), "smoke parity: greedy tokens "
           f"differ between GPU {tok_g.tolist()} and CPU {tok_c.tolist()}")
     got, want = torch.stack(lg_g, 1).cpu(), torch.stack(lg_c, 1)
@@ -1057,17 +1181,226 @@ def serve_cpu_parity_phase() -> None:
           f"{TOL_SMOKE} (rtol and atol)")
     emit({"phase": "serve_cpu_parity", "arch": cfg.name, "batch": 2,
           "prompt": 24, "new_tokens": 8, "head_dim": cfg.head_dim,
-          "tokens_equal": True,
+          "tokens_equal": True, "moe_layers": n_moe,
           "max_abs_err": (got - want).abs().max().item(),
           "tol": TOL_SMOKE})
+
+
+# ---------------------------------------------------------------------------
+# phases 10–12: MoE serving of moonshot-v1-16b-a3b
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+# 1 dense + 23 MoE layers, 53.9 GB of float32 weights: the whole 48 layers
+# (108.7 GB) do not fit in 80 GB
+MOE_SERVE_LAYERS = 24
+MOE_PARITY_PROMPT = 512   # one group of 512 per row: capacity 60, drops
+# A routing decision may differ between the float32 kernel path and the
+# float64 forward only where float64's probabilities nearly tie: float32
+# probabilities carry ≈ 1e-7 of rounding (the 2048-term router products,
+# the softmax); a margin of 1e-5 is 100 times that.
+MOE_FLIP_MARGIN = 1e-5
+
+
+@contextlib.contextmanager
+def _recording_moe_inputs(seen: list):
+    """Appends the input of every ``moe.moe_block`` call to ``seen``."""
+    from repro_torch.models import moe
+    block = moe.moe_block
+
+    def recording(params, spec, x, **kw):
+        seen.append(x.detach())
+        return block(params, spec, x, **kw)
+
+    moe.moe_block = recording
+    try:
+        yield
+    finally:
+        moe.moe_block = block
+
+
+def _prefill_all_logits(params, cfg, prompts):
+    """``transformer.prefill``'s layers, the kernel path, with the logits
+    of every position (prefill keeps the last one only)."""
+    import torch
+
+    from repro_torch.models import transformer
+    b, s = prompts.shape
+    cache = transformer.init_cache(cfg, b, s, torch.float32, prompts.device)
+    with torch.no_grad():
+        x, positions = transformer.embed_inputs(params, cfg,
+                                                {"tokens": prompts})
+        for i, (p, ls) in enumerate(zip(params["layers"], cfg.layer_specs())):
+            x, cache["layers"][i] = transformer._prefill_layer(
+                p, cfg, ls, x, cache["layers"][i], positions)
+        x = transformer._norm(cfg, params["final_norm"], x)
+        return transformer.unembed(params, cfg, x)
+
+
+def _routing(router, h, spec, group: int, kernel: bool):
+    """Routing of the MoE inputs h (B, S, D) in groups of ``group``: ids
+    (T, k) from the kernel (float32) or the plain version (float64), the
+    (T, E) masks of chosen and of kept experts, and each token's smallest
+    gap between neighbours among its k + 1 largest probabilities."""
+    import torch
+
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe
+    d = h.shape[-1]
+    e, k = spec.num_experts, spec.experts_per_token
+    logits = moe._router_logits({"router": router}, h.reshape(-1, d))
+    _, ids = (mr.moe_topk if kernel else ref.moe_topk_ref)(logits, k)
+    ids = ids.long()
+    t = ids.shape[0]
+    cap = moe.group_capacity(spec, group)
+    _, dst = moe._dispatch_indices(ids.reshape(t // group, group, k), k, e,
+                                   cap)
+    chosen = torch.zeros(t, e, dtype=torch.bool, device=h.device)
+    chosen.scatter_(1, ids, True)
+    kept = torch.zeros_like(chosen).scatter_(1, ids,
+                                             (dst < e * cap).reshape(t, k))
+    p = torch.sort(torch.softmax(logits.double(), dim=-1), dim=-1,
+                   descending=True).values[:, :k + 1]
+    margin = (p[:, :-1] - p[:, 1:]).min(dim=1).values
+    return ids, chosen, kept, margin
+
+
+def _compare_routing(label, router32, router64, h32, h64, spec, group):
+    """Counts the (token, choice) decisions that differ between the kernel
+    path and float64; checks that each lies at a float64 margin below
+    MOE_FLIP_MARGIN and that a token whose kept experts alone differ
+    shares its group with such a flip. Returns (T,) bool, the tokens
+    whose routing agrees, and a summary."""
+    ids32, ch32, kept32, _ = _routing(router32, h32, spec, group, True)
+    ids64, ch64, kept64, margin = _routing(router64, h64, spec, group, False)
+    flip = (ids32 != ids64).any(dim=1)
+    bad = flip & (margin >= MOE_FLIP_MARGIN)
+    check(not bool(bad.any()), f"moe parity ({label}): routing differs from "
+          f"float64 on {int(bad.sum())} tokens at a float64 margin ≥ "
+          f"{MOE_FLIP_MARGIN}")
+    set_differs = (ch32 != ch64).any(dim=1)
+    kept_differs = (kept32 != kept64).any(dim=1)
+    group_flip = set_differs.reshape(-1, group).any(dim=1, keepdim=True)
+    stray = kept_differs & ~group_flip.expand(-1, group).reshape(-1)
+    check(not bool(stray.any()), f"moe parity ({label}): {int(stray.sum())} "
+          "tokens lose or gain a slot in a group without a routing flip")
+    agree = ~(set_differs | kept_differs)
+    summary = {"tokens": int(flip.numel()),
+               "choices_differ": int((ids32 != ids64).sum()),
+               "tokens_routed_apart": int((~agree).sum()),
+               "min_margin_f64": margin.min().item(),
+               "choices_dropped_f32": int((ch32 & ~kept32).sum())}
+    return agree, summary
+
+
+def moe_parity_phase() -> None:
+    """moonshot at full width and 2 layers (dense, then MoE): the kernel
+    path's logits of every prompt position and of each decode step against
+    the float64 ``forward``, on the tokens whose routing agrees."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=PARITY_LAYERS)
+    spec = transformer.moe_spec(cfg)
+    check([ls.ffn for ls in cfg.layer_specs()] == ["swiglu", "moe"],
+          "moe parity: the 2 layers are not dense then MoE")
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (PARITY_BATCH, MOE_PARITY_PROMPT), generator=g,
+                            device="cuda")
+    seen32 = []
+    with _recording_moe_inputs(seen32):
+        fa.KERNEL.launches = mr.KERNEL.launches = 0
+        tokens, logits, _ = _greedy(params, cfg, prompts, PARITY_NEW)
+        check(fa.KERNEL.launches == PARITY_LAYERS
+              and mr.KERNEL.launches == PARITY_NEW,
+              f"moe parity: {fa.KERNEL.launches} flash and "
+              f"{mr.KERNEL.launches} moe_topk launches in one generate")
+        all32 = _prefill_all_logits(params, cfg, prompts)
+    engine = ServeEngine(cfg, params, max_len=MOE_PARITY_PROMPT + PARITY_NEW)
+    check(np.array_equal(engine.generate(prompts, new_tokens=PARITY_NEW),
+                         tokens.cpu().numpy()),
+          "moe parity: ServeEngine.generate differs from its own steps")
+    del engine
+    p64 = _cast(params, dtype=torch.float64)
+    seen64 = []
+    fed = torch.cat([prompts, tokens[:, :-1]], dim=1)
+    with _recording_moe_inputs(seen64), torch.no_grad():
+        pre64 = transformer.forward(p64, cfg, {"tokens": prompts})
+        # decode routes each token in a group of its own: the forward in
+        # groups of one token is its float64 reference (MoE is the last
+        # layer, so the prompt's routing reaches no decode position)
+        dec64 = transformer.forward(
+            p64, dataclasses.replace(cfg, moe_group_size=1),
+            {"tokens": fed})[:, MOE_PARITY_PROMPT:]
+    router32 = params["layers"][1]["moe"]["router"]
+    router64 = p64["layers"][1]["moe"]["router"]
+    agree_pre, sum_pre = _compare_routing(
+        "prefill", router32, router64, seen32[0], seen64[0], spec,
+        MOE_PARITY_PROMPT)
+    agree_dec, sum_dec = _compare_routing(
+        "decode", router32, router64, torch.cat(seen32[1:PARITY_NEW], dim=1),
+        seen64[1][:, MOE_PARITY_PROMPT:], spec, 1)
+    check(sum_pre["choices_dropped_f32"] > 0, "moe parity: no choice dropped "
+          "at capacity 60; the phase must exercise drops")
+    scale = max(1.0, pre64.abs().max().item(), dec64.abs().max().item())
+    tol = TOL_LOGITS * scale
+    b = PARITY_BATCH
+    err_pre = (all32.double() - pre64).abs().amax(dim=-1).reshape(-1)
+    err_dec = (torch.stack(logits[1:], dim=1).double() - dec64).abs().amax(
+        dim=-1).reshape(-1)
+    err_last = (logits[0].double() - pre64[:, -1]).abs().amax(dim=-1)
+    last_agree = agree_pre.reshape(b, -1)[:, -1]
+    worst = max(err_pre[agree_pre].max().item(),
+                err_dec[agree_dec].max().item(),
+                err_last[last_agree].max().item() if last_agree.any() else 0)
+    check(bool(torch.isfinite(all32).all()), "moe parity: non-finite logits")
+    check(worst <= tol, f"moe parity: logits differ from float64 by {worst} "
+          f"on tokens whose routing agrees (tolerance {tol})")
+    emit({"phase": "moe_parity", "arch": MOE_ARCH,
+          "num_layers": PARITY_LAYERS, "d_model": cfg.d_model,
+          "experts": spec.num_experts, "top_k": spec.experts_per_token,
+          "batch": b, "prompt": MOE_PARITY_PROMPT, "new_tokens": PARITY_NEW,
+          "capacity": moe.group_capacity(spec, MOE_PARITY_PROMPT),
+          "max_abs_logit": scale, "max_abs_err": worst,
+          "tol": tol, "tol_rel": TOL_LOGITS,
+          "flip_margin": MOE_FLIP_MARGIN, "prefill_routing": sum_pre,
+          "decode_routing": sum_dec, "generate_equal": True,
+          "launches": {"flash_attention": PARITY_LAYERS,
+                       "moe_topk": PARITY_NEW}})
+    del params, p64, logits, all32, pre64, dec64, seen32, seen64
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# Kernel names by kind in a profile: the port's two model kernels, cuBLAS
+# matrix products, and "dispatch": every indexing, sort, scan and
+# concatenation kernel (in an MoE model almost all of them are the
+# dispatch's gathers and scatters; the embedding lookup and the decode
+# cache writes count here too).
+PROFILE_KINDS = (("flash_attention", ("flash_attention_kernel",)),
+                 ("moe_router", ("moe_topk_kernel",)),
+                 ("matmul", ("gemm", "gemv", "xmma", "cutlass")),
+                 ("dispatch", ("index", "gather", "scatter", "sort", "scan",
+                               "catarray")))
 
 
 def _profile(fn):
     """Device time of ``fn`` from a torch.profiler trace: the busy time
     (the sum of kernel times, one stream), the wall time on the host clock,
-    the time by kind (the flash kernel, cuBLAS matrix products, the rest)
-    and the six kernels that took the most. None where the trace holds no
-    device time."""
+    the time by kind (PROFILE_KINDS, then the rest) and the six kernels
+    that took the most. None where the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1078,7 +1411,8 @@ def _profile(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kinds = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    kinds = {kind: 0.0 for kind, _ in PROFILE_KINDS}
+    kinds["other"] = 0.0
     by_name = {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -1086,9 +1420,8 @@ def _profile(fn):
         ms = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
         name = evt.key.lower()
-        kind = ("flash_attention" if "flash_attention_kernel" in name
-                else "matmul" if any(w in name for w in (
-                    "gemm", "gemv", "xmma", "cutlass")) else "other")
+        kind = next((kind for kind, words in PROFILE_KINDS
+                     if any(w in name for w in words)), "other")
         kinds[kind] += ms
         by_name[evt.key[:80]] = (by_name.get(evt.key[:80], (0.0, 0))[0] + ms,
                                  evt.count)
@@ -1103,11 +1436,13 @@ def _profile(fn):
                             for n, (t, c) in top]}
 
 
-def serve_phase(launches: dict) -> None:
-    """``ServeEngine.generate`` of mistral-nemo-12b at full width and full
-    depth (40 layers, random float32 weights from a seed), once per run of
-    SERVE_RUNS, the launch counters zeroed just before and read just
-    after; then the same steps timed with CUDA events, and profiled."""
+def serve_phase(arch: str, num_layers=None) -> dict:
+    """``ServeEngine.generate`` of ``arch`` at full width and
+    ``num_layers`` layers (None: full depth), random float32 weights from
+    a seed, once per run of SERVE_RUNS, the launch counters zeroed just
+    before and read just after; then the same steps timed with CUDA
+    events, and profiled. Returns run (a)'s launch counts."""
+    import dataclasses
     import gc
 
     import numpy as np
@@ -1119,7 +1454,13 @@ def serve_phase(launches: dict) -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(ARCH)
+    resident = torch.cuda.memory_allocated()
+    check(resident < 1e9, f"serve {arch}: {resident / 1e9:.2f} GB still "
+          "allocated before its weights are drawn")
+    cfg = get_config(arch)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    n_moe = sum(ls.ffn == "moe" for ls in cfg.layer_specs())
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1146,9 +1487,14 @@ def serve_phase(launches: dict) -> None:
               f"serve run ({run}): flash_attention launched "
               f"{counts['flash_attention']} times in one generate of "
               f"{cfg.num_layers} layers")
+        # the router: once per MoE layer in the prefill and in each of the
+        # NEW_TOKENS − 1 decode steps
+        check(counts["moe_topk"] == n_moe * NEW_TOKENS,
+              f"serve run ({run}): moe_topk launched {counts['moe_topk']} "
+              f"times, not {n_moe} MoE layers × {NEW_TOKENS}")
         check(out.shape == (b, NEW_TOKENS), f"serve run ({run}): {out.shape}")
         if run == "a":
-            launches["flash_attention"] = counts["flash_attention"]
+            counts_a = counts
 
         tokens, logits, times = _greedy(params, cfg, prompts, NEW_TOKENS,
                                         timed=True)
@@ -1180,8 +1526,9 @@ def serve_phase(launches: dict) -> None:
 
         prof = {"prefill": _profile(prefill),
                 "decode_3_steps": _profile(decode_3_steps)}
-        emit({"phase": "serve", "run": run, "arch": ARCH,
-              "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+        emit({"phase": "serve", "run": run, "arch": arch,
+              "num_layers": cfg.num_layers, "moe_layers": n_moe,
+              "d_model": cfg.d_model,
               "params": n_params, "weight_gb": weight_bytes / 1e9,
               "init_s": init_s, "batch": b, "prompt": s,
               "new_tokens": NEW_TOKENS, "generate_wall_s": wall,
@@ -1197,7 +1544,9 @@ def serve_phase(launches: dict) -> None:
         del engine, logits, tokens, cache, state
         torch.cuda.empty_cache()
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    return counts_a
 
 
 # ---------------------------------------------------------------------------
@@ -1213,6 +1562,8 @@ SOURCE_OF = {
                                "src/repro/kernels/netes_fused_mixing.py:192"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:82"),
+    "moe_topk": ("src/repro_torch/csrc/moe_router.cu",
+                 "src/repro/kernels/moe_router.py:45"),
 }
 
 
@@ -1245,13 +1596,18 @@ def main() -> int:
     kernel_phase(results)
     wire_kernel_phase(results)
     attention_kernel_phase(results)
+    router_kernel_phase(results)
     masked_kernel_phase()
     main_phase(launches)
     channel_phase(launches)
     parity_phase()
     serve_parity_phase()
-    serve_cpu_parity_phase()
-    serve_phase(launches)
+    serve_cpu_parity_phase(ARCH)
+    launches["flash_attention"] = serve_phase(ARCH)["flash_attention"]
+    moe_parity_phase()
+    serve_cpu_parity_phase(MOE_ARCH)
+    launches["moe_topk"] = serve_phase(MOE_ARCH,
+                                       MOE_SERVE_LAYERS)["moe_topk"]
     rows = []
     for name in SOURCE_OF:
         r = results[name]

@@ -17,19 +17,17 @@ _REGISTRY: Dict[str, "ModelConfig"] = {}
 # Architectures of the reference's registry that the port does not hold,
 # and why: the slice of the port (ROADMAP.md, queue 1) that brings each.
 # The "-smoke" variant of each goes with it.
-_MOE = "it comes with slice 6b (MoE layers and the moe_topk kernel)"
-_CHUNKED = ("it comes with slices 6b and 6e (MoE layers, then the sliding "
-            "and chunked attention configurations)")
+_CHUNKED = ("it comes with slice 6e (the sliding and chunked attention "
+            "configurations)")
 UNPORTED = {
     "gemma3-4b": "it comes with slice 6e (the sliding and chunked attention "
                  "configurations, with qk-norm)",
-    "jamba-v0.1-52b": "it comes with slices 6b and 6c (MoE layers, then "
-                      "mamba with the mamba_scan kernel)",
+    "jamba-v0.1-52b": "it comes with slice 6c (mamba and the mamba_scan "
+                      "kernel)",
     "llama4-maverick-400b-a17b": _CHUNKED,
     "llama4-scout-17b-a16e": _CHUNKED,
     "llava-next-mistral-7b": "it comes with slice 6f (the vision and audio "
                              "frontends)",
-    "moonshot-v1-16b-a3b": _MOE,
     "rwkv6-7b": "it comes with slice 6d (rwkv6 and the rwkv6_wkv kernel)",
     "whisper-tiny": "it comes with slice 6f (the vision and audio "
                     "frontends, with the encoder-decoder stack)",
@@ -225,4 +223,5 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    from . import mistral_nemo_12b, phi3_medium_14b  # noqa: F401
+    from . import (mistral_nemo_12b, moonshot_v1_16b_a3b,  # noqa: F401
+                   phi3_medium_14b)

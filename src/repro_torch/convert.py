@@ -115,7 +115,9 @@ def lm_params_from_reference(flat: Mapping[str, Any], cfg: ModelConfig, *,
     times), then ``layers_tail``. They are unstacked here into the port's
     plain list in layer order. Each weight keeps the reference's layout:
     ``wq``/``wk``/``wv`` (d, heads, head_dim), ``wo`` (heads, head_dim, d),
-    the MLP matrices (d_in, d_out), ``embed`` (vocab, d).
+    the MLP matrices (d_in, d_out), ``embed`` (vocab, d), and an MoE
+    layer's ``moe/router`` (d, E), ``moe/w_gate``/``w_up`` (E, d, d_ff)
+    and ``moe/w_down`` (E, d_ff, d).
     """
     check_ported(cfg)
     dev = resolve_device(device)

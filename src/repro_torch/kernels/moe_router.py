@@ -1,0 +1,51 @@
+"""MoE top-k router: the wrapper of ``csrc/moe_router.cu``.
+
+    p = softmax(logits); ids = the k largest p, ties to the lower index;
+    gates = p[ids] / max(Σ p[ids], 1e-9)
+
+Replaces the TPU kernel ``repro/kernels/moe_router.py::moe_topk``, with
+its signature: logits (T, E) → (gates (T, k) float32, ids (T, k) int32).
+On CUDA tensors it launches the hand-written sm_90a kernel (see the
+source's note); on CPU tensors it runs the plain version
+``ref.moe_topk_ref``. There is no other path. Float32 only, E ≤ 128 and
+k ≤ 8 (the reference's tests use E ∈ {8, 16, 64, 128}, k ∈ {1, 2, 6, 8}).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import ref
+from ._build import CudaKernel
+from ._checks import check_operand, on_cpu
+
+KERNEL = CudaKernel("moe_router", "moe_topk_f32",
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p])
+
+MAX_EXPERTS, MAX_K = 128, 8     # what the kernel is built for
+
+
+def moe_topk(logits: torch.Tensor, k: int):
+    """logits (T, E) float32 → (gates (T, k) float32, ids (T, k) int32)."""
+    if logits.dtype != torch.float32:
+        raise TypeError(f"logits: dtype {logits.dtype}; moe_topk takes "
+                        "float32 only")
+    if logits.dim() != 2:
+        raise ValueError(f"logits: shape {tuple(logits.shape)}, expected "
+                         "(T, E)")
+    t, e = logits.shape
+    if not (1 <= e <= MAX_EXPERTS and 1 <= k <= min(e, MAX_K)):
+        raise ValueError(f"E = {e}, k = {k}: the kernel takes E ≤ "
+                         f"{MAX_EXPERTS} and 1 ≤ k ≤ min(E, {MAX_K})")
+    if on_cpu((logits,)):
+        return ref.moe_topk_ref(logits, k)
+    check_operand("logits", logits, torch.float32, (t, e))
+    gates = torch.empty((t, k), dtype=torch.float32, device=logits.device)
+    ids = torch.empty((t, k), dtype=torch.int32, device=logits.device)
+    if t == 0:
+        return gates, ids
+    KERNEL.launch(logits.data_ptr(), gates.data_ptr(), ids.data_ptr(), t, e,
+                  k, torch.cuda.current_stream(logits.device).cuda_stream)
+    return gates, ids

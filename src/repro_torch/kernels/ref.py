@@ -9,7 +9,7 @@ the topology's own plain contractions, ``weighted_neighbor_sum`` and
 The two wire-form functions widen the int8 codes one gathered row at a
 time, with the decode scale folded into the slot weight as the kernel does.
 ``flash_attention_ref`` is naive softmax attention: it materialises every
-(query, key) score.
+(query, key) score. ``moe_topk_ref`` is a softmax and a stable sort.
 
 The kernel wrappers run them for CPU tensors; on the card, ``chip_smoke.py``
 holds each kernel against them. They are no yardstick of speed.
@@ -107,3 +107,18 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(acc))
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def moe_topk_ref(logits, k: int):
+    """Top-k gating of a router: softmax over the E experts, the k largest
+    probabilities with ties to the lower index (a stable descending sort,
+    as ``lax.top_k`` orders them; ``torch.topk`` makes no such promise),
+    then ``vals / max(Σ vals, 1e-9)``. logits (T, E) → (gates (T, k),
+    ids (T, k) int32). Computes in float32, or in float64 for a float64
+    input (the full forward's float64 reference)."""
+    acc = torch.promote_types(logits.dtype, torch.float32)
+    probs = torch.softmax(logits.to(acc), dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, ids = vals[..., :k], ids[..., :k]
+    vals = vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9)
+    return vals, ids.to(torch.int32)

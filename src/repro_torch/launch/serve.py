@@ -4,7 +4,7 @@
       --prompt-len 8192 --new-tokens 16
 
 Random weights and prompts from ``--seed``. Runs on the GPU; ``--device
-cpu`` runs the kernel's plain version on the CPU instead.
+cpu`` runs the kernels' plain versions on the CPU instead.
 """
 from __future__ import annotations
 

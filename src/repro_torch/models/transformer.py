@@ -1,13 +1,17 @@
-"""Model assembly: the port of ``repro/models/transformer.py``, dense
-decoder branches only.
+"""Model assembly: the port of ``repro/models/transformer.py``, the
+attention decoder branches.
 
 A config-driven decoder: the per-layer ``LayerSpec`` picks the sequence
 mixer (full / sliding / chunked attention) and the channel mixer (swiglu /
-gelu). Parameters are nested dicts of tensors with the layers as a plain
-list (the reference stacks identical layers for ``lax.scan``;
-``convert.lm_params_from_reference`` unstacks them). The branches of the
-reference that the port does not have yet raise ``NotImplementedError``
-naming their slice (ROADMAP.md, queue 1).
+gelu / moe; ``first_dense_layers`` reach it through ``cfg.layer_specs()``).
+``prefill`` and ``decode_step`` run the MoE router through its kernel;
+the full ``forward`` runs its plain version, as its attention does, so
+that in float64 it is the float64 reference. Parameters are nested dicts
+of tensors with the layers as a plain list (the reference stacks
+identical layers for ``lax.scan``; ``convert.lm_params_from_reference``
+unstacks them). The branches of the reference that the port does not
+have yet raise ``NotImplementedError`` naming their slice (ROADMAP.md,
+queue 1).
 
 API:
   init_params(cfg, seed, dtype, device)           -> params
@@ -24,12 +28,13 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import LayerSpec, ModelConfig
-from . import attention, layers
+from ..kernels.moe_router import moe_topk
+from ..kernels.ref import moe_topk_ref
+from . import attention, layers, moe
 
 _SLICE_OF_MIXER = {"mamba": "slice 6c (mamba and the mamba_scan kernel)",
                    "rwkv": "slice 6d (rwkv6 and the rwkv6_wkv kernel)"}
-_SLICE_OF_FFN = {"moe": "slice 6b (MoE layers and the moe_topk kernel)",
-                 "rwkv_channel": "slice 6d (rwkv6 and the rwkv6_wkv kernel)"}
+_SLICE_OF_FFN = {"rwkv_channel": "slice 6d (rwkv6 and the rwkv6_wkv kernel)"}
 _FRONTENDS = "slice 6f (the vision and audio frontends)"
 
 
@@ -82,6 +87,14 @@ def attn_spec(cfg: ModelConfig, lspec: LayerSpec) -> attention.AttnSpec:
     )
 
 
+def moe_spec(cfg: ModelConfig) -> moe.MoESpec:
+    return moe.MoESpec(num_experts=cfg.num_experts,
+                       experts_per_token=cfg.experts_per_token,
+                       d_model=cfg.d_model, d_ff=cfg.d_ff,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       group_size=cfg.moe_group_size)
+
+
 def _norm_init(cfg: ModelConfig, d: int, dtype, device):
     return (layers.layernorm_init(d, dtype, device) if cfg.norm == "layernorm"
             else layers.rmsnorm_init(d, dtype, device))
@@ -126,8 +139,12 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, lspec: LayerSpec,
                                     dtype)
     if lspec.ffn == "swiglu":
         p["ffn"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
-    else:
+    elif lspec.ffn == "gelu":
         p["ffn"] = layers.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    elif lspec.ffn == "moe":
+        p["moe"] = moe.moe_init(gen, moe_spec(cfg), dtype)
+    else:
+        raise ValueError(lspec.ffn)
     return p
 
 
@@ -150,11 +167,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 # forward
 # ---------------------------------------------------------------------------
 
-def _ffn(p, lspec: LayerSpec, h):
+def _ffn(p, cfg: ModelConfig, lspec: LayerSpec, h, topk=moe_topk):
+    """The channel mixer; ``topk`` is the MoE router's top-k."""
     if lspec.ffn == "swiglu":
         return layers.swiglu(p["ffn"], h)
     if lspec.ffn == "gelu":
         return layers.gelu_mlp(p["ffn"], h)
+    if lspec.ffn == "moe":
+        return moe.moe_block(p["moe"], moe_spec(cfg), h, topk=topk)
     raise ValueError(lspec.ffn)
 
 
@@ -164,7 +184,7 @@ def _layer_forward(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
     x = x + attention.attention_block(p["attn"], attn_spec(cfg, lspec), h,
                                       positions)
     h = _norm(cfg, p["norm2"], x)
-    return x + _ffn(p, lspec, h)
+    return x + _ffn(p, cfg, lspec, h, topk=moe_topk_ref)
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
@@ -195,8 +215,9 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Returns logits (B, S, V). Plain PyTorch throughout (no kernel), in
-    the parameters' dtype: in float64 it is the float64 reference."""
+    """Returns logits (B, S, V). Plain PyTorch throughout (no kernel: the
+    attention and the MoE router take their plain versions), in the
+    parameters' dtype: in float64 it is the float64 reference."""
     return unembed(params, cfg, _backbone(params, cfg, batch))
 
 
@@ -225,7 +246,7 @@ def _decode_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, pos):
                                          c["kv"], pos)
     x = x + mix
     h = _norm(cfg, p["norm2"], x)
-    return x + _ffn(p, ls, h), {"kv": kv}
+    return x + _ffn(p, cfg, ls, h), {"kv": kv}
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
@@ -249,7 +270,7 @@ def _prefill_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, positions):
                                           positions, c["kv"])
     x = x + mix
     h = _norm(cfg, p["norm2"], x)
-    return x + _ffn(p, ls, h), {"kv": kv}
+    return x + _ffn(p, cfg, ls, h), {"kv": kv}
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

@@ -1,6 +1,6 @@
 """The JAX reference's LM outputs for the port's tests, dumped to an npz.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_lm_ref.py OUT.npz
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_lm_ref.py OUT.npz [lm|moe]
 
 ``repro.models`` does not import on this jax (ROADMAP queue 3, item a):
 ``models/attention.py:172`` asks ``prim in batching.primitive_batchers``,
@@ -8,12 +8,16 @@ and that attribute is now a proxy that does not support ``in``. For the
 length of the import only, this script puts a plain dict holding the
 barrier primitive in its place, so the reference registers no rule of its
 own, then restores the proxy. No file of the reference changes. It runs
-in a process of its own (``tests/test_torch_lm.py`` starts it), so no
-other test module ever sees the swap.
+in a process of its own (``tests/test_torch_lm.py`` and
+``tests/test_torch_moe.py`` start it), so no other test module ever sees
+the swap.
 
-Everything is drawn from fixed seeds: the weights with the reference's own
-``init_params`` (mistral-nemo-12b-smoke at 2 layers, unrolled, and at 4
-layers, scanned), the inputs with numpy. Keys are "/"-joined paths.
+Two parts: ``lm`` (the default) dumps the models, ``moe`` the MoE layer's
+pieces. Everything is drawn from fixed seeds: the weights with the
+reference's own inits (mistral-nemo-12b-smoke at 2 layers, unrolled, and
+at 4 layers, scanned; moonshot-v1-16b-a3b-smoke at 2 layers, unrolled, and
+at 6 layers, scanned as plan (1, 1, 5, 0): one dense head layer, then one
+MoE layer 5 times), the inputs with numpy. Keys are "/"-joined paths.
 """
 import dataclasses
 import sys
@@ -33,11 +37,11 @@ def import_reference():
     saved = batching.primitive_batchers
     batching.primitive_batchers = {optimization_barrier_p: None}
     try:
-        from repro.models import attention, layers, transformer
+        from repro.models import attention, layers, moe, transformer
         from repro.serve import ServeEngine
     finally:
         batching.primitive_batchers = saved
-    return attention, layers, transformer, ServeEngine
+    return attention, layers, moe, transformer, ServeEngine
 
 
 def flatten(tree, prefix):
@@ -48,8 +52,45 @@ def flatten(tree, prefix):
     return out
 
 
-def main(path):
-    attention, layers, transformer, ServeEngine = import_reference()
+def dump_model(out, transformer, ServeEngine, cfg, p, key, rng):
+    """``cfg``'s weights from ``PRNGKey(key)`` and its outputs under the
+    keys ``p/...``: forward, prefill with its cache, 4 teacher-forced
+    decode steps with the cache after them, greedy ``generate``."""
+    v = cfg.vocab_size
+    params = transformer.init_params(jax.random.PRNGKey(key), cfg,
+                                     jnp.float32)
+    out.update(flatten(params, f"{p}/params"))
+    tokens = rng.integers(0, v, (B, FWD_LEN)).astype(np.int32)
+    out[f"{p}/forward_tokens"] = tokens
+    out[f"{p}/forward_logits"] = transformer.forward(
+        params, cfg, {"tokens": tokens})
+    prompts = rng.integers(0, v, (B, PROMPT)).astype(np.int32)
+    cache = transformer.init_cache(cfg, B, MAX_LEN, jnp.float32)
+    last, cache = transformer.prefill(params, cfg, {"tokens": prompts},
+                                      cache)
+    out.update({f"{p}/prompts": prompts, f"{p}/prefill_logits": last})
+    out.update(flatten(cache, f"{p}/prefill_cache"))
+    steps = rng.integers(0, v, (B, STEPS)).astype(np.int32)
+    logits = []
+    for i in range(STEPS):
+        lg, cache = transformer.decode_step(
+            params, cfg, steps[:, i:i + 1], cache,
+            jnp.full((B,), PROMPT + i, jnp.int32))
+        logits.append(np.asarray(lg))
+    out.update({f"{p}/decode_tokens": steps,
+                f"{p}/decode_logits": np.stack(logits)})
+    out.update(flatten(cache, f"{p}/decode_cache"))
+    engine = ServeEngine(cfg, params, max_len=MAX_LEN)
+    out[f"{p}/generate_tokens"] = engine.generate(jnp.asarray(prompts),
+                                                  new_tokens=NEW)
+    return params
+
+
+def main(path, part="lm"):
+    attention, layers, moe, transformer, ServeEngine = import_reference()
+    if part == "moe":
+        np.savez(path, **dump_moe(moe))
+        return
     smoke = get_config("mistral-nemo-12b-smoke")
     rng = np.random.default_rng(0)
     d, v = smoke.d_model, smoke.vocab_size
@@ -77,33 +118,8 @@ def main(path):
 
     for n_layers in (2, 4):
         cfg = dataclasses.replace(smoke, num_layers=n_layers)
-        params = transformer.init_params(jax.random.PRNGKey(n_layers), cfg,
-                                         jnp.float32)
-        p = f"p{n_layers}"
-        out.update(flatten(params, f"{p}/params"))
-        tokens = rng.integers(0, v, (B, FWD_LEN)).astype(np.int32)
-        out[f"{p}/forward_tokens"] = tokens
-        out[f"{p}/forward_logits"] = transformer.forward(
-            params, cfg, {"tokens": tokens})
-        prompts = rng.integers(0, v, (B, PROMPT)).astype(np.int32)
-        cache = transformer.init_cache(cfg, B, MAX_LEN, jnp.float32)
-        last, cache = transformer.prefill(params, cfg, {"tokens": prompts},
-                                          cache)
-        out.update({f"{p}/prompts": prompts, f"{p}/prefill_logits": last})
-        out.update(flatten(cache, f"{p}/prefill_cache"))
-        steps = rng.integers(0, v, (B, STEPS)).astype(np.int32)
-        logits = []
-        for i in range(STEPS):
-            lg, cache = transformer.decode_step(
-                params, cfg, steps[:, i:i + 1], cache,
-                jnp.full((B,), PROMPT + i, jnp.int32))
-            logits.append(np.asarray(lg))
-        out.update({f"{p}/decode_tokens": steps,
-                    f"{p}/decode_logits": np.stack(logits)})
-        out.update(flatten(cache, f"{p}/decode_cache"))
-        engine = ServeEngine(cfg, params, max_len=MAX_LEN)
-        out[f"{p}/generate_tokens"] = engine.generate(jnp.asarray(prompts),
-                                                      new_tokens=NEW)
+        params = dump_model(out, transformer, ServeEngine, cfg,
+                            f"p{n_layers}", n_layers, rng)
         if n_layers == 2:
             lay = params["layers_head"][0]
             out["swiglu/out"] = layers.swiglu(lay["ffn"], x)
@@ -127,8 +143,50 @@ def main(path):
                         "decode_attention/out": y,
                         "decode_attention/k": kv["k"],
                         "decode_attention/v": kv["v"]})
+    moon = get_config("moonshot-v1-16b-a3b-smoke")
+    moon_rng = np.random.default_rng(1)
+    for n_layers in (2, 6):
+        cfg = dataclasses.replace(moon, num_layers=n_layers)
+        dump_model(out, transformer, ServeEngine, cfg, f"moon{n_layers}",
+                   100 + n_layers, moon_rng)
     np.savez(path, **{k: np.asarray(a) for k, a in out.items()})
 
 
+# (E, k, capacity) of the dispatch dump: 12 tokens × 2 choices into 4
+# experts of 3 slots, so choices overflow
+DISPATCH = (4, 2, 3)
+# the two MoE-layer specs: with drops (capacity factor 0.5: 4 slots per
+# expert for 16 tokens × 2 choices) and without (capacity factor 8)
+MOE_SPECS = {"drops": dict(num_experts=4, experts_per_token=2, d_model=32,
+                           d_ff=64, capacity_factor=0.5, group_size=16),
+             "nodrops": dict(num_experts=4, experts_per_token=2, d_model=32,
+                             d_ff=64, capacity_factor=8.0, group_size=64)}
+
+
+def dump_moe(moe):
+    rng = np.random.default_rng(2)
+    out = {}
+    e, k, cap = DISPATCH
+    ids = np.stack([rng.permuted(np.tile(np.arange(e), (12, 1)), axis=1)[:, :k]
+                    for _ in range(3)]).astype(np.int32)    # (3, 12, 2)
+    out["dispatch/ids"] = ids
+    res = [moe._dispatch_indices(jnp.asarray(g), k, e, cap) for g in ids]
+    out["dispatch/idx"] = np.stack([np.asarray(i) for i, _ in res])
+    out["dispatch/dst"] = np.stack([np.asarray(d) for _, d in res])
+    for name, kw in MOE_SPECS.items():
+        spec = moe.MoESpec(**kw)
+        params = moe.moe_init(jax.random.PRNGKey(len(name)), spec,
+                              jnp.float32)
+        out.update(flatten(params, f"{name}/params"))
+        x = rng.standard_normal((2, 2 * kw["group_size"], kw["d_model"])
+                                ).astype(np.float32)
+        out[f"{name}/x"] = x
+        out[f"{name}/moe_block"] = moe.moe_block(params, spec, x)
+        out[f"{name}/moe_ref"] = moe.moe_ref(params, spec, x)
+        out[f"{name}/load_balance_loss"] = moe.load_balance_loss(params,
+                                                                 spec, x)
+    return {key: np.asarray(a) for key, a in out.items()}
+
+
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:])

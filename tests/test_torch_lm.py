@@ -1,10 +1,12 @@
-"""The port's LM serving slice against the JAX reference.
+"""The port's LM serving slices against the JAX reference.
 
 ``repro.models`` does not import in this process (ROADMAP queue 3, item
 a), so a session fixture runs ``tests/_torch_lm_ref.py`` once in a
 subprocess and loads the npz it writes: the reference's weights for
-mistral-nemo-12b-smoke at 2 layers (unrolled) and 4 layers (scanned), its
-building blocks on fixed inputs, ``prefill_attention`` and
+mistral-nemo-12b-smoke at 2 layers (unrolled) and 4 layers (scanned) and
+for moonshot-v1-16b-a3b-smoke (a dense layer, then MoE layers of 4
+experts, top-2) at 2 layers (unrolled) and 6 layers (scanned as one dense
+head layer and one MoE layer 5 times), its building blocks on fixed inputs, ``prefill_attention`` and
 ``decode_attention`` with their caches, ``transformer.forward``,
 ``prefill`` and 4 teacher-forced ``decode_step`` logits, and greedy
 ``ServeEngine.generate`` tokens. The port takes the reference's weights
@@ -16,7 +18,11 @@ Both sides compute in float32 but sum in other orders (XLA's CPU
 reductions and dot products against PyTorch's), which moves the outputs by
 ≈ 1e-6 at these widths; 2e-5 leaves a margin of 10 while staying far below
 any change of the computation (a missing mask, scale or RoPE term moves
-them by ≥ 1e-2). Greedy tokens are held EQUAL.
+them by ≥ 1e-2). Greedy tokens are held EQUAL. The MoE layers route
+exactly as the reference only away from near-ties of the router's
+probabilities, so the moonshot tests assert that the smallest gap between
+the k-th and (k+1)-th probability of every routed token is above 1e-4,
+≥ 1000× the two packages' rounding of a float32 probability.
 """
 import dataclasses
 import os
@@ -33,8 +39,9 @@ from repro_torch import convert
 from repro_torch.configs import available_archs, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_router as mr
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models import attention, layers, transformer
+from repro_torch.models import attention, layers, moe, transformer
 from repro_torch.serve import ServeEngine
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -42,6 +49,14 @@ TESTS = pathlib.Path(__file__).resolve().parent
 SRC = TESTS.parent / "src"
 B, PROMPT, NEW, STEPS, MAX_LEN = 2, 8, 6, 4, 16
 SMOKE = "mistral-nemo-12b-smoke"
+MOON = "moonshot-v1-16b-a3b-smoke"
+PORTED = {"mistral-nemo-12b", SMOKE, "phi3-medium-14b",
+          "phi3-medium-14b-smoke", "moonshot-v1-16b-a3b", MOON}
+# (arch, layers) of the reference's dumps; mistral's keep their ids
+MODELS = [pytest.param(SMOKE, 2, id="2"), pytest.param(SMOKE, 4, id="4"),
+          pytest.param(MOON, 2, id="moonshot-2"),
+          pytest.param(MOON, 6, id="moonshot-6")]
+MIN_MARGIN = 1e-4
 
 
 @pytest.fixture(scope="session")
@@ -69,13 +84,45 @@ def sub(ref, prefix):
             if k.startswith(prefix + "/")}
 
 
-def cfg_of(n_layers):
-    return dataclasses.replace(get_config(SMOKE), num_layers=n_layers)
+def key(arch, n_layers):
+    """The dump's prefix of ``arch`` at ``n_layers``."""
+    return f"p{n_layers}" if arch == SMOKE else f"moon{n_layers}"
 
 
-def port_params(ref, n_layers):
+def cfg_of(n_layers, arch=SMOKE):
+    return dataclasses.replace(get_config(arch), num_layers=n_layers)
+
+
+def port_params(ref, n_layers, arch=SMOKE):
     return convert.lm_params_from_reference(
-        sub(ref, f"p{n_layers}/params"), cfg_of(n_layers), device="cpu")
+        sub(ref, f"{key(arch, n_layers)}/params"), cfg_of(n_layers, arch),
+        device="cpu")
+
+
+@pytest.fixture
+def margins(monkeypatch):
+    """Records, for every ``moe_block`` the model calls, the smallest gap
+    between the k-th and (k+1)-th router probability of its tokens."""
+    seen = []
+    block = moe.moe_block
+
+    def recording(params, spec, x, **kw):
+        logits = moe._router_logits(params, x.reshape(-1, x.shape[-1]))
+        p = torch.sort(torch.softmax(logits.double(), dim=-1), dim=-1,
+                       descending=True).values
+        k = spec.experts_per_token
+        seen.append((p[:, k - 1] - p[:, k]).min().item())
+        return block(params, spec, x, **kw)
+
+    monkeypatch.setattr(moe, "moe_block", recording)
+    return seen
+
+
+def check_margins(arch, seen):
+    if arch == MOON:
+        assert seen and min(seen) > MIN_MARGIN, min(seen)
+    else:
+        assert not seen
 
 
 def reference_layer_cache(ref, prefix, cfg, i):
@@ -91,8 +138,7 @@ def reference_layer_cache(ref, prefix, cfg, i):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["mistral-nemo-12b", SMOKE,
-                                  "phi3-medium-14b", "phi3-medium-14b-smoke"])
+@pytest.mark.parametrize("name", sorted(PORTED))
 def test_config_equals_reference(name):
     port, want = get_config(name), ref_configs.get_config(name)
     assert dataclasses.asdict(port) == dataclasses.asdict(want)
@@ -102,25 +148,35 @@ def test_config_equals_reference(name):
 
 
 def test_registry_holds_only_ported_archs():
-    assert set(available_archs()) == {
-        "mistral-nemo-12b", SMOKE, "phi3-medium-14b", "phi3-medium-14b-smoke"}
+    assert set(available_archs()) == PORTED
     assert get_config("mistral-nemo-12b").count_params() == 11_576_688_640
+    moon = get_config("moonshot-v1-16b-a3b")
+    assert moon.count_params() == 27_177_320_448
+    assert [s.ffn for s in moon.layer_specs()] == ["swiglu"] + ["moe"] * 47
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("name", [n for n in ref_configs.available_archs()
-                                  if n not in {"mistral-nemo-12b", SMOKE,
-                                               "phi3-medium-14b",
-                                               "phi3-medium-14b-smoke"}])
+                                  if n not in PORTED])
 def test_unported_arch_raises_naming_its_slice(name):
     with pytest.raises(NotImplementedError, match="slice"):
         get_config(name)
 
 
+@pytest.mark.parametrize("name,where", [
+    ("llama4-scout-17b-a16e", "slice 6e"),
+    ("llama4-maverick-400b-a17b-smoke", "slice 6e"),
+    ("jamba-v0.1-52b", "slice 6c"), ("jamba-v0.1-52b-smoke", "slice 6c")])
+def test_moe_archs_still_unported_name_their_slice(name, where):
+    with pytest.raises(NotImplementedError, match=where):
+        get_config(name)
+
+
 @pytest.mark.parametrize("change", [
-    dict(attn_every=2), dict(rwkv=True), dict(num_experts=4,
-                                              experts_per_token=1),
+    dict(attn_every=2), dict(rwkv=True),
+    # MoE layers are ported; jamba's hybrid of MoE and mamba is not
+    dict(attn_every=2, num_experts=4, experts_per_token=1),
     dict(encoder_layers=1), dict(frontend="vision"), dict(learned_pos=True),
     dict(qk_norm=True), dict(tie_embeddings=False)])
 def test_unported_branches_raise(change):
@@ -207,39 +263,57 @@ def test_init_statistics():
 # the model and serving
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n_layers", [2, 4])
-def test_convert_unstacks_reference_layout(ref, n_layers):
-    params = port_params(ref, n_layers)
+@pytest.mark.parametrize("arch,n_layers", MODELS)
+def test_convert_unstacks_reference_layout(ref, arch, n_layers):
+    params = port_params(ref, n_layers, arch)
+    cfg, p = cfg_of(n_layers, arch), key(arch, n_layers)
     assert len(params["layers"]) == n_layers
-    head, period, n_rep, tail = transformer.stack_plan(cfg_of(n_layers))
+    plan = transformer.stack_plan(cfg)
+    head, _, n_rep, _ = plan
     assert (n_rep == 1) == (n_layers == 2)
-    for i, lay in enumerate(params["layers"]):
-        key = (f"p{n_layers}/params/layers_head/{i}/attn/wq" if n_rep == 1
-               else f"p{n_layers}/params/layers_scan/0/attn/wq")
-        want = ref[key] if n_rep == 1 else ref[key][i]
-        assert np.array_equal(lay["attn"]["wq"].numpy(), want)
+    if arch == MOON:
+        assert plan == ((0, 2, 1, 0) if n_layers == 2 else (1, 1, 5, 0))
+
+    def leaf(i, name):
+        """Layer i's leaf ``name`` in the reference's layout."""
+        if n_rep == 1 or i < head:
+            return ref[f"{p}/params/layers_head/{i}/{name}"]
+        return ref[f"{p}/params/layers_scan/0/{name}"][i - head]
+
+    for i, (lay, ls) in enumerate(zip(params["layers"], cfg.layer_specs())):
+        assert np.array_equal(lay["attn"]["wq"].numpy(), leaf(i, "attn/wq"))
         assert lay["attn"]["wo"].shape == (4, 64, 256)
+        assert ("moe" in lay) == (ls.ffn == "moe")
+        for name in (("router", "w_gate", "w_up", "w_down")
+                     if ls.ffn == "moe" else ()):
+            assert np.array_equal(lay["moe"][name].numpy(),
+                                  leaf(i, f"moe/{name}"))
 
 
-@pytest.mark.parametrize("n_layers", [2, 4])
-def test_forward_matches_reference(ref, n_layers):
-    params = port_params(ref, n_layers)
+@pytest.mark.parametrize("arch,n_layers", MODELS)
+def test_forward_matches_reference(ref, arch, n_layers, margins):
+    params, p = port_params(ref, n_layers, arch), key(arch, n_layers)
+    mr.KERNEL.launches = 0
     logits = transformer.forward(
-        params, cfg_of(n_layers),
-        {"tokens": t(ref[f"p{n_layers}/forward_tokens"]).long()})
-    close(logits, ref[f"p{n_layers}/forward_logits"])
+        params, cfg_of(n_layers, arch),
+        {"tokens": t(ref[f"{p}/forward_tokens"]).long()})
+    assert mr.KERNEL.launches == 0
+    close(logits, ref[f"{p}/forward_logits"])
+    check_margins(arch, margins)
 
 
-@pytest.mark.parametrize("n_layers", [2, 4])
-def test_prefill_and_decode_steps_match_reference(ref, n_layers):
-    cfg, p = cfg_of(n_layers), f"p{n_layers}"
-    params = port_params(ref, n_layers)
+@pytest.mark.parametrize("arch,n_layers", MODELS)
+def test_prefill_and_decode_steps_match_reference(ref, arch, n_layers,
+                                                  margins):
+    cfg, p = cfg_of(n_layers, arch), key(arch, n_layers)
+    params = port_params(ref, n_layers, arch)
     cache = transformer.init_cache(cfg, B, MAX_LEN, torch.float32, "cpu")
-    fa.KERNEL.launches = 0
+    fa.KERNEL.launches = mr.KERNEL.launches = 0
     last, cache = transformer.prefill(params, cfg,
                                       {"tokens": t(ref[f"{p}/prompts"]).long()},
                                       cache)
-    assert fa.KERNEL.launches == 0          # the CPU runs the plain version
+    # the CPU runs the plain versions
+    assert fa.KERNEL.launches == mr.KERNEL.launches == 0
     close(last, ref[f"{p}/prefill_logits"])
     for i in range(n_layers):
         k, v = reference_layer_cache(ref, f"{p}/prefill_cache", cfg, i)
@@ -255,15 +329,19 @@ def test_prefill_and_decode_steps_match_reference(ref, n_layers):
         k, v = reference_layer_cache(ref, f"{p}/decode_cache", cfg, i)
         close(cache["layers"][i]["kv"]["k"], k)
         close(cache["layers"][i]["kv"]["v"], v)
+    check_margins(arch, margins)
 
 
-@pytest.mark.parametrize("n_layers", [2, 4])
-def test_greedy_generate_equals_reference(ref, n_layers):
-    engine = ServeEngine(cfg_of(n_layers), port_params(ref, n_layers),
-                         max_len=MAX_LEN, device="cpu")
-    out = engine.generate(ref[f"p{n_layers}/prompts"], new_tokens=NEW)
+@pytest.mark.parametrize("arch,n_layers", MODELS)
+def test_greedy_generate_equals_reference(ref, arch, n_layers, margins):
+    p = key(arch, n_layers)
+    engine = ServeEngine(cfg_of(n_layers, arch),
+                         port_params(ref, n_layers, arch), max_len=MAX_LEN,
+                         device="cpu")
+    out = engine.generate(ref[f"{p}/prompts"], new_tokens=NEW)
     assert out.dtype == np.int32
-    np.testing.assert_array_equal(out, ref[f"p{n_layers}/generate_tokens"])
+    np.testing.assert_array_equal(out, ref[f"{p}/generate_tokens"])
+    check_margins(arch, margins)
 
 
 def test_sampling_draws_from_the_generator():
@@ -287,6 +365,12 @@ def test_launcher_runs_on_cpu(capsys):
     launch_serve.main(["--arch", SMOKE, "--batch", "2", "--prompt-len", "6",
                        "--new-tokens", "3", "--device", "cpu"])
     assert "generated (2, 3) tokens" in capsys.readouterr().out
+
+
+def test_launcher_serves_moonshot_on_cpu(capsys):
+    launch_serve.main(["--arch", MOON, "--batch", "2", "--prompt-len", "16",
+                       "--new-tokens", "4", "--device", "cpu"])
+    assert "generated (2, 4) tokens" in capsys.readouterr().out
 
 
 def test_trace_and_frontend_inputs_raise():

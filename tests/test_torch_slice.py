@@ -248,7 +248,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert len(mods) >= 20
     assert {"repro_torch.configs.base", "repro_torch.models.transformer",
             "repro_torch.kernels.flash_attention", "repro_torch.serve.engine",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.models.moe",
+            "repro_torch.kernels.moe_router"} <= set(mods)
 
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s+import\b))", re.MULTILINE)
