@@ -18,7 +18,14 @@ Phases, each printing one JSON line per case:
    at moonshot's prefill (8192 × 64 experts, top-6), decode (8 × 64) and
    one ragged shape (1000 × 128, top-8): ids equal to the plain version's
    except on rows whose top probabilities lie within 2 ulps of each other
-   (counted and printed), gates within 1e-6.
+   (counted and printed), gates within 1e-6. The WKV-6 recurrence
+   ``rwkv6_wkv`` runs at rwkv6-7b's prefill of serve run (a) (1 × 8192, 64
+   heads of 64) with w as the model draws it (≈ 0.9975) and uniform in
+   (0.9, 0.999), at run (b)'s (8 × 512), at decode (8 × 1, from a random
+   state) and at four ragged shapes of n = 8, 16, 32 and 40: within 3e-5
+   of float64 relative to the recurrence over absolute values, with the
+   plain loop and the reference's chunked form ``wkv6_chunked`` timed
+   beside it.
    ``kernel_masked``: the two Eq. 3 kernels given a dropout-masked weight
    operand, against their plain versions.
 4. ``main``    — ``train_rl_netes`` on pendulum at N = 1000 (the paper's
@@ -63,6 +70,19 @@ Phases, each printing one JSON line per case:
    (1 dense + 23 MoE, 53.9 GB of float32 weights; all 48 do not fit in
    80 GB), after mistral's weights are freed, as in 9: 24 flash and
    23 × 16 = 368 ``moe_topk`` launches per ``generate``.
+13. ``rwkv_parity`` — rwkv6-7b at full width and 2 layers, B = 2, 512-token
+   prompts, 8 new tokens: the kernel path's prefill and decode logits
+   against the float64 ``forward`` (the chunked form) on the card.
+14. ``rwkv_cpu_parity`` — the rwkv6 smoke model's greedy serving on the GPU
+   against the CPU from the same weights.
+15. ``serve`` of rwkv6-7b at full width and full depth (32 layers, 29.1 GB
+   of float32 weights), after moonshot's weights are freed, as in 9:
+   32 × 16 = 512 ``rwkv6_wkv`` launches per ``generate`` (one per layer in
+   the prefill and in each decode step).
+``no_sync`` (in phases 7 and 13): one prefill of mistral-nemo-12b and one
+of rwkv6-7b (full width, 2 layers) under
+``torch.cuda.set_sync_debug_mode("error")``: any call that waits for the
+card raises there.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -714,6 +734,130 @@ def router_kernel_phase(results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the WKV-6 recurrence against its plain version
+# ---------------------------------------------------------------------------
+
+# |kernel − float64| ≤ TOL_REL · S elementwise, where S is the same
+# recurrence run in float64 over absolute values (|r|, |k|, |v|, w, |u|,
+# |s0|). Each output and state entry is a decayed sum over ≈ 1/(1 − w)
+# steps (400–1000 here) of float32 products; their rounding random-walks to
+# ≈ u/√(1 − w²) ≈ 1e-6·S, and 3e-5 is thirty of those. Leaving out the
+# bonus term or one step's decay moves an entry by ≥ (1 − w)·S ≈ 1e-3·S.
+WKV_CASES = (  # (label, B, S, H, n, initial state?, w drawn as, main)
+    # rwkv6-7b's prefill of serve run (a), w as the model draws it
+    ("rwkv_prefill_8192", 1, 8192, 64, 64, False, "model", True),
+    ("rwkv_prefill_8192_w_uniform", 1, 8192, 64, 64, False, "uniform",
+     False),
+    # serve run (b)'s prefill, and a decode step of run (b)
+    ("rwkv_prefill_b8_512", 8, 512, 64, 64, False, "model", False),
+    ("rwkv_decode_b8", 8, 1, 64, 64, True, "model", False),
+    ("ragged_n8", 2, 100, 3, 8, True, "uniform", False),
+    ("ragged_n16", 1, 77, 5, 16, True, "uniform", False),
+    ("ragged_n32", 3, 33, 2, 32, False, "uniform", False),
+    ("ragged_n40", 1, 50, 2, 40, True, "uniform", False),
+)
+WKV_CHUNK = 128           # the reference's chunk in rwkv6_block
+
+
+def _wkv_operands(b, s, h, n, s0: bool, w_kind: str, seed: int):
+    """r, k, v, u unit normal; w either as rwkv6-7b's init makes it,
+    exp(−exp(−6 + δ)) with δ the decay LoRA's ≈ 1e-2 (w ≈ 0.9975), or
+    uniform in (0.9, 0.999); s0 unit normal, or None."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn(b, s, h, n, device="cuda", generator=g)
+               for _ in range(3))
+    if w_kind == "model":
+        w = torch.exp(-torch.exp(-6.0 + 0.01 * torch.randn(
+            b, s, h, n, device="cuda", generator=g)))
+    else:
+        w = 0.9 + 0.099 * torch.rand(b, s, h, n, device="cuda", generator=g)
+    u = torch.randn(h, n, device="cuda", generator=g)
+    z = (torch.randn(b, h, n, n, device="cuda", generator=g) if s0
+         else None)
+    return r, k, v, w, u, z
+
+
+def _wkv_error_over_scale(got, exact, scale, name):
+    err = ((got.double() - exact).abs() / scale.clamp_min(1e-30)).max().item()
+    check(err <= TOL_REL, f"{name}: error {err:.3g}·S above {TOL_REL}·S")
+    return err
+
+
+def wkv_kernel_phase(results: dict) -> None:
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_wkv as rw
+    from repro_torch.models import rwkv6
+
+    for label, b, s, h, n, s0, w_kind, main in WKV_CASES:
+        args = _wkv_operands(b, s, h, n, s0, w_kind, seed=b + s + h + n)
+        r, k, v, w, u, z = args
+        kernel = functools.partial(rw.rwkv6_wkv, *args)
+        plain = functools.partial(ref.rwkv6_wkv_ref, *args)
+        (out_k, s_k), (out_p, s_p) = kernel(), plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out_k).all() and torch.isfinite(s_k).all()),
+              f"rwkv6_wkv/{label}: non-finite")
+        out64, s64 = ref.rwkv6_wkv_ref(
+            *(a.double() for a in (r, k, v, w, u)),
+            None if z is None else z.double())
+        scale_o, scale_s = ref.rwkv6_wkv_ref(
+            r.abs().double(), k.abs().double(), v.abs().double(), w.double(),
+            u.abs().double(), None if z is None else z.abs().double())
+        errs = {"out": _wkv_error_over_scale(out_k, out64, scale_o,
+                                             f"rwkv6_wkv/{label}"),
+                "state": _wkv_error_over_scale(s_k, s64, scale_s,
+                                               f"rwkv6_wkv/{label} state"),
+                "plain_out": _wkv_error_over_scale(
+                    out_p, out64, scale_o, f"rwkv6_wkv/{label} plain"),
+                "plain_state": _wkv_error_over_scale(
+                    s_p, s64, scale_s, f"rwkv6_wkv/{label} plain state")}
+        del out64, s64, scale_o, scale_s
+        # the second yardstick: the reference's chunked form in plain
+        # PyTorch products (rwkv6_block's), where S is a multiple of its
+        # chunk; its error is reported, not gated (it divides by in-chunk
+        # decay products)
+        chunked = chunked_ms = chunked_err = None
+        if s % WKV_CHUNK == 0:
+            chunked = functools.partial(rwkv6.wkv6_chunked, *args,
+                                        chunk=WKV_CHUNK)
+            out_c, _ = chunked()
+            chunked_err = (out_c - out_p).abs().max().item()
+            chunked_ms = time_ms(chunked)
+            del out_c
+        # bytes: r, k, v, w and u read, s0 read, out and the state written;
+        # operations: per step, head and state entry an FMA for r·S and a
+        # multiply and an FMA for the update, per channel the bonus r·u·k
+        moved = 4.0 * (5 * b * s * h * n + h * n + b * h * n * n
+                       + (b * h * n * n if s0 else 0))
+        ops = float(b * s * h * (5 * n * n + 4 * n))
+        t_ops, t_bytes = ops / F32_FLOPS, moved / HBM_BYTES_PER_S
+        plain_iters = 3 if s > 1000 else 20
+        row = {"phase": "kernel", "name": "rwkv6_wkv", "shape": label,
+               "b": b, "s": s, "h": h, "n": n, "initial_state": s0,
+               "w": w_kind, "w_min": w.min().item(), "w_max": w.max().item(),
+               "max_abs_err": max((out_k - out_p).abs().max().item(),
+                                  (s_k - s_p).abs().max().item()),
+               "err_over_S_f64": errs, "tol_over_S": TOL_REL,
+               **time_stats(kernel),
+               "plain_ms": time_ms(plain, warmup=1, iters=plain_iters),
+               "plain_timed_calls": plain_iters,
+               "chunked_ms": chunked_ms, "chunked_max_abs_diff": chunked_err,
+               "library": "none (no PyTorch call computes WKV-6)",
+               "library_ms": None,
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "gflop": ops / 1e9, "mbytes": moved / 1e6}
+        emit(row)
+        if main:
+            results["rwkv6_wkv"] = row
+        del args, r, k, v, w, u, z, out_k, s_k, out_p, s_p, kernel, plain
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -726,10 +870,12 @@ def _counters():
     from repro_torch.kernels import netes_fused_mixing as nfm
     from repro_torch.kernels import netes_mixing as nm
     from repro_torch.kernels import netes_sparse_mixing as nsm
+    from repro_torch.kernels import rwkv6_wkv as rw
     return {"netes_mixing": nm.KERNEL, "netes_sparse_mixing": nsm.KERNEL,
             "fused_neighbor_sum": nfm.NEIGHBOR_SUM,
             "fused_broadcast_select": nfm.BROADCAST_SELECT,
-            "flash_attention": fa.KERNEL, "moe_topk": mr.KERNEL}
+            "flash_attention": fa.KERNEL, "moe_topk": mr.KERNEL,
+            "rwkv6_wkv": rw.KERNEL}
 
 
 def main_phase(launches: dict) -> None:
@@ -1094,6 +1240,31 @@ def _forward_bf16_attention(params, cfg, tokens):
     return transformer.unembed(params, cfg, x)
 
 
+def no_sync_prefill(arch: str, params, cfg, prompts) -> None:
+    """One ``transformer.prefill`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: a call in it that waits
+    for the card (a copy to the host, ``.item()``, ``nonzero``) raises."""
+    import torch
+
+    from repro_torch.models import transformer
+    cache = transformer.init_cache(cfg, prompts.shape[0], prompts.shape[1],
+                                   torch.float32, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            transformer.prefill(params, cfg, {"tokens": prompts}, cache)
+    except RuntimeError as err:
+        raise RuntimeError(f"no_sync {arch}: prefill waits for the card: "
+                           f"{err}") from err
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit({"phase": "no_sync", "arch": arch, "num_layers": cfg.num_layers,
+          "batch": prompts.shape[0], "prompt": prompts.shape[1],
+          "sync_debug_mode": "error", "prefill_synced": False})
+
+
 def serve_parity_phase() -> None:
     """Full width, 2 layers: the kernel path's prefill and decode logits
     against the port's plain full ``forward`` in float64 on the card over
@@ -1117,6 +1288,7 @@ def serve_parity_phase() -> None:
     tokens, logits, _ = _greedy(params, cfg, prompts, PARITY_NEW)
     check(fa.KERNEL.launches == PARITY_LAYERS, "serve parity: flash "
           f"attention launched {fa.KERNEL.launches} times in one prefill")
+    no_sync_prefill(ARCH, params, cfg, prompts)
     engine = ServeEngine(cfg, params, max_len=PARITY_PROMPT + PARITY_NEW)
     check(np.array_equal(engine.generate(prompts, new_tokens=PARITY_NEW),
                          tokens.cpu().numpy()),
@@ -1150,6 +1322,16 @@ def serve_parity_phase() -> None:
     torch.cuda.empty_cache()
 
 
+def _layer_counts(cfg):
+    """(attention, MoE, rwkv) layers of ``cfg``: the flash kernel runs
+    once per attention layer in a prefill, the router and the WKV kernel
+    once per layer of theirs in the prefill and in each decode step."""
+    specs = cfg.layer_specs()
+    return (sum(ls.mixer.startswith("attn") for ls in specs),
+            sum(ls.ffn == "moe" for ls in specs),
+            sum(ls.mixer == "rwkv" for ls in specs))
+
+
 def serve_cpu_parity_phase(arch: str) -> None:
     """``arch``'s smoke model's greedy serving on the GPU and on the CPU
     from the same weights: tokens equal, logits within TOL_SMOKE."""
@@ -1158,21 +1340,24 @@ def serve_cpu_parity_phase(arch: str) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import rwkv6_wkv as rw
     from repro_torch.models import transformer
 
     cfg = get_config(arch + "-smoke")
-    n_moe = sum(ls.ffn == "moe" for ls in cfg.layer_specs())
+    n_attn, n_moe, n_rwkv = _layer_counts(cfg)
     cpu = transformer.init_params(cfg, seed=0, device="cpu")
     prompts = torch.randint(0, cfg.vocab_size, (2, 24),
                             generator=torch.Generator().manual_seed(2))
     tok_c, lg_c, _ = _greedy(cpu, cfg, prompts, 8)
-    fa.KERNEL.launches = mr.KERNEL.launches = 0
+    fa.KERNEL.launches = mr.KERNEL.launches = rw.KERNEL.launches = 0
     tok_g, lg_g, _ = _greedy(_cast(cpu, device="cuda"), cfg, prompts.cuda(),
                              8)
-    check(fa.KERNEL.launches == cfg.num_layers,
+    check(fa.KERNEL.launches == n_attn,
           f"smoke parity: {fa.KERNEL.launches} flash launches")
     check(mr.KERNEL.launches == 8 * n_moe,
           f"smoke parity: {mr.KERNEL.launches} moe_topk launches")
+    check(rw.KERNEL.launches == 8 * n_rwkv,
+          f"smoke parity: {rw.KERNEL.launches} rwkv6_wkv launches")
     check(torch.equal(tok_c, tok_g.cpu()), "smoke parity: greedy tokens "
           f"differ between GPU {tok_g.tolist()} and CPU {tok_c.tolist()}")
     got, want = torch.stack(lg_g, 1).cpu(), torch.stack(lg_c, 1)
@@ -1181,7 +1366,7 @@ def serve_cpu_parity_phase(arch: str) -> None:
           f"{TOL_SMOKE} (rtol and atol)")
     emit({"phase": "serve_cpu_parity", "arch": cfg.name, "batch": 2,
           "prompt": 24, "new_tokens": 8, "head_dim": cfg.head_dim,
-          "tokens_equal": True, "moe_layers": n_moe,
+          "tokens_equal": True, "moe_layers": n_moe, "rwkv_layers": n_rwkv,
           "max_abs_err": (got - want).abs().max().item(),
           "tol": TOL_SMOKE})
 
@@ -1384,6 +1569,82 @@ def moe_parity_phase() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 13–15: serving of rwkv6-7b
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-7b"
+RWKV_PARITY_PROMPT = 512     # four chunks of the forward's chunked form
+
+
+def rwkv_parity_phase() -> None:
+    """rwkv6-7b at full width and 2 layers: the kernel path's prefill and
+    decode logits against the float64 ``forward`` on the card over the
+    prompt plus the tokens fed back (the forward runs the chunked form on
+    the prompt's length, the sequential loop past it), and one prefill
+    with no sync."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rwkv6_wkv as rw
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), num_layers=PARITY_LAYERS)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (PARITY_BATCH, RWKV_PARITY_PROMPT), generator=g,
+                            device="cuda")
+    rw.KERNEL.launches = 0
+    tokens, logits, _ = _greedy(params, cfg, prompts, PARITY_NEW)
+    check(rw.KERNEL.launches == PARITY_LAYERS * PARITY_NEW,
+          f"rwkv parity: rwkv6_wkv launched {rw.KERNEL.launches} times in "
+          f"one generate of {PARITY_NEW} tokens")
+    engine = ServeEngine(cfg, params,
+                         max_len=RWKV_PARITY_PROMPT + PARITY_NEW)
+    check(np.array_equal(engine.generate(prompts, new_tokens=PARITY_NEW),
+                         tokens.cpu().numpy()),
+          "rwkv parity: ServeEngine.generate differs from its own steps")
+    del engine
+    no_sync_prefill(RWKV_ARCH, params, cfg, prompts)
+    fed = torch.cat([prompts, tokens[:, :-1]], dim=1)
+    with torch.no_grad():
+        p64 = _cast(params, dtype=torch.float64)
+        # the prompt alone (the chunked form), then the whole fed sequence
+        pre64 = transformer.forward(p64, cfg, {"tokens": prompts})[:, -1]
+        ref64 = transformer.forward(p64, cfg, {"tokens": fed})[
+            :, RWKV_PARITY_PROMPT - 1:]
+        del p64
+        plain32 = transformer.forward(params, cfg, {"tokens": fed})[
+            :, RWKV_PARITY_PROMPT - 1:]
+    got = torch.stack(logits, dim=1).double()
+    scale = max(1.0, ref64.abs().max().item())
+    tol = TOL_LOGITS * scale
+    err = (got - ref64).abs().max().item()
+    err_prefill = (got[:, 0] - pre64).abs().max().item()
+    err_plain = (plain32.double() - ref64).abs().max().item()
+    check(bool(torch.isfinite(got).all()), "rwkv parity: non-finite logits")
+    check(err <= tol and err_prefill <= tol, f"rwkv parity: logits differ "
+          f"from float64 by {err} / {err_prefill} (tolerance {tol})")
+    emit({"phase": "rwkv_parity", "arch": RWKV_ARCH,
+          "num_layers": PARITY_LAYERS, "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+          "batch": PARITY_BATCH, "prompt": RWKV_PARITY_PROMPT,
+          "new_tokens": PARITY_NEW, "max_abs_logit": scale,
+          "max_abs_err": err, "prefill_vs_chunked_f64_err": err_prefill,
+          "plain_forward_f32_err": err_plain, "tol": tol,
+          "tol_rel": TOL_LOGITS, "generate_equal": True,
+          "rwkv6_wkv_launches": PARITY_LAYERS * PARITY_NEW})
+    del params, logits, ref64, pre64, plain32, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # Kernel names by kind in a profile: the port's two model kernels, cuBLAS
 # matrix products, and "dispatch": every indexing, sort, scan and
 # concatenation kernel (in an MoE model almost all of them are the
@@ -1391,6 +1652,7 @@ def moe_parity_phase() -> None:
 # cache writes count here too).
 PROFILE_KINDS = (("flash_attention", ("flash_attention_kernel",)),
                  ("moe_router", ("moe_topk_kernel",)),
+                 ("rwkv6_wkv", ("wkv6_kernel",)),
                  ("matmul", ("gemm", "gemv", "xmma", "cutlass")),
                  ("dispatch", ("index", "gather", "scatter", "sort", "scan",
                                "catarray")))
@@ -1460,7 +1722,7 @@ def serve_phase(arch: str, num_layers=None) -> dict:
     cfg = get_config(arch)
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
-    n_moe = sum(ls.ffn == "moe" for ls in cfg.layer_specs())
+    n_attn, n_moe, n_rwkv = _layer_counts(cfg)
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1483,15 +1745,18 @@ def serve_phase(arch: str, num_layers=None) -> dict:
         wall = time.perf_counter() - t0
         counts = {name: k.launches for name, k in counters.items()}
         peak = torch.cuda.max_memory_allocated()
-        check(counts["flash_attention"] == cfg.num_layers,
+        check(counts["flash_attention"] == n_attn,
               f"serve run ({run}): flash_attention launched "
               f"{counts['flash_attention']} times in one generate of "
-              f"{cfg.num_layers} layers")
-        # the router: once per MoE layer in the prefill and in each of the
-        # NEW_TOKENS − 1 decode steps
+              f"{n_attn} attention layers")
+        # the router and the WKV kernel: once per layer of theirs in the
+        # prefill and in each of the NEW_TOKENS − 1 decode steps
         check(counts["moe_topk"] == n_moe * NEW_TOKENS,
               f"serve run ({run}): moe_topk launched {counts['moe_topk']} "
               f"times, not {n_moe} MoE layers × {NEW_TOKENS}")
+        check(counts["rwkv6_wkv"] == n_rwkv * NEW_TOKENS,
+              f"serve run ({run}): rwkv6_wkv launched {counts['rwkv6_wkv']} "
+              f"times, not {n_rwkv} rwkv layers × {NEW_TOKENS}")
         check(out.shape == (b, NEW_TOKENS), f"serve run ({run}): {out.shape}")
         if run == "a":
             counts_a = counts
@@ -1528,6 +1793,7 @@ def serve_phase(arch: str, num_layers=None) -> dict:
                 "decode_3_steps": _profile(decode_3_steps)}
         emit({"phase": "serve", "run": run, "arch": arch,
               "num_layers": cfg.num_layers, "moe_layers": n_moe,
+              "rwkv_layers": n_rwkv,
               "d_model": cfg.d_model,
               "params": n_params, "weight_gb": weight_bytes / 1e9,
               "init_s": init_s, "batch": b, "prompt": s,
@@ -1564,6 +1830,8 @@ SOURCE_OF = {
                         "src/repro/kernels/flash_attention.py:82"),
     "moe_topk": ("src/repro_torch/csrc/moe_router.cu",
                  "src/repro/kernels/moe_router.py:45"),
+    "rwkv6_wkv": ("src/repro_torch/csrc/rwkv6_wkv.cu",
+                  "src/repro/kernels/rwkv6_wkv.py:43"),
 }
 
 
@@ -1597,6 +1865,7 @@ def main() -> int:
     wire_kernel_phase(results)
     attention_kernel_phase(results)
     router_kernel_phase(results)
+    wkv_kernel_phase(results)
     masked_kernel_phase()
     main_phase(launches)
     channel_phase(launches)
@@ -1608,6 +1877,9 @@ def main() -> int:
     serve_cpu_parity_phase(MOE_ARCH)
     launches["moe_topk"] = serve_phase(MOE_ARCH,
                                        MOE_SERVE_LAYERS)["moe_topk"]
+    rwkv_parity_phase()
+    serve_cpu_parity_phase(RWKV_ARCH)
+    launches["rwkv6_wkv"] = serve_phase(RWKV_ARCH)["rwkv6_wkv"]
     rows = []
     for name in SOURCE_OF:
         r = results[name]

@@ -28,7 +28,6 @@ UNPORTED = {
     "llama4-scout-17b-a16e": _CHUNKED,
     "llava-next-mistral-7b": "it comes with slice 6f (the vision and audio "
                              "frontends)",
-    "rwkv6-7b": "it comes with slice 6d (rwkv6 and the rwkv6_wkv kernel)",
     "whisper-tiny": "it comes with slice 6f (the vision and audio "
                     "frontends, with the encoder-decoder stack)",
     "paper-mlp": "the NetES policy was ported in slice 1 as "
@@ -224,4 +223,4 @@ def _ensure_loaded():
         return
     _LOADED = True
     from . import (mistral_nemo_12b, moonshot_v1_16b_a3b,  # noqa: F401
-                   phi3_medium_14b)
+                   phi3_medium_14b, rwkv6_7b)

@@ -115,9 +115,13 @@ def lm_params_from_reference(flat: Mapping[str, Any], cfg: ModelConfig, *,
     times), then ``layers_tail``. They are unstacked here into the port's
     plain list in layer order. Each weight keeps the reference's layout:
     ``wq``/``wk``/``wv`` (d, heads, head_dim), ``wo`` (heads, head_dim, d),
-    the MLP matrices (d_in, d_out), ``embed`` (vocab, d), and an MoE
+    the MLP matrices (d_in, d_out), ``embed`` (vocab, d), an MoE
     layer's ``moe/router`` (d, E), ``moe/w_gate``/``w_up`` (E, d, d_ff)
-    and ``moe/w_down`` (E, d_ff, d).
+    and ``moe/w_down`` (E, d_ff, d), and an rwkv layer's ``rwkv/…`` time
+    mix (``mix`` (5, d), ``wr``…``wo`` (d, d), ``mix_lora``/``decay_lora``
+    ``a``, ``b``, ``bias``, ``decay_base`` (d,), ``bonus_u`` (H, n),
+    ``ln_x``) and ``ffn/…`` channel mix (``mix_k``, ``mix_r``, ``wk``,
+    ``wv``, ``wr``).
     """
     check_ported(cfg)
     dev = resolve_device(device)

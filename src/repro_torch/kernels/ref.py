@@ -10,6 +10,7 @@ The two wire-form functions widen the int8 codes one gathered row at a
 time, with the decode scale folded into the slot weight as the kernel does.
 ``flash_attention_ref`` is naive softmax attention: it materialises every
 (query, key) score. ``moe_topk_ref`` is a softmax and a stable sort.
+``rwkv6_wkv_ref`` is the WKV-6 recurrence as a loop over the sequence.
 
 The kernel wrappers run them for CPU tensors; on the card, ``chip_smoke.py``
 holds each kernel against them. They are no yardstick of speed.
@@ -122,3 +123,28 @@ def moe_topk_ref(logits, k: int):
     vals, ids = vals[..., :k], ids[..., :k]
     vals = vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9)
     return vals, ids.to(torch.int32)
+
+
+def rwkv6_wkv_ref(r, k, v, w, u, s0=None):
+    """The RWKV-6 WKV recurrence, one step at a time (the reference's
+    ``repro/kernels/ref.py:107``, with an initial state):
+
+        out_t = r_t · (diag(u) · k_tᵀ v_t + S_{t−1})
+        S_t   = diag(w_t) · S_{t−1} + k_tᵀ v_t
+
+    r, k, v, w (B, S, H, n); u (H, n); s0 (B, H, n, n), or None for a
+    zero state. Returns (out (B, S, H, n), final state (B, H, n, n)),
+    computed in float32, or in float64 for a float64 input (the float64
+    reference on the card)."""
+    acc = torch.promote_types(r.dtype, torch.float32)
+    b, s, h, n = r.shape
+    r, k, v, w, u = (t.to(acc) for t in (r, k, v, w, u))
+    state = (torch.zeros((b, h, n, n), dtype=acc, device=r.device)
+             if s0 is None else s0.to(acc))
+    outs = []
+    for t in range(s):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (B, H, n, n)
+        outs.append(torch.einsum("bhn,bhnm->bhm", r[:, t],
+                                 u[None, :, :, None] * kv + state))
+        state = w[:, t, :, :, None] * state + kv
+    return torch.stack(outs, dim=1), state

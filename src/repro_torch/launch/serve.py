@@ -2,6 +2,8 @@
 
   python -m repro_torch.launch.serve --arch mistral-nemo-12b --batch 1 \
       --prompt-len 8192 --new-tokens 16
+  python -m repro_torch.launch.serve --arch rwkv6-7b --batch 1 \
+      --prompt-len 8192 --new-tokens 16
 
 Random weights and prompts from ``--seed``. Runs on the GPU; ``--device
 cpu`` runs the kernels' plain versions on the CPU instead.

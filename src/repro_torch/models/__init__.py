@@ -1,1 +1,2 @@
-"""Transformer models of the port (``repro/models``): dense decoders."""
+"""Transformer models of the port (``repro/models``): dense, MoE and rwkv6
+decoders."""

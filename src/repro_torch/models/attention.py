@@ -58,11 +58,6 @@ def attn_init(gen: torch.Generator, d_model: int, spec: AttnSpec, dtype):
     }
 
 
-def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
-    """float32 accumulation, or float64 for a float64 input."""
-    return torch.promote_types(dtype, torch.float32)
-
-
 def _masks(spec: AttnSpec) -> dict:
     """The pattern as the flash kernel's window and chunk arguments."""
     return {"window": spec.window if spec.kind == "sliding" else 0,
@@ -70,8 +65,16 @@ def _masks(spec: AttnSpec) -> dict:
 
 
 def _check_arange(positions: torch.Tensor, s: int) -> None:
-    # the attention's query and key positions are the indices 0 .. S−1
-    if not torch.equal(positions.cpu(), torch.arange(s)):
+    """The attention's query and key positions are the indices 0 .. S−1.
+    The shape is checked on every device; the values only on the CPU,
+    since reading a card's tensor waits for the card. On the card the
+    positions come from ``transformer.embed_inputs``'s ``torch.arange``,
+    so prefill runs with no sync to the host and can be captured."""
+    if tuple(positions.shape) != (s,):
+        raise ValueError(f"full-sequence positions must be arange(S): shape "
+                         f"{tuple(positions.shape)}, S = {s}")
+    if positions.device.type == "cpu" and not torch.equal(
+            positions, torch.arange(s, dtype=positions.dtype)):
         raise ValueError("full-sequence positions must be arange(S)")
 
 
@@ -177,7 +180,7 @@ def decode_attention(params, spec: AttnSpec, x: torch.Tensor, cache: dict,
 
     hkv = spec.num_kv_heads
     g = spec.num_heads // hkv
-    acc_t = _acc_dtype(x.dtype)
+    acc_t = layers.acc_dtype(x.dtype)
     qr = q.reshape(b, 1, hkv, g, spec.head_dim)
     s = torch.einsum("bqhgd,blhd->bhgql", qr.to(acc_t),
                      k.to(acc_t)) * spec.scale

@@ -37,6 +37,13 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int,
     return out.normal_(generator=gen).mul_(0.02).to(dtype)
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float32 accumulation, or float64 for a float64 input (where the
+    reference computes in float32, the port's float64 forward stays a
+    float64 reference)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------

@@ -1,17 +1,18 @@
 """Model assembly: the port of ``repro/models/transformer.py``, the
-attention decoder branches.
+attention and rwkv6 decoder branches.
 
 A config-driven decoder: the per-layer ``LayerSpec`` picks the sequence
-mixer (full / sliding / chunked attention) and the channel mixer (swiglu /
-gelu / moe; ``first_dense_layers`` reach it through ``cfg.layer_specs()``).
-``prefill`` and ``decode_step`` run the MoE router through its kernel;
-the full ``forward`` runs its plain version, as its attention does, so
-that in float64 it is the float64 reference. Parameters are nested dicts
-of tensors with the layers as a plain list (the reference stacks
-identical layers for ``lax.scan``; ``convert.lm_params_from_reference``
-unstacks them). The branches of the reference that the port does not
-have yet raise ``NotImplementedError`` naming their slice (ROADMAP.md,
-queue 1).
+mixer (full / sliding / chunked attention, or rwkv) and the channel mixer
+(swiglu / gelu / moe / rwkv_channel; ``first_dense_layers`` reach it
+through ``cfg.layer_specs()``). ``prefill`` and ``decode_step`` run the
+flash kernel (prefill), the MoE router and the WKV recurrence through
+their kernels; the full ``forward`` runs their plain versions (rwkv: the
+chunked form), so that in float64 it is the float64 reference.
+Parameters are nested dicts of tensors with the layers as a plain list
+(the reference stacks identical layers for ``lax.scan``;
+``convert.lm_params_from_reference`` unstacks them). The branches of the
+reference that the port does not have yet raise ``NotImplementedError``
+naming their slice (ROADMAP.md, queue 1).
 
 API:
   init_params(cfg, seed, dtype, device)           -> params
@@ -30,11 +31,9 @@ from .._device import resolve_device
 from ..configs.base import LayerSpec, ModelConfig
 from ..kernels.moe_router import moe_topk
 from ..kernels.ref import moe_topk_ref
-from . import attention, layers, moe
+from . import attention, layers, moe, rwkv6
 
-_SLICE_OF_MIXER = {"mamba": "slice 6c (mamba and the mamba_scan kernel)",
-                   "rwkv": "slice 6d (rwkv6 and the rwkv6_wkv kernel)"}
-_SLICE_OF_FFN = {"rwkv_channel": "slice 6d (rwkv6 and the rwkv6_wkv kernel)"}
+_SLICE_OF_MIXER = {"mamba": "slice 6c (mamba and the mamba_scan kernel)"}
 _FRONTENDS = "slice 6f (the vision and audio frontends)"
 
 
@@ -63,10 +62,6 @@ def check_ported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: {ls.mixer} layers come with "
                 f"{_SLICE_OF_MIXER[ls.mixer]}")
-        if ls.ffn in _SLICE_OF_FFN:
-            raise NotImplementedError(
-                f"{cfg.name}: {ls.ffn} layers come with "
-                f"{_SLICE_OF_FFN[ls.ffn]}")
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +80,10 @@ def attn_spec(cfg: ModelConfig, lspec: LayerSpec) -> attention.AttnSpec:
         rope=cfg.use_rope,
         rope_theta=cfg.rope_theta,
     )
+
+
+def rwkv_spec(cfg: ModelConfig) -> rwkv6.RWKV6Spec:
+    return rwkv6.RWKV6Spec(d_model=cfg.d_model, num_heads=cfg.num_heads)
 
 
 def moe_spec(cfg: ModelConfig) -> moe.MoESpec:
@@ -135,14 +134,19 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, lspec: LayerSpec,
     dev = gen.device
     p: Dict[str, Any] = {"norm1": _norm_init(cfg, cfg.d_model, dtype, dev),
                          "norm2": _norm_init(cfg, cfg.d_model, dtype, dev)}
-    p["attn"] = attention.attn_init(gen, cfg.d_model, attn_spec(cfg, lspec),
-                                    dtype)
+    if lspec.mixer == "rwkv":
+        p["rwkv"] = rwkv6.rwkv6_init(gen, rwkv_spec(cfg), dtype)
+    else:
+        p["attn"] = attention.attn_init(gen, cfg.d_model,
+                                        attn_spec(cfg, lspec), dtype)
     if lspec.ffn == "swiglu":
         p["ffn"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
     elif lspec.ffn == "gelu":
         p["ffn"] = layers.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
     elif lspec.ffn == "moe":
         p["moe"] = moe.moe_init(gen, moe_spec(cfg), dtype)
+    elif lspec.ffn == "rwkv_channel":
+        p["ffn"] = rwkv6.rwkv6_channel_init(gen, cfg.d_model, cfg.d_ff, dtype)
     else:
         raise ValueError(lspec.ffn)
     return p
@@ -167,22 +171,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 # forward
 # ---------------------------------------------------------------------------
 
-def _ffn(p, cfg: ModelConfig, lspec: LayerSpec, h, topk=moe_topk):
-    """The channel mixer; ``topk`` is the MoE router's top-k."""
+def _ffn(p, cfg: ModelConfig, lspec: LayerSpec, h, topk=moe_topk,
+         x_prev=None):
+    """The channel mixer; ``topk`` is the MoE router's top-k, ``x_prev``
+    the rwkv channel mix's token before ``h``."""
     if lspec.ffn == "swiglu":
         return layers.swiglu(p["ffn"], h)
     if lspec.ffn == "gelu":
         return layers.gelu_mlp(p["ffn"], h)
     if lspec.ffn == "moe":
         return moe.moe_block(p["moe"], moe_spec(cfg), h, topk=topk)
+    if lspec.ffn == "rwkv_channel":
+        return rwkv6.rwkv6_channel(p["ffn"], h, x_prev)
     raise ValueError(lspec.ffn)
 
 
 def _layer_forward(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
     h = _norm(cfg, p["norm1"], x)
-    x = x + attention.attention_block(p["attn"], attn_spec(cfg, lspec), h,
-                                      positions)
+    if lspec.mixer == "rwkv":
+        x = x + rwkv6.rwkv6_block(p["rwkv"], rwkv_spec(cfg), h)
+    else:
+        x = x + attention.attention_block(p["attn"], attn_spec(cfg, lspec),
+                                          h, positions)
     h = _norm(cfg, p["norm2"], x)
     return x + _ffn(p, cfg, lspec, h, topk=moe_topk_ref)
 
@@ -216,8 +227,9 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Returns logits (B, S, V). Plain PyTorch throughout (no kernel: the
-    attention and the MoE router take their plain versions), in the
-    parameters' dtype: in float64 it is the float64 reference."""
+    attention and the MoE router take their plain versions, the rwkv time
+    mix the chunked form), in the parameters' dtype: in float64 it is the
+    float64 reference."""
     return unembed(params, cfg, _backbone(params, cfg, batch))
 
 
@@ -227,6 +239,11 @@ def forward(params, cfg: ModelConfig,
 
 def _layer_cache(cfg: ModelConfig, ls: LayerSpec, batch: int, max_len: int,
                  dtype, device) -> Dict[str, Any]:
+    if ls.mixer == "rwkv":
+        return {"rwkv": rwkv6.init_rwkv_cache(batch, rwkv_spec(cfg), dtype,
+                                              device),
+                "channel_x_prev": torch.zeros((batch, 1, cfg.d_model),
+                                              dtype=dtype, device=device)}
     return {"kv": attention.init_kv_cache(batch, attn_spec(cfg, ls), max_len,
                                           dtype, device)}
 
@@ -242,11 +259,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def _decode_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, pos):
     h = _norm(cfg, p["norm1"], x)
-    mix, kv = attention.decode_attention(p["attn"], attn_spec(cfg, ls), h,
-                                         c["kv"], pos)
+    if ls.mixer == "rwkv":
+        mix, state = rwkv6.rwkv6_decode(p["rwkv"], rwkv_spec(cfg), h,
+                                        c["rwkv"])
+        cnew = {"rwkv": state}
+    else:
+        mix, kv = attention.decode_attention(p["attn"], attn_spec(cfg, ls),
+                                             h, c["kv"], pos)
+        cnew = {"kv": kv}
     x = x + mix
     h = _norm(cfg, p["norm2"], x)
-    return x + _ffn(p, cfg, ls, h), {"kv": kv}
+    if ls.ffn == "rwkv_channel":
+        f = _ffn(p, cfg, ls, h, x_prev=c["channel_x_prev"])
+        cnew["channel_x_prev"] = h
+    else:
+        f = _ffn(p, cfg, ls, h)
+    return x + f, cnew
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
@@ -263,14 +291,27 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
 
 
 def _prefill_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, positions):
-    """``_layer_forward`` through the flash kernel that also fills the
-    layer's decode cache."""
+    """``_layer_forward`` through the kernels that also fills the layer's
+    decode cache (attention's KV slots; rwkv's WKV state and token
+    shifts)."""
     h = _norm(cfg, p["norm1"], x)
-    mix, kv = attention.prefill_attention(p["attn"], attn_spec(cfg, ls), h,
-                                          positions, c["kv"])
+    if ls.mixer == "rwkv":
+        mix, state = rwkv6.rwkv6_prefill(p["rwkv"], rwkv_spec(cfg), h,
+                                         c["rwkv"])
+        cnew = {"rwkv": state}
+    else:
+        mix, kv = attention.prefill_attention(p["attn"], attn_spec(cfg, ls),
+                                              h, positions, c["kv"])
+        cnew = {"kv": kv}
     x = x + mix
     h = _norm(cfg, p["norm2"], x)
-    return x + _ffn(p, cfg, ls, h), {"kv": kv}
+    f = _ffn(p, cfg, ls, h)
+    if ls.ffn == "rwkv_channel":
+        # as the reference: the channel mix starts from zeros here, not
+        # from the cache's channel_x_prev (the same for a zero cache); a
+        # copy, since a view of the last row would keep all of h alive
+        cnew["channel_x_prev"] = h[:, -1:].clone()
+    return x + f, cnew
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

@@ -1,6 +1,6 @@
 """The JAX reference's LM outputs for the port's tests, dumped to an npz.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_lm_ref.py OUT.npz [lm|moe]
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_lm_ref.py OUT.npz [lm|moe|rwkv]
 
 ``repro.models`` does not import on this jax (ROADMAP queue 3, item a):
 ``models/attention.py:172`` asks ``prim in batching.primitive_batchers``,
@@ -8,12 +8,13 @@ and that attribute is now a proxy that does not support ``in``. For the
 length of the import only, this script puts a plain dict holding the
 barrier primitive in its place, so the reference registers no rule of its
 own, then restores the proxy. No file of the reference changes. It runs
-in a process of its own (``tests/test_torch_lm.py`` and
-``tests/test_torch_moe.py`` start it), so no other test module ever sees
-the swap.
+in a process of its own (``tests/test_torch_lm.py``,
+``tests/test_torch_moe.py`` and ``tests/test_torch_rwkv6.py`` start it),
+so no other test module ever sees the swap.
 
-Two parts: ``lm`` (the default) dumps the models, ``moe`` the MoE layer's
-pieces. Everything is drawn from fixed seeds: the weights with the
+Three parts: ``lm`` (the default) dumps the models, ``moe`` the MoE
+layer's pieces, ``rwkv`` the rwkv6 pieces and the rwkv6-7b-smoke model (at
+2 layers, unrolled, and at 4, scanned as plan (0, 1, 4, 0)). Everything is drawn from fixed seeds: the weights with the
 reference's own inits (mistral-nemo-12b-smoke at 2 layers, unrolled, and
 at 4 layers, scanned; moonshot-v1-16b-a3b-smoke at 2 layers, unrolled, and
 at 6 layers, scanned as plan (1, 1, 5, 0): one dense head layer, then one
@@ -90,6 +91,9 @@ def main(path, part="lm"):
     attention, layers, moe, transformer, ServeEngine = import_reference()
     if part == "moe":
         np.savez(path, **dump_moe(moe))
+        return
+    if part == "rwkv":
+        np.savez(path, **dump_rwkv(transformer, ServeEngine))
         return
     smoke = get_config("mistral-nemo-12b-smoke")
     rng = np.random.default_rng(0)
@@ -185,6 +189,94 @@ def dump_moe(moe):
         out[f"{name}/moe_ref"] = moe.moe_ref(params, spec, x)
         out[f"{name}/load_balance_loss"] = moe.load_balance_loss(params,
                                                                  spec, x)
+    return {key: np.asarray(a) for key, a in out.items()}
+
+
+# the rwkv pieces: a time mix of d 64 in 2 heads of 32, sequences of 48
+# (a multiple of the chunk) and 40 (not: the sequential fallback)
+RWKV_D, RWKV_HEADS, RWKV_CHUNK, RWKV_FF = 64, 2, 16, 128
+
+
+def dump_rwkv(transformer, ServeEngine):
+    from repro.models import rwkv6
+    rng = np.random.default_rng(3)
+    out = {}
+
+    def normal(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    spec = rwkv6.RWKV6Spec(d_model=RWKV_D, num_heads=RWKV_HEADS)
+    h, n = spec.num_heads, spec.head_dim
+    params = rwkv6.rwkv6_init(jax.random.PRNGKey(11), spec, jnp.float32)
+    # away from the init's constants, so that every term moves the output:
+    # mixes in (0, 1), LoRAs of scale ≈ 1, decays w in (0.69, 0.98)
+    params = dict(params)
+    params["mix"] = rng.uniform(0, 1, (5, RWKV_D)).astype(np.float32)
+    for name in ("mix_lora", "decay_lora"):
+        lora = dict(params[name])
+        lora["a"] = normal(*lora["a"].shape, scale=0.3)
+        lora["b"] = normal(*lora["b"].shape, scale=0.3)
+        lora["bias"] = normal(RWKV_D, scale=0.1)
+        params[name] = lora
+    params["decay_base"] = rng.uniform(-4, -1.5, RWKV_D).astype(np.float32)
+    params["bonus_u"] = normal(h, n)
+    params["ln_x"] = {"scale": 1 + normal(RWKV_D, scale=0.1),
+                      "bias": normal(RWKV_D, scale=0.1)}
+    out.update(flatten(params, "block/params"))
+    x = normal(B, 48, RWKV_D)
+    last = normal(B, 1, RWKV_D)
+    out.update({"block/x": x, "block/last": last,
+                "time_shift/zero": rwkv6._time_shift(jnp.asarray(x)),
+                "time_shift/last": rwkv6._time_shift(jnp.asarray(x),
+                                                     jnp.asarray(last))})
+    mixed = rwkv6._mix_inputs(params, jnp.asarray(x),
+                              rwkv6._time_shift(jnp.asarray(x)))
+    for name, m in zip("rkvwg", mixed):
+        out[f"mix_inputs/{name}"] = m
+    for s in (48, 40):
+        r, k, v = (normal(B, s, h, n) for _ in range(3))
+        w = rng.uniform(0.7, 0.999, (B, s, h, n)).astype(np.float32)
+        u, s0 = normal(h, n), normal(B, h, n, n)
+        o, sf = rwkv6.wkv6_chunked(r, k, v, w, u, chunk=RWKV_CHUNK)
+        o0, sf0 = rwkv6.wkv6_chunked(r, k, v, w, u, s0=s0, chunk=RWKV_CHUNK)
+        out.update({f"wkv{s}/r": r, f"wkv{s}/k": k, f"wkv{s}/v": v,
+                    f"wkv{s}/w": w, f"wkv{s}/u": u, f"wkv{s}/s0": s0,
+                    f"wkv{s}/out": o, f"wkv{s}/s_fin": sf,
+                    f"wkv{s}/out_s0": o0, f"wkv{s}/s_fin_s0": sf0})
+    out["block/out"] = rwkv6.rwkv6_block(params, spec, jnp.asarray(x),
+                                         chunk=RWKV_CHUNK)
+    zero = rwkv6.init_rwkv_cache(B, spec, jnp.float32)
+    seeded = {"s": normal(B, h, n, n, scale=0.3), "x_prev": last}
+    out.update(flatten(seeded, "prefill/seed"))
+    for name, cache in (("zero", zero), ("seeded", seeded)):
+        y, c = rwkv6.rwkv6_prefill(params, spec, jnp.asarray(x[:, :40]),
+                                   cache)
+        out[f"prefill/{name}/out"] = y
+        out.update(flatten(c, f"prefill/{name}/cache"))
+        if name == "seeded":
+            # teacher-forced decode steps on the seeded prefill's cache
+            ys = []
+            for t in range(40, 44):
+                yt, c = rwkv6.rwkv6_decode(params, spec,
+                                           jnp.asarray(x[:, t:t + 1]), c)
+                ys.append(np.asarray(yt))
+            out["decode/out"] = np.concatenate(ys, axis=1)
+            out.update(flatten(c, "decode/cache"))
+    chan = rwkv6.rwkv6_channel_init(jax.random.PRNGKey(12), RWKV_D, RWKV_FF,
+                                    jnp.float32)
+    chan = dict(chan, mix_k=rng.uniform(0, 1, RWKV_D).astype(np.float32),
+                mix_r=rng.uniform(0, 1, RWKV_D).astype(np.float32))
+    out.update(flatten(chan, "channel/params"))
+    out["channel/out"] = rwkv6.rwkv6_channel(chan, jnp.asarray(x))
+    out["channel/out_last"] = rwkv6.rwkv6_channel(chan, jnp.asarray(x),
+                                                  jnp.asarray(last))
+
+    smoke = get_config("rwkv6-7b-smoke")
+    model_rng = np.random.default_rng(4)
+    for n_layers in (2, 4):
+        cfg = dataclasses.replace(smoke, num_layers=n_layers)
+        dump_model(out, transformer, ServeEngine, cfg, f"rwkv{n_layers}",
+                   200 + n_layers, model_rng)
     return {key: np.asarray(a) for key, a in out.items()}
 
 

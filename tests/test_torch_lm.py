@@ -51,7 +51,8 @@ B, PROMPT, NEW, STEPS, MAX_LEN = 2, 8, 6, 4, 16
 SMOKE = "mistral-nemo-12b-smoke"
 MOON = "moonshot-v1-16b-a3b-smoke"
 PORTED = {"mistral-nemo-12b", SMOKE, "phi3-medium-14b",
-          "phi3-medium-14b-smoke", "moonshot-v1-16b-a3b", MOON}
+          "phi3-medium-14b-smoke", "moonshot-v1-16b-a3b", MOON, "rwkv6-7b",
+          "rwkv6-7b-smoke"}
 # (arch, layers) of the reference's dumps; mistral's keep their ids
 MODELS = [pytest.param(SMOKE, 2, id="2"), pytest.param(SMOKE, 4, id="4"),
           pytest.param(MOON, 2, id="moonshot-2"),
@@ -153,6 +154,11 @@ def test_registry_holds_only_ported_archs():
     moon = get_config("moonshot-v1-16b-a3b")
     assert moon.count_params() == 27_177_320_448
     assert [s.ffn for s in moon.layer_specs()] == ["swiglu"] + ["moe"] * 47
+    rwkv = get_config("rwkv6-7b")
+    assert rwkv.count_params() == 7_264_796_672
+    assert {(s.mixer, s.ffn) for s in rwkv.layer_specs()} == {
+        ("rwkv", "rwkv_channel")}
+    assert transformer.stack_plan(rwkv) == (0, 1, 32, 0)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -174,7 +180,7 @@ def test_moe_archs_still_unported_name_their_slice(name, where):
 
 
 @pytest.mark.parametrize("change", [
-    dict(attn_every=2), dict(rwkv=True),
+    dict(attn_every=2),
     # MoE layers are ported; jamba's hybrid of MoE and mamba is not
     dict(attn_every=2, num_experts=4, experts_per_token=1),
     dict(encoder_layers=1), dict(frontend="vision"), dict(learned_pos=True),
@@ -244,6 +250,43 @@ def test_prefill_checks_positions_and_cache_length():
     with pytest.raises(ValueError, match="arange"):
         attention.prefill_attention(
             p, spec, x, torch.arange(1, 7),
+            attention.init_kv_cache(1, spec, 8, torch.float32, "cpu"))
+
+
+def test_prefill_attention_reads_nothing_back_from_the_device(monkeypatch):
+    """Prefill's attention makes no call that copies a tensor to the host
+    (on the card each would wait for it): ``Tensor.cpu``, ``.item`` and
+    ``.tolist`` raise while it runs."""
+    cfg = get_config(SMOKE)
+    spec = transformer.attn_spec(cfg, cfg.layer_specs()[0])
+    p = transformer.init_params(cfg, device="cpu")["layers"][0]["attn"]
+    x = torch.randn(2, 6, cfg.d_model,
+                    generator=torch.Generator().manual_seed(0))
+    kv = attention.init_kv_cache(2, spec, 8, torch.float32, "cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a read back from the device")
+
+    for name in ("cpu", "item", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    y, kv = attention.prefill_attention(p, spec, x, torch.arange(6), kv)
+    monkeypatch.undo()
+    assert y.shape == x.shape and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("positions", [torch.arange(1, 7), torch.arange(7),
+                                       torch.arange(6)[None]],
+                         ids=["shifted", "longer", "batched"])
+def test_full_sequence_attention_rejects_positions_not_arange(positions):
+    cfg = get_config(SMOKE)
+    spec = transformer.attn_spec(cfg, cfg.layer_specs()[0])
+    p = transformer.init_params(cfg, device="cpu")["layers"][0]["attn"]
+    x = torch.zeros(1, 6, cfg.d_model)
+    with pytest.raises(ValueError, match="arange"):
+        attention.attention_block(p, spec, x, positions)
+    with pytest.raises(ValueError, match="arange"):
+        attention.prefill_attention(
+            p, spec, x, positions,
             attention.init_kv_cache(1, spec, 8, torch.float32, "cpu"))
 
 

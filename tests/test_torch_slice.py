@@ -249,7 +249,9 @@ def test_port_imports_no_jax_and_no_reference():
     assert {"repro_torch.configs.base", "repro_torch.models.transformer",
             "repro_torch.kernels.flash_attention", "repro_torch.serve.engine",
             "repro_torch.launch.serve", "repro_torch.models.moe",
-            "repro_torch.kernels.moe_router"} <= set(mods)
+            "repro_torch.kernels.moe_router", "repro_torch.models.rwkv6",
+            "repro_torch.kernels.rwkv6_wkv",
+            "repro_torch.configs.rwkv6_7b"} <= set(mods)
 
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s+import\b))", re.MULTILINE)
