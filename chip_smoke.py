@@ -25,7 +25,13 @@ Phases, each printing one JSON line per case:
    state) and at four ragged shapes of n = 8, 16, 32 and 40: within 3e-5
    of float64 relative to the recurrence over absolute values, with the
    plain loop and the reference's chunked form ``wkv6_chunked`` timed
-   beside it.
+   beside it. The mamba selective scan ``mamba_scan`` runs at
+   jamba-v0.1-52b's prefill of serve run (a) (1 × 8192, D = 8192, N = 16)
+   with decay as the model draws it (≈ 0.85–0.99) and uniform in (0.8,
+   0.999), at run (b)'s (8 × 512), at decode (8 × 1, from a random state)
+   and at three ragged shapes: within 3e-5 of float64 relative to the
+   recurrence over |drive|, with the plain loop and the associative form
+   of ``mamba_block`` timed beside it.
    ``kernel_masked``: the two Eq. 3 kernels given a dropout-masked weight
    operand, against their plain versions.
 4. ``main``    — ``train_rl_netes`` on pendulum at N = 1000 (the paper's
@@ -79,8 +85,24 @@ Phases, each printing one JSON line per case:
    of float32 weights), after moonshot's weights are freed, as in 9:
    32 × 16 = 512 ``rwkv6_wkv`` launches per ``generate`` (one per layer in
    the prefill and in each decode step).
-``no_sync`` (in phases 7 and 13): one prefill of mistral-nemo-12b and one
-of rwkv6-7b (full width, 2 layers) under
+16. ``jamba_parity`` — jamba-v0.1-52b at full width and 2 layers (mamba +
+   MoE of 16 experts, top-2, then sliding attention (window 4096) +
+   SwiGLU), B = 2, 512-token prompts (one group of 512 per row, capacity
+   80), 8 new tokens: every prompt position's and each decode step's
+   logits of the kernel path against the float64 ``forward`` with the MoE
+   grouped as served (the prompt in groups of 512, each fed-back token
+   alone), on each row up to its first routing difference from float64
+   (counted; each must lie at a float64 margin below 1e-5).
+17. ``jamba_cpu_parity`` — the jamba smoke model's greedy serving on the
+   GPU against the CPU from the same weights, with 128-token prompts
+   (twice its window of 64).
+18. ``serve`` of jamba-v0.1-52b at full width and 8 of its 32 layers (one
+   period: 7 mamba layers, 4 MoE, 1 sliding attention; 52.1 GB of
+   float32 weights; all 32 are 205.2 GB), after rwkv6's weights are
+   freed, as in 9: 7 × 16 = 112 ``mamba_scan``, 1 flash and 4 × 16 = 64
+   ``moe_topk`` launches per ``generate``.
+``no_sync`` (in phases 7, 13 and 16): one prefill of mistral-nemo-12b, one
+of rwkv6-7b and one of jamba-v0.1-52b (full width, 2 layers) under
 ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for the
 card raises there.
 
@@ -857,6 +879,135 @@ def wkv_kernel_phase(results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# |kernel − float64| ≤ TOL_REL · S elementwise, where S is the same
+# recurrence run in float64 over |drive| (and |h0|); decay lies in (0, 1).
+# Each h_t is a decayed sum over ≈ 1/(1 − decay) steps (up to 1000 here)
+# of float32 terms; their rounding random-walks to ≈ 1e-6·S or less, and
+# 3e-5 is thirty of those. Leaving out one step's drive or decay moves an
+# entry by ≥ (1 − decay)·S ≈ 1e-3·S.
+SCAN_CASES = (  # (label, B, S, D, N, initial state?, decay drawn as, main)
+    # jamba-v0.1-52b's prefill of serve run (a), decay as the model draws it
+    ("jamba_prefill_8192", 1, 8192, 8192, 16, False, "model", True),
+    ("jamba_prefill_8192_decay_uniform", 1, 8192, 8192, 16, False,
+     "uniform", False),
+    # serve run (b)'s prefill, and a decode step of run (b)
+    ("jamba_prefill_b8_512", 8, 512, 8192, 16, False, "model", False),
+    ("jamba_decode_b8", 8, 1, 8192, 16, True, "model", False),
+    ("ragged_33x300x16", 1, 33, 300, 16, False, "uniform", False),
+    ("ragged_b2_64x300x4", 2, 64, 300, 4, False, "uniform", False),
+    ("one_step_8192x16", 1, 1, 8192, 16, False, "model", False),
+)
+SCAN_F64_SLICE = 2048     # channels per float64 reference pass (memory)
+
+
+def _scan_operands(b, s, d, n, h0: bool, decay_kind: str, seed: int):
+    """decay either as jamba's init makes it, exp(−Δ·A) with Δ =
+    softplus(log(expm1(0.01)) + 0.01·N(0, 1)) ≈ 0.01 per (b, t, d) and
+    A = 1 … N (decay ≈ 0.85–0.99), or uniform in (0.8, 0.999) as the
+    reference's sweep; drive and h0 unit normal, or h0 None."""
+    import math
+
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if decay_kind == "model":
+        dt = torch.nn.functional.softplus(
+            math.log(math.expm1(0.01))
+            + 0.01 * torch.randn(b, s, d, device="cuda", generator=g))
+        a = torch.arange(1, n + 1, dtype=torch.float32, device="cuda")
+        decay = torch.exp(-dt[..., None] * a)
+        del dt
+    else:
+        decay = 0.8 + 0.199 * torch.rand(b, s, d, n, device="cuda",
+                                         generator=g)
+    drive = torch.randn(b, s, d, n, device="cuda", generator=g)
+    z = torch.randn(b, d, n, device="cuda", generator=g) if h0 else None
+    return decay, drive, z
+
+
+def _scan_errors_over_scale(outs: dict, decay, drive, z, label) -> dict:
+    """For each named output, max |out − float64| / S over every entry,
+    in passes of SCAN_F64_SLICE channels; raises above TOL_REL."""
+    from repro_torch.kernels import ref
+    worst = dict.fromkeys(outs, 0.0)
+    for d0 in range(0, decay.shape[2], SCAN_F64_SLICE):
+        sl = slice(d0, d0 + SCAN_F64_SLICE)
+        dec = decay[:, :, sl].double()
+        exact = ref.mamba_scan_ref(dec, drive[:, :, sl].double(),
+                                   None if z is None else z[:, sl].double())
+        scale = ref.mamba_scan_ref(
+            dec, drive[:, :, sl].abs().double(),
+            None if z is None else z[:, sl].abs().double()).clamp_min(1e-30)
+        for name, out in outs.items():
+            err = ((out[:, :, sl].double() - exact).abs() / scale).max()
+            worst[name] = max(worst[name], err.item())
+        del dec, exact, scale
+    for name, err in worst.items():
+        check(err <= TOL_REL, f"mamba_scan/{label} ({name}): error "
+              f"{err:.3g}·S above {TOL_REL}·S")
+    return worst
+
+
+def scan_kernel_phase(results: dict) -> None:
+    import torch
+
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+    from repro_torch.models import mamba
+
+    for label, b, s, d, n, h0, decay_kind, main in SCAN_CASES:
+        decay, drive, z = _scan_operands(b, s, d, n, h0, decay_kind,
+                                         seed=b + s + d + n)
+        kernel = functools.partial(ms.mamba_scan, decay, drive, z)
+        plain = functools.partial(ref.mamba_scan_ref, decay, drive, z)
+        h_k = kernel()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(h_k).all()), f"mamba_scan/{label}: "
+              "non-finite")
+        h_p = plain()
+        max_abs = (h_k - h_p).abs().max().item()
+        errs = _scan_errors_over_scale({"kernel": h_k, "plain": h_p},
+                                       decay, drive, z, label)
+        del h_p
+        # the second yardstick: the associative form in plain PyTorch
+        # (mamba_block's), from a zero state; its difference from the
+        # kernel is reported, not gated
+        assoc = assoc_ms = assoc_err = None
+        if z is None and s > 1:
+            assoc = functools.partial(mamba.mamba_scan_ref, decay, drive)
+            h_a = assoc()
+            assoc_err = (h_a - h_k).abs().max().item()
+            del h_a
+            assoc_ms = time_ms(assoc, warmup=1, iters=5)
+        del h_k
+        # bytes: decay and drive read, h0 read, every h_t written;
+        # operations: one FMA (2 flops) per (b, t, d, n)
+        moved = 4.0 * (3 * b * s * d * n + (b * d * n if h0 else 0))
+        ops = 2.0 * b * s * d * n
+        t_ops, t_bytes = ops / F32_FLOPS, moved / HBM_BYTES_PER_S
+        plain_iters = 3 if s > 1000 else 20
+        row = {"phase": "kernel", "name": "mamba_scan", "shape": label,
+               "b": b, "s": s, "d": d, "n": n, "initial_state": h0,
+               "decay": decay_kind, "decay_min": decay.min().item(),
+               "decay_max": decay.max().item(), "max_abs_err": max_abs,
+               "err_over_S_f64": errs, "tol_over_S": TOL_REL,
+               **time_stats(kernel),
+               "plain_ms": time_ms(plain, warmup=1, iters=plain_iters),
+               "plain_timed_calls": plain_iters,
+               "assoc_ms": assoc_ms, "assoc_max_abs_diff": assoc_err,
+               "library": "none (no PyTorch call computes a linear "
+                          "recurrence)",
+               "library_ms": None,
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "gflop": ops / 1e9, "mbytes": moved / 1e6}
+        row["hbm_share_of_bound"] = row["bound_ms"] / row["ms"]
+        emit(row)
+        if main:
+            results["mamba_scan"] = row
+        del decay, drive, z, kernel, plain, assoc
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -866,6 +1017,7 @@ KERNEL_OF = {"dense": "netes_mixing", "sparse": "netes_sparse_mixing"}
 
 def _counters():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import moe_router as mr
     from repro_torch.kernels import netes_fused_mixing as nfm
     from repro_torch.kernels import netes_mixing as nm
@@ -875,7 +1027,7 @@ def _counters():
             "fused_neighbor_sum": nfm.NEIGHBOR_SUM,
             "fused_broadcast_select": nfm.BROADCAST_SELECT,
             "flash_attention": fa.KERNEL, "moe_topk": mr.KERNEL,
-            "rwkv6_wkv": rw.KERNEL}
+            "rwkv6_wkv": rw.KERNEL, "mamba_scan": ms.KERNEL}
 
 
 def main_phase(launches: dict) -> None:
@@ -1323,33 +1475,37 @@ def serve_parity_phase() -> None:
 
 
 def _layer_counts(cfg):
-    """(attention, MoE, rwkv) layers of ``cfg``: the flash kernel runs
-    once per attention layer in a prefill, the router and the WKV kernel
-    once per layer of theirs in the prefill and in each decode step."""
+    """(attention, MoE, rwkv, mamba) layers of ``cfg``: the flash kernel
+    runs once per attention layer in a prefill, the router, the WKV kernel
+    and the mamba scan once per layer of theirs in the prefill and in each
+    decode step."""
     specs = cfg.layer_specs()
     return (sum(ls.mixer.startswith("attn") for ls in specs),
             sum(ls.ffn == "moe" for ls in specs),
-            sum(ls.mixer == "rwkv" for ls in specs))
+            sum(ls.mixer == "rwkv" for ls in specs),
+            sum(ls.mixer == "mamba" for ls in specs))
 
 
-def serve_cpu_parity_phase(arch: str) -> None:
+def serve_cpu_parity_phase(arch: str, prompt: int = 24) -> None:
     """``arch``'s smoke model's greedy serving on the GPU and on the CPU
     from the same weights: tokens equal, logits within TOL_SMOKE."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import moe_router as mr
     from repro_torch.kernels import rwkv6_wkv as rw
     from repro_torch.models import transformer
 
     cfg = get_config(arch + "-smoke")
-    n_attn, n_moe, n_rwkv = _layer_counts(cfg)
+    n_attn, n_moe, n_rwkv, n_mamba = _layer_counts(cfg)
     cpu = transformer.init_params(cfg, seed=0, device="cpu")
-    prompts = torch.randint(0, cfg.vocab_size, (2, 24),
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt),
                             generator=torch.Generator().manual_seed(2))
     tok_c, lg_c, _ = _greedy(cpu, cfg, prompts, 8)
     fa.KERNEL.launches = mr.KERNEL.launches = rw.KERNEL.launches = 0
+    ms.KERNEL.launches = 0
     tok_g, lg_g, _ = _greedy(_cast(cpu, device="cuda"), cfg, prompts.cuda(),
                              8)
     check(fa.KERNEL.launches == n_attn,
@@ -1358,6 +1514,8 @@ def serve_cpu_parity_phase(arch: str) -> None:
           f"smoke parity: {mr.KERNEL.launches} moe_topk launches")
     check(rw.KERNEL.launches == 8 * n_rwkv,
           f"smoke parity: {rw.KERNEL.launches} rwkv6_wkv launches")
+    check(ms.KERNEL.launches == 8 * n_mamba,
+          f"smoke parity: {ms.KERNEL.launches} mamba_scan launches")
     check(torch.equal(tok_c, tok_g.cpu()), "smoke parity: greedy tokens "
           f"differ between GPU {tok_g.tolist()} and CPU {tok_c.tolist()}")
     got, want = torch.stack(lg_g, 1).cpu(), torch.stack(lg_c, 1)
@@ -1365,8 +1523,9 @@ def serve_cpu_parity_phase(arch: str) -> None:
     check(excess.item() <= 0, "smoke parity: logits differ by more than "
           f"{TOL_SMOKE} (rtol and atol)")
     emit({"phase": "serve_cpu_parity", "arch": cfg.name, "batch": 2,
-          "prompt": 24, "new_tokens": 8, "head_dim": cfg.head_dim,
+          "prompt": prompt, "new_tokens": 8, "head_dim": cfg.head_dim,
           "tokens_equal": True, "moe_layers": n_moe, "rwkv_layers": n_rwkv,
+          "mamba_layers": n_mamba,
           "max_abs_err": (got - want).abs().max().item(),
           "tol": TOL_SMOKE})
 
@@ -1645,6 +1804,151 @@ def rwkv_parity_phase() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 16–18: hybrid serving of jamba-v0.1-52b
+# ---------------------------------------------------------------------------
+
+JAMBA_ARCH = "jamba-v0.1-52b"
+# one 8-layer period (7 mamba layers, 4 of them with an MoE channel mixer,
+# and the sliding-attention layer), 52.1 GB of float32 weights: all 32
+# layers (205.2 GB) do not fit in 80 GB
+JAMBA_SERVE_LAYERS = 8
+JAMBA_PARITY_PROMPT = 512   # one MoE group of 512 per row (capacity 80)
+JAMBA_SMOKE_PROMPT = 128    # two of the smoke's groups, twice its window
+
+
+@contextlib.contextmanager
+def _moe_groups_as_served(prompt: int):
+    """``moe.moe_block`` routes the first ``prompt`` positions in the
+    config's groups, as prefill does, and each later position in a group
+    of its own, as decode does: a full forward over a prompt and the
+    tokens fed back then computes what serving computes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import moe
+    block = moe.moe_block
+
+    def as_served(params, spec, x, **kw):
+        out = block(params, spec, x[:, :prompt], **kw)
+        if x.shape[1] == prompt:
+            return out
+        tail = block(params, dataclasses.replace(spec, group_size=1),
+                     x[:, prompt:], **kw)
+        return torch.cat([out, tail], dim=1)
+
+    moe.moe_block = as_served
+    try:
+        yield
+    finally:
+        moe.moe_block = block
+
+
+def jamba_parity_phase() -> None:
+    """jamba at full width and 2 layers (mamba + MoE, then sliding
+    attention + SwiGLU): the kernel path's logits of every prompt position
+    and of each decode step against the float64 ``forward`` with the MoE
+    grouped as served, on each row up to its first routing difference
+    (layer 0 routes, so a flip moves every later position of its row
+    through layer 1's attention and the capacity of its group); and one
+    prefill with no sync."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config(JAMBA_ARCH),
+                              num_layers=PARITY_LAYERS, attn_every=2)
+    spec = transformer.moe_spec(cfg)
+    check([(ls.mixer, ls.ffn) for ls in cfg.layer_specs()]
+          == [("mamba", "moe"), ("attn_sliding", "swiglu")],
+          "jamba parity: the 2 layers are not mamba + MoE, then sliding "
+          "attention + SwiGLU")
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    p_len, b = JAMBA_PARITY_PROMPT, PARITY_BATCH
+    prompts = torch.randint(0, cfg.vocab_size, (b, p_len), generator=g,
+                            device="cuda")
+    seen32 = []
+    with _recording_moe_inputs(seen32):
+        fa.KERNEL.launches = mr.KERNEL.launches = ms.KERNEL.launches = 0
+        tokens, logits, _ = _greedy(params, cfg, prompts, PARITY_NEW)
+        launched = (fa.KERNEL.launches, mr.KERNEL.launches,
+                    ms.KERNEL.launches)
+        check(launched == (1, PARITY_NEW, PARITY_NEW), "jamba parity: "
+              f"{launched} flash, moe_topk and mamba_scan launches in one "
+              f"generate of {PARITY_NEW} tokens")
+        all32 = _prefill_all_logits(params, cfg, prompts)
+    engine = ServeEngine(cfg, params, max_len=p_len + PARITY_NEW)
+    check(np.array_equal(engine.generate(prompts, new_tokens=PARITY_NEW),
+                         tokens.cpu().numpy()),
+          "jamba parity: ServeEngine.generate differs from its own steps")
+    del engine
+    no_sync_prefill(JAMBA_ARCH, params, cfg, prompts)
+    fed = torch.cat([prompts, tokens[:, :-1]], dim=1)
+    seen64 = []
+    with torch.no_grad(), _recording_moe_inputs(seen64), \
+            _moe_groups_as_served(p_len):
+        p64 = _cast(params, dtype=torch.float64)
+        ref64 = transformer.forward(p64, cfg, {"tokens": fed})
+        router64 = p64["layers"][0]["moe"]["router"]
+        del p64
+        plain32 = transformer.forward(params, cfg, {"tokens": fed})
+    router32 = params["layers"][0]["moe"]["router"]
+    agree_pre, sum_pre = _compare_routing(
+        "jamba prefill", router32, router64, seen32[0], seen64[0], spec,
+        p_len)
+    agree_dec, sum_dec = _compare_routing(
+        "jamba decode", router32, router64,
+        torch.cat(seen32[1:PARITY_NEW], dim=1), seen64[1], spec, 1)
+    # positions of each row before its first routing difference
+    agree = torch.cat([agree_pre.reshape(b, -1), agree_dec.reshape(b, -1)],
+                      dim=1)
+    first = torch.where(agree.all(dim=1), agree.shape[1],
+                        (~agree).int().argmax(dim=1))
+    live = torch.arange(agree.shape[1], device="cuda")[None] < first[:, None]
+    got = torch.cat([all32, torch.stack(logits[1:], dim=1)], dim=1).double()
+    err = (got - ref64).abs().amax(dim=-1)                  # (B, S + new − 1)
+    err_last = (logits[0].double() - ref64[:, p_len - 1]).abs().amax(dim=-1)
+    scale = max(1.0, ref64.abs().max().item())
+    tol = TOL_LOGITS * scale
+    worst = max(err[live].max().item(),
+                err_last[live[:, p_len - 1]].max().item()
+                if live[:, p_len - 1].any() else 0.0)
+    err_plain = (plain32.double() - ref64)[live].abs().max().item()
+    check(bool(torch.isfinite(got).all()), "jamba parity: non-finite logits")
+    check(worst <= tol, f"jamba parity: logits differ from float64 by "
+          f"{worst} (tolerance {tol})")
+    emit({"phase": "jamba_parity", "arch": JAMBA_ARCH,
+          "num_layers": PARITY_LAYERS, "d_model": cfg.d_model,
+          "d_inner": transformer.mamba_spec(cfg).d_inner,
+          "d_state": cfg.mamba_d_state, "window": cfg.sliding_window,
+          "experts": spec.num_experts, "top_k": spec.experts_per_token,
+          "batch": b, "prompt": p_len, "new_tokens": PARITY_NEW,
+          "capacity": moe.group_capacity(spec, p_len),
+          "positions_compared": int(live.sum()),
+          "positions_total": int(live.numel()),
+          "max_abs_logit": scale, "max_abs_err": worst,
+          "plain_forward_f32_err": err_plain, "tol": tol,
+          "tol_rel": TOL_LOGITS, "flip_margin": MOE_FLIP_MARGIN,
+          "prefill_routing": sum_pre, "decode_routing": sum_dec,
+          "generate_equal": True,
+          "launches": {"flash_attention": 1, "moe_topk": PARITY_NEW,
+                       "mamba_scan": PARITY_NEW}})
+    del params, logits, all32, ref64, plain32, got, seen32, seen64
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # Kernel names by kind in a profile: the port's two model kernels, cuBLAS
 # matrix products, and "dispatch": every indexing, sort, scan and
 # concatenation kernel (in an MoE model almost all of them are the
@@ -1653,6 +1957,7 @@ def rwkv_parity_phase() -> None:
 PROFILE_KINDS = (("flash_attention", ("flash_attention_kernel",)),
                  ("moe_router", ("moe_topk_kernel",)),
                  ("rwkv6_wkv", ("wkv6_kernel",)),
+                 ("mamba_scan", ("mamba_scan_kernel",)),
                  ("matmul", ("gemm", "gemv", "xmma", "cutlass")),
                  ("dispatch", ("index", "gather", "scatter", "sort", "scan",
                                "catarray")))
@@ -1722,7 +2027,7 @@ def serve_phase(arch: str, num_layers=None) -> dict:
     cfg = get_config(arch)
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
-    n_attn, n_moe, n_rwkv = _layer_counts(cfg)
+    n_attn, n_moe, n_rwkv, n_mamba = _layer_counts(cfg)
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1757,6 +2062,10 @@ def serve_phase(arch: str, num_layers=None) -> dict:
         check(counts["rwkv6_wkv"] == n_rwkv * NEW_TOKENS,
               f"serve run ({run}): rwkv6_wkv launched {counts['rwkv6_wkv']} "
               f"times, not {n_rwkv} rwkv layers × {NEW_TOKENS}")
+        check(counts["mamba_scan"] == n_mamba * NEW_TOKENS,
+              f"serve run ({run}): mamba_scan launched "
+              f"{counts['mamba_scan']} times, not {n_mamba} mamba layers × "
+              f"{NEW_TOKENS}")
         check(out.shape == (b, NEW_TOKENS), f"serve run ({run}): {out.shape}")
         if run == "a":
             counts_a = counts
@@ -1793,7 +2102,7 @@ def serve_phase(arch: str, num_layers=None) -> dict:
                 "decode_3_steps": _profile(decode_3_steps)}
         emit({"phase": "serve", "run": run, "arch": arch,
               "num_layers": cfg.num_layers, "moe_layers": n_moe,
-              "rwkv_layers": n_rwkv,
+              "rwkv_layers": n_rwkv, "mamba_layers": n_mamba,
               "d_model": cfg.d_model,
               "params": n_params, "weight_gb": weight_bytes / 1e9,
               "init_s": init_s, "batch": b, "prompt": s,
@@ -1832,6 +2141,8 @@ SOURCE_OF = {
                  "src/repro/kernels/moe_router.py:45"),
     "rwkv6_wkv": ("src/repro_torch/csrc/rwkv6_wkv.cu",
                   "src/repro/kernels/rwkv6_wkv.py:43"),
+    "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:41"),
 }
 
 
@@ -1866,6 +2177,7 @@ def main() -> int:
     attention_kernel_phase(results)
     router_kernel_phase(results)
     wkv_kernel_phase(results)
+    scan_kernel_phase(results)
     masked_kernel_phase()
     main_phase(launches)
     channel_phase(launches)
@@ -1880,6 +2192,10 @@ def main() -> int:
     rwkv_parity_phase()
     serve_cpu_parity_phase(RWKV_ARCH)
     launches["rwkv6_wkv"] = serve_phase(RWKV_ARCH)["rwkv6_wkv"]
+    jamba_parity_phase()
+    serve_cpu_parity_phase(JAMBA_ARCH, JAMBA_SMOKE_PROMPT)
+    launches["mamba_scan"] = serve_phase(JAMBA_ARCH,
+                                         JAMBA_SERVE_LAYERS)["mamba_scan"]
     rows = []
     for name in SOURCE_OF:
         r = results[name]

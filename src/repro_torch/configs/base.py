@@ -22,8 +22,6 @@ _CHUNKED = ("it comes with slice 6e (the sliding and chunked attention "
 UNPORTED = {
     "gemma3-4b": "it comes with slice 6e (the sliding and chunked attention "
                  "configurations, with qk-norm)",
-    "jamba-v0.1-52b": "it comes with slice 6c (mamba and the mamba_scan "
-                      "kernel)",
     "llama4-maverick-400b-a17b": _CHUNKED,
     "llama4-scout-17b-a16e": _CHUNKED,
     "llava-next-mistral-7b": "it comes with slice 6f (the vision and audio "
@@ -222,5 +220,5 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    from . import (mistral_nemo_12b, moonshot_v1_16b_a3b,  # noqa: F401
-                   phi3_medium_14b, rwkv6_7b)
+    from . import (jamba_v01_52b, mistral_nemo_12b,  # noqa: F401
+                   moonshot_v1_16b_a3b, phi3_medium_14b, rwkv6_7b)

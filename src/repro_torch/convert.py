@@ -121,7 +121,13 @@ def lm_params_from_reference(flat: Mapping[str, Any], cfg: ModelConfig, *,
     mix (``mix`` (5, d), ``wr``…``wo`` (d, d), ``mix_lora``/``decay_lora``
     ``a``, ``b``, ``bias``, ``decay_base`` (d,), ``bonus_u`` (H, n),
     ``ln_x``) and ``ffn/…`` channel mix (``mix_k``, ``mix_r``, ``wk``,
-    ``wv``, ``wr``).
+    ``wv``, ``wr``), and a mamba layer's ``mamba/…`` mixer (``in_x``,
+    ``in_z`` (d, d_inner), ``conv_w`` (d_conv, d_inner), ``conv_b``
+    (d_inner,), ``x_proj`` (d_inner, dt_rank + 2·d_state), ``dt_proj``
+    (dt_rank, d_inner), ``dt_bias`` and ``D`` (d_inner,), ``A_log``
+    (d_inner, d_state), ``out_proj`` (d_inner, d)). A hybrid stack such as
+    jamba's scans a period of several layers (plan (0, 8, 4, 0) at 32
+    layers: ``layers_scan/0`` … ``layers_scan/7``, each stacked 4 times).
     """
     check_ported(cfg)
     dev = resolve_device(device)

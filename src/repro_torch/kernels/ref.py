@@ -10,7 +10,8 @@ The two wire-form functions widen the int8 codes one gathered row at a
 time, with the decode scale folded into the slot weight as the kernel does.
 ``flash_attention_ref`` is naive softmax attention: it materialises every
 (query, key) score. ``moe_topk_ref`` is a softmax and a stable sort.
-``rwkv6_wkv_ref`` is the WKV-6 recurrence as a loop over the sequence.
+``rwkv6_wkv_ref`` is the WKV-6 recurrence and ``mamba_scan_ref`` the
+mamba selective-scan recurrence, each as a loop over the sequence.
 
 The kernel wrappers run them for CPU tensors; on the card, ``chip_smoke.py``
 holds each kernel against them. They are no yardstick of speed.
@@ -148,3 +149,23 @@ def rwkv6_wkv_ref(r, k, v, w, u, s0=None):
                                  u[None, :, :, None] * kv + state))
         state = w[:, t, :, :, None] * state + kv
     return torch.stack(outs, dim=1), state
+
+
+def mamba_scan_ref(decay, drive, h0=None):
+    """The mamba selective-scan recurrence, one step at a time (the
+    reference's ``repro/kernels/ref.py:93``, with an initial state):
+
+        h_t = decay_t ⊙ h_{t−1} + drive_t        over axis 1 (time)
+
+    decay, drive (B, S, D, N); h0 (B, D, N), or None for a zero state.
+    Returns every h_t, (B, S, D, N), computed in float32, or in float64 for
+    a float64 input (the float64 reference on the card)."""
+    acc = torch.promote_types(decay.dtype, torch.float32)
+    b, s, d, n = decay.shape
+    h = (torch.zeros((b, d, n), dtype=acc, device=decay.device)
+         if h0 is None else h0.to(acc))
+    out = torch.empty((b, s, d, n), dtype=acc, device=decay.device)
+    for t in range(s):
+        h = decay[:, t].to(acc) * h + drive[:, t].to(acc)
+        out[:, t] = h
+    return out

@@ -4,9 +4,14 @@
       --prompt-len 8192 --new-tokens 16
   python -m repro_torch.launch.serve --arch rwkv6-7b --batch 1 \
       --prompt-len 8192 --new-tokens 16
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b-smoke --batch 2 \
+      --prompt-len 128 --new-tokens 8 --device cpu
 
 Random weights and prompts from ``--seed``. Runs on the GPU; ``--device
-cpu`` runs the kernels' plain versions on the CPU instead.
+cpu`` runs the kernels' plain versions on the CPU instead. A prompt
+longer than an MoE layer's group (512 tokens; 64 for the smokes) must be
+a multiple of it. jamba-v0.1-52b's 32 layers (205 GB in float32) do not
+fit one card: ``chip_smoke.py`` serves 8 of them.
 """
 from __future__ import annotations
 

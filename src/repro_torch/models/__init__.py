@@ -1,2 +1,2 @@
-"""Transformer models of the port (``repro/models``): dense, MoE and rwkv6
-decoders."""
+"""Transformer models of the port (``repro/models``): dense, MoE, rwkv6 and
+hybrid (mamba) decoders."""

@@ -1,13 +1,15 @@
 """Model assembly: the port of ``repro/models/transformer.py``, the
-attention and rwkv6 decoder branches.
+attention, mamba (hybrid) and rwkv6 decoder branches.
 
 A config-driven decoder: the per-layer ``LayerSpec`` picks the sequence
-mixer (full / sliding / chunked attention, or rwkv) and the channel mixer
-(swiglu / gelu / moe / rwkv_channel; ``first_dense_layers`` reach it
-through ``cfg.layer_specs()``). ``prefill`` and ``decode_step`` run the
-flash kernel (prefill), the MoE router and the WKV recurrence through
-their kernels; the full ``forward`` runs their plain versions (rwkv: the
-chunked form), so that in float64 it is the float64 reference.
+mixer (full / sliding / chunked attention, mamba, or rwkv) and the channel
+mixer (swiglu / gelu / moe / rwkv_channel; ``first_dense_layers`` and
+jamba's interleave of mamba, attention and MoE layers reach it through
+``cfg.layer_specs()``). ``prefill`` and ``decode_step`` run the flash
+kernel (prefill), the MoE router, the mamba scan and the WKV recurrence
+through their kernels; the full ``forward`` runs their plain versions
+(mamba: the associative scan, chunked past 1024 tokens; rwkv: the chunked
+form), so that in float64 it is the float64 reference.
 Parameters are nested dicts of tensors with the layers as a plain list
 (the reference stacks identical layers for ``lax.scan``;
 ``convert.lm_params_from_reference`` unstacks them). The branches of the
@@ -31,9 +33,8 @@ from .._device import resolve_device
 from ..configs.base import LayerSpec, ModelConfig
 from ..kernels.moe_router import moe_topk
 from ..kernels.ref import moe_topk_ref
-from . import attention, layers, moe, rwkv6
+from . import attention, layers, mamba, moe, rwkv6
 
-_SLICE_OF_MIXER = {"mamba": "slice 6c (mamba and the mamba_scan kernel)"}
 _FRONTENDS = "slice 6f (the vision and audio frontends)"
 
 
@@ -57,11 +58,6 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: untied embeddings (no architecture of the "
             "registry has them)")
-    for ls in cfg.layer_specs():
-        if ls.mixer in _SLICE_OF_MIXER:
-            raise NotImplementedError(
-                f"{cfg.name}: {ls.mixer} layers come with "
-                f"{_SLICE_OF_MIXER[ls.mixer]}")
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +76,11 @@ def attn_spec(cfg: ModelConfig, lspec: LayerSpec) -> attention.AttnSpec:
         rope=cfg.use_rope,
         rope_theta=cfg.rope_theta,
     )
+
+
+def mamba_spec(cfg: ModelConfig) -> mamba.MambaSpec:
+    return mamba.MambaSpec(d_model=cfg.d_model, d_state=cfg.mamba_d_state,
+                           d_conv=cfg.mamba_d_conv, expand=cfg.mamba_expand)
 
 
 def rwkv_spec(cfg: ModelConfig) -> rwkv6.RWKV6Spec:
@@ -136,6 +137,8 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, lspec: LayerSpec,
                          "norm2": _norm_init(cfg, cfg.d_model, dtype, dev)}
     if lspec.mixer == "rwkv":
         p["rwkv"] = rwkv6.rwkv6_init(gen, rwkv_spec(cfg), dtype)
+    elif lspec.mixer == "mamba":
+        p["mamba"] = mamba.mamba_init(gen, mamba_spec(cfg), dtype)
     else:
         p["attn"] = attention.attn_init(gen, cfg.d_model,
                                         attn_spec(cfg, lspec), dtype)
@@ -191,6 +194,8 @@ def _layer_forward(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
     h = _norm(cfg, p["norm1"], x)
     if lspec.mixer == "rwkv":
         x = x + rwkv6.rwkv6_block(p["rwkv"], rwkv_spec(cfg), h)
+    elif lspec.mixer == "mamba":
+        x = x + mamba.mamba_block(p["mamba"], mamba_spec(cfg), h)
     else:
         x = x + attention.attention_block(p["attn"], attn_spec(cfg, lspec),
                                           h, positions)
@@ -227,9 +232,9 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Returns logits (B, S, V). Plain PyTorch throughout (no kernel: the
-    attention and the MoE router take their plain versions, the rwkv time
-    mix the chunked form), in the parameters' dtype: in float64 it is the
-    float64 reference."""
+    attention and the MoE router take their plain versions, the mamba
+    mixer the associative scan, the rwkv time mix the chunked form), in
+    the parameters' dtype: in float64 it is the float64 reference."""
     return unembed(params, cfg, _backbone(params, cfg, batch))
 
 
@@ -244,6 +249,9 @@ def _layer_cache(cfg: ModelConfig, ls: LayerSpec, batch: int, max_len: int,
                                               device),
                 "channel_x_prev": torch.zeros((batch, 1, cfg.d_model),
                                               dtype=dtype, device=device)}
+    if ls.mixer == "mamba":
+        return {"mamba": mamba.init_mamba_cache(batch, mamba_spec(cfg), dtype,
+                                                device)}
     return {"kv": attention.init_kv_cache(batch, attn_spec(cfg, ls), max_len,
                                           dtype, device)}
 
@@ -263,6 +271,10 @@ def _decode_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, pos):
         mix, state = rwkv6.rwkv6_decode(p["rwkv"], rwkv_spec(cfg), h,
                                         c["rwkv"])
         cnew = {"rwkv": state}
+    elif ls.mixer == "mamba":
+        mix, state = mamba.mamba_decode(p["mamba"], mamba_spec(cfg), h,
+                                        c["mamba"])
+        cnew = {"mamba": state}
     else:
         mix, kv = attention.decode_attention(p["attn"], attn_spec(cfg, ls),
                                              h, c["kv"], pos)
@@ -292,13 +304,17 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
 
 def _prefill_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, positions):
     """``_layer_forward`` through the kernels that also fills the layer's
-    decode cache (attention's KV slots; rwkv's WKV state and token
-    shifts)."""
+    decode cache (attention's KV slots; mamba's SSM state and conv ring;
+    rwkv's WKV state and token shifts)."""
     h = _norm(cfg, p["norm1"], x)
     if ls.mixer == "rwkv":
         mix, state = rwkv6.rwkv6_prefill(p["rwkv"], rwkv_spec(cfg), h,
                                          c["rwkv"])
         cnew = {"rwkv": state}
+    elif ls.mixer == "mamba":
+        mix, state = mamba.mamba_prefill(p["mamba"], mamba_spec(cfg), h,
+                                         c["mamba"])
+        cnew = {"mamba": state}
     else:
         mix, kv = attention.prefill_attention(p["attn"], attn_spec(cfg, ls),
                                               h, positions, c["kv"])

@@ -1,7 +1,7 @@
 """Batched serving engine: the port of ``repro/serve/engine.py``. One
-full-sequence prefill (attention through the flash kernel, an MoE
-layer's router and an rwkv layer's WKV recurrence through theirs), then a
-token loop of ``decode_step``.
+full-sequence prefill (attention through the flash kernel; an MoE
+layer's router, a mamba layer's scan and an rwkv layer's WKV recurrence
+through theirs), then a token loop of ``decode_step``.
 """
 from __future__ import annotations
 

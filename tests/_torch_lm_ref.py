@@ -1,6 +1,6 @@
 """The JAX reference's LM outputs for the port's tests, dumped to an npz.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_lm_ref.py OUT.npz [lm|moe|rwkv]
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_lm_ref.py OUT.npz [lm|moe|rwkv|mamba]
 
 ``repro.models`` does not import on this jax (ROADMAP queue 3, item a):
 ``models/attention.py:172`` asks ``prim in batching.primitive_batchers``,
@@ -9,16 +9,21 @@ length of the import only, this script puts a plain dict holding the
 barrier primitive in its place, so the reference registers no rule of its
 own, then restores the proxy. No file of the reference changes. It runs
 in a process of its own (``tests/test_torch_lm.py``,
-``tests/test_torch_moe.py`` and ``tests/test_torch_rwkv6.py`` start it),
-so no other test module ever sees the swap.
+``tests/test_torch_moe.py``, ``tests/test_torch_rwkv6.py`` and
+``tests/test_torch_mamba.py`` start it), so no other test module ever sees
+the swap.
 
-Three parts: ``lm`` (the default) dumps the models, ``moe`` the MoE
+Four parts: ``lm`` (the default) dumps the models, ``moe`` the MoE
 layer's pieces, ``rwkv`` the rwkv6 pieces and the rwkv6-7b-smoke model (at
-2 layers, unrolled, and at 4, scanned as plan (0, 1, 4, 0)). Everything is drawn from fixed seeds: the weights with the
-reference's own inits (mistral-nemo-12b-smoke at 2 layers, unrolled, and
-at 4 layers, scanned; moonshot-v1-16b-a3b-smoke at 2 layers, unrolled, and
-at 6 layers, scanned as plan (1, 1, 5, 0): one dense head layer, then one
-MoE layer 5 times), the inputs with numpy. Keys are "/"-joined paths.
+2 layers, unrolled, and at 4, scanned as plan (0, 1, 4, 0)), ``mamba`` the
+mamba pieces and the jamba-v0.1-52b-smoke model (at 2 layers, unrolled,
+and at 8, scanned as plan (0, 2, 4, 0)) with 128-token prompts, twice its
+attention window of 64. Everything is drawn from fixed seeds: the weights
+with the reference's own inits (mistral-nemo-12b-smoke at 2 layers,
+unrolled, and at 4 layers, scanned; moonshot-v1-16b-a3b-smoke at 2
+layers, unrolled, and at 6 layers, scanned as plan (1, 1, 5, 0): one
+dense head layer, then one MoE layer 5 times), the inputs with numpy.
+Keys are "/"-joined paths.
 """
 import dataclasses
 import sys
@@ -53,7 +58,8 @@ def flatten(tree, prefix):
     return out
 
 
-def dump_model(out, transformer, ServeEngine, cfg, p, key, rng):
+def dump_model(out, transformer, ServeEngine, cfg, p, key, rng,
+               prompt=PROMPT, fwd_len=FWD_LEN, max_len=MAX_LEN):
     """``cfg``'s weights from ``PRNGKey(key)`` and its outputs under the
     keys ``p/...``: forward, prefill with its cache, 4 teacher-forced
     decode steps with the cache after them, greedy ``generate``."""
@@ -61,12 +67,12 @@ def dump_model(out, transformer, ServeEngine, cfg, p, key, rng):
     params = transformer.init_params(jax.random.PRNGKey(key), cfg,
                                      jnp.float32)
     out.update(flatten(params, f"{p}/params"))
-    tokens = rng.integers(0, v, (B, FWD_LEN)).astype(np.int32)
+    tokens = rng.integers(0, v, (B, fwd_len)).astype(np.int32)
     out[f"{p}/forward_tokens"] = tokens
     out[f"{p}/forward_logits"] = transformer.forward(
         params, cfg, {"tokens": tokens})
-    prompts = rng.integers(0, v, (B, PROMPT)).astype(np.int32)
-    cache = transformer.init_cache(cfg, B, MAX_LEN, jnp.float32)
+    prompts = rng.integers(0, v, (B, prompt)).astype(np.int32)
+    cache = transformer.init_cache(cfg, B, max_len, jnp.float32)
     last, cache = transformer.prefill(params, cfg, {"tokens": prompts},
                                       cache)
     out.update({f"{p}/prompts": prompts, f"{p}/prefill_logits": last})
@@ -76,12 +82,12 @@ def dump_model(out, transformer, ServeEngine, cfg, p, key, rng):
     for i in range(STEPS):
         lg, cache = transformer.decode_step(
             params, cfg, steps[:, i:i + 1], cache,
-            jnp.full((B,), PROMPT + i, jnp.int32))
+            jnp.full((B,), prompt + i, jnp.int32))
         logits.append(np.asarray(lg))
     out.update({f"{p}/decode_tokens": steps,
                 f"{p}/decode_logits": np.stack(logits)})
     out.update(flatten(cache, f"{p}/decode_cache"))
-    engine = ServeEngine(cfg, params, max_len=MAX_LEN)
+    engine = ServeEngine(cfg, params, max_len=max_len)
     out[f"{p}/generate_tokens"] = engine.generate(jnp.asarray(prompts),
                                                   new_tokens=NEW)
     return params
@@ -94,6 +100,9 @@ def main(path, part="lm"):
         return
     if part == "rwkv":
         np.savez(path, **dump_rwkv(transformer, ServeEngine))
+        return
+    if part == "mamba":
+        np.savez(path, **dump_mamba(transformer, ServeEngine))
         return
     smoke = get_config("mistral-nemo-12b-smoke")
     rng = np.random.default_rng(0)
@@ -277,6 +286,66 @@ def dump_rwkv(transformer, ServeEngine):
         cfg = dataclasses.replace(smoke, num_layers=n_layers)
         dump_model(out, transformer, ServeEngine, cfg, f"rwkv{n_layers}",
                    200 + n_layers, model_rng)
+    return {key: np.asarray(a) for key, a in out.items()}
+
+
+# the mamba pieces: d_model 32 (d_inner 64, d_state 8, dt rank 2) over
+# sequences of 48, its chunked path in chunks of 16; the jamba smoke model
+# with prompts and a forward of 128 tokens (two MoE groups of 64, twice
+# the sliding window of 64) and a cache of 136 positions
+MAMBA_D, MAMBA_STATE, MAMBA_CHUNK = 32, 8, 16
+JAMBA_PROMPT, JAMBA_MAX_LEN = 128, 136
+
+
+def dump_mamba(transformer, ServeEngine):
+    from repro.models import mamba
+    rng = np.random.default_rng(5)
+    out = {}
+    spec = mamba.MambaSpec(d_model=MAMBA_D, d_state=MAMBA_STATE)
+    di = spec.d_inner
+    params = dict(mamba.mamba_init(jax.random.PRNGKey(13), spec,
+                                   jnp.float32))
+    # away from the init's constants, so that every term moves the output:
+    # steps Δ ≈ 0.05–0.3, per-channel A, a random skip D and conv bias
+    params["dt_bias"] = rng.uniform(-3, -1, di).astype(np.float32)
+    params["A_log"] = rng.uniform(-1, 1, (di, MAMBA_STATE)).astype(np.float32)
+    params["D"] = rng.standard_normal(di).astype(np.float32)
+    params["conv_b"] = (0.1 * rng.standard_normal(di)).astype(np.float32)
+    out.update(flatten(params, "block/params"))
+    x = rng.standard_normal((B, 48, MAMBA_D)).astype(np.float32)
+    out["block/x"] = x
+    xin, z = mamba._ssm_inputs(params, spec, jnp.asarray(x))
+    xc = mamba._causal_conv(params, spec, xin)
+    decay, drive, c = mamba._selective_terms(params, spec, xc)
+    out.update({"ssm_inputs/x": xin, "ssm_inputs/z": z, "causal_conv/out": xc,
+                "selective/decay": decay, "selective/drive": drive,
+                "selective/c": c,
+                "scan/h": mamba.mamba_scan_ref(decay, drive)})
+    out["block/out"] = mamba.mamba_block(params, spec, jnp.asarray(x))
+    out["block/out_chunked"] = mamba.mamba_block(params, spec, jnp.asarray(x),
+                                                 chunk=MAMBA_CHUNK)
+    for s in (40, 2):          # a prompt, and one shorter than the ring
+        y, c = mamba.mamba_prefill(params, spec, jnp.asarray(x[:, :s]),
+                                   mamba.init_mamba_cache(B, spec,
+                                                          jnp.float32))
+        out[f"prefill{s}/out"] = y
+        out.update(flatten(c, f"prefill{s}/cache"))
+        if s == 40:
+            ys = []
+            for t in range(40, 44):
+                yt, c = mamba.mamba_decode(params, spec,
+                                           jnp.asarray(x[:, t:t + 1]), c)
+                ys.append(np.asarray(yt))
+            out["decode/out"] = np.concatenate(ys, axis=1)
+            out.update(flatten(c, "decode/cache"))
+
+    smoke = get_config("jamba-v0.1-52b-smoke")
+    model_rng = np.random.default_rng(6)
+    for n_layers in (2, 8):
+        cfg = dataclasses.replace(smoke, num_layers=n_layers)
+        dump_model(out, transformer, ServeEngine, cfg, f"jamba{n_layers}",
+                   300 + n_layers, model_rng, prompt=JAMBA_PROMPT,
+                   fwd_len=JAMBA_PROMPT, max_len=JAMBA_MAX_LEN)
     return {key: np.asarray(a) for key, a in out.items()}
 
 

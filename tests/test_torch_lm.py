@@ -52,7 +52,7 @@ SMOKE = "mistral-nemo-12b-smoke"
 MOON = "moonshot-v1-16b-a3b-smoke"
 PORTED = {"mistral-nemo-12b", SMOKE, "phi3-medium-14b",
           "phi3-medium-14b-smoke", "moonshot-v1-16b-a3b", MOON, "rwkv6-7b",
-          "rwkv6-7b-smoke"}
+          "rwkv6-7b-smoke", "jamba-v0.1-52b", "jamba-v0.1-52b-smoke"}
 # (arch, layers) of the reference's dumps; mistral's keep their ids
 MODELS = [pytest.param(SMOKE, 2, id="2"), pytest.param(SMOKE, 4, id="4"),
           pytest.param(MOON, 2, id="moonshot-2"),
@@ -159,6 +159,12 @@ def test_registry_holds_only_ported_archs():
     assert {(s.mixer, s.ffn) for s in rwkv.layer_specs()} == {
         ("rwkv", "rwkv_channel")}
     assert transformer.stack_plan(rwkv) == (0, 1, 32, 0)
+    jamba = get_config("jamba-v0.1-52b")
+    assert jamba.count_params() == 51_301_416_960
+    assert [(s.mixer, s.ffn) for s in jamba.layer_specs()[:8]] == [
+        ("mamba", "moe"), ("mamba", "swiglu")] * 3 + [
+        ("mamba", "moe"), ("attn_sliding", "swiglu")]
+    assert transformer.stack_plan(jamba) == (0, 8, 4, 0)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -172,17 +178,13 @@ def test_unported_arch_raises_naming_its_slice(name):
 
 @pytest.mark.parametrize("name,where", [
     ("llama4-scout-17b-a16e", "slice 6e"),
-    ("llama4-maverick-400b-a17b-smoke", "slice 6e"),
-    ("jamba-v0.1-52b", "slice 6c"), ("jamba-v0.1-52b-smoke", "slice 6c")])
+    ("llama4-maverick-400b-a17b-smoke", "slice 6e")])
 def test_moe_archs_still_unported_name_their_slice(name, where):
     with pytest.raises(NotImplementedError, match=where):
         get_config(name)
 
 
 @pytest.mark.parametrize("change", [
-    dict(attn_every=2),
-    # MoE layers are ported; jamba's hybrid of MoE and mamba is not
-    dict(attn_every=2, num_experts=4, experts_per_token=1),
     dict(encoder_layers=1), dict(frontend="vision"), dict(learned_pos=True),
     dict(qk_norm=True), dict(tie_embeddings=False)])
 def test_unported_branches_raise(change):

@@ -251,7 +251,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.launch.serve", "repro_torch.models.moe",
             "repro_torch.kernels.moe_router", "repro_torch.models.rwkv6",
             "repro_torch.kernels.rwkv6_wkv",
-            "repro_torch.configs.rwkv6_7b"} <= set(mods)
+            "repro_torch.configs.rwkv6_7b", "repro_torch.models.mamba",
+            "repro_torch.kernels.mamba_scan",
+            "repro_torch.configs.jamba_v01_52b"} <= set(mods)
 
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s+import\b))", re.MULTILINE)
