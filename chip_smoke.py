@@ -11,14 +11,21 @@ Phases, each printing one JSON line per case:
    path's shapes and one ragged shape: the error against a float64 reference
    within the stated tolerance (the broadcast select: equal), and CUDA-event
    times of the kernel, the plain version and one library call that
-   computes the same function. The flash-attention kernel runs at
-   mistral-nemo-12b's prefill of serve run (a) and four ragged shapes
-   (window, chunk, Sq ≠ Sk, rows without a key, head_dim 64), and at
-   moonshot-v1-16b-a3b's prefill (G = 1). The MoE router ``moe_topk`` runs
-   at moonshot's prefill (8192 × 64 experts, top-6), decode (8 × 64) and
-   one ragged shape (1000 × 128, top-8): ids equal to the plain version's
-   except on rows whose top probabilities lie within 2 ulps of each other
-   (counted and printed), gates within 1e-6. The WKV-6 recurrence
+   computes the same function, and the share of the bound. The dense Eq. 3
+   kernel also runs fully connected at the paper's N = 3000 and at N = 32
+   (below one tile). The flash-attention kernel runs at
+   mistral-nemo-12b's prefill of serve run (a) and ragged shapes
+   (window, chunk, Sq ≠ Sk, rows without a key, head_dim 64, G = 1, 2, 4
+   and 5 with Sq·G off the 128-row query tile, B = 2), and at
+   moonshot-v1-16b-a3b's prefill (G = 1). These two kernels, redesigned
+   for Hopper, must give the same bits on two launches; their rows carry
+   the grid and the resident blocks per SM from their libraries' queries,
+   and the build fails if ptxas reports a spill in either. The MoE router
+   ``moe_topk`` runs at moonshot's prefill (8192 × 64 experts, top-6),
+   decode (8 × 64) and one ragged shape (1000 × 128, top-8): ids equal to
+   the plain version's except on rows whose top probabilities lie within
+   2 ulps of each other (counted and printed), gates within 1e-6. The
+   WKV-6 recurrence
    ``rwkv6_wkv`` runs at rwkv6-7b's prefill of serve run (a) (1 × 8192, 64
    heads of 64) with w as the model draws it (≈ 0.9975) and uniform in
    (0.9, 0.999), at run (b)'s (8 × 512), at decode (8 × 1, from a random
@@ -253,6 +260,21 @@ def _check_against_f64(name, out, adj64, w, theta, eps, sigma):
     return ratio.item()
 
 
+def _device_ms(fn) -> dict:
+    """Device ms of each kernel one call of ``fn`` runs (a torch.profiler
+    trace, warm L2): the parts of a multi-kernel wrapper, and which kernel
+    a library yardstick picks, and so on which units it computes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {evt.key[:120]: getattr(evt, "self_device_time_total", 0.0) / 1e3
+            for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def kernel_phase(results: dict) -> None:
     import numpy as np
     import torch
@@ -265,6 +287,10 @@ def kernel_phase(results: dict) -> None:
     sigma = 0.1
     cases = [  # (kernel, label, family, density, n, p, main-path shape?)
         ("netes_mixing", "fc_main", "fully_connected", 1.0, MAIN_N, 4481, True),
+        # the paper's 3000 agents fully connected (abstract; Fig. 2B)
+        ("netes_mixing", "fc_3000", "fully_connected", 1.0, 3000, 4481,
+         False),
+        ("netes_mixing", "fc_32", "fully_connected", 1.0, 32, 4481, False),
         ("netes_mixing", "er_ragged", "erdos_renyi", 0.3, 257, 700, False),
         ("netes_sparse_mixing", "er_main", "erdos_renyi", MAIN_P_ER, MAIN_N,
          4481, True),
@@ -296,6 +322,16 @@ def kernel_phase(results: dict) -> None:
         out_k, out_p = kernel(), plain()
         torch.cuda.synchronize()
         check(torch.isfinite(out_k).all().item(), f"{kname}/{label}: non-finite")
+        launch = {}
+        if kname == "netes_mixing":
+            check(torch.equal(kernel(), out_k),
+                  f"{kname}/{label}: two launches differ")
+            pl = nm.launch_plan(n, p, "cuda")
+            launch = {"grid_blocks": pl.grid_blocks,
+                      "resident_blocks_per_sm": nm.occupancy(
+                          torch.cuda.current_device())[0],
+                      "tiles_whole": pl.full, "tiles_split": pl.rem,
+                      "split": pl.split}
         rel_k = _check_against_f64(f"{kname}/{label}", out_k, adj64, w, theta,
                                    eps, sigma)
         rel_p = _check_against_f64(f"{kname}/{label} plain", out_p, adj64, w,
@@ -326,12 +362,16 @@ def kernel_phase(results: dict) -> None:
                "p": p, "k_max": k_max, "nnz": nnz,
                "max_abs_err": max_abs, "max_err_over_S": rel_k,
                "plain_err_over_S": rel_p, "library_err_over_S": rel_l,
-               "tol_over_S": TOL_REL,
+               "tol_over_S": TOL_REL, **launch,
                **time_stats(kernel), "plain_ms": time_ms(plain),
                "library": lib_name, "library_ms": time_ms(lib),
                "bound_ms": 1e3 * max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "gflop": flops / 1e9, "mbytes": moved / 1e6}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if main:
+            row["kernel_parts_ms"] = _device_ms(kernel)
+            row["library_kernels_ms"] = _device_ms(lib)
         emit(row)
         if main:
             results[kname] = row
@@ -550,6 +590,14 @@ ATTN_CASES = (  # (label, B, Sq, Sk, H, Hkv, hd, causal, window, chunk, main)
     # moonshot-v1-16b-a3b's prefill of its serve run (a): G = 1
     ("moonshot_prefill_8192_g1", 1, 8192, 8192, 16, 16, 128, True, 0, 0,
      False),
+    # G = 1, 2, 4, 5 with Sq·G not a multiple of the 128-row query tile
+    # (G = 5: llama4's 40/8 heads); B = 2
+    ("g1_sq333", 1, 333, 333, 8, 8, 128, True, 0, 0, False),
+    ("g2_b2_sq333", 2, 333, 333, 16, 8, 128, True, 0, 0, False),
+    ("g4_sq333", 1, 333, 333, 32, 8, 128, True, 0, 0, False),
+    ("g5_sq333", 1, 333, 333, 40, 8, 128, True, 0, 0, False),
+    ("chunk128_g4", 1, 300, 300, 32, 8, 128, True, 0, 128, False),
+    ("hd64_g4", 1, 517, 517, 32, 8, 64, True, 0, 0, False),
 )
 
 
@@ -608,6 +656,9 @@ def attention_kernel_phase(results: dict) -> None:
         torch.cuda.synchronize()
         check(torch.isfinite(out_k).all().item(),
               f"flash_attention/{label}: non-finite")
+        check(torch.equal(kernel(), out_k),
+              f"flash_attention/{label}: two launches differ")
+        pl, resident = fa.launch_plan(b, sq, h, hkv, hd)
         ok = _attn_mask(sq, sk, causal, window, chunk)
         exact = _attention_f64(q, k, v, ok, scale)
         err_k = (out_k.double() - exact).abs().max().item()
@@ -645,7 +696,8 @@ def attention_kernel_phase(results: dict) -> None:
                "max_abs_err": (out_k - out_p).abs().max().item(),
                "max_err_f64": err_k, "plain_err_f64": err_p,
                "library_err_f64": lib_err.abs().max().item(),
-               "tol_f64": TOL_ATTN, **time_stats(kernel),
+               "tol_f64": TOL_ATTN, "grid_blocks": pl.grid_blocks,
+               "resident_blocks_per_sm": resident, **time_stats(kernel),
                "plain_ms": time_ms(plain),
                "library": "F.scaled_dot_product_attention (f32, KV heads "
                           "repeated outside)",
@@ -653,6 +705,9 @@ def attention_kernel_phase(results: dict) -> None:
                "bound_ms": 1e3 * max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "gflop": flops / 1e9, "mbytes": moved / 1e6}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if main or label.startswith("moonshot"):
+            row["library_kernels_ms"] = _device_ms(lib)
         if main:
             bf16 = F.scaled_dot_product_attention(
                 qt.bfloat16(), kt.bfloat16(), vt.bfloat16(), is_causal=True,
@@ -2126,6 +2181,9 @@ def serve_phase(arch: str, num_layers=None) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# the kernels whose ptxas lines must show no spill
+REDESIGNED = ("netes_mixing", "flash_attention")
+
 SOURCE_OF = {
     "netes_mixing": ("src/repro_torch/csrc/netes_mixing.cu",
                      "src/repro/kernels/netes_mixing.py:55"),
@@ -2170,6 +2228,10 @@ def main() -> int:
     emit({"phase": "build", "target": "sm_90a", "seconds":
           time.perf_counter() - t0, "libraries": sorted(libs),
           "ptxas": ptxas})
+    for name in REDESIGNED:
+        spills = [ln for ln in ptxas[name] if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        check(not spills, f"{name}: ptxas reports spills: {spills}")
 
     results, launches = {}, {}
     kernel_phase(results)
@@ -2205,7 +2267,8 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"],
+                     "share_of_bound": r["bound_ms"] / r["ms"]})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -18,28 +18,63 @@
 // What bounds it on the H100: operations. A causal prefill at B = 1,
 // S = 8192, H = 32, hd = 128 does 4·H·hd·S(S+1)/2 = 550 GFLOP of float32
 // multiply-adds (8.2 ms at the CUDA cores' 67 TFLOP/s) and moves 0.4 GB
-// (0.13 ms at 3.35 TB/s). The computation stays in float32 (no TF32, whose
-// 10-bit mantissa would miss the float32 tolerances of the checks).
+// (0.13 ms at 3.35 TB/s). The computation stays in float32 on the CUDA
+// cores (no TF32, whose 10-bit mantissa would miss the float32 tolerances
+// of the checks), so what decides the time is how much of the issue rate
+// goes to FMAs.
 //
-// Design, a first simple one: one block of 256 threads per (query tile of
-// 64 rows, query head, batch); query tiles are issued last-first, so the
-// long causal tiles start early. The block keeps its Q tile and one K and
-// one V tile of 64 keys in shared memory (rows padded by 4 floats, so the
-// 16-byte loads of a quarter warp hit distinct banks). Thread (ty, tx) of a
-// 16 × 16 grid owns query rows 4·ty .. 4·ty + 3 and, per key tile, the
-// scores of keys tx + 16·j (j < 4); the softmax state (m, partial l) and
-// its 4 × hd/16 slice of the output (columns 64·c + 4·tx .. + 3) stay in
-// registers. Row maxima are reduced over the 16 threads of a row with warp
-// shuffles. P goes through shared memory (over the K tile, which is dead
-// by then) for the P·V product. Key tiles that are masked for every row
-// of the query tile are skipped: this is exact for every row with a valid
-// key. When a row of the tile has no valid key at all, every key tile is
-// streamed, so that row gets the reference's value, the mean of v over the
-// Sk keys (each masked key counts exp(0) = 1 while m stays at −1e30).
+// The first design of this kernel took 16.91–17.15 ms at G = 4 and
+// 8.93–9.02 ms at G = 1 (moonshot, 16/16 heads) (NVIDIA H100 80GB HBM3,
+// 700 W): a block per (64 query positions, query head, batch), so each of
+// the G heads of a KV head loaded its own copy of every K and V tile;
+// 4 × 4 dot products along d for QKᵀ (64 FMAs per 8 shared loads);
+// synchronous tile loads behind four barriers per key tile; the mask and
+// `expf` on every score.
+// This design:
 //
-// C interface (bound with ctypes): returns cudaGetLastError() after the
-// launch. Launches on the caller's stream, never synchronises, allocates
-// nothing.
+// - A block per (query tile, batch, KV head), one block per SM (256
+//   threads, ≤ 255 registers, 226 KB of shared memory at hd 128). Its BR =
+//   128 rows are (position, head) pairs, position-major, of the G query
+//   heads that read the KV head: 128/G positions (any G; the last tile is
+//   ragged), so one K/V tile in shared memory serves all of them. The masks
+//   depend on the position only. The grid is one-dimensional with the
+//   query tile slowest and last-first, so the longest causal tiles of every
+//   head start first.
+// - Thread (ty, tx) of 16 × 16 owns the rows ty·4 + {0..3} and
+//   64 + ty·4 + {0..3}: in S = QKᵀ the keys tx + 16·j (j < 4) of the 64-key
+//   tile, in O the columns 64·c + 4·tx + {0..3}. Qᵀ (d-major, with
+//   scale·log2 e folded in once) and Pᵀ (key-major) give each thread its 8
+//   rows as two float4; K stays row-major with its 16-byte chunks swizzled
+//   (conflict-free without padding), so S takes 128 FMAs per 12 shared
+//   loads and P·V 64 FMAs per 4. Both loops are unrolled 16 deep, which
+//   lets the loads of one step overlap the FMAs of another (faster than 2
+//   or 4 deep; fully unrolled, the code outgrows the instruction cache and
+//   runs several times slower).
+// - K and V double-buffered: 16-byte cp.async (zero-filled past Sk) brings
+//   tile t + 1 while tile t is computed. One block barrier per key tile; a
+//   row's P is written and read by the 16 threads of one half warp, so P·V
+//   needs only a warp barrier.
+// - Key tiles that every row of the tile may see in full run without a
+//   mask (a separate instance of the softmax step); only the tiles that
+//   cross the diagonal, a window or chunk edge or Sk test each score
+//   against the row's key range (kept in shared memory).
+// - exp2 on log2-scaled scores.
+// Key tiles that are masked for every row of the query tile are skipped:
+// this is exact for every row with a valid key. When a row of the tile has
+// no valid key at all, every key tile is streamed, so that row gets the
+// reference's value, the mean of v over the Sk keys (each masked key
+// counts exp2(0) = 1 while m stays at −1e30); a padded key (kp ≥ Sk)
+// always adds nothing to l.
+//
+// This design took 12.2–12.3 ms at G = 4 (67% of the 8.2 ms bound;
+// F.scaled_dot_product_attention in float32, whose products run on the
+// tensor cores as three TF32 products, 11.9–12.1 ms) and 6.2 ms at G = 1
+// (SDPA 6.3 ms) on the same card (`chip_smoke.py`; PERF.md §6, row 5).
+//
+// C interface (bound with ctypes): `flash_attention_f32` returns
+// cudaGetLastError() after the launch; `flash_attention_query` reports the
+// grid size and the resident blocks per SM at a shape. Launches on the
+// caller's stream, never synchronises, allocates nothing.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -47,13 +82,45 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int BQ = 64;               // query rows per block
-constexpr int BK = 64;               // keys per tile
-constexpr int ROWS = 4;              // query rows per thread
-constexpr int KEYS = 4;              // keys per thread and tile
+constexpr int BR = 128;              // (position, head) rows per block
+constexpr int BKN = 64;              // keys per tile
 constexpr float NEG_INF = -1e30f;
 
+// Shared memory: Qᵀ, two K and two V tiles, Pᵀ and the rows' key ranges.
+// K's 16-byte chunks are swizzled (chunk c of key r at c ^ (r % 8)), so that
+// the keys tx + 16j of a quarter warp hit distinct banks without padding;
+// Pᵀ's rows are padded by 4 floats for the same reason.
+template <int HD>
+struct Layout {
+  static constexpr int PSTRIDE = BR + 4;
+  static constexpr int Q = HD * BR;       // Qᵀ [HD][BR]
+  static constexpr int K = BKN * HD;      // K  [BKN][HD], swizzled
+  static constexpr int V = BKN * HD;      // V  [BKN][HD]
+  static constexpr int P = BKN * PSTRIDE; // Pᵀ [BKN][BR + 4]
+  static constexpr size_t BYTES = (size_t)(Q + 2 * K + 2 * V + P) * sizeof(float) +
+                                  2 * BR * sizeof(int);
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, or 16 zero bytes when !valid (src-size 0 reads nothing)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
 // The keys [lo, hi] that query position qp may attend to (empty if lo > hi).
+// Both ends are non-decreasing in qp.
 __device__ __forceinline__ void key_range(int qp, int sk, bool causal,
                                           int window, int chunk, int* lo,
                                           int* hi) {
@@ -69,240 +136,327 @@ __device__ __forceinline__ void key_range(int qp, int sk, bool causal,
   *hi = b;
 }
 
-// Copy 64 rows of hd floats, rows [row0, row0 + 64) of a (rows, heads, hd)
-// slab at head `head`, into shared memory with row stride hd + 4; rows at
-// or past `n_rows` are zero.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          int row0, int n_rows, int heads,
-                                          int head) {
-  constexpr int VEC = HD / 4;
-  constexpr int STRIDE = HD + 4;
+// 2^x on the MUFU unit (the instruction exp2f compiles to, without its
+// handling of results below 2^-126, which flush to 0 here: no sum of the
+// softmax notices, its largest term being 1).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online-softmax update of a key tile for a thread's 8 rows and 4
+// keys (a row's 64 keys lie on the 16 threads of one half warp): mask (only
+// if MASKED, a tile that crosses a row's key range or Sk), new row maxima,
+// P = 2^(s − m) in place of s, l, and O rescaled.
+template <bool MASKED, int NCH>
+__device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[8],
+                                               float (&l)[8], float (&o)[8][NCH][4],
+                                               const int* row_lo, const int* row_hi,
+                                               int k0, int sk, int ty, int tx) {
+  if (MASKED) {
 #pragma unroll
-  for (int f = threadIdx.x; f < BK * VEC; f += THREADS) {
-    const int r = f / VEC, c = f % VEC;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) {
-      val = reinterpret_cast<const float4*>(
-          src + ((size_t)(row0 + r) * heads + head) * HD)[c];
+    for (int i = 0; i < 8; ++i) {
+      const int r = (i < 4 ? 0 : 64) + 4 * ty + (i & 3);
+      const int lo = row_lo[r], hi = row_hi[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = k0 + tx + 16 * j;
+        if (kp < lo || kp > hi) s[i][j] = NEG_INF;
+      }
     }
-    *reinterpret_cast<float4*>(dst + r * STRIDE + 4 * c) = val;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float row_max = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
+    const float m_new = fmaxf(m[i], row_max);
+    const float corr = exp2_ftz(m[i] - m_new);
+    m[i] = m_new;
+    float row_sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float p = exp2_ftz(s[i][j] - m_new);
+      // a padded key (kp ≥ Sk) is no key: it adds nothing to l
+      if (MASKED && k0 + tx + 16 * j >= sk) p = 0.f;
+      s[i][j] = p;
+      row_sum += p;
+    }
+    l[i] = l[i] * corr + row_sum;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][c][e] *= corr;
+  }
+}
+
+// Keys [k0, k0 + BKN) of a (Sk, Hkv, HD) slab at one KV head into HD-float
+// rows, chunk c of row r at c ^ (r % 8) if SWIZZLE; keys at or past Sk are
+// zero.
+template <int HD, bool SWIZZLE>
+__device__ __forceinline__ void load_keys(float* dst, const float* __restrict__ src,
+                                          int k0, int sk, int hkv) {
+  constexpr int C4 = HD / 4;
+#pragma unroll
+  for (int it = 0; it < BKN * C4 / THREADS; ++it) {
+    const int f = threadIdx.x + it * THREADS, r = f / C4, c = f % C4;
+    const bool valid = k0 + r < sk;
+    cp_async16(dst + r * HD + 4 * (SWIZZLE ? c ^ (r & 7) : c),
+               src + (size_t)(valid ? k0 + r : 0) * hkv * HD + 4 * c, valid);
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int sq, int sk, int h, int hkv, bool causal,
-                       int window, int chunk, float scale) {
-  constexpr int STRIDE = HD + 4;     // shared row stride of Q, K, V
-  constexpr int PSTRIDE = BK + 4;    // shared row stride of P
+                       int batch, int sq, int sk, int h, int hkv,
+                       bool causal, int window, int chunk, float qscale,
+                       int tiles) {
+  using L = Layout<HD>;
   constexpr int NCH = HD / 64;       // 64-column chunks of the output
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + BQ * STRIDE;
-  float* vs = ks + BK * STRIDE;
-  float* ps = ks;                    // P reuses the K tile once S is done
+  float* ks0 = qs + L::Q;            // K tiles: ks0 + (t & 1)·L::K
+  float* vs0 = ks0 + 2 * L::K;       // V tiles: vs0 + (t & 1)·L::V
+  float* ps = vs0 + 2 * L::V;
+  int* row_lo = reinterpret_cast<int*>(ps + L::P);
+  int* row_hi = row_lo + BR;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int head = blockIdx.y, b = blockIdx.z;
-  const int kvh = head / (h / hkv);
-  const float* qb = q + (size_t)b * sq * h * HD;
-  const float* kb = k + (size_t)b * sk * hkv * HD;
-  const float* vb = v + (size_t)b * sk * hkv * HD;
+  const int g = h / hkv, rows = sq * g;
+  // block order: query tile (last first) slowest, then batch, then KV head,
+  // so that the longest causal tiles of every head start first
+  const int heads = hkv * batch;
+  const int r0 = (tiles - 1 - (int)blockIdx.x / heads) * BR;
+  const int kvh = blockIdx.x % heads % hkv, b = blockIdx.x % heads / hkv;
+  const int p_first = r0 / g, p_last = (min(r0 + BR, rows) - 1) / g;
+  const float* kb = k + ((size_t)b * sk * hkv + kvh) * HD;
+  const float* vb = v + ((size_t)b * sk * hkv + kvh) * HD;
 
-  // The key tiles this query tile needs: key_range is non-decreasing in
-  // both ends, so the union over its rows lies in [lo(q0), hi(q_last)].
-  const int q_last = min(q0 + BQ - 1, sq - 1);
-  int lo, hi, unused;
+  // each row's key range; a row past the end sees nothing
+  for (int r = tid; r < BR; r += THREADS) {
+    int lo = 1, hi = 0;
+    if (r0 + r < rows) key_range((r0 + r) / g, sk, causal, window, chunk, &lo, &hi);
+    row_lo[r] = lo;
+    row_hi[r] = hi;
+  }
   bool empty_row = false;
-  if (tid < BQ && q0 + tid < sq) {
-    key_range(q0 + tid, sk, causal, window, chunk, &lo, &hi);
-    empty_row = lo > hi;
+  for (int pp = p_first + tid; pp <= p_last; pp += THREADS) {
+    int lo, hi;
+    key_range(pp, sk, causal, window, chunk, &lo, &hi);
+    empty_row |= lo > hi;
   }
   const bool stream_all = __syncthreads_or(empty_row);
-  key_range(q0, sk, causal, window, chunk, &lo, &unused);
-  key_range(q_last, sk, causal, window, chunk, &unused, &hi);
-  const int kt_begin = stream_all ? 0 : lo / BK;
-  const int kt_end = stream_all ? (sk - 1) / BK : hi / BK;
+  // the union of the rows' ranges is [lo(p_first), hi(p_last)]; every row
+  // sees all of [lo(p_last), hi(p_first)]
+  int lo_first, hi_first, lo_last, hi_last;
+  key_range(p_first, sk, causal, window, chunk, &lo_first, &hi_first);
+  key_range(p_last, sk, causal, window, chunk, &lo_last, &hi_last);
+  const int kt_begin = stream_all ? 0 : lo_first / BKN;
+  const int kt_end = stream_all ? (sk - 1) / BKN : hi_last / BKN;
 
-  load_tile<HD>(qs, qb, q0, sq, h, head);
+  load_keys<HD, true>(ks0, kb, kt_begin * BKN, sk, hkv);
+  load_keys<HD, false>(vs0, vb, kt_begin * BKN, sk, hkv);
+  cp_async_commit();
 
-  float m[ROWS], l[ROWS], acc[ROWS][NCH][4];
+  // Qᵀ, scaled by scale·log2 e: rows are (position, head), position-major
+#pragma unroll 4
+  for (int it = 0; it < BR * (HD / 4) / THREADS; ++it) {
+    const int f = tid + it * THREADS, r = f % BR, c = f / BR, row = r0 + r;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < rows) {
+      const int pos = row / g, head = kvh * g + row % g;
+      val = reinterpret_cast<const float4*>(
+          q + (((size_t)b * sq + pos) * h + head) * HD)[c];
+    }
+    qs[(4 * c + 0) * BR + r] = val.x * qscale;
+    qs[(4 * c + 1) * BR + r] = val.y * qscale;
+    qs[(4 * c + 2) * BR + r] = val.z * qscale;
+    qs[(4 * c + 3) * BR + r] = val.w * qscale;
+  }
+
+  float m[8], l[8], o[8][NCH][4];
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
+  for (int i = 0; i < 8; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+      for (int e = 0; e < 4; ++e) o[i][c][e] = 0.f;
   }
 
+  const int sw = tx & 7;   // the swizzle of this thread's keys tx + 16j
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                 // the previous P·V is done with ks, vs
-    load_tile<HD>(ks, kb, k0, sk, hkv, kvh);
-    load_tile<HD>(vs, vb, k0, sk, hkv, kvh);
-    __syncthreads();
+    const int k0 = kt * BKN, buf = (kt - kt_begin) & 1;
+    const float* ks = ks0 + buf * L::K;
+    const float* vs = vs0 + buf * L::V;
+    cp_async_wait_all();
+    __syncthreads();     // K(kt), V(kt), Qᵀ visible; everyone is done with tile kt − 1
+    if (kt < kt_end) {   // tile kt + 1 into the buffers tile kt − 1 used
+      load_keys<HD, true>(ks0 + (buf ^ 1) * L::K, kb, k0 + BKN, sk, hkv);
+      load_keys<HD, false>(vs0 + (buf ^ 1) * L::V, vb, k0 + BKN, sk, hkv);
+      cp_async_commit();
+    }
 
-    // S = Q Kᵀ for rows 4·ty + i and keys tx + 16·j
-    float s[ROWS][KEYS];
+    // S = Qᵀᵀ K for rows (i < 4 ? 0 : 64) + ty·4 + i % 4 and keys tx + 16j
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < KEYS; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[ROWS], kv[KEYS];
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 16
+    for (int d4 = 0; d4 < HD / 4; ++d4) {
+      float4 kv[4];
+      const int kc = 4 * (d4 ^ sw);
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * STRIDE + d);
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * HD + kc);
 #pragma unroll
-      for (int j = 0; j < KEYS; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * STRIDE + d);
+      for (int dd = 0; dd < 4; ++dd) {
+        const float* qrow = qs + (4 * d4 + dd) * BR;
+        const float4 qa = *reinterpret_cast<const float4*>(qrow + 4 * ty);
+        const float4 qb = *reinterpret_cast<const float4*>(qrow + 64 + 4 * ty);
+        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i)
+        for (int j = 0; j < 4; ++j) {
+          const float kd = dd == 0 ? kv[j].x : dd == 1 ? kv[j].y
+                         : dd == 2 ? kv[j].z : kv[j].w;
 #pragma unroll
-        for (int j = 0; j < KEYS; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          for (int i = 0; i < 8; ++i) s[i][j] = fmaf(qv[i], kd, s[i][j]);
         }
+      }
     }
 
-    // scale and mask, then the online-softmax update of each row
-    float corr[ROWS];
+    // masks on the tiles that need them only
+    if (!stream_all && k0 >= lo_last && k0 + BKN - 1 <= hi_first)
+      online_softmax<false>(s, m, l, o, row_lo, row_hi, k0, sk, ty, tx);
+    else
+      online_softmax<true>(s, m, l, o, row_lo, row_hi, k0, sk, ty, tx);
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int qp = q0 + 4 * ty + i;
-      float row_max = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < KEYS; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        bool ok = kp < sk;
-        if (causal) ok = ok && qp >= kp;
-        if (window > 0) ok = ok && qp - kp < window;
-        if (chunk > 0) ok = ok && qp / chunk == kp / chunk;
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
-        row_max = fmaxf(row_max, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
-      const float m_new = fmaxf(m[i], row_max);
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KEYS; ++j) {
-        // a padded key (kp ≥ Sk) is no key: it adds nothing to l
-        const float p = k0 + tx + 16 * j < sk ? expf(s[i][j] - m_new) : 0.f;
-        s[i][j] = p;
-        row_sum += p;
-      }
-      l[i] = l[i] * corr[i] + row_sum;
+    for (int j = 0; j < 4; ++j) {
+      float* prow = ps + (tx + 16 * j) * L::PSTRIDE;
+      *reinterpret_cast<float4*>(prow + 4 * ty) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      *reinterpret_cast<float4*>(prow + 64 + 4 * ty) =
+          make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
     }
-    __syncthreads();                 // every thread is done reading ks
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < KEYS; ++j)
-        ps[(4 * ty + i) * PSTRIDE + tx + 16 * j] = s[i][j];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int c = 0; c < NCH; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] *= corr[i];
-    __syncthreads();
+    // a row's P lies on the 16 threads of one half warp, which also
+    // compute its O: no block barrier
+    __syncwarp();
 
-    // acc += P V over the 64 keys of the tile
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 pv[ROWS];
+    // O += P V over the 64 keys of the tile
+#pragma unroll 16
+    for (int kk = 0; kk < BKN; ++kk) {
+      const float* prow = ps + kk * L::PSTRIDE;
+      const float4 pa = *reinterpret_cast<const float4*>(prow + 4 * ty);
+      const float4 pb = *reinterpret_cast<const float4*>(prow + 64 + 4 * ty);
+      const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(ps + (4 * ty + i) * PSTRIDE + kk);
+      for (int c = 0; c < NCH; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(vs + kk * HD + 64 * c + 4 * tx);
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              vs + (kk + t) * STRIDE + 64 * c + 4 * tx);
-#pragma unroll
-          for (int i = 0; i < ROWS; ++i) {
-            const float p = t == 0 ? pv[i].x : t == 1 ? pv[i].y
-                          : t == 2 ? pv[i].z : pv[i].w;
-            acc[i][c][0] = fmaf(p, vv.x, acc[i][c][0]);
-            acc[i][c][1] = fmaf(p, vv.y, acc[i][c][1]);
-            acc[i][c][2] = fmaf(p, vv.z, acc[i][c][2]);
-            acc[i][c][3] = fmaf(p, vv.w, acc[i][c][3]);
-          }
+        for (int i = 0; i < 8; ++i) {
+          o[i][c][0] = fmaf(pv[i], vv.x, o[i][c][0]);
+          o[i][c][1] = fmaf(pv[i], vv.y, o[i][c][1]);
+          o[i][c][2] = fmaf(pv[i], vv.z, o[i][c][2]);
+          o[i][c][3] = fmaf(pv[i], vv.w, o[i][c][3]);
         }
       }
     }
   }
 
-  // l: the partial sums of the row's 16 threads; out = acc / max(l, 1e-30)
+  // l: the partial sums of the row's 16 threads; out = o / max(l, 1e-30)
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
+  for (int i = 0; i < 8; ++i) {
     float total = l[i];
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
       total += __shfl_xor_sync(0xffffffffu, total, off);
-    const int qp = q0 + 4 * ty + i;
-    if (qp >= sq) continue;
+    const int row = r0 + (i < 4 ? 0 : 64) + 4 * ty + (i & 3);
+    if (row >= rows) continue;
     const float denom = fmaxf(total, 1e-30f);
-    float* orow = out + (((size_t)b * sq + qp) * h + head) * HD;
+    const int pos = row / g, head = kvh * g + row % g;
+    float* orow = out + (((size_t)b * sq + pos) * h + head) * HD;
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       *reinterpret_cast<float4*>(orow + 64 * c + 4 * tx) = make_float4(
-          acc[i][c][0] / denom, acc[i][c][1] / denom, acc[i][c][2] / denom,
-          acc[i][c][3] / denom);
+          o[i][c][0] / denom, o[i][c][1] / denom, o[i][c][2] / denom,
+          o[i][c][3] / denom);
     }
   }
+}
+
+int query_tiles(int sq, int h, int hkv) {
+  return (sq * (h / hkv) + BR - 1) / BR;
+}
+
+template <int HD>
+cudaError_t prepare() {
+  return cudaFuncSetAttribute(flash_attention_kernel<HD>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)Layout<HD>::BYTES);
 }
 
 template <int HD>
 int launch(const float* q, const float* k, const float* v, float* out, int b,
            int sq, int sk, int h, int hkv, int causal, int window, int chunk,
-           float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(BQ + 2 * BK) * (HD + 4) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+           float qscale, cudaStream_t stream) {
+  const cudaError_t err = prepare<HD>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + BQ - 1) / BQ, h, b);
-  flash_attention_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      q, k, v, out, sq, sk, h, hkv, causal != 0, window, chunk, scale);
+  const int tiles = query_tiles(sq, h, hkv);
+  flash_attention_kernel<HD><<<tiles * hkv * b, THREADS, Layout<HD>::BYTES, stream>>>(
+      q, k, v, out, b, sq, sk, h, hkv, causal != 0, window, chunk, qscale, tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int query(int b, int sq, int h, int hkv, int* grid_blocks, int* resident) {
+  cudaError_t err = prepare<HD>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      resident, flash_attention_kernel<HD>, THREADS, Layout<HD>::BYTES);
+  *grid_blocks = query_tiles(sq, h, hkv) * hkv * b;
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// hd must be 64 or 128 (anything else returns cudaErrorInvalidValue);
-// the wrapper checks shapes, layout and alignment before the call.
+// hd must be 64 or 128 (anything else returns cudaErrorInvalidValue), and
+// `tiles` the wrapper's count of query tiles per (batch, KV head), checked
+// against this source's; the wrapper checks shapes, layout and alignment
+// before the call.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int b, int sq,
                                    int sk, int h, int hkv, int hd, int causal,
                                    int window, int chunk, float scale,
-                                   void* stream) {
+                                   int tiles, void* stream) {
+  if (hkv <= 0 || h % hkv != 0 || tiles != query_tiles(sq, h, hkv))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(out);
   auto* st = static_cast<cudaStream_t>(stream);
+  // scores in log2 units: exp(scale·x) = exp2(scale·log2 e·x)
+  const float qscale = static_cast<float>((double)scale * 1.4426950408889634);
   if (hd == 128)
     return launch<128>(qf, kf, vf, of, b, sq, sk, h, hkv, causal, window,
-                       chunk, scale, st);
+                       chunk, qscale, st);
   if (hd == 64)
     return launch<64>(qf, kf, vf, of, b, sq, sk, h, hkv, causal, window,
-                      chunk, scale, st);
+                      chunk, qscale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int flash_attention_query(int b, int sq, int h, int hkv, int hd,
+                                     int* grid_blocks, int* resident_per_sm) {
+  if (hkv <= 0 || h % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 128) return query<128>(b, sq, h, hkv, grid_blocks, resident_per_sm);
+  if (hd == 64) return query<64>(b, sq, h, hkv, grid_blocks, resident_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);
 }

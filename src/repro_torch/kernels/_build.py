@@ -89,14 +89,25 @@ class CudaKernel:
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source, self.symbol, self.argtypes = source, symbol, argtypes
         self.launches = 0
-        self._fn = None
+        self._lib = self._fn = None
 
     def _load(self):
         path = build_all([self.source])[self.source]
-        fn = getattr(ctypes.CDLL(str(path)), self.symbol)
+        self._lib = ctypes.CDLL(str(path))
+        fn = getattr(self._lib, self.symbol)
         fn.argtypes = list(self.argtypes)
         fn.restype = ctypes.c_int
         self._fn = fn
+
+    def function(self, symbol: str, argtypes: Sequence):
+        """Another C entry point of the same library (a query, not a
+        launch: it counts nothing)."""
+        if self._fn is None:
+            self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
 
     def launch(self, *args) -> None:
         if self._fn is None:

@@ -6,13 +6,16 @@ of ``csrc/flash_attention.cu``.
 with the causal, sliding-window and chunked-local masks and padded keys
 masked. Replaces the TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention``, with its signature and layout. On CUDA tensors it
-launches the hand-written sm_90a kernel (see the source's note); on CPU
-tensors it runs the plain version ``ref.flash_attention_ref``. There is no
-other path. Float32 only.
+launches the hand-written sm_90a kernel (a block per query tile of the G
+heads of one KV head, see the source's note; its grid is :func:`plan`'s);
+on CPU tensors it runs the plain version ``ref.flash_attention_ref``.
+There is no other path. Float32 only.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Iterator, Tuple
 
 import torch
 
@@ -23,9 +26,60 @@ from ._checks import check_operand, on_cpu
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention_f32",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                  ctypes.c_int,
                                                   ctypes.c_void_p])
 
 HEAD_DIMS = (64, 128)   # the head widths the kernel is built for
+ROWS_PER_BLOCK = 128    # (position, head) rows of a block: the source's BR
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A block per (query tile, batch, KV head). A query tile is
+    ROWS_PER_BLOCK consecutive rows of the (position, head) sequence of the
+    G = H / Hkv query heads that read one KV head, position-major; each
+    (batch, KV head) has ``tiles`` of them."""
+    b: int
+    sq: int
+    h: int
+    hkv: int
+    tiles: int
+
+    @property
+    def grid_blocks(self) -> int:
+        return self.tiles * self.hkv * self.b
+
+
+def plan(b: int, sq: int, h: int, hkv: int) -> Plan:
+    rows = sq * (h // hkv)
+    return Plan(b=b, sq=sq, h=h, hkv=hkv, tiles=-(-rows // ROWS_PER_BLOCK))
+
+
+def block_rows(pl: Plan, block: int) -> Iterator[Tuple[int, int, int]]:
+    """The (batch, position, query head) rows that ``block`` computes: the
+    mapping the kernel makes from its block index. The query tile varies
+    slowest and runs last-first, so that the longest causal tiles of every
+    head are issued first."""
+    g, heads = pl.h // pl.hkv, pl.hkv * pl.b
+    r0 = (pl.tiles - 1 - block // heads) * ROWS_PER_BLOCK
+    kvh, bb = block % heads % pl.hkv, block % heads // pl.hkv
+    for row in range(r0, min(r0 + ROWS_PER_BLOCK, pl.sq * g)):
+        yield bb, row // g, kvh * g + row % g
+
+
+def launch_plan(b: int, sq: int, h: int, hkv: int, hd: int
+                ) -> Tuple[Plan, int]:
+    """The plan and the resident blocks per SM at this shape on the
+    current card, from the library's query (whose grid must agree)."""
+    query = KERNEL.function("flash_attention_query", [ctypes.c_int] * 5
+                            + [ctypes.POINTER(ctypes.c_int)] * 2)
+    grid, resident = ctypes.c_int(0), ctypes.c_int(0)
+    err = query(b, sq, h, hkv, hd, ctypes.byref(grid), ctypes.byref(resident))
+    pl = plan(b, sq, h, hkv)
+    if err != 0 or grid.value != pl.grid_blocks:
+        raise RuntimeError(f"flash_attention_query: cudaError_t {err}, grid "
+                           f"{grid.value} against the plan's {pl.grid_blocks}")
+    return pl, resident.value
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -67,6 +121,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, sq, sk, h, hkv, hd, int(bool(causal)), int(window),
-                  int(chunk), float(scale),
+                  int(chunk), float(scale), plan(b, sq, h, hkv).tiles,
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out
