@@ -3,7 +3,9 @@
 Each source is compiled on first use into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), for ``sm_90a``.
 Libraries land in ``csrc/build/`` (listed in ``.gitignore``) under a name
-that carries a hash of the source and flags, so an edited source rebuilds.
+that carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds. A source includes a
+header by its plain name: nvcc looks beside the source first.
 ``build_all`` starts one nvcc per source at once and waits for all of them.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -37,7 +39,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    the headers beside it (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -7,12 +7,17 @@ fused broadcast select (DESIGN.md §12): the wrappers of
     fused_broadcast_select: out = where(flag, codes · scale, θ)
 
 Replace the TPU kernels ``repro/kernels/netes_fused_mixing.py::
-fused_neighbor_sum`` and ``::fused_broadcast_select``. The wrapper of the
-first forms the folded weights ``ws`` outside the kernel, in the
-reference's order (``ref.folded_weights``), so the kernel reads only the
-int8 codes and one weight per slot. On CUDA tensors each wrapper launches
-its hand-written sm_90a kernel (see the source's note); on CPU tensors it
+fused_neighbor_sum`` and ``::fused_broadcast_select``. The neighbor-sum
+kernel folds the slot weights ``ws`` itself, in the reference's order
+(bit for bit ``ref.folded_weights``), compacts the live slots into lists,
+and gathers the codes from a slab of 64 columns held in shared memory as
+bf16: one launch per call. On CUDA tensors each wrapper launches its
+hand-written sm_90a kernel (see the source's note); on CPU tensors it
 runs the plain version in ``kernels/ref.py``. There is no other path.
+
+The neighbor sum's launch plan (slab width, sender chunks, grid) is made
+here by :func:`plan` (``kernels/_slab.py``) from the library's occupancy
+query; :func:`block_work` is the per-block work the kernel computes.
 """
 from __future__ import annotations
 
@@ -21,16 +26,39 @@ from typing import Optional
 
 import torch
 
-from . import ref
+from . import _slab, ref
 from ._build import CudaKernel
 from ._checks import check_operand, on_cpu
 
 NEIGHBOR_SUM = CudaKernel(
     "netes_fused_mixing", "fused_neighbor_sum_f32",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 BROADCAST_SELECT = CudaKernel(
     "netes_fused_mixing", "fused_broadcast_select_f32",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+OCCUPANCY = "fused_neighbor_sum_occupancy"
+
+SLAB = 64            # columns of codes per slab, held as bf16: 128 bytes
+
+block_work = _slab.block_work
+chunk_bounds = _slab.chunk_bounds
+
+
+def plan(n: int, d: int, sms: int, resident: int) -> _slab.SlabPlan:
+    """The neighbor sum's plan at (N, D) on a card of ``sms`` SMs holding
+    ``resident`` blocks each."""
+    return _slab.make_plan(n, d, SLAB, sms, resident)
+
+
+def launch_plan(n: int, d: int, device) -> _slab.SlabPlan:
+    """The plan the wrapper launches at (N, D) on CUDA ``device``."""
+    return _slab.launch_plan(NEIGHBOR_SUM, OCCUPANCY, n, d, SLAB, device)
+
+
+def occupancy(n: int, device) -> dict:
+    """Resident blocks per SM, SMs, registers and local bytes per thread
+    of the neighbor-sum kernel at N senders (the library's queries)."""
+    return _slab.device_occupancy(NEIGHBOR_SUM, OCCUPANCY, n, device)
 
 
 def fused_neighbor_sum(neighbor_idx: torch.Tensor,
@@ -60,15 +88,21 @@ def fused_neighbor_sum(neighbor_idx: torch.Tensor,
                            ("edge_mask", edge_mask, (n, k_max))):
         if t is not None:
             check_operand(name, t, torch.float32, shape)
-    ws = ref.folded_weights(neighbor_idx, neighbor_mask, coeff, scale,
-                            edge_mask).contiguous()
     out = torch.empty((n, d), dtype=torch.float32, device=codes.device)
     if out.numel() == 0:
         return out
     if k_max == 0:
         return out.zero_()
-    NEIGHBOR_SUM.launch(neighbor_idx.data_ptr(), ws.data_ptr(),
-                        codes.data_ptr(), out.data_ptr(), n, k_max, d,
+    pl = launch_plan(n, d, codes.device)
+    # phase 1's slot lists (int32 pairs) and their lengths
+    lists = torch.empty(2 * pl.list_entries(k_max) + n * pl.chunks,
+                        dtype=torch.int32, device=codes.device)
+    NEIGHBOR_SUM.launch(neighbor_idx.data_ptr(), neighbor_mask.data_ptr(),
+                        coeff.data_ptr(),
+                        None if edge_mask is None else edge_mask.data_ptr(),
+                        codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                        lists.data_ptr(), n, k_max, d, pl.chunk_rows,
+                        pl.chunks, pl.grid,
                         torch.cuda.current_stream(codes.device).cuda_stream)
     return out
 

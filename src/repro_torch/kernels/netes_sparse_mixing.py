@@ -5,9 +5,16 @@ wrapper of ``csrc/netes_sparse_mixing.cu``.
 
 Replaces the TPU kernel
 ``repro/kernels/netes_sparse_mixing.py::netes_sparse_mixing``. On CUDA
-tensors it launches the hand-written sm_90a kernel (one block per receiver
-and column tile, see the source's note); on CPU tensors it runs the plain
-version ``ref.sparse_mixing_ref``. There is no other path.
+tensors it launches the hand-written sm_90a kernel (the factored sum
+Σ_k m_jk·Y[i_jk] − wsum_j·θ_j, Y = R̃θ·θ + σR̃ε·ε: the live slots compacted
+into lists, then gathered from a slab of 32 columns of Y held in shared
+memory; see the source's note); on CPU tensors it runs the plain version
+``ref.sparse_mixing_ref``. There is no other path.
+
+The launch plan (slab width, sender chunks, grid) is made here by
+:func:`plan` (``kernels/_slab.py``) from the library's occupancy query;
+:func:`block_work` is the per-block work the kernel computes. The wrapper
+allocates the lists' scratch.
 """
 from __future__ import annotations
 
@@ -15,14 +22,37 @@ import ctypes
 
 import torch
 
-from . import ref
+from . import _slab, ref
 from ._build import CudaKernel
 from ._checks import check_operand, on_cpu
 
 KERNEL = CudaKernel(
     "netes_sparse_mixing", "netes_sparse_mixing_f32",
-    [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_void_p])
+    [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_int] * 6
+    + [ctypes.c_void_p])
+OCCUPANCY = "netes_sparse_mixing_occupancy"
+
+SLAB = 32            # float32 columns of Y per slab: 128 bytes a sender
+
+block_work = _slab.block_work
+chunk_bounds = _slab.chunk_bounds
+
+
+def plan(n: int, p: int, sms: int, resident: int) -> _slab.SlabPlan:
+    """The plan at (N, P) on a card of ``sms`` SMs holding ``resident``
+    blocks each."""
+    return _slab.make_plan(n, p, SLAB, sms, resident)
+
+
+def launch_plan(n: int, p: int, device) -> _slab.SlabPlan:
+    """The plan the wrapper launches at (N, P) on CUDA ``device``."""
+    return _slab.launch_plan(KERNEL, OCCUPANCY, n, p, SLAB, device)
+
+
+def occupancy(n: int, device) -> dict:
+    """Resident blocks per SM, SMs, registers and local bytes per thread
+    of the kernel at N senders (the library's queries)."""
+    return _slab.device_occupancy(KERNEL, OCCUPANCY, n, device)
 
 
 def netes_sparse_mixing(neighbor_idx: torch.Tensor,
@@ -51,8 +81,14 @@ def netes_sparse_mixing(neighbor_idx: torch.Tensor,
         return out
     if k_max == 0:
         return out.zero_()
+    pl = launch_plan(n, p, theta.device)
+    # phase 1's slot lists (int32 pairs), their lengths, and wsum per
+    # (receiver, chunk)
+    scratch = torch.empty(2 * pl.list_entries(k_max) + 2 * n * pl.chunks,
+                          dtype=torch.int32, device=theta.device)
     KERNEL.launch(neighbor_idx.data_ptr(), neighbor_mask.data_ptr(),
                   w_theta.data_ptr(), w_eps.data_ptr(), theta.data_ptr(),
-                  eps.data_ptr(), out.data_ptr(), float(sigma), n, k_max, p,
-                  torch.cuda.current_stream(theta.device).cuda_stream)
+                  eps.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                  float(sigma), n, k_max, p, pl.chunk_rows, pl.chunks,
+                  pl.grid, torch.cuda.current_stream(theta.device).cuda_stream)
     return out
