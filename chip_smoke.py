@@ -5,7 +5,9 @@
 
 Phases, each printing one JSON line per case:
 
-1. ``card``    — the GPU, its power limit, and the torch/CUDA versions.
+1. ``card``    — the GPU, its power limit, its clocks, temperature and
+   active throttle reasons, and the torch/CUDA versions (the clocks again
+   in a ``clocks`` line right after the kernel phases).
 2. ``build``   — nvcc builds every kernel source for sm_90a, all at once.
 3. ``kernel``  — each kernel against its plain PyTorch version at the main
    path's shapes and one ragged shape: the error against a float64 reference
@@ -32,16 +34,19 @@ Phases, each printing one JSON line per case:
    rows carry the grid and the resident blocks per SM from their
    libraries' queries (the sparse two also their slab width, chunks,
    registers and spill bytes), and the build fails if ptxas reports a
-   spill in any of their libraries. The MoE router
+   spill in any of their libraries, nor in the router's and the WKV
+   recurrence's, redesigned too. The MoE router
    ``moe_topk`` runs at moonshot's prefill (8192 × 64 experts, top-6),
-   decode (8 × 64) and one ragged shape (1000 × 128, top-8): ids equal to
+   decode (8 × 64), one ragged shape (1000 × 128, top-8) and jamba's
+   prefill (8192 × 16, top-2): ids equal to
    the plain version's except on rows whose top probabilities lie within
    2 ulps of each other (counted and printed), gates within 1e-6. The
    WKV-6 recurrence
    ``rwkv6_wkv`` runs at rwkv6-7b's prefill of serve run (a) (1 × 8192, 64
    heads of 64) with w as the model draws it (≈ 0.9975) and uniform in
-   (0.9, 0.999), at run (b)'s (8 × 512), at decode (8 × 1, from a random
-   state) and at four ragged shapes of n = 8, 16, 32 and 40: within 3e-5
+   (0.9, 0.999), at run (b)'s (8 × 512), at the decode steps of runs (b)
+   and (a) (8 × 1 and 1 × 1, from a random state) and at four ragged
+   shapes of n = 8, 16, 32 and 40: within 3e-5
    of float64 relative to the recurrence over absolute values, with the
    plain loop and the reference's chunked form ``wkv6_chunked`` timed
    beside it. The mamba selective scan ``mamba_scan`` runs at
@@ -50,7 +55,11 @@ Phases, each printing one JSON line per case:
    0.999), at run (b)'s (8 × 512), at decode (8 × 1, from a random state)
    and at three ragged shapes: within 3e-5 of float64 relative to the
    recurrence over |drive|, with the plain loop and the associative form
-   of ``mamba_block`` timed beside it.
+   of ``mamba_block`` timed beside it. The router and the WKV recurrence
+   must give the same bits on two launches at every case, and their rows
+   carry the grid, resident blocks per SM, registers and spill bytes from
+   their libraries' queries (the WKV rows also the plan's threads per
+   column quad, warps and columns per block).
    ``kernel_masked``: the two Eq. 3 kernels given a dropout-masked weight
    operand, and the fused neighbor sum given dropout-masked neighbor
    weights and no edge mask, against their plain versions and float64,
@@ -179,12 +188,17 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+# the card's clocks, temperature and active throttle reasons: a card that
+# runs slower under the same name and power limit shows here
+CLOCKS = ("clocks.sm,clocks.mem,clocks.max.sm,temperature.gpu,"
+          "clocks_throttle_reasons.active")
 
 
 L2_FLUSH_BYTES = 64 << 20   # above the H100's 50 MB L2
@@ -905,6 +919,8 @@ ROUTER_CASES = (  # (label, T, E, k, main)
     ("moonshot_prefill_8192", 8192, 64, 6, True),
     ("moonshot_decode_b8", 8, 64, 6, False),
     ("ragged_1000_e128_k8", 1000, 128, 8, False),
+    # jamba-v0.1-52b's router at serve run (a)'s prefill: the 16 / 2 instance
+    ("jamba_prefill_8192", 8192, 16, 2, False),
 )
 
 
@@ -939,8 +955,14 @@ def router_kernel_phase(results: dict) -> None:
         plain = functools.partial(ref.moe_topk_ref, logits, k)
         lib = functools.partial(_router_library, logits, k)
         (gk, ik), (gp, ip) = kernel(), plain()
+        gk2, ik2 = kernel()
         torch.cuda.synchronize()
         check(bool(torch.isfinite(gk).all()), f"moe_topk/{label}: non-finite")
+        check(torch.equal(gk2, gk) and torch.equal(ik2, ik),
+              f"moe_topk/{label}: two launches differ")
+        info = mr.launch_info(t, e, k, torch.cuda.current_device())
+        check(info["local_bytes"] == 0, f"moe_topk/{label}: "
+              f"{info['local_bytes']} bytes of local memory per thread")
         near = _near_tie_rows(logits, k)
         differ = (ik != ip).any(dim=1)
         check(not bool((differ & ~near).any()),
@@ -963,6 +985,10 @@ def router_kernel_phase(results: dict) -> None:
                "near_tie_rows": int(near.sum()),
                "rows_ids_differ": int(differ.sum()),
                "rows_ids_differ_f64": int((~same).sum()),
+               "grid_blocks": info["grid"],
+               "resident_blocks_per_sm": info["resident"],
+               "registers": info["registers"],
+               "spill_bytes": info["local_bytes"],
                "library_rows_ids_differ": int((il != ip).any(dim=1).sum()),
                **time_stats(kernel), "plain_ms": time_ms(plain),
                "library": "torch.softmax → torch.topk → renormalise "
@@ -994,6 +1020,8 @@ WKV_CASES = (  # (label, B, S, H, n, initial state?, w drawn as, main)
     # serve run (b)'s prefill, and a decode step of run (b)
     ("rwkv_prefill_b8_512", 8, 512, 64, 64, False, "model", False),
     ("rwkv_decode_b8", 8, 1, 64, 64, True, "model", False),
+    # serve run (a)'s decode step: 480 of the 512 launches of a generate
+    ("rwkv_decode_b1", 1, 1, 64, 64, True, "model", False),
     ("ragged_n8", 2, 100, 3, 8, True, "uniform", False),
     ("ragged_n16", 1, 77, 5, 16, True, "uniform", False),
     ("ragged_n32", 3, 33, 2, 32, False, "uniform", False),
@@ -1040,9 +1068,16 @@ def wkv_kernel_phase(results: dict) -> None:
         kernel = functools.partial(rw.rwkv6_wkv, *args)
         plain = functools.partial(ref.rwkv6_wkv_ref, *args)
         (out_k, s_k), (out_p, s_p) = kernel(), plain()
+        out_k2, s_k2 = kernel()
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out_k).all() and torch.isfinite(s_k).all()),
               f"rwkv6_wkv/{label}: non-finite")
+        check(torch.equal(out_k2, out_k) and torch.equal(s_k2, s_k),
+              f"rwkv6_wkv/{label}: two launches differ")
+        del out_k2, s_k2
+        info = rw.launch_info(b, s, h, n, "cuda")
+        check(info["local_bytes"] == 0, f"rwkv6_wkv/{label}: "
+              f"{info['local_bytes']} bytes of local memory per thread")
         out64, s64 = ref.rwkv6_wkv_ref(
             *(a.double() for a in (r, k, v, w, u)),
             None if z is None else z.double())
@@ -1084,6 +1119,13 @@ def wkv_kernel_phase(results: dict) -> None:
                "max_abs_err": max((out_k - out_p).abs().max().item(),
                                   (s_k - s_p).abs().max().item()),
                "err_over_S_f64": errs, "tol_over_S": TOL_REL,
+               "threads_per_column_quad": info["rs"],
+               "warps_per_block": info["warps"],
+               "columns_per_block": info["cols"],
+               "grid_blocks": info["grid"],
+               "resident_blocks_per_sm": info["resident"],
+               "registers": info["registers"],
+               "spill_bytes": info["local_bytes"],
                **time_stats(kernel),
                "plain_ms": time_ms(plain, warmup=1, iters=plain_iters),
                "plain_timed_calls": plain_iters,
@@ -2177,7 +2219,7 @@ def jamba_parity_phase() -> None:
 # cache writes count here too).
 PROFILE_KINDS = (("flash_attention", ("flash_attention_kernel",)),
                  ("moe_router", ("moe_topk_kernel",)),
-                 ("rwkv6_wkv", ("wkv6_kernel",)),
+                 ("rwkv6_wkv", ("wkv6_kernel", "wkv6_step_kernel")),
                  ("mamba_scan", ("mamba_scan_kernel",)),
                  ("matmul", ("gemm", "gemv", "xmma", "cutlass")),
                  ("dispatch", ("index", "gather", "scatter", "sort", "scan",
@@ -2350,7 +2392,7 @@ def serve_phase(arch: str, num_layers=None) -> dict:
 # the libraries of the redesigned kernels, whose ptxas lines must show no
 # spill
 REDESIGNED = ("netes_mixing", "flash_attention", "netes_sparse_mixing",
-              "netes_fused_mixing")
+              "netes_fused_mixing", "moe_router", "rwkv6_wkv")
 
 SOURCE_OF = {
     "netes_mixing": ("src/repro_torch/csrc/netes_mixing.cu",
@@ -2382,7 +2424,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     smi = nvidia_smi()
-    emit({"phase": "card", "nvidia_smi": smi,
+    emit({"phase": "card", "nvidia_smi": smi, "clocks": nvidia_smi(CLOCKS),
           "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2410,6 +2452,8 @@ def main() -> int:
     wkv_kernel_phase(results)
     scan_kernel_phase(results)
     masked_kernel_phase()
+    emit({"phase": "clocks", "after": "kernel phases",
+          "query": CLOCKS, "nvidia_smi": nvidia_smi(CLOCKS)})
     main_phase(launches)
     channel_phase(launches)
     parity_phase()

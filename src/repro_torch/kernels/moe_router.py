@@ -5,10 +5,12 @@
 
 Replaces the TPU kernel ``repro/kernels/moe_router.py::moe_topk``, with
 its signature: logits (T, E) → (gates (T, k) float32, ids (T, k) int32).
-On CUDA tensors it launches the hand-written sm_90a kernel (see the
-source's note); on CPU tensors it runs the plain version
-``ref.moe_topk_ref``. There is no other path. Float32 only, E ≤ 128 and
-k ≤ 8 (the reference's tests use E ∈ {8, 16, 64, 128}, k ∈ {1, 2, 6, 8}).
+On CUDA tensors it launches the hand-written sm_90a kernel (an instance
+templated on (E, k) for the registry's routers, 64 / 6 and 16 / 2, and a
+generic one; see the source's note); on CPU tensors it runs the plain
+version ``ref.moe_topk_ref``. There is no other path. Float32 only,
+E ≤ 128 and k ≤ 8 (the reference's tests use E ∈ {8, 16, 64, 128},
+k ∈ {1, 2, 6, 8}).
 """
 from __future__ import annotations
 
@@ -25,6 +27,23 @@ KERNEL = CudaKernel("moe_router", "moe_topk_f32",
                     + [ctypes.c_void_p])
 
 MAX_EXPERTS, MAX_K = 128, 8     # what the kernel is built for
+
+
+def launch_info(t: int, e: int, k: int, device_index: int) -> dict:
+    """The grid of the launch at (T, E, k) and its instance's resident
+    blocks per SM, registers and local (spill) bytes per thread, from the
+    library's query on CUDA device ``device_index``."""
+    query = KERNEL.function("moe_topk_query", [ctypes.c_int] * 3
+                            + [ctypes.POINTER(ctypes.c_int)] * 4)
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device_index):
+        err = query(t, e, k, *(ctypes.byref(x) for x in vals))
+    grid, resident, regs, local = (x.value for x in vals)
+    if err != 0 or resident < 1:
+        raise RuntimeError(f"moe_topk_query: cudaError_t {err}, {resident} "
+                           "resident blocks")
+    return {"grid": grid, "resident": resident, "registers": regs,
+            "local_bytes": local}
 
 
 def moe_topk(logits: torch.Tensor, k: int):

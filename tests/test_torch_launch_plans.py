@@ -21,6 +21,12 @@ the plain version; the fused kernel's in-kernel weight fold is replayed in
 float32 numpy against ``ref.folded_weights`` bit for bit, and its slab's
 bf16 widening of int8 codes is checked exact for every code.
 
+The WKV-6 recurrence (``kernels/rwkv6_wkv.plan``) splits each head's state
+columns over blocks; its ``block_work`` must cover every (b, h, column)
+of the padded head once and ``thread_entries`` every state entry of a
+block once, at rwkv6-7b's shapes and at ragged head widths, with a grid
+that covers the SMs at B = 1 × H = 64. Its float64 replay is in ``test_torch_rwkv6_wkv.py``.
+
 Tolerance of the replays: |replay − plain| ≤ 1e-9·S, S the same sum over
 absolute values: both run in float64 here (the plain version computes in
 its inputs' type) and differ only in the order of the sums, ≈ 1e-15·S; a
@@ -40,6 +46,7 @@ from repro_torch.kernels import netes_fused_mixing as nfm
 from repro_torch.kernels import netes_mixing as nm
 from repro_torch.kernels import netes_sparse_mixing as nsm
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_wkv as rw
 
 H100_SMS = 132
 
@@ -439,3 +446,63 @@ def test_fused_replay_in_the_plans_pieces_matches_plain_version(n, d,
     assert done.any(0).all()
     # the plain version sums in float32: its own rounding, ≤ K_max·u·S
     assert (np.abs(got - want)[done] <= 3e-5 * scale_s[done] + 1e-30).all()
+
+
+# (B, S, H, n): rwkv6-7b's prefills of serve runs (a) and (b), its decode
+# steps, then the ragged head widths chip_smoke.py runs
+WKV_SHAPES = [(1, 8192, 64, 64), (8, 512, 64, 64), (1, 1, 64, 64),
+              (8, 1, 64, 64), (2, 100, 3, 8), (1, 77, 5, 16), (3, 33, 2, 32),
+              (1, 50, 2, 40)]
+
+
+@pytest.mark.parametrize("b,s,h,n", WKV_SHAPES,
+                         ids=["x".join(map(str, x)) for x in WKV_SHAPES])
+def test_wkv_plan_covers_every_column_and_state_entry_once(b, s, h, n):
+    pl = rw.plan(b, h, n)
+    assert (pl.n, pl.rs, pl.warps) in rw.INSTANCES
+    assert pl.n == rw.padded(n) >= n
+    assert pl.cols * (pl.groups - 1) < pl.n <= pl.cols * pl.groups
+    seen = {}
+    for block in range(pl.grid):
+        bb, hh, cols = rw.block_work(pl, block)
+        assert len(cols) > 0, "a block without columns"
+        for c in cols:
+            seen[bb, hh, c] = seen.get((bb, hh, c), 0) + 1
+    assert seen == {(bb, hh, c): 1 for bb in range(b) for hh in range(h)
+                    for c in range(pl.n)}
+    entries = {}
+    for tid in range(32 * pl.warps):
+        for e in rw.thread_entries(pl, tid):
+            entries[e] = entries.get(e, 0) + 1
+    assert entries == {(i, c): 1 for i in range(pl.n)
+                       for c in range(pl.cols)}
+    # the sequence in whole chunks, then a tail the kernel steps apart
+    full, tail = divmod(s, rw.CHUNK)
+    assert full * rw.CHUNK + tail == s
+
+
+def test_wkv_plan_at_rwkv6_7b_prefill_and_decode():
+    """n = 64: 16 threads share four columns (4 × 4 entries a thread), 2
+    column groups of 32 a head, blocks of 4 computing warps. B = 1 × H =
+    64: 128 blocks, one on each of 128 of the H100's 132 SMs (narrower
+    blocks ran slower); B = 8: 1024. n = 40 runs padded to 64."""
+    one = rw.plan(1, 64, 64)
+    assert (one.rs, one.warps, one.cols, one.groups, one.grid) == (
+        16, 4, 32, 2, 128)
+    assert H100_SMS - 4 <= one.grid <= H100_SMS
+    assert rw.plan(8, 64, 64).grid == 1024
+    ragged = rw.plan(1, 2, 40)
+    assert (ragged.n, ragged.grid) == (64, 2 * 2)
+
+
+def test_wkv_plan_constants_are_the_kernels():
+    """``kernels/rwkv6_wkv.py`` plans with the chunk and the instances of
+    ``csrc/rwkv6_wkv.cu``, and takes only instances that exist."""
+    src = (pathlib.Path(rw.__file__).resolve().parent.parent / "csrc"
+           / "rwkv6_wkv.cu").read_text()
+    assert re.findall(r"constexpr int CHUNK = (\d+);", src) == [str(rw.CHUNK)]
+    listed = re.findall(r"X\((\d+), (\d+), (\d+)\)", src)
+    assert sorted(tuple(map(int, x)) for x in listed) == sorted(rw.INSTANCES)
+    assert sorted(i[0] for i in rw.INSTANCES) == [8, 16, 32, 64]
+    assert [rw.padded(n) for n in (1, 8, 9, 16, 17, 32, 33, 64)] == [
+        8, 8, 16, 16, 32, 32, 64, 64]

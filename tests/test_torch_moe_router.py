@@ -14,6 +14,15 @@ so each input's smallest gap between neighbours among its k + 1 largest
 probabilities, relative to the larger one, is asserted to be above 1e-6
 (8 float32 ulps); the tie rows are exact ties, which both sides break
 toward the lower index.
+
+The CUDA kernel's selection (``csrc/moe_router.cu``: keys bits(p) + 1,
+taken → 0, each round the max key over the row's lanes, then the min
+index among the lanes that hold it, each lane offering the lowest index
+of its slots that hold the max) is replayed in torch on the plain
+version's probabilities, in the lanes and slots of the instance a shape
+takes: its ids must EQUAL the plain version's, on exact ties, on rows
+whose top k hold underflowed zeros, and at E = 40 (not a multiple of 32)
+and k = E.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -113,3 +122,72 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(logits, k, err):
 def test_wrapper_takes_no_rows():
     gates, ids = mr.moe_topk(torch.zeros(0, 64), 6)
     assert gates.shape == ids.shape == (0, 6)
+
+
+def _lanes_slots(e: int, k: int):
+    """The lanes a row takes and the slots a lane holds in the instance
+    ``moe_topk_f32`` launches at (E, k)."""
+    if (e, k) == (16, 2):
+        return 16, 1
+    if (e, k) == (64, 6):
+        return 32, 2
+    return 32, 4                       # the generic instance
+
+
+def _replay_selection(p: torch.Tensor, k: int, lanes: int, slots: int):
+    """The kernel's k rounds on probabilities p (T, E) float32, expert
+    l + lanes·j in slot j of lane l."""
+    t, e = p.shape
+    key = torch.zeros(t, slots * lanes, dtype=torch.int64)
+    key[:, :e] = p.view(torch.int32).to(torch.int64) + 1
+    index = torch.arange(slots * lanes).view(slots, lanes)
+    rows = torch.arange(t)
+    ids = []
+    for _ in range(k):
+        per_lane = key.view(t, slots, lanes)
+        top = per_lane.max(dim=1).values.max(dim=1).values        # redux max
+        cand = torch.where(per_lane == top[:, None, None], index,
+                           2 ** 31).min(dim=1).values              # my lowest
+        win = cand.min(dim=1).values                               # redux min
+        key[rows, win] = 0
+        ids.append(win)
+    return torch.stack(ids, dim=1).to(torch.int32)
+
+
+def _selection_cases():
+    rng = np.random.default_rng(11)
+    ties = np.zeros((4, 64), np.float32)
+    ties[1, ::3] = 1.0
+    ties[2] = np.arange(64) % 4
+    ties[3, 5:9] = 2.0
+    under = np.zeros((3, 64), np.float32)
+    under[0, :2] = 200.0             # 62 probabilities underflow to 0
+    under[1, 40] = 200.0
+    under[2, [3, 63]] = [200.0, 100.0]
+    return {
+        "ties": (ties, (1, 6, 8)),
+        "underflow": (under, (6, 8)),
+        "e40": (rng.standard_normal((200, 40)).astype(np.float32), (6, 8)),
+        "e16": (rng.standard_normal((200, 16)).astype(np.float32), (2, 8)),
+        "e64": (rng.standard_normal((200, 64)).astype(np.float32), (6, 8)),
+        "e128": (rng.standard_normal((200, 128)).astype(np.float32), (1, 8)),
+        "k_is_e": (rng.standard_normal((50, 8)).astype(np.float32), (8,)),
+        "k_is_e_ties": (np.zeros((3, 16), np.float32), (16,)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_selection_cases()))
+def test_replay_of_the_kernels_key_selection(case):
+    logits, ks = _selection_cases()[case]
+    for width in sorted({logits.shape[1], 16, 40, 64}):
+        if width > logits.shape[1]:
+            continue
+        x = torch.from_numpy(np.ascontiguousarray(logits[:, :width]))
+        p = torch.softmax(x, dim=-1)
+        for k in ks:
+            if k > width:
+                continue
+            want = ref.moe_topk_ref(x, k)[1]
+            got = _replay_selection(p, k, *_lanes_slots(width, k))
+            assert torch.equal(got, want), (width, k)
+            assert (got.sort(dim=1).values.diff(dim=1) > 0).all()  # no twice

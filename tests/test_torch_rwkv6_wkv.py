@@ -20,6 +20,14 @@ for n ≤ 32, where the sums stay small; at n = 64 outputs near 0 from sums
 of magnitude 50 differ by 2e-5, so the bound is taken relative to S.
 Leaving out the bonus, the initial state or one step's decay moves an
 output by ≥ 1e-3 of S.
+
+The CUDA kernel's decomposition (``kernels/rwkv6_wkv.plan``: heads padded
+with zero channels to the instance's width, a block per (b, h, column
+group), each thread's rows summed apart, the bonus Σ r·u·k once a step
+and added as v_j·bonus) is replayed in float64 numpy:
+within 1e-12·S of the plain version in float64 (the two differ only in
+the order of the sums, ≈ 1e-15·S), and within 3e-5·S of the JAX oracle
+in float32 (``chip_smoke.py``'s bound on the kernel against float64).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -159,3 +167,57 @@ def test_wrapper_refuses_operands_on_two_devices():
     r, k, v, w, u, s0 = torch_args(*operands(1, 4, 2, 8, seed=3, s0=True))
     with pytest.raises(ValueError, match="several devices"):
         rw.rwkv6_wkv(r, k, v, w, u.to("meta"), s0)
+
+
+def replay(pl, r, k, v, w, u, s0):
+    """The kernel's arithmetic in float64 numpy, block by block of the
+    plan, on the operands padded to its head width: per step the bonus
+    once, each thread's rows' part of r·S, the parts summed, v_j·bonus
+    added, then the state update (a decode step adds each thread's rows'
+    share of the bonus before the sum: the same sum in float64). Returns
+    the unpadded outputs."""
+    n = r.shape[-1]
+    r, k, v, w, u, s0 = (None if x is None else x.double().numpy()
+                         for x in rw.pad_heads(*torch_args(r, k, v, w, u, s0),
+                                               pl.n - n))
+    b, s, h, _ = r.shape
+    out = np.full((b, s, h, pl.n), np.nan)
+    s_fin = np.full((b, h, pl.n, pl.n), np.nan)
+    rows = [np.arange(4 * q, 4 * q + 4) for q in range(pl.rs)]
+    for block in range(pl.grid):
+        bb, hh, cols = rw.block_work(pl, block)
+        cols = np.array(cols)
+        state = (np.zeros((pl.n, len(cols))) if s0 is None
+                 else s0[bb, hh][:, cols])
+        for t in range(s):
+            rt, kt, wt = (x[bb, t, hh] for x in (r, k, w))
+            vt = v[bb, t, hh, cols]
+            bonus = (rt * u[hh] * kt).sum()
+            parts = sum(rt[x] @ state[x] for x in rows)
+            out[bb, t, hh, cols] = parts + vt * bonus
+            state = wt[:, None] * state + np.outer(kt, vt)
+        s_fin[bb, hh][:, cols] = state
+    return out[..., :n], s_fin[..., :n, :n]
+
+
+# (B, S, H, n): every instance's width, a padded one (40), a chunk and a
+# half, a decode step
+REPLAY = [(2, 23, 3, 8), (1, 33, 5, 16), (2, 17, 2, 32), (1, 20, 2, 40),
+          (1, 24, 2, 64), (2, 1, 3, 64)]
+
+
+@pytest.mark.parametrize("b,s,h,n", REPLAY,
+                         ids=["x".join(map(str, x)) for x in REPLAY])
+def test_replay_of_the_kernels_decomposition(b, s, h, n):
+    np_args = operands(b, s, h, n, seed=b + s + h + n, s0=True)
+    pl = rw.plan(b, h, n)
+    got_out, got_s = replay(pl, *np_args)
+    want_out, want_s = (x.numpy() for x in ref.rwkv6_wkv_ref(
+        *(a.double() for a in torch_args(*np_args[:5], None)[:5]),
+        torch.from_numpy(np_args[5]).double()))
+    scale_out, scale_s = scales(*np_args)
+    assert (np.abs(got_out - want_out) <= 1e-12 * scale_out).all()
+    assert (np.abs(got_s - want_s) <= 1e-12 * scale_s).all()
+    jax_out, jax_s = reference(*np_args)
+    assert (np.abs(got_out - jax_out) <= 3e-5 * scale_out).all()
+    assert (np.abs(got_s - jax_s) <= 3e-5 * scale_s).all()
