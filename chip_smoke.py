@@ -75,6 +75,23 @@ Phases, each printing one JSON line per case:
    triggering, q4 and dropout (dense, fake-quant payload: the dense
    kernel and the fused broadcast select launch). The drop fraction must
    lie within binomial bounds of p.
+5b. ``schedule`` — the same at N = 1000 under a topology schedule
+   (``SCHEDULE_RUNS``): s-a ER p = 0.1 resampled every 2 iterations
+   (sparse, K_max = 140 from ``pad_k_max``: ``netes_sparse_mixing`` 4
+   times), s-b ER p = 0.5 annealed to 0.1 over 4 iterations (dense:
+   ``netes_mixing`` 4 times), s-c s-a through channel (a) (both fused
+   kernels 4 times), s-d a circulant ER p = 0.05 rotating by 3 (the roll
+   chain: no Eq. 3 kernel). Each schedule's graphs are checked (s-a: the
+   list at t = 2 differs from t = 0's, and the sparse kernel on it agrees
+   with its plain version and float64 within ``TOL_REL``·S; s-b: nested,
+   the edges non-increasing; s-d: every degree constant); s-c is run to
+   iteration 2 with a checkpoint, resumed to 4, and must equal the
+   uninterrupted run bit for bit. Step time, and the advance into a
+   redraw timed with CUDA events (``advance_ms``).
+   ``no_sync`` (steps): after a warm-up, one ``netes_step`` on ER and FC
+   and through channels (a) and (b), and one ``scheduled_step`` of each of
+   s-a … s-d (s-a and s-c redrawing), under
+   ``torch.cuda.set_sync_debug_mode("error")``.
 6. ``parity``  — one NetES step at N = 64 on the GPU and on the CPU from the
    same parameters and draws must agree, without and with a channel (whose
    dropout masks, drawn on each device, must be equal).
@@ -136,7 +153,9 @@ of rwkv6-7b and one of jamba-v0.1-52b (full width, 2 layers) under
 ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for the
 card raises there.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
+Then a ``{"kernels": [...]}`` line (``launches``: the main path's and
+channel run (a)'s; ``launches_schedule``: each schedule run's), the
+``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure raises, so the
 script exits non-zero and prints no result. It imports nothing of JAX.
 """
@@ -1466,6 +1485,246 @@ def _host_time(fn, iters: int) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the main path under a topology schedule
+# ---------------------------------------------------------------------------
+
+# (run, family, density, schedule, channel, kernels that launch once a step)
+SCHEDULE_RUNS = (
+    ("s-a", "erdos_renyi", MAIN_P_ER, "resample_er(period=2)", None,
+     ("netes_sparse_mixing",)),
+    ("s-b", "erdos_renyi", 0.5, "anneal_density(p_end=0.1,horizon=4)", None,
+     ("netes_mixing",)),
+    ("s-c", "erdos_renyi", MAIN_P_ER, "resample_er(period=2)",
+     CHANNEL_RUNS[0][3], ("fused_neighbor_sum", "fused_broadcast_select")),
+    # circulant_erdos_renyi p = 0.05, seed 0: 21 offsets, the largest 463,
+    # below (N − 1)//2 = 499 as rotation needs; mixes by the roll chain
+    ("s-d", "circulant_erdos_renyi", 0.05, "rotate_circulant(stride=3)",
+     None, ()),
+)
+EQ3_KERNELS = ("netes_mixing", "netes_sparse_mixing", "fused_neighbor_sum",
+               "fused_broadcast_select")
+
+
+def _schedule_config(family, dens, text, channel, **kw):
+    from repro_torch.core.netes import NetESConfig
+    from repro_torch.core.topology import TopologySpec
+    from repro_torch.train.loop import TrainConfig
+    base = dict(n_agents=MAIN_N, iters=MAIN_ITERS, eval_every=MAIN_ITERS,
+                eval_episodes=EVAL_EPISODES, seed=0,
+                netes=NetESConfig(alpha=0.05, sigma=0.1), schedule=text,
+                channel=channel,
+                topology=TopologySpec(family=family, n_agents=MAIN_N, p=dens,
+                                      seed=0))
+    return TrainConfig(**{**base, **kw})
+
+
+def _check_refreshed_list(sched_state, smi: str) -> dict:
+    """s-a: the sparse kernel on the list a redraw made (K_max = 140, the
+    padded slots of a refresh index other agents with weight 0), against
+    its plain version and float64, twice for the same bits."""
+    import torch
+
+    from repro_torch.kernels import netes_sparse_mixing as nsm
+    from repro_torch.kernels import ref
+    topo = sched_state.topo
+    theta, eps, w = _operands(MAIN_N, 4481, seed=21)
+    args = (topo.neighbor_idx, topo.neighbor_mask, w, w, theta, eps)
+    out_k = nsm.netes_sparse_mixing(*args, sigma=0.1)
+    out_p = ref.sparse_mixing_ref(*args, sigma=0.1)
+    check(torch.equal(nsm.netes_sparse_mixing(*args, sigma=0.1), out_k),
+          "schedule s-a: two launches on the refreshed list differ")
+    adj64 = topo.to_dense().double()
+    rel_k = _check_against_f64("schedule s-a refreshed list", out_k, adj64,
+                               w, theta, eps, 0.1)
+    rel_p = _check_against_f64("schedule s-a refreshed list plain", out_p,
+                               adj64, w, theta, eps, 0.1)
+    return {"k_max": topo.k_max, "max_abs_err": (out_k - out_p).abs().max()
+            .item(), "max_err_over_S": rel_k, "plain_err_over_S": rel_p,
+            "tol_over_S": TOL_REL, "nvidia_smi": smi}
+
+
+def schedule_phase(launches: dict) -> dict:
+    """``train_rl_netes`` at N = 1000 under each of ``SCHEDULE_RUNS``, the
+    launch counters zeroed just before each run and read just after; the
+    graphs each schedule makes, checked on the card; the resume of run
+    s-c from a checkpoint, bit for bit; step and advance times. Returns
+    the runs' schedule states at t = 1 (the next advance redraws) for the
+    sync check."""
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import netes
+    from repro_torch.envs import resolve_task
+    from repro_torch.train.loop import (build_channel, build_schedule,
+                                        train_rl_netes)
+
+    smi = nvidia_smi()
+    reward_fn, dim, init_fn, _, _ = resolve_task("pendulum")
+    states = {}
+    for run, family, dens, text, channel, expect in SCHEDULE_RUNS:
+        tc = _schedule_config(family, dens, text, channel)
+        schedule, ch = build_schedule(tc), build_channel(tc)
+        counters = _counters()
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = train_rl_netes("pendulum", tc, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in counters.items()}
+        for kname in EQ3_KERNELS:
+            want = MAIN_ITERS if kname in expect else 0
+            check(counts[kname] == want, f"schedule {run}: {kname} launched "
+                  f"{counts[kname]} times in {MAIN_ITERS} iterations, not "
+                  f"{want}")
+            launches.setdefault(kname, {})[run] = counts[kname]
+        rewards = hist["reward_mean"] + hist["reward_max"] + hist["eval"]
+        check(len(hist["reward_mean"]) == MAIN_ITERS
+              and all(math.isfinite(r) for r in rewards),
+              f"schedule {run}: history {rewards}")
+
+        # the graphs of t = 0 … MAIN_ITERS, outside the counted run
+        sstate = schedule.init(device="cuda")
+        graphs, row = [], {}
+        for t in range(MAIN_ITERS + 1):
+            graphs.append(sstate)
+            if t == 1:
+                states[run] = sstate
+            sstate = schedule.advance(sstate)
+        dense = [g.topo.to_dense() for g in graphs]
+        degs = [int(d.sum().item()) for d in dense]
+        if run in ("s-a", "s-c"):
+            g0, g2 = graphs[0].topo, graphs[2].topo
+            check(g2.k_max == g0.k_max == 140, f"schedule {run}: K_max "
+                  f"{g2.k_max}, not pad_k_max's 140")
+            check(not (torch.equal(g0.neighbor_idx, g2.neighbor_idx)
+                       and torch.equal(g0.neighbor_mask, g2.neighbor_mask)),
+                  f"schedule {run}: the list at t = 2 equals t = 0's")
+            check(torch.equal(dense[1], dense[0])
+                  and torch.equal(dense[3], dense[2]),
+                  f"schedule {run}: the graph changed off-period")
+            if run == "s-a":
+                row["refreshed_list"] = _check_refreshed_list(graphs[2],
+                                                              smi)
+        if run == "s-b":
+            for t in range(1, len(dense)):
+                check(bool((dense[t] <= dense[t - 1]).all().item()),
+                      f"schedule s-b: an edge appeared at t = {t}")
+                check(degs[t] <= degs[t - 1],
+                      f"schedule s-b: density rose at t = {t}")
+        if run == "s-d":
+            deg0 = dense[0].sum(dim=1)
+            for t, d in enumerate(dense):
+                check(torch.equal(d.sum(dim=1), deg0)
+                      and torch.equal(graphs[t].topo.deg, deg0),
+                      f"schedule s-d: a degree changed at t = {t}")
+            check(len({g.topo.shifts for g in graphs}) == len(graphs),
+                  "schedule s-d: the circulant did not rotate")
+            row["offsets"] = len(schedule.base_offsets)
+            row["max_offset"] = max(schedule.base_offsets)
+
+        # steady-state step, and the advance into a redraw (t = 1 → 2)
+        state = netes.init_state(MAIN_N, dim, seed=1, init_fn=init_fn,
+                                 device="cuda")
+        cstate = ch.init(state.thetas) if ch is not None else None
+        step_ms = 1e3 * _host_time(functools.partial(
+            netes.scheduled_step, state, states[run], reward_fn, tc.netes,
+            schedule, channel=ch, chan_state=cstate), 3)
+        advance = functools.partial(schedule.advance, states[run])
+        adv = (None if run == "s-d" else time_stats(advance))
+        emit({"phase": "schedule", "run": run, "task": "pendulum",
+              "family": family, "density": dens, "schedule": text,
+              "channel": channel, "representation": schedule.representation,
+              "k_max": schedule.k_max, "n_agents": MAIN_N, "dim": dim,
+              "iters": MAIN_ITERS, "wall_s": wall, "step_ms": step_ms,
+              "advance_redraws": schedule.redraws(2),
+              "advance_ms": None if adv is None else adv["ms"],
+              "advance_ms_q1": None if adv is None else adv["ms_q1"],
+              "advance_ms_q3": None if adv is None else adv["ms_q3"],
+              "edges_by_t": degs, "reward_mean": hist["reward_mean"],
+              "eval": hist["eval"], "msgs": hist.get("msgs"),
+              "launches": counts, "nvidia_smi": smi, **row})
+
+    # resume on the card: s-c checkpointed at iteration 1, resumed to 3
+    _, family, dens, text, channel, _ = SCHEDULE_RUNS[2]
+    with tempfile.TemporaryDirectory() as tmp:
+        full = train_rl_netes("pendulum", _schedule_config(
+            family, dens, text, channel, eval_every=2), device="cuda")
+        train_rl_netes("pendulum", _schedule_config(
+            family, dens, text, channel, eval_every=2, iters=2,
+            checkpoint_dir=tmp), device="cuda")
+        resumed = train_rl_netes("pendulum", _schedule_config(
+            family, dens, text, channel, eval_every=2, checkpoint_dir=tmp),
+            device="cuda")
+    for k in ("eval", "reward_mean", "reward_max", "msgs"):
+        n = len(resumed[k])
+        check(n > 0 and resumed[k] == full[k][-n:],
+              f"schedule resume: {k} {resumed[k]} after the resume, "
+              f"{full[k][-n:]} uninterrupted")
+    emit({"phase": "schedule_resume", "run": "s-c", "resumed_at": 2,
+          "iters": MAIN_ITERS, "eval": resumed["eval"],
+          "reward_mean": resumed["reward_mean"], "msgs": resumed["msgs"],
+          "bit_equal": True})
+    return states
+
+
+def no_sync_step_phase(sched_states: dict) -> None:
+    """One ``netes_step`` on ER and FC and through channels (a) and (b),
+    and one ``scheduled_step`` of each of ``SCHEDULE_RUNS`` (s-a and s-c
+    from t = 1, so the advance redraws and sorts), each after a warm-up
+    and under ``torch.cuda.set_sync_debug_mode("error")``: any call in it
+    that waits for the card raises there."""
+    import torch
+
+    from repro_torch.core import netes
+    from repro_torch.envs import resolve_task
+    from repro_torch.train.loop import (build_channel, build_schedule,
+                                        build_topology)
+
+    reward_fn, dim, init_fn, _, _ = resolve_task("pendulum")
+    cases = [("ER", "erdos_renyi", MAIN_P_ER, None, None),
+             ("FC", "fully_connected", 1.0, None, None)]
+    cases += [(f"channel ({run})", fam, dens, text, None)
+              for run, fam, dens, text in CHANNEL_RUNS]
+    cases += [(f"scheduled {run}", fam, dens, ch, text)
+              for run, fam, dens, text, ch, _ in SCHEDULE_RUNS]
+    checked = []
+    for label, family, dens, channel, text in cases:
+        tc = _schedule_config(family, dens, text, channel)
+        ch = build_channel(tc)
+        state = netes.init_state(MAIN_N, dim, seed=2, init_fn=init_fn,
+                                 device="cuda")
+        cstate = ch.init(state.thetas) if ch is not None else None
+        if text is None:
+            step = functools.partial(netes.netes_step, state,
+                                     build_topology(tc, device="cuda"),
+                                     reward_fn, tc.netes, channel=ch,
+                                     chan_state=cstate)
+        else:
+            step = functools.partial(
+                netes.scheduled_step, state, sched_states[label.split()[1]],
+                reward_fn, tc.netes, build_schedule(tc), channel=ch,
+                chan_state=cstate)
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        except RuntimeError as err:
+            raise RuntimeError(f"no_sync {label}: the step waits for the "
+                               f"card: {err}") from err
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        checked.append(label)
+    emit({"phase": "no_sync", "steps": checked, "n_agents": MAIN_N,
+          "sync_debug_mode": "error", "step_synced": False})
+
+
+# ---------------------------------------------------------------------------
 # phase 6: GPU against CPU on a small input
 # ---------------------------------------------------------------------------
 
@@ -1497,7 +1756,8 @@ def parity_phase() -> None:
             d = Draws(eps=draws.eps.to(dev), beta=draws.beta.to(dev),
                       evals=draws.evals.to(dev))
             topo = from_spec(spec, device=dev)
-            new, m = netes.netes_step(state, topo, reward_fn, cfg, draws=d)
+            new, _, m = netes.netes_step(state, topo, reward_fn, cfg,
+                                         draws=d)
             outs[dev] = (topo.kind, new.thetas.cpu(), m["best_idx"].item(),
                          m["reward_max"].item())
         kind, th_cpu, bi_cpu, rmax_cpu = outs["cpu"]
@@ -2456,6 +2716,8 @@ def main() -> int:
           "query": CLOCKS, "nvidia_smi": nvidia_smi(CLOCKS)})
     main_phase(launches)
     channel_phase(launches)
+    sched_launches = {}
+    no_sync_step_phase(schedule_phase(sched_launches))
     parity_phase()
     serve_parity_phase()
     serve_cpu_parity_phase(ARCH)
@@ -2481,7 +2743,8 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
-                     "share_of_bound": r["bound_ms"] / r["ms"]})
+                     "share_of_bound": r["bound_ms"] / r["ms"],
+                     "launches_schedule": sched_launches.get(name, {})})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

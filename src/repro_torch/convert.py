@@ -3,20 +3,25 @@
 The reference draws θ⁽⁰⁾ with ``init_state(PRNGKey(seed), n, dim,
 init_fn=policy.init)``, and LM weights with ``transformer.init_params``;
 the port's generators give other numbers, so a comparison starts both
-packages from the reference's state through here.
+packages from the reference's state through here. The reference's threefry
+keys have no counterpart anywhere: the port's states get fresh generators,
+and a comparison injects the reference's draws.
 """
 from __future__ import annotations
 
+import pathlib
 from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ._device import resolve_device
+from .checkpoint.io import path_key
 from .comm.channel import ChannelState
 from .configs.base import ModelConfig
 from .core.netes import NetESState
 from .core.topology_repr import Topology
+from .core.topology_sched import ScheduleState, TopologySchedule
 from .models.transformer import check_ported, stack_plan
 
 
@@ -38,25 +43,71 @@ def state_from_reference(thetas, best_theta, best_reward, step, *,
                                    device=dev))
 
 
+def state_from_reference_npz(path: Union[str, pathlib.Path],
+                             prefix: str = "netes", *, seed: int = 0,
+                             device: Union[str, torch.device] = "cuda"
+                             ) -> NetESState:
+    """The NetES state in a checkpoint the reference wrote
+    (``repro.checkpoint.save_pytree``/``save_train_state``), stored under
+    ``prefix``: its leaves ``.thetas``, ``.step``, ``.best_reward`` and
+    ``.best_theta``, read by the keys both packages use
+    (``checkpoint.io.path_key``). The ``.key`` leaf, a threefry key, has no
+    counterpart and is skipped: the state gets a fresh generator seeded
+    with ``seed``, as in :func:`state_from_reference`."""
+    with np.load(path, allow_pickle=False) as data:
+        leaves = {f: data[path_key((prefix, "." + f))] for f in
+                  ("thetas", "best_theta", "best_reward", "step")}
+    return state_from_reference(**leaves, seed=seed, device=device)
+
+
 def topology_from_reference(kind: str, n: int, deg, *, adj=None,
                             neighbor_idx=None, neighbor_mask=None,
                             offsets: Optional[Sequence[int]] = None,
+                            shifts: Optional[Sequence[int]] = None,
                             device: Union[str, torch.device] = "cuda"
                             ) -> Topology:
-    """The reference ``Topology``'s leaves → the port's ``Topology``."""
+    """The reference ``Topology``'s leaves → the port's ``Topology``. A
+    circulant has its static ``offsets`` or, scheduled, its ``shifts`` (the
+    reference's traced int32 array, read here into host ints)."""
     dev = resolve_device(device)
 
     def t(a, dtype):
         return None if a is None else torch.as_tensor(np.array(a, dtype),
                                                       device=dev)
 
-    if kind == "circulant" and offsets is None:
-        raise ValueError("a circulant topology needs its offsets")
+    if kind == "circulant" and (offsets is None) == (shifts is None):
+        raise ValueError("a circulant topology needs its offsets or its "
+                         "shifts")
     return Topology(kind=kind, n=n, deg=t(deg, np.float32),
                     adj=t(adj, np.float32),
                     neighbor_idx=t(neighbor_idx, np.int32),
                     neighbor_mask=t(neighbor_mask, np.float32),
-                    offsets=None if offsets is None else tuple(offsets))
+                    offsets=None if offsets is None else tuple(offsets),
+                    shifts=(None if shifts is None
+                            else tuple(int(d) for d in np.asarray(shifts))))
+
+
+def schedule_state_from_reference(schedule: TopologySchedule,
+                                  topo: Topology, t: int, u=None
+                                  ) -> ScheduleState:
+    """The reference's ``ScheduleState`` → the port's, for ``schedule``:
+    the topology in force (from :func:`topology_from_reference`), the
+    iteration ``t``, and for ``anneal_density`` the fixed (N, N) uniform
+    ``u`` its graphs are thresholds of (``jax.random.uniform(
+    PRNGKey(spec.seed), (n, n))``). The threefry key has no counterpart:
+    ``resample_er`` gets a fresh generator seeded with ``spec.seed``, so a
+    comparison injects the reference's redraws."""
+    kind = schedule.spec.kind
+    if (u is None) != (kind != "anneal_density"):
+        raise ValueError("anneal_density needs its uniform u, and only it")
+    dev = topo.device
+    gen = None
+    if kind == "resample_er":
+        gen = torch.Generator(device=dev).manual_seed(schedule.spec.seed)
+    return ScheduleState(
+        topo=topo, t=int(t), generator=gen,
+        u=None if u is None else torch.as_tensor(np.array(u, np.float32),
+                                                 device=dev))
 
 
 def channel_state_from_reference(last_sent, msgs, *, seed: int = 0,

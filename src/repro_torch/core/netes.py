@@ -17,18 +17,27 @@ channel state and the realized traffic. A quantizing channel on a sparse
 graph mixes straight from the int8 wire codes (``kernels/netes_fused_mixing``),
 and its broadcast is one fused select.
 
-Every random draw of a step (ε, the broadcast draw β, the episode reset
-states and, with a channel, the dropout mask) enters through one seam,
-``Draws``: absent, the step draws them from the state's generator (the mask
-from the channel's own PRF); present, the caller's draws are used as they
-are — the tests hand the port the JAX reference's own draws there.
+Under a topology schedule (``core/topology_sched``, DESIGN.md §9),
+``scheduled_step`` steps on the topology in force and then advances the
+schedule; ``run_scheduled`` loops it.
 
-The step keeps everything on the device: no ``.item()``, no host sync.
+Every random draw of a step (ε, the broadcast draw β, the episode reset
+states, with a channel the dropout mask, and under a schedule its uniform
+redraw) enters through one seam, ``Draws``: absent, the step draws them
+from the state's generator (the mask from the channel's own PRF, the
+redraw from the schedule's generator); present, the caller's draws are
+used as they are — the tests hand the port the JAX reference's own draws
+there.
+
+Every step function returns ``(state, chan_state, metrics)``, the
+scheduled ones ``(state, sched_state, chan_state, metrics)``; without a
+channel ``chan_state`` is None. The steps keep everything on the device:
+no ``.item()``, no host sync.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -71,13 +80,17 @@ class Draws:
     ``draw`` returns for N agents (episode reset states for an RL task),
     shared by the +ε and −ε halves as in the reference; ``edge_mask``, for
     a channel with a dropout stage, the live-link mask to use in place of
-    the channel's own draw (``comm.channel.dropout_mask``).
+    the channel's own draw (``comm.channel.dropout_mask``);
+    ``schedule_u``, for a ``scheduled_step`` whose advance redraws the
+    graph, the (N, N) uniform to use in place of the schedule's own draw
+    (``TopologySchedule.advance``).
     """
 
     eps: torch.Tensor
     beta: torch.Tensor
     evals: Optional[torch.Tensor]
     edge_mask: Optional[torch.Tensor] = None
+    schedule_u: Optional[torch.Tensor] = None
 
 
 def init_state(n_agents: int, dim: int, *, seed: int = 0,
@@ -190,15 +203,16 @@ def netes_step(state: NetESState, topo: Topology, reward_fn,
     (M,)`` with ``evals`` from ``reward_fn.draw(generator, M)``. With
     antithetic sampling both ±ε halves are evaluated in one batch of 2N
     from the same N eval draws, and both compete for the broadcast argmax.
-    Returns the new state and a dict of 0-d device tensors.
+    Returns ``(state, chan_state, metrics)``: the new state, the advanced
+    channel state (None without a channel) and a dict of 0-d device
+    tensors.
 
     ``channel`` (a ``comm.channel.Channel``) with its ``chan_state``: the
     payloads θ_i + σε_i pass through the channel (``apply_wire`` when
     ``channel.wire_fused(topo)``, else ``apply``), dropped links leave the
     mixing, and the broadcast payload goes through the channel's codec
     (one ``fused_broadcast_select`` when the channel is fused and
-    wire-quantized). The return value is then ``(state, chan_state,
-    metrics)`` and the metrics gain ``msgs`` (this step's realized
+    wire-quantized). The metrics then gain ``msgs`` (this step's realized
     messages, the broadcast's N included), ``trigger_frac`` and
     ``drop_frac``. A lossless channel gives the channel-free step's state
     bit for bit.
@@ -236,12 +250,14 @@ def netes_step(state: NetESState, topo: Topology, reward_fn,
                                          cfg.weight_decay)
     new_thetas = state.thetas + update
 
-    # broadcast event (exploit): argmax takes the first maximum, as jnp's.
-    # Through a channel the receivers adopt the degraded payload; the
-    # best-θ bookkeeping keeps the true one.
+    # broadcast event (exploit): argmax takes the first maximum, as jnp's;
+    # index_select keeps it on the device (indexing with a 0-d tensor reads
+    # it on the host). Through a channel the receivers adopt the degraded
+    # payload; the best-θ bookkeeping keeps the true one.
     best_idx = torch.argmax(rewards)
-    iter_best_theta = candidates[best_idx]
-    iter_best_reward = rewards[best_idx]
+    best = best_idx.reshape(1)
+    iter_best_theta = candidates.index_select(0, best)[0]
+    iter_best_reward = rewards.index_select(0, best)[0]
     do_broadcast = draws.beta < cfg.p_broadcast
     if channel is not None and channel.fused and channel.wire_quantized:
         wp = channel.encode_wire(iter_best_theta, batched=False)
@@ -268,7 +284,7 @@ def netes_step(state: NetESState, topo: Topology, reward_fn,
         "best_idx": best_idx,
     }
     if channel is None:
-        return new_state, metrics
+        return new_state, None, metrics
     # the broadcast is one message fanned out to the population
     bcast_msgs = do_broadcast.to(torch.float32) * n
     chan_state = dataclasses.replace(chan_state,
@@ -279,22 +295,50 @@ def netes_step(state: NetESState, topo: Topology, reward_fn,
     return new_state, chan_state, metrics
 
 
+def _stack(history) -> Dict[str, torch.Tensor]:
+    return ({} if not history else
+            {k: torch.stack([m[k] for m in history]) for k in history[0]})
+
+
 def run(state: NetESState, topo: Topology, reward_fn, cfg: NetESConfig,
         num_iters: int, channel=None, chan_state=None):
-    """``num_iters`` steps; the metrics come back stacked per iteration,
-    still on the device. With a ``channel`` the return value is
-    ``(state, chan_state, metrics)``."""
+    """``num_iters`` steps; returns ``(state, chan_state, metrics)`` with the
+    metrics stacked per iteration, still on the device."""
     history = []
     for _ in range(num_iters):
-        if channel is None:
-            state, m = netes_step(state, topo, reward_fn, cfg)
-        else:
-            state, chan_state, m = netes_step(state, topo, reward_fn, cfg,
-                                              channel=channel,
-                                              chan_state=chan_state)
+        state, chan_state, m = netes_step(state, topo, reward_fn, cfg,
+                                          channel=channel,
+                                          chan_state=chan_state)
         history.append(m)
-    stacked = ({} if not history else
-               {k: torch.stack([m[k] for m in history]) for k in history[0]})
-    if channel is None:
-        return state, stacked
-    return state, chan_state, stacked
+    return state, chan_state, _stack(history)
+
+
+def scheduled_step(state: NetESState, sched_state, reward_fn,
+                   cfg: NetESConfig, schedule, draws: Optional[Draws] = None,
+                   channel=None, chan_state=None):
+    """One NetES iteration under a ``topology_sched.TopologySchedule``:
+    ``netes_step`` on the topology in force (a channel draws its dropout
+    mask from it), then ``schedule.advance`` with ``draws.schedule_u``.
+    Returns ``(state, sched_state, chan_state, metrics)``. No host sync:
+    the schedule's iteration counter lives on the host."""
+    state, chan_state, metrics = netes_step(
+        state, sched_state.topo, reward_fn, cfg, draws, channel=channel,
+        chan_state=chan_state)
+    u = None if draws is None else draws.schedule_u
+    return state, schedule.advance(sched_state, u), chan_state, metrics
+
+
+def run_scheduled(state: NetESState, sched_state, reward_fn,
+                  cfg: NetESConfig, schedule, num_iters: int, channel=None,
+                  chan_state=None, draws: Optional[Sequence[Draws]] = None):
+    """``num_iters`` scheduled steps; returns ``(state, sched_state,
+    chan_state, metrics)`` with the metrics stacked per iteration.
+    ``draws``, if given, holds each iteration's ``Draws``."""
+    history = []
+    for it in range(num_iters):
+        state, sched_state, chan_state, m = scheduled_step(
+            state, sched_state, reward_fn, cfg, schedule,
+            None if draws is None else draws[it], channel=channel,
+            chan_state=chan_state)
+        history.append(m)
+    return state, sched_state, chan_state, _stack(history)

@@ -15,7 +15,9 @@ is a dataclass of tensors in one of three representations:
     form, the fused kernel (``kernels/netes_fused_mixing``).
 ``circulant``
     Static generator offsets of a symmetric self-looped ring graph; mixing
-    is a chain of ``torch.roll``s and needs no kernel.
+    is a chain of ``torch.roll``s and needs no kernel. A scheduled
+    (rotating) circulant carries its signed ring ``shifts`` instead, host
+    ints in the reference's order (``shift_circulant``).
 
 ``weighted_neighbor_sum`` and ``weighted_row_sum`` take an optional
 ``edge_mask`` from a lossy channel (``comm.channel.dropout_mask``), matched
@@ -25,7 +27,10 @@ graphs contract it with the fused kernel, dense and circulant decode it.
 
 The constructors are host-side numpy, run once at launch, and must agree with
 the reference slot for slot (tests/test_torch_topology.py). A fused-eligible
-channel raises the sparse cutoff of ``select_representation``.
+channel raises the sparse cutoff of ``select_representation``. The refresh
+functions at the end (``refresh_dense``, ``refresh_sparse``,
+``shift_circulant``) are what a topology schedule (``core/topology_sched``)
+changes between steps: on the device, with every shape kept.
 """
 from __future__ import annotations
 
@@ -58,9 +63,12 @@ class Topology:
     """A communication topology with an explicit physical representation.
 
     Exactly one representation's payload is set: ``adj`` (dense),
-    ``neighbor_idx``/``neighbor_mask`` (sparse) or ``offsets`` (circulant).
-    ``deg (N,)`` float32 (row degrees, self-loop included) is always set;
-    ``normalization="degree"`` needs it whatever the representation.
+    ``neighbor_idx``/``neighbor_mask`` (sparse), or for a circulant its
+    generator ``offsets`` or, scheduled, its signed ring ``shifts`` (host
+    ints, distinct and nonzero mod N, in the order the roll chain and a
+    dropout mask's rows take them). ``deg (N,)`` float32 (row degrees,
+    self-loop included) is always set; ``normalization="degree"`` needs it
+    whatever the representation.
     """
 
     kind: str                                       # dense | sparse | circulant
@@ -70,6 +78,7 @@ class Topology:
     neighbor_idx: Optional[torch.Tensor] = None     # (N, K_max)  [sparse]
     neighbor_mask: Optional[torch.Tensor] = None    # (N, K_max)  [sparse]
     offsets: Optional[Tuple[int, ...]] = None       # [circulant]
+    shifts: Optional[Tuple[int, ...]] = None        # [circulant, scheduled]
 
     @property
     def k_max(self) -> int:
@@ -84,8 +93,10 @@ class Topology:
         if self.kind == "dense":
             return self.adj
         if self.kind == "circulant":
+            # ±d of each shift d: the signed shifts generate the same graph
+            gen = self.offsets if self.shifts is None else self.shifts
             return torch.as_tensor(
-                topo_gen.circulant_from_offsets(self.n, list(self.offsets)),
+                topo_gen.circulant_from_offsets(self.n, list(gen)),
                 device=self.device)
         # sparse: each (j, i) edge appears once per row and padded slots add
         # weight 0 at (j, j), so the scatter-add is exact.
@@ -230,7 +241,10 @@ def signed_offsets(offsets: Sequence[int], n: int):
 
 
 def circulant_shifts(topo: Topology):
-    """The ring shifts of a circulant topology's roll chain."""
+    """The ring shifts of a circulant topology's roll chain: its scheduled
+    ``shifts`` as they are, else ±Δ of its offsets."""
+    if topo.shifts is not None:
+        return list(topo.shifts)
     return signed_offsets(topo.offsets, topo.n)
 
 
@@ -316,3 +330,44 @@ def weighted_row_sum(topo: Topology, coeff: torch.Tensor,
     mask = (topo.neighbor_mask if edge_mask is None
             else topo.neighbor_mask * edge_mask)
     return (mask * coeff[topo.neighbor_idx.long()]).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# refresh in place (the topology-schedule paths)
+# ---------------------------------------------------------------------------
+#
+# A schedule keeps every tensor shape: a dense refresh swaps the (N, N)
+# adjacency, a sparse one re-pads to the SAME K_max, a rotating circulant
+# swaps its host-side shifts.
+
+def refresh_dense(topo: Topology, adj: torch.Tensor) -> Topology:
+    """A new dense adjacency, degrees recomputed on its device."""
+    return dataclasses.replace(topo, adj=adj, deg=adj.sum(dim=1))
+
+
+def refresh_sparse(topo: Topology, adj: torch.Tensor) -> Topology:
+    """The neighbor list of a new (N, N) adjacency, padded to the existing
+    ``k_max``: the reference's ``lax.top_k(adj, k_max)`` per row.
+
+    ``top_k`` gives ties to the lower index; a stable descending sort does
+    the same, so on a binary graph a row lists its neighbors in ascending
+    order and then, with weight 0, its lowest non-neighbors. A row with
+    more than ``k_max`` edges keeps its ``k_max`` lowest; ``deg`` counts
+    the kept edges, as the gather sums them. Assumes non-negative weights.
+    """
+    vals, idx = torch.sort(adj, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :topo.k_max], idx[:, :topo.k_max]
+    return dataclasses.replace(
+        topo, neighbor_idx=idx.to(torch.int32).contiguous(),
+        neighbor_mask=vals.to(torch.float32).contiguous(),
+        deg=vals.sum(dim=1).to(torch.float32))
+
+
+def shift_circulant(topo: Topology, offsets: Sequence[int]) -> Topology:
+    """A circulant with generator ``offsets`` d ∈ [1, (n−1)//2], carried as
+    the signed shifts (d..., n − d...) in the reference's order. The bound
+    keeps +d and −d distinct, so the degree 2K + 1 does not change under
+    rotation. Host ints: a rotation costs the device nothing."""
+    offs = [int(d) for d in offsets]
+    return dataclasses.replace(topo, offsets=None,
+                               shifts=tuple(offs + [topo.n - d for d in offs]))

@@ -26,7 +26,9 @@ class CartPoleSwingUp:
         """(count, 4): x, ẋ, θ (π = hanging down), θ̇, plus 0.05·N(0, 1)."""
         dev = generator.device
         noise = 0.05 * torch.randn(count, 4, generator=generator, device=dev)
-        return torch.tensor([0.0, 0.0, math.pi, 0.0], device=dev) + noise
+        # π enters as a host scalar: a tensor copied to the card would wait
+        return torch.stack([noise[:, 0], noise[:, 1], math.pi + noise[:, 2],
+                            noise[:, 3]], dim=1)
 
     def observe(self, state: torch.Tensor) -> torch.Tensor:
         x, x_dot, th, th_dot = state.unbind(dim=1)

@@ -22,10 +22,12 @@ class Pendulum:
     state_dim: int = 2
 
     def reset(self, generator: torch.Generator, count: int) -> torch.Tensor:
-        """(count, 2): θ ~ U(−π, π), θ̇ ~ U(−1, 1)."""
-        hi = torch.tensor([math.pi, 1.0], device=generator.device)
+        """(count, 2): θ ~ U(−π, π), θ̇ ~ U(−1, 1). The bounds enter as
+        host scalars: a tensor of them copied to the card would wait for
+        it."""
         u = torch.rand(count, 2, generator=generator, device=generator.device)
-        return -hi + (2 * hi) * u
+        return torch.stack([-hi + (2 * hi) * u[:, c]
+                            for c, hi in enumerate((math.pi, 1.0))], dim=1)
 
     def observe(self, state: torch.Tensor) -> torch.Tensor:
         th, thdot = state[:, 0], state[:, 1]

@@ -2,7 +2,8 @@
 
   python -m repro_torch.launch.train rl --task pendulum \
       --topology erdos_renyi --density 0.1 --agents 1000 --iters 100 \
-      [--channel 'quantize(bits=8)|dropout(p=0.1,seed=0)']
+      [--channel 'quantize(bits=8)|dropout(p=0.1,seed=0)'] \
+      [--schedule 'resample_er(period=8)'] [--checkpoint-dir DIR]
 
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead.
@@ -33,6 +34,14 @@ def main(argv=None) -> None:
                          "'quantize(bits=8)' or 'event_triggered("
                          "threshold=0.01)|quantize(bits=4)|dropout("
                          "p=0.1,seed=0)' (DESIGN.md §11)")
+    ap.add_argument("--schedule", default=None,
+                    help="time-varying topology, e.g. 'resample_er("
+                         "period=8)', 'anneal_density(p_end=0.05,"
+                         "horizon=100)' or 'rotate_circulant(stride=3)' "
+                         "(DESIGN.md §9)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save the train state at every eval point and "
+                         "resume from the latest one found here")
     ap.add_argument("--agents", type=int, default=32)
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
@@ -48,6 +57,7 @@ def main(argv=None) -> None:
         topology=TopologySpec(family=args.topology, n_agents=args.agents,
                               p=args.density, seed=args.topo_seed),
         representation=args.representation, channel=args.channel,
+        schedule=args.schedule, checkpoint_dir=args.checkpoint_dir,
         seed=args.seed,
         netes=NetESConfig(alpha=args.alpha, sigma=args.sigma,
                           p_broadcast=args.p_broadcast))

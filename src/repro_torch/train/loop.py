@@ -6,27 +6,33 @@ The port of ``repro.train.loop``'s RL half. Steps run one after another on
 the device; their metrics stay there and are drained to the host once per
 chunk of ``METRIC_DRAIN_CHUNK`` iterations and at eval points. With
 ``TrainConfig.channel`` every inter-agent message rides a lossy channel
-(``comm.channel``), and the history gains the realized traffic.
+(``comm.channel``), and the history gains the realized traffic. With
+``TrainConfig.schedule`` the graph anneals, resamples or rotates between
+iterations (``core.topology_sched``). With ``TrainConfig.checkpoint_dir``
+the run saves its state at every eval point and resumes from the last one.
 
 Not ported yet (setting one raises ``NotImplementedError``): the
-``schedule`` (slice 3), ``probes`` and ``trace`` (slice 4), ``shards``
-(slice 7) and ``checkpoint_dir`` (resume) fields of the reference's
-``TrainConfig``.
+``probes`` and ``trace`` (slice 4) and ``shards`` (slice 7) fields of the
+reference's ``TrainConfig``.
 """
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 import time
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from .. import checkpoint
 from .._device import resolve_device
 from ..comm.channel import Channel, ChannelSpec, compile_channel
 from ..core import netes, topology_repr
 from ..core.netes import Draws, NetESConfig, NetESState
 from ..core.topology import TopologySpec
+from ..core.topology_sched import (ScheduleSpec, TopologySchedule,
+                                   compile_schedule)
 from ..envs import resolve_task
 from ..envs.rollout import evaluate_best
 
@@ -34,8 +40,7 @@ from ..envs.rollout import evaluate_best
 METRIC_DRAIN_CHUNK = 8
 
 # TrainConfig fields of the reference that later slices of the port carry.
-_NOT_YET_PORTED = ("schedule", "shards", "probes", "checkpoint_dir",
-                   "trace")
+_NOT_YET_PORTED = ("shards", "probes", "trace")
 
 
 @dataclasses.dataclass
@@ -60,11 +65,16 @@ class TrainConfig:
     # Fused wire-form dispatch for quantizing channels (DESIGN.md §12);
     # False keeps the decode-then-contract path. Same semantics either way.
     channel_fused: bool = True
+    # Time-varying topology (DESIGN.md §9): a ScheduleSpec, or its string
+    # form ("resample_er(period=8)", ...). None ⇒ the graph never changes.
+    schedule: Optional[Union[ScheduleSpec, str]] = None
+    # When set, train_rl_netes saves its state (NetES, eval generator,
+    # schedule, channel) at every eval point and resumes from
+    # ``latest.json`` there if one exists.
+    checkpoint_dir: Optional[str] = None
     # Reference fields this slice does not carry: setting one raises.
-    schedule: Optional[object] = None
     shards: Optional[int] = None
     probes: Optional[object] = None
-    checkpoint_dir: Optional[str] = None
     trace: Optional[str] = None
 
     def __post_init__(self):
@@ -83,6 +93,8 @@ class TrainConfig:
             self.topo_seed = self.topology.seed
         if isinstance(self.channel, str):
             self.channel = ChannelSpec.parse(self.channel)
+        if isinstance(self.schedule, str):
+            self.schedule = ScheduleSpec.parse(self.schedule)
 
 
 def build_topology(tc: TrainConfig,
@@ -94,6 +106,14 @@ def build_topology(tc: TrainConfig,
     return topology_repr.from_spec(tc.topology,
                                    representation=tc.representation,
                                    device=device, channel=build_channel(tc))
+
+
+def build_schedule(tc: TrainConfig) -> Optional[TopologySchedule]:
+    """``tc.schedule`` compiled against the run's topology spec, or None
+    for a run on a fixed graph."""
+    if tc.schedule is None:
+        return None
+    return compile_schedule(tc.schedule, tc.topology, tc.representation)
 
 
 def build_channel(tc: TrainConfig) -> Optional[Channel]:
@@ -134,21 +154,46 @@ def train_rl_netes(task: str, tc: TrainConfig,
     ``trigger_frac``), and the totals ``realized_msgs`` and
     ``realized_wire_bytes`` (messages × the encoded bytes of one message).
 
+    With ``tc.schedule`` each iteration is a ``netes.scheduled_step``: the
+    graph in force, then the schedule's advance. With
+    ``tc.checkpoint_dir`` the NetES state (its generator included), the
+    eval generator, and the schedule's and channel's states are saved at
+    every eval point; a call that finds ``latest.json`` there resumes
+    after that eval point, bit for bit, and its history covers only the
+    iterations after it.
+
     ``state`` replaces the initial population drawn from ``tc.seed`` (the
     tests start from the reference's θ⁽⁰⁾). ``step_draws(it)`` and
-    ``eval_draws(it)`` replace the draws of iteration ``it`` and of the
-    eval at ``it`` (for an RL task, reset states (E, S)); absent, they come
-    from generators seeded with ``tc.seed`` and ``tc.seed + 999``.
+    ``eval_draws(it)`` replace the draws of iteration ``it`` (under a
+    schedule, its uniform redraw too) and of the eval at ``it`` (for an RL
+    task, reset states (E, S)); absent, they come from generators seeded
+    with ``tc.seed``, ``tc.seed + 999`` and the schedule's seed.
     """
     dev = resolve_device(device)
     reward_fn, dim, init_fn, env, policy = resolve_task(task)
-    topo = build_topology(tc, device=dev)
+    schedule = build_schedule(tc)
+    if schedule is not None:
+        topo, sstate = None, schedule.init(device=dev)
+    else:
+        topo, sstate = build_topology(tc, device=dev), None
     if state is None:
         state = netes.init_state(tc.n_agents, dim, seed=tc.seed,
                                  init_fn=init_fn, device=dev)
     channel = build_channel(tc)
     cstate = channel.init(state.thetas) if channel is not None else None
     eval_gen = torch.Generator(device=dev).manual_seed(tc.seed + 999)
+
+    ckpt_dir = (pathlib.Path(tc.checkpoint_dir) if tc.checkpoint_dir
+                else None)
+    start = 0
+    if ckpt_dir is not None and (ckpt_dir / "latest.json").exists():
+        done, blob = checkpoint.restore_train_state(ckpt_dir, {
+            "netes": state, "eval_gen": eval_gen, "sched": sstate,
+            "chan": cstate})
+        state, eval_gen = blob["netes"], blob["eval_gen"]
+        sstate, cstate = blob["sched"], blob["chan"]
+        start = done + 1
+
     history: Dict[str, List] = {"reward_mean": [], "reward_max": [],
                                 "eval": [], "eval_iter": []}
     drained = ["reward_mean", "reward_max"]
@@ -176,15 +221,16 @@ def train_rl_netes(task: str, tc: TrainConfig,
             evals_pending.clear()
 
     eval_set = set(eval_iterations(tc))
-    for it in range(tc.iters):
+    for it in range(start, tc.iters):
         draws = step_draws(it) if step_draws is not None else None
-        if channel is None:
-            state, m = netes.netes_step(state, topo, reward_fn, tc.netes,
-                                        draws)
-        else:
+        if schedule is None:
             state, cstate, m = netes.netes_step(
                 state, topo, reward_fn, tc.netes, draws, channel=channel,
                 chan_state=cstate)
+        else:
+            state, sstate, cstate, m = netes.scheduled_step(
+                state, sstate, reward_fn, tc.netes, schedule, draws,
+                channel=channel, chan_state=cstate)
         pending.append(m)
         if it in eval_set:
             resets = eval_draws(it) if eval_draws is not None else None
@@ -197,6 +243,11 @@ def train_rl_netes(task: str, tc: TrainConfig,
                     resets = reward_fn.draw(eval_gen, 1)
                 score = reward_fn(state.best_theta[None], resets)[0]
             evals_pending.append((it, score))
+            if ckpt_dir is not None:
+                checkpoint.save_train_state(
+                    ckpt_dir, it, {"netes": state, "eval_gen": eval_gen,
+                                   "sched": sstate, "chan": cstate},
+                    extra={"task": task})
         if (len(pending) >= METRIC_DRAIN_CHUNK
                 or (it in eval_set and log is not None)):
             drain()

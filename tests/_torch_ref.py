@@ -86,7 +86,7 @@ def port_topology(ref_topo, device="cpu"):
         ref_topo.kind, ref_topo.n, np.asarray(ref_topo.deg),
         adj=arr(ref_topo.adj), neighbor_idx=arr(ref_topo.neighbor_idx),
         neighbor_mask=arr(ref_topo.neighbor_mask), offsets=ref_topo.offsets,
-        device=device)
+        shifts=arr(ref_topo.shifts), device=device)
 
 
 def reference_edge_mask(ref_channel, chan_state, ref_topo):
@@ -131,3 +131,32 @@ def assert_returns_close(got, want, spread, rtol=1e-5):
     assert not bad.any(), (
         f"returns differ beyond rtol {rtol} + 6·spread at {np.nonzero(bad)[0]}:"
         f" port {got[bad]}, reference {want[bad]}, spread {spread[bad]}")
+
+
+def one_level_slack(ch, adj, payload, best, broadcast, scale):
+    """The θ′ tolerance a quantization code that may differ by one level
+    adds (tests/test_torch_netes.py, the channel test's docstring): (N, D),
+    0 without a quantize stage. ``adj`` is the dense adjacency of the
+    step's graph, ``payload`` the messages θ + σε (N, D), ``best`` the
+    broadcast candidate, ``scale`` α/(Nσ²)."""
+    q = ch.quantize_stage
+    if q is None:
+        return 0.0
+    levels = 2.0 ** (q.bits - 1) - 1
+
+    def near(v):
+        """(at a boundary, one level) per element of the messages v."""
+        v = np.asarray(v, np.float64)
+        if q.bits == 1:      # sign(x): the boundary is 0, a level is mean|x|
+            step = np.abs(v).mean(axis=-1, keepdims=True)
+            return np.abs(v) <= 2.0 ** -20 * np.abs(v).max(
+                axis=-1, keepdims=True), step
+        step = np.abs(v).max(axis=-1, keepdims=True) / levels
+        t = np.abs(v) / np.where(step > 0, step, 1.0)
+        return np.abs(t - np.floor(t) - 0.5) <= levels * 2.0 ** -20, step
+
+    if broadcast:
+        at, step = near(best)
+        return np.broadcast_to(at * step, payload.shape)
+    at, step = near(payload)
+    return scale * (np.abs(adj) @ (at * step))

@@ -28,9 +28,9 @@ import pytest
 import torch
 
 import repro.envs as ref_envs
-from _torch_ref import (assert_returns_close, port_topology,
-                        reference_edge_mask, rounding_spread, step_draws,
-                        to_draws)
+from _torch_ref import (assert_returns_close, one_level_slack,
+                        port_topology, reference_edge_mask, rounding_spread,
+                        step_draws, to_draws)
 from repro.comm import channel as ref_cc
 from repro.core import netes as ref_netes
 from repro.core import topology as ref_topology
@@ -81,8 +81,9 @@ def test_netes_step_matches_reference(family, density, rep, p_broadcast):
 
         ref_state, ref_m = ref_netes.netes_step(ref_state, ref_topo, ref_fn,
                                                 ref_cfg)
-        state, m = netes.netes_step(state, topo, reward_fn, cfg,
-                                    draws=to_draws(eps, beta, resets))
+        state, cs, m = netes.netes_step(state, topo, reward_fn, cfg,
+                                        draws=to_draws(eps, beta, resets))
+        assert cs is None
         where = f"{rep}, step {step}"
 
         top2 = np.sort(ref_rewards)[-2:]
@@ -125,9 +126,10 @@ def test_step_draws_from_generator_and_run_loop():
     cfg = NetESConfig()
     a = netes.init_state(8, dim, seed=5, init_fn=init_fn, device="cpu")
     b = netes.init_state(8, dim, seed=5, init_fn=init_fn, device="cpu")
-    a, ms = netes.run(a, topo, reward_fn, cfg, 3)
+    a, ca, ms = netes.run(a, topo, reward_fn, cfg, 3)
+    assert ca is None
     for _ in range(3):
-        b, m = netes.netes_step(b, topo, reward_fn, cfg)
+        b, _, m = netes.netes_step(b, topo, reward_fn, cfg)
     assert torch.equal(a.thetas, b.thetas)
     assert ms["reward_mean"].shape == (3,)
     assert float(ms["reward_mean"][-1]) == float(m["reward_mean"])
@@ -167,7 +169,8 @@ def test_netes_step_config_variants(rep, variant):
         draws = to_draws(*step_draws(ref_state.key, N, dim))
         ref_state, ref_m = ref_netes.netes_step(ref_state, ref_topo, ref_fn,
                                                 ref_cfg)
-        state, m = netes.netes_step(state, topo, reward_fn, cfg, draws=draws)
+        state, _, m = netes.netes_step(state, topo, reward_fn, cfg,
+                                       draws=draws)
         where = f"{rep} {variant}, step {step}"
         for k, v in ref_m.items():
             np.testing.assert_allclose(float(m[k]), float(v), rtol=2e-5,
@@ -197,33 +200,6 @@ CHANNEL_CASES = [
     ("circulant_erdos_renyi", 0.3, "circulant",
      "event_triggered(threshold=0.01)|quantize(bits=8)", True),
 ]
-
-
-def _one_level_slack(ch, adj, payload, best, broadcast, scale):
-    """The θ′ tolerance a quantization code that may differ by one level
-    adds (see the test's docstring): (N, D), 0 without a quantize
-    stage."""
-    q = ch.quantize_stage
-    if q is None:
-        return 0.0
-    levels = 2.0 ** (q.bits - 1) - 1
-
-    def near(v):
-        """(at a boundary, one level) per element of the messages v."""
-        v = np.asarray(v, np.float64)
-        if q.bits == 1:      # sign(x): the boundary is 0, a level is mean|x|
-            step = np.abs(v).mean(axis=-1, keepdims=True)
-            return np.abs(v) <= 2.0 ** -20 * np.abs(v).max(
-                axis=-1, keepdims=True), step
-        step = np.abs(v).max(axis=-1, keepdims=True) / levels
-        t = np.abs(v) / np.where(step > 0, step, 1.0)
-        return np.abs(t - np.floor(t) - 0.5) <= levels * 2.0 ** -20, step
-
-    if broadcast:
-        at, step = near(best)
-        return np.broadcast_to(at * step, payload.shape)
-    at, step = near(payload)
-    return scale * (np.abs(adj) @ (at * step))
 
 
 @pytest.mark.parametrize("family,density,rep,text,fused", CHANNEL_CASES)
@@ -296,7 +272,7 @@ def test_netes_step_with_channel_matches_reference(family, density, rep,
         if ch.event_stage is not None:
             payload = port_cc._event_select(payload, last_sent,
                                             ch.event_stage.threshold)[0]
-        slack = _one_level_slack(
+        slack = one_level_slack(
             ch, topo.to_dense().numpy(), payload.numpy(),
             cands[int(m["best_idx"])], float(m["broadcast"]) > 0,
             cfg.alpha / (N * cfg.sigma ** 2))
@@ -350,7 +326,7 @@ def test_lossless_channel_is_the_channel_free_step_bit_for_bit(rep, text):
     lossy = netes.init_state(N, dim, seed=7, init_fn=init_fn, device="cpu")
     cstate = ch.init(lossy.thetas)
     for _ in range(3):
-        plain, m_plain = netes.netes_step(plain, topo, reward_fn, cfg)
+        plain, _, m_plain = netes.netes_step(plain, topo, reward_fn, cfg)
         lossy, cstate, m = netes.netes_step(lossy, topo, reward_fn, cfg,
                                             channel=ch, chan_state=cstate)
         assert torch.equal(plain.thetas, lossy.thetas)

@@ -1,6 +1,7 @@
 """The port's slices as a whole: ``train_rl_netes`` against the JAX
-reference's training loop, without and with a lossy channel, plus the
-port's package-level contracts.
+reference's training loop, without and with a lossy channel and under a
+topology schedule, its checkpoint resume, plus the port's package-level
+contracts.
 
 ``repro.train.loop`` does not import on this jax (ROADMAP queue 3, item a),
 so the reference run is composed here from ``repro.core.netes.netes_step``
@@ -8,7 +9,7 @@ and ``repro.envs.rollout.evaluate_best`` exactly as ``train/loop.py:231-367``
 composes them. The port runs pendulum at N = 16 on a sparse Erdős–Rényi
 graph (p = 0.3), 6 iterations with an eval every 3, starting from the
 reference's θ⁽⁰⁾ with the reference's draws injected for every step and
-every eval.
+every eval (under a schedule, its redraws too).
 
 Tolerances: ``eval_iter`` EQUAL; ``reward_mean``, ``reward_max`` and
 ``eval`` within rtol 1e-5 plus six times the reference's one-ulp rounding
@@ -17,6 +18,7 @@ point for ``eval`` and set from the largest per-step spread for the
 training rewards. With a channel, the per-step message counts and
 ``realized_msgs`` EQUAL as well.
 """
+import dataclasses
 import json
 import os
 import pathlib
@@ -37,6 +39,7 @@ from repro.comm import channel as ref_cc
 from repro.core import netes as ref_netes
 from repro.core import topology as ref_topology
 from repro.core import topology_repr as ref_repr
+from repro.core import topology_sched as ref_sched
 from repro.envs.rollout import evaluate_best as ref_evaluate_best
 from repro_torch import convert
 from repro_torch.core.netes import NetESConfig
@@ -48,20 +51,28 @@ N, ITERS, EVAL_EVERY, EPISODES, SEED = 16, 6, 3, 4, 0
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 
 
-def _reference_run(spec_kw, cfg_kw, channel=None):
+def _reference_run(spec_kw, cfg_kw, channel=None, schedule=None):
     """``train_rl_netes`` of the reference, composed from its parts; also
     returns the draws it made, for the port's seam (with a channel, the
-    dropout masks go in the history's ``edge_masks``)."""
+    dropout masks go in the history's ``edge_masks``; under a schedule,
+    its redraws in ``schedule_u``, None where a step draws none)."""
     ref_fn, dim, init_fn, env, policy = ref_envs.resolve_task("pendulum")
     cfg = ref_netes.NetESConfig(**cfg_kw)
-    topo = ref_repr.from_spec(ref_topology.TopologySpec(**spec_kw), "sparse")
+    spec = ref_topology.TopologySpec(**spec_kw)
+    sch = sstate = None
+    if schedule is None:
+        topo = ref_repr.from_spec(spec, "sparse")
+    else:
+        sch = ref_sched.compile_schedule(
+            ref_sched.ScheduleSpec.parse(schedule), spec, "sparse")
+        sstate = sch.init()
     state = ref_netes.init_state(jax.random.PRNGKey(SEED), N, dim,
                                  init_fn=init_fn)
     init = state
     eval_key = jax.random.PRNGKey(SEED + 999)
     eval_iters = list(range(EVAL_EVERY - 1, ITERS, EVAL_EVERY))
     hist = {"reward_mean": [], "reward_max": [], "eval": [], "eval_iter": [],
-            "msgs": [], "edge_masks": []}
+            "msgs": [], "edge_masks": [], "schedule_u": []}
     draws, eval_resets, spreads, eval_spreads = {}, {}, [], []
     ch = (None if channel is None
           else ref_cc.compile_channel(channel, N, fused=True))
@@ -72,6 +83,12 @@ def _reference_run(spec_kw, cfg_kw, channel=None):
 
     for it in range(ITERS):
         draws[it] = step_draws(state.key, N, dim, env)
+        if sch is not None:
+            topo = sstate.topo
+            redraw = ((it + 1) % sch.spec.period == 0
+                      and sch.spec.kind == "resample_er")
+            hist["schedule_u"].append(np.array(jax.random.uniform(
+                jax.random.split(sstate.key)[1], (N, N))) if redraw else None)
         if ch is not None:
             hist["edge_masks"].append(reference_edge_mask(ch, cstate, topo))
         th = np.asarray(state.thetas)
@@ -87,6 +104,8 @@ def _reference_run(spec_kw, cfg_kw, channel=None):
             state, cstate, m = ref_netes.netes_step(state, topo, ref_fn, cfg,
                                                     ch, cstate)
             hist["msgs"].append(float(m["msgs"]))
+        if sch is not None:
+            sstate = sch.advance(sstate)
         hist["reward_mean"].append(float(m["reward_mean"]))
         hist["reward_max"].append(float(m["reward_max"]))
         if it in eval_iters:
@@ -175,6 +194,79 @@ def test_train_rl_netes_with_channel_matches_reference():
                          np.array(eval_spreads))
 
 
+def test_train_rl_netes_with_schedule_matches_reference():
+    """A resampled sparse graph (``resample_er(period=2)``, K_max padded
+    by ``pad_k_max``) end to end: the reference composed from
+    ``netes_step`` and ``TopologySchedule.advance`` as its
+    ``scheduled_step`` composes them, the port with every draw injected,
+    the schedule's redraws included."""
+    text = "resample_er(period=2,seed=3)"
+    spec_kw = dict(family="erdos_renyi", n_agents=N, p=0.3, seed=0)
+    cfg_kw = dict(alpha=0.05, sigma=0.1, p_broadcast=0.8)
+    want, init, draws, eval_resets, spread, eval_spreads = _reference_run(
+        spec_kw, cfg_kw, schedule=text)
+    assert sum(u is not None for u in want["schedule_u"]) == ITERS // 2
+
+    tc = loop.TrainConfig(iters=ITERS, eval_every=EVAL_EVERY,
+                          eval_episodes=EPISODES, seed=SEED,
+                          representation="sparse", schedule=text,
+                          topology=TopologySpec(**spec_kw),
+                          netes=NetESConfig(**cfg_kw))
+    schedule = loop.build_schedule(tc)
+    assert schedule.representation == "sparse"
+    state = convert.state_from_reference(
+        np.asarray(init.thetas), np.asarray(init.best_theta),
+        np.asarray(init.best_reward), np.asarray(init.step), device="cpu")
+
+    def port_draws(it):
+        u = want["schedule_u"][it]
+        return dataclasses.replace(
+            to_draws(*draws[it]),
+            schedule_u=None if u is None else torch.as_tensor(u))
+
+    got = loop.train_rl_netes(
+        "pendulum", tc, device="cpu", state=state, step_draws=port_draws,
+        eval_draws=lambda it: torch.as_tensor(eval_resets[it]))
+
+    assert got["eval_iter"] == want["eval_iter"] == [2, 5]
+    for k in ("reward_mean", "reward_max"):
+        assert_returns_close(np.array(got[k]), np.array(want[k]),
+                             np.full(ITERS, spread))
+    assert_returns_close(np.array(got["eval"]), np.array(want["eval"]),
+                         np.array(eval_spreads))
+
+
+def test_resume_equals_the_uninterrupted_run_bit_for_bit(tmp_path):
+    """A resampled sparse graph through q8 and dropout, its own draws: a
+    run of 2 iterations that checkpoints, then the same config with 4
+    iterations, which resumes at iteration 2, gives the evals,
+    ``reward_mean`` and ``msgs`` of the uninterrupted 4-iteration run
+    EQUAL."""
+    tc = loop.TrainConfig(
+        iters=4, eval_every=2, eval_episodes=2, seed=1,
+        representation="sparse", schedule="resample_er(period=2,seed=7)",
+        channel="quantize(bits=8)|dropout(p=0.1,seed=0)",
+        topology=TopologySpec(family="erdos_renyi", n_agents=N, p=0.3,
+                              seed=2),
+        netes=NetESConfig(alpha=0.05, sigma=0.1, p_broadcast=0.5))
+    full = loop.train_rl_netes("pendulum", tc, device="cpu")
+    ckpt = str(tmp_path / "ck")
+    half = loop.train_rl_netes("pendulum", dataclasses.replace(
+        tc, iters=2, checkpoint_dir=ckpt), device="cpu")
+    assert (tmp_path / "ck" / "step_00000001.npz").exists()
+    resumed = loop.train_rl_netes("pendulum", dataclasses.replace(
+        tc, checkpoint_dir=ckpt), device="cpu")
+    assert half["eval"] == full["eval"][:1]
+    assert half["msgs"] == full["msgs"][:2]
+    assert resumed["eval_iter"] == full["eval_iter"][1:] == [3]
+    for k in ("eval", "reward_mean", "reward_max", "msgs", "drop_frac"):
+        n = len(resumed[k])
+        assert resumed[k] == full[k][-n:], k
+    assert len(resumed["reward_mean"]) == 2
+    assert json.loads((tmp_path / "ck" / "latest.json").read_text())[
+        "step"] == 3
+
+
 def test_paper_eval_protocol_iterations():
     """eval_every = 0: each iteration with probability 0.08 from
     np.random.default_rng(seed + 999), plus the last (train/loop.py:231-237)."""
@@ -189,8 +281,7 @@ def test_paper_eval_protocol_iterations():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("schedule", "resample_er(period=8)"), ("shards", 2), ("probes", "all"),
-    ("checkpoint_dir", "ckpt"), ("trace", "trace.jsonl")])
+    ("shards", 2), ("probes", "all"), ("trace", "trace.jsonl")])
 def test_unported_train_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         loop.TrainConfig(**{field: value})
@@ -228,6 +319,23 @@ def test_launcher_runs_a_channel_on_cpu(tmp_path, capsys):
     assert hist["realized_msgs"] == sum(hist["msgs"])
 
 
+def test_launcher_runs_a_schedule_and_resumes_on_cpu(tmp_path, capsys):
+    ck = tmp_path / "ck"
+    args = ["rl", "--task", "landscape:sphere", "--agents", "12",
+            "--density", "0.3", "--device", "cpu", "--representation",
+            "sparse", "--schedule", "resample_er(period=2)",
+            "--checkpoint-dir", str(ck)]
+    launch_train.main(args + ["--iters", "3", "--out",
+                              str(tmp_path / "a.json")])
+    assert json.loads((ck / "latest.json").read_text())["step"] == 2
+    launch_train.main(args + ["--iters", "6", "--out",
+                              str(tmp_path / "b.json")])
+    hist = json.loads((tmp_path / "b.json").read_text())["history"]
+    assert len(hist["reward_mean"]) == 3          # iterations 3–5 only
+    assert hist["eval_iter"][-1] == 5
+    assert "final eval:" in capsys.readouterr().out
+
+
 def test_port_imports_no_jax_and_no_reference():
     """Import every module of the port in a fresh interpreter: neither jax
     nor the reference package may be loaded. The sources (and
@@ -253,7 +361,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.kernels.rwkv6_wkv",
             "repro_torch.configs.rwkv6_7b", "repro_torch.models.mamba",
             "repro_torch.kernels.mamba_scan",
-            "repro_torch.configs.jamba_v01_52b"} <= set(mods)
+            "repro_torch.configs.jamba_v01_52b",
+            "repro_torch.core.topology_sched", "repro_torch.checkpoint.io",
+            "repro_torch.checkpoint"} <= set(mods)
 
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s+import\b))", re.MULTILINE)
