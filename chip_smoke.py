@@ -92,6 +92,31 @@ Phases, each printing one JSON line per case:
    and through channels (a) and (b), and one ``scheduled_step`` of each of
    s-a … s-d (s-a and s-c redrawing), under
    ``torch.cuda.set_sync_debug_mode("error")``.
+5c. ``telemetry`` — ``TELEMETRY_RUNS`` at N = 1000, 4 iterations, each
+   probed and traced (``TrainConfig.probes``/``trace``) against the
+   unprobed run from the same seed, whose history it must equal bit for
+   bit: ER and FC with ``fitness|consensus|graph``, channel (a) with
+   ``all``, schedule s-a with ``fitness|graph``. The run's kernels must
+   launch once a step; ``fitness_mean`` must be ``reward_mean`` in
+   float32, ``wire``'s ``msgs`` the history's, ER's density within 5
+   binomial sd of 0.1 and FC's 1.0, s-a's graph signals must change at
+   t = 2 only with ``deg_max`` ≤ K_max = 140, and ``reach_proxy`` must be
+   ``theory.reachability_prior(N, density)``. Each trace must validate,
+   build no kernel, and transfer once per drain. Then one probed step on
+   ER under ``set_sync_debug_mode("error")``, one traced
+   ``ServeEngine.generate`` of serve_parity's model (tokens equal to the
+   untraced engine's, a valid trace), the CUDA-event time of one
+   ``Probes.record`` of every stage with its host time and kernels, and
+   24 plain and 24 probed steps from one state, in turns, timed by CUDA
+   events and the host clock (quartiles, and of the difference a pair).
+5d. ``capture`` — one probed ``netes_step`` on ER (the sparse kernel) and
+   FC (the dense kernel) captured as one ``torch.cuda.CUDAGraph`` (the
+   state's generator registered with the graph), replayed 3 times with
+   the state copied back in between and held bit for bit (θ, best θ,
+   best reward, the probe ring) against 3 eager probed steps from the
+   same state and draws; one replay's kernels counted from a profiler
+   trace (the Eq. 3 kernel must be there), its time per step by CUDA
+   events beside the eager step's.
 6. ``parity``  — one NetES step at N = 64 on the GPU and on the CPU from the
    same parameters and draws must agree, without and with a channel (whose
    dropout masks, drawn on each device, must be equal).
@@ -154,8 +179,10 @@ of rwkv6-7b and one of jamba-v0.1-52b (full width, 2 layers) under
 card raises there.
 
 Then a ``{"kernels": [...]}`` line (``launches``: the main path's and
-channel run (a)'s; ``launches_schedule``: each schedule run's), the
-``nvidia-smi`` name and power limit,
+channel run (a)'s; ``launches_schedule``: each schedule run's;
+``launches_telemetry``: each probed run's and the traced generate's;
+``launches_capture_replay``: the Eq. 3 kernel in one replay of each
+captured step), the ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure raises, so the
 script exits non-zero and prints no result. It imports nothing of JAX.
 """
@@ -1725,6 +1752,454 @@ def no_sync_step_phase(sched_states: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: telemetry of the NetES loop and the serve engine
+# ---------------------------------------------------------------------------
+
+# (run, family, density, channel, schedule, probes, kernels that launch
+# once a step)
+TELEMETRY_RUNS = (
+    ("ER", "erdos_renyi", MAIN_P_ER, None, None, "fitness|consensus|graph",
+     ("netes_sparse_mixing",)),
+    ("FC", "fully_connected", 1.0, None, None, "fitness|consensus|graph",
+     ("netes_mixing",)),
+    ("channel (a)", "erdos_renyi", MAIN_P_ER, CHANNEL_RUNS[0][3], None, "all",
+     ("fused_neighbor_sum", "fused_broadcast_select")),
+    ("s-a", "erdos_renyi", MAIN_P_ER, None, "resample_er(period=2)",
+     "fitness|graph", ("netes_sparse_mixing",)),
+)
+K_MAX_S_A = 140         # pad_k_max(1000, 0.1, …) of schedule s-a
+
+
+def _check_trace(path, label: str, moves: str = "drain") -> dict:
+    """The trace validates; no span after the build phase built a kernel;
+    each span named ``moves`` (a loop's ``drain``, a generate's
+    ``decode``) is one transfer, and the spans at depth 0 transfer exactly
+    once per such span. Returns the span counts by name and the
+    transfers."""
+    from repro_torch.obs import read_trace, validate_trace
+    errors = validate_trace(path)
+    check(not errors, f"telemetry {label}: trace violations {errors}")
+    spans = [r for r in read_trace(path) if r["kind"] == "span"]
+    built = [r for r in spans if r["compiles"]]
+    check(not built, f"telemetry {label}: spans built kernels: {built}")
+    drains = [r for r in spans if r["name"] == moves]
+    total = sum(r["transfers"] for r in spans if r["depth"] == 0)
+    check(total == len(drains) and all(r["transfers"] == 1 for r in drains),
+          f"telemetry {label}: {total} transfers in {len(drains)} {moves} "
+          "spans")
+    names = {}
+    for r in spans:
+        names[r["name"]] = names.get(r["name"], 0) + 1
+    return {"spans": names, "transfers": total, "drains": len(drains)}
+
+
+def _telemetry_run(label, family, dens, channel, text, stages, expect,
+                   launches: dict, tmp) -> dict:
+    """One probed and traced ``train_rl_netes`` at N = 1000 against the
+    unprobed run from the same seed, with its checks; returns its row."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import theory
+    from repro_torch.train.loop import train_rl_netes
+
+    plain = train_rl_netes("pendulum", _schedule_config(family, dens, text,
+                                                        channel),
+                           device="cuda")
+    trace = pathlib.Path(tmp) / f"{label.replace(' ', '_')}.jsonl"
+    tc = _schedule_config(family, dens, text, channel, probes=stages,
+                          trace=str(trace))
+    counters = _counters()
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = train_rl_netes("pendulum", tc, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in counters.items()}
+    for kname in EQ3_KERNELS:
+        want = MAIN_ITERS if kname in expect else 0
+        check(counts[kname] == want, f"telemetry {label}: {kname} launched "
+              f"{counts[kname]} times in {MAIN_ITERS} iterations, not {want}")
+        if want:
+            launches.setdefault(kname, {})[label] = counts[kname]
+    series = hist.pop("probes")
+    for k in plain:
+        if k != "wall_s":
+            check(hist[k] == plain[k], f"telemetry {label}: probed {k} "
+                  f"{hist[k]} differs from the unprobed run's {plain[k]}")
+    check(series["cursor"] == MAIN_ITERS and series["dropped"] == 0,
+          f"telemetry {label}: ring cursor {series['cursor']}")
+    row = {"phase": "telemetry", "run": label, "probes": stages,
+           "family": family, "density": dens, "channel": channel,
+           "schedule": text, "n_agents": MAIN_N, "iters": MAIN_ITERS,
+           "wall_s": wall, "launches": counts, "probed_equals_plain": True,
+           "trace": _check_trace(trace, label)}
+    if "fitness_mean" in series:
+        check(np.array_equal(series["fitness_mean"],
+                             np.asarray(hist["reward_mean"], np.float32)),
+              f"telemetry {label}: fitness_mean is not reward_mean")
+    if "msgs" in series:
+        check(np.array_equal(series["msgs"],
+                             np.asarray(hist["msgs"], np.float32)),
+              f"telemetry {label}: wire msgs differ from the history's")
+    if "density" in series:
+        dens_t = torch.as_tensor(series["density"], device="cuda")
+        prior = theory.reachability_prior(MAIN_N, dens_t).cpu().numpy()
+        check(np.array_equal(series["reach_proxy"], prior),
+              f"telemetry {label}: reach_proxy {series['reach_proxy']} is "
+              f"not reachability_prior(N, density) {prior}")
+        if family == "fully_connected":
+            check(bool((series["density"] == 1.0).all()),
+                  f"telemetry {label}: FC density {series['density']}")
+        else:
+            sd = math.sqrt(dens * (1 - dens) / (MAIN_N * (MAIN_N - 1) / 2))
+            gap = float(np.abs(series["density"] - dens).max())
+            check(gap <= 5 * sd, f"telemetry {label}: density "
+                  f"{series['density']} more than 5 sd = {5 * sd:.3g} "
+                  f"from {dens}")
+            row["density_5sd"] = 5 * sd
+        if text is not None:
+            # the graph signals change where the graph does: at t = 2 only
+            graph = np.stack([series[k] for k in ("density", "deg_min",
+                                                  "deg_max")])
+            same = [bool((graph[:, t] == graph[:, t + 1]).all())
+                    for t in range(MAIN_ITERS - 1)]
+            check(same == [True, False, True]
+                  and series["deg_max"].max() <= K_MAX_S_A,
+                  f"telemetry {label}: graph signals {graph.tolist()} do "
+                  f"not change at t = 2 only, or deg_max exceeds K_max = "
+                  f"{K_MAX_S_A}")
+            row["deg_max_changed_at_2"] = bool(series["deg_max"][2]
+                                               != series["deg_max"][1])
+    row["series"] = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                     for k, v in series.items()}
+    return row
+
+
+def _serve_trace_check(tmp) -> dict:
+    """One traced ``ServeEngine.generate`` of mistral-nemo-12b at full width
+    and 2 layers (serve_parity's model): tokens equal to the untraced
+    engine's, a valid trace with no kernel built, 2 flash launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.obs import read_trace
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=PARITY_LAYERS)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT),
+                            generator=g, device="cuda")
+    max_len = PARITY_PROMPT + PARITY_NEW
+    plain = ServeEngine(cfg, params, max_len=max_len).generate(
+        prompts, new_tokens=PARITY_NEW)
+    path = pathlib.Path(tmp) / "serve.jsonl"
+    engine = ServeEngine(cfg, params, max_len=max_len, trace=str(path))
+    fa.KERNEL.launches = 0
+    traced = engine.generate(prompts, new_tokens=PARITY_NEW)
+    flash = fa.KERNEL.launches
+    engine.close()
+    check(np.array_equal(traced, plain),
+          "telemetry serve: traced generate differs from the untraced")
+    check(flash == PARITY_LAYERS, f"telemetry serve: flash attention "
+          f"launched {flash} times in a traced generate")
+    summary = _check_trace(path, "serve", moves="decode")
+    recs = read_trace(path)
+    events = {r["name"]: r["attrs"] for r in recs if r["kind"] == "event"}
+    spans = {r["name"]: r["dur_s"] for r in recs if r["kind"] == "span"}
+    del params, engine
+    torch.cuda.empty_cache()
+    return {"phase": "telemetry_serve", "arch": ARCH,
+            "num_layers": PARITY_LAYERS, "batch": PARITY_BATCH,
+            "prompt": PARITY_PROMPT, "new_tokens": PARITY_NEW,
+            "tokens_equal": True, "flash_launches": flash,
+            "span_s": spans, "events": events, "trace": summary,
+            "meta": recs[0]}
+
+
+STEP_PAIRS = 24          # (plain, probed) step pairs timed in turns
+
+
+def _quartiles(xs) -> dict:
+    q1, med, q3 = statistics.quantiles(xs, n=4)
+    return {"median": med, "q1": q1, "q3": q3}
+
+
+def _paired_step_times(plain, probed, pairs: int = STEP_PAIRS) -> dict:
+    """``pairs`` plain and as many probed steps from the same state, in
+    turns (plain first in even pairs, probed first in odd ones, so a drift
+    falls on both), each run to completion: the quartiles in ms of its CUDA
+    events (from the card reaching the step's first launch to its last)
+    and of the host clock, and of the probed-minus-plain difference within
+    each pair."""
+    import torch
+    plain(), probed()
+    torch.cuda.synchronize()
+    dev = {"plain": [], "probed": []}
+    host = {"plain": [], "probed": []}
+    for k in range(pairs):
+        order = (("plain", plain), ("probed", probed))
+        for name, fn in (order if k % 2 == 0 else order[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            host[name].append(1e3 * (time.perf_counter() - t0))
+            dev[name].append(start.elapsed_time(end))
+    out = {"pairs": pairs}
+    for clock, t in (("device_ms", dev), ("host_ms", host)):
+        out[clock] = {name: _quartiles(t[name]) for name in t}
+        out[clock]["probed_minus_plain"] = _quartiles(
+            [b - a for a, b in zip(t["plain"], t["probed"])])
+    return out
+
+
+def telemetry_phase(launches: dict) -> None:
+    """``TELEMETRY_RUNS`` probed and traced, each against its unprobed run;
+    one probed step under the sync check; a traced ``generate``; the time
+    of one ``Probes.record`` of every stage, and ``STEP_PAIRS`` step pairs
+    with and without probes, in turns."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import netes
+    from repro_torch.envs import resolve_task
+    from repro_torch.obs import compile_probes
+    from repro_torch.train.loop import build_channel, build_topology
+
+    smi = nvidia_smi()
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in TELEMETRY_RUNS:
+            row = _telemetry_run(*run, launches=launches, tmp=tmp)
+            emit({**row, "nvidia_smi": smi})
+        serve = _serve_trace_check(tmp)
+    launches.setdefault("flash_attention", {})["traced generate"] = \
+        serve["flash_launches"]
+    emit({**serve, "nvidia_smi": smi})
+
+    reward_fn, dim, init_fn, _, _ = resolve_task("pendulum")
+    cfg = _schedule_config("erdos_renyi", MAIN_P_ER, None, None).netes
+    step_ms = {}
+    for label, family, dens in (("ER", "erdos_renyi", MAIN_P_ER),
+                                ("FC", "fully_connected", 1.0)):
+        tc = _schedule_config(family, dens, None, None)
+        topo = build_topology(tc, device="cuda")
+        probes = compile_probes("fitness|consensus|graph")
+        ring = probes.init("cuda")
+        state = netes.init_state(MAIN_N, dim, seed=7, init_fn=init_fn,
+                                 device="cuda")
+        plain = functools.partial(netes.netes_step, state, topo, reward_fn,
+                                  cfg)
+        probed = functools.partial(plain, probes=probes, metrics_state=ring)
+        step_ms[label] = _paired_step_times(plain, probed)
+        if label == "ER":
+            probed()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                probed()
+            except RuntimeError as err:
+                raise RuntimeError("no_sync telemetry: the probed step "
+                                   f"waits for the card: {err}") from err
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+
+    # one record of every stage, on channel (a)'s metrics and graph
+    tc = _schedule_config("erdos_renyi", MAIN_P_ER, None, CHANNEL_RUNS[0][3])
+    topo, ch = build_topology(tc, device="cuda"), build_channel(tc)
+    probes = compile_probes("all", channel=ch, dim=dim)
+    state = netes.init_state(MAIN_N, dim, seed=8, init_fn=init_fn,
+                             device="cuda")
+    _, _, ring, metrics = netes.netes_step(
+        state, topo, reward_fn, cfg, channel=ch,
+        chan_state=ch.init(state.thetas), probes=probes,
+        metrics_state=probes.init("cuda"))
+    record = functools.partial(probes.record, ring, metrics, topo)
+    rec = time_stats(record)
+    torch.cuda.synchronize()
+    calls = 200
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        record()
+    host_us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    kinds = _kernel_launches(record, calls=1)["kernels"]
+    emit({"phase": "telemetry_cost", "probes": "all", "signals":
+          probes.n_signals, "record_ms": rec["ms"], "record_ms_q1":
+          rec["ms_q1"], "record_ms_q3": rec["ms_q3"],
+          "record_host_us": host_us, "record_kernels": kinds,
+          "step_ms_in_turns": step_ms,
+          "probed_step_synced": False, "nvidia_smi": smi})
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: one probed NetES step captured as a CUDA graph
+# ---------------------------------------------------------------------------
+
+CAPTURE_STEPS = 3        # replays held against as many eager steps
+CAPTURE_TIMED = 10       # replays timed with CUDA events
+CAPTURE_CASES = (("ER", "erdos_renyi", MAIN_P_ER),
+                 ("FC", "fully_connected", 1.0))
+
+
+def _step_outputs(state, ring):
+    return (state.thetas.clone(), state.best_theta.clone(),
+            state.best_reward.clone(), ring.buf.clone(), ring.cursor.clone())
+
+
+def capture_phase(launches: dict, cases=CAPTURE_CASES) -> None:
+    """For ER (the sparse kernel) and FC (the dense kernel) at N = 1000: one
+    probed ``netes_step`` captured as a ``torch.cuda.CUDAGraph`` after a
+    warm-up on a side stream, replayed ``CAPTURE_STEPS`` times with the
+    state copied back between replays, and held bit for bit against as
+    many eager probed steps from the same state and draws. The draws come
+    from the state's generator, registered with the graph
+    (``CUDAGraph.register_generator_state``; a torch without it fails
+    here). One replay's kernels are counted from a profiler trace (the Python launch
+    counters do not tick on a replay); its time per step by CUDA events."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import netes
+    from repro_torch.envs import resolve_task
+    from repro_torch.obs import compile_probes
+    from repro_torch.train.loop import build_topology
+
+    smi = nvidia_smi()
+    check(hasattr(torch.cuda.CUDAGraph, "register_generator_state"),
+          f"capture: torch {torch.__version__} has no "
+          "CUDAGraph.register_generator_state, which the captured step "
+          "needs for the state's generator")
+    reward_fn, dim, init_fn, _, _ = resolve_task("pendulum")
+    probes = compile_probes("fitness|consensus|graph", capacity=8)
+    for label, family, dens in cases:
+        tc = _schedule_config(family, dens, None, None)
+        cfg = tc.netes
+        topo = build_topology(tc, device="cuda")
+        kname = KERNEL_OF[topo.kind]
+        init = netes.init_state(MAIN_N, dim, seed=6, init_fn=init_fn,
+                                device="cuda")
+        gen0 = init.generator.get_state()
+
+        def generator():
+            g = torch.Generator(device="cuda")
+            g.set_state(gen0)
+            return g
+
+
+        # the eager steps
+        st = dataclasses.replace(init, generator=generator())
+        ring = probes.init("cuda")
+        eager = []
+        for k in range(CAPTURE_STEPS):
+            st, _, ring, _ = netes.netes_step(st, topo, reward_fn, cfg,
+                                              probes=probes,
+                                              metrics_state=ring)
+            eager.append(_step_outputs(st, ring))
+        torch.cuda.synchronize()
+        eager_ms = 1e3 * _host_time(functools.partial(
+            netes.netes_step, init, topo, reward_fn, cfg,
+            probes=probes, metrics_state=probes.init("cuda")), 3)
+
+        # static inputs, a warm-up on a side stream, then the capture
+        static = netes.NetESState(
+            thetas=init.thetas.clone(), generator=generator(),
+            step=init.step.clone(), best_reward=init.best_reward.clone(),
+            best_theta=init.best_theta.clone())
+        sring = probes.init("cuda")
+
+        def step():
+            return netes.netes_step(static, topo, reward_fn, cfg,
+                                    probes=probes, metrics_state=sring)
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        sring.buf.zero_()
+        sring.cursor.zero_()
+        static.generator.set_state(gen0)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(static.generator)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            out = step()
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        new = out[0]
+
+        replayed = []
+        for k in range(CAPTURE_STEPS):
+            graph.replay()
+            for name in ("thetas", "step", "best_reward", "best_theta"):
+                getattr(static, name).copy_(getattr(new, name))
+            replayed.append(_step_outputs(static, sring))
+        torch.cuda.synchronize()
+        fields = ("thetas", "best_theta", "best_reward", "ring buf",
+                  "ring cursor")
+        for k in range(CAPTURE_STEPS):
+            for name, a, b in zip(fields, replayed[k], eager[k]):
+                check(torch.equal(a, b), f"capture {label}: replay {k + 1} "
+                      f"{name} differs from the eager step's")
+
+        # a trace on this card sometimes holds none of the device's
+        # events: it is taken again, up to three times, until it does
+        for attempt in range(1, 4):
+            kernels = _kernel_launches(graph.replay, calls=1)["kernels"]
+            if kernels:
+                break
+        eq3 = {k: v for k, v in kernels.items()
+               if any(s in k for s in ("sparse_mixing_slab", "mixing_gemm",
+                                       "mixing_weights", "mixing_fixup"))}
+        want = ("sparse_mixing_slab" if kname == "netes_sparse_mixing"
+                else "mixing_gemm")
+        check(any(want in k for k in eq3), f"capture {label}: {want} is not "
+              f"in the replay's profile ({len(kernels)} kernel names)")
+        launches.setdefault(kname, {})[f"capture {label}, one replay"] = sum(
+            v for k, v in eq3.items() if want in k)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(CAPTURE_TIMED):
+            graph.replay()
+        end.record()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        replay_ms = start.elapsed_time(end) / CAPTURE_TIMED
+        emit({"phase": "capture", "graph": label, "representation":
+              topo.kind, "n_agents": MAIN_N, "dim": dim, "probes":
+              probes.spec.label(), "draws": "generator registered",
+              "capture_s": capture_s, "replays_checked": CAPTURE_STEPS,
+              "bit_equal": True, "replay_kernels": sum(kernels.values()),
+              "replay_kernels_by_name": eq3, "replay_ms": replay_ms,
+              "replay_host_enqueue_ms": 1e3 * host_s / CAPTURE_TIMED,
+              "eager_step_ms": eager_ms, "torch": torch.__version__,
+              "nvidia_smi": smi})
+        del graph, out, new
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 6: GPU against CPU on a small input
 # ---------------------------------------------------------------------------
 
@@ -2716,8 +3191,10 @@ def main() -> int:
           "query": CLOCKS, "nvidia_smi": nvidia_smi(CLOCKS)})
     main_phase(launches)
     channel_phase(launches)
-    sched_launches = {}
+    sched_launches, tel_launches, cap_launches = {}, {}, {}
     no_sync_step_phase(schedule_phase(sched_launches))
+    telemetry_phase(tel_launches)
+    capture_phase(cap_launches)
     parity_phase()
     serve_parity_phase()
     serve_cpu_parity_phase(ARCH)
@@ -2744,7 +3221,9 @@ def main() -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      "share_of_bound": r["bound_ms"] / r["ms"],
-                     "launches_schedule": sched_launches.get(name, {})})
+                     "launches_schedule": sched_launches.get(name, {}),
+                     "launches_telemetry": tel_launches.get(name, {}),
+                     "launches_capture_replay": cap_launches.get(name, {})})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

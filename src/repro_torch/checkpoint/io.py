@@ -2,7 +2,7 @@
 
 The port of ``repro.checkpoint.io``. A tree is nested dicts, lists, tuples
 and dataclasses (``NetESState``, ``ChannelState``, ``ScheduleState``,
-``Topology``); its leaves are tensors, host ints (an int64 array) and
+``MetricsState``, ``Topology``); its leaves are tensors, host ints (an int64 array) and
 ``torch.Generator``s (their ``get_state()``, a uint8 array); None holds no
 leaf. Each leaf is stored under its path, keyed as the reference's
 ``_path_key`` keys it: the parts joined by ``::``, each part with ``\\``
@@ -11,8 +11,8 @@ dataclass field is ``.<name>``, and a ``Topology``'s payloads are numbered
 as the reference's pytree numbers its children (0 ``deg``, 1 ``adj``, 2
 ``neighbor_idx``, 3 ``neighbor_mask``, 4 a scheduled circulant's
 ``shifts``, an int32 array). So the reference's NetES state is at
-``netes::.thetas`` and a schedule's topology at ``sched::.topo::0`` in
-both packages' files.
+``netes::.thetas``, a schedule's topology at ``sched::.topo::0`` and a
+probe ring at ``obs::.buf`` and ``obs::.cursor`` in both packages' files.
 
 ``load_pytree`` restores into the structure of a tree ``like``: each leaf's
 shape and dtype must match (a silent cast could corrupt state), a missing

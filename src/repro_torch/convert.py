@@ -22,6 +22,7 @@ from .configs.base import ModelConfig
 from .core.netes import NetESState
 from .core.topology_repr import Topology
 from .core.topology_sched import ScheduleState, TopologySchedule
+from .obs.probes import MetricsState
 from .models.transformer import check_ported, stack_plan
 
 
@@ -130,6 +131,19 @@ def channel_state_from_reference(last_sent, msgs, *, seed: int = 0,
         last_sent=(torch.as_tensor(np.array(last_sent, np.float32),
                                    device=dev) if has_last else None),
         msgs=torch.as_tensor(np.array(msgs, np.float32), device=dev))
+
+
+def metrics_state_from_reference(buf, cursor, *,
+                                 device: Union[str, torch.device] = "cuda"
+                                 ) -> MetricsState:
+    """The reference's probe ring (``repro.obs.probes.MetricsState``: ``buf``
+    (S, capacity) float32, ``cursor`` () int32) → the port's, on
+    ``device``. The leaves carry across bit for bit; the port's checkpoint
+    keeps them under the same keys (``obs::.buf``, ``obs::.cursor``)."""
+    dev = resolve_device(device)
+    return MetricsState(
+        buf=torch.as_tensor(np.array(buf, np.float32), device=dev),
+        cursor=torch.as_tensor(np.array(cursor, np.int32), device=dev))
 
 
 def _nest(flat: Mapping[str, Any], prefix: str, index: Optional[int],

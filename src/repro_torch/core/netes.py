@@ -31,8 +31,15 @@ there.
 
 Every step function returns ``(state, chan_state, metrics)``, the
 scheduled ones ``(state, sched_state, chan_state, metrics)``; without a
-channel ``chan_state`` is None. The steps keep everything on the device:
-no ``.item()``, no host sync.
+channel ``chan_state`` is None. With ``probes`` (``obs.probes``, DESIGN.md
+§15) the probe ring ``metrics_state`` joins the return just before the
+metrics: ``(state, chan_state, metrics_state, metrics)`` and ``(state,
+sched_state, chan_state, metrics_state, metrics)``. Unlike the reference's
+functional ring, ``metrics_state`` is updated IN PLACE (a captured CUDA
+graph replays into fixed buffers) and the one returned is the one passed
+in; ``step_parts`` takes the rest of a return apart. Probes are pure
+reads, so a probed run equals the unprobed run bit for bit. The steps keep
+everything on the device: no ``.item()``, no host sync.
 """
 from __future__ import annotations
 
@@ -196,7 +203,8 @@ def mixing_update(topo: Topology, thetas: torch.Tensor, eps: torch.Tensor,
 
 def netes_step(state: NetESState, topo: Topology, reward_fn,
                cfg: NetESConfig, draws: Optional[Draws] = None,
-               channel=None, chan_state=None):
+               channel=None, chan_state=None, probes=None,
+               metrics_state=None):
     """One NetES iteration (paper Algorithm 1).
 
     ``reward_fn`` evaluates a batch: ``reward_fn(params (M, D), evals) ->
@@ -216,7 +224,15 @@ def netes_step(state: NetESState, topo: Topology, reward_fn,
     messages, the broadcast's N included), ``trigger_frac`` and
     ``drop_frac``. A lossless channel gives the channel-free step's state
     bit for bit.
+
+    ``probes`` (an ``obs.probes.Probes``) with its ring ``metrics_state``:
+    the step's metrics (and, for the ``graph`` stage, ``topo``) are
+    recorded into the ring in place, which joins the return before the
+    metrics: ``(state, chan_state, metrics_state, metrics)``.
     """
+    if probes is not None and metrics_state is None:
+        raise ValueError("probes need their ring: pass metrics_state="
+                         "probes.init(device)")
     n, dim = state.thetas.shape
     if draws is None:
         draws = draw(state, reward_fn, n, dim)
@@ -284,15 +300,27 @@ def netes_step(state: NetESState, topo: Topology, reward_fn,
         "best_idx": best_idx,
     }
     if channel is None:
-        return new_state, None, metrics
-    # the broadcast is one message fanned out to the population
-    bcast_msgs = do_broadcast.to(torch.float32) * n
-    chan_state = dataclasses.replace(chan_state,
-                                     msgs=chan_state.msgs + bcast_msgs)
-    metrics["msgs"] = info["msgs"] + bcast_msgs
-    metrics["trigger_frac"] = info["trigger_frac"]
-    metrics["drop_frac"] = info["drop_frac"]
-    return new_state, chan_state, metrics
+        chan_state = None
+    else:
+        # the broadcast is one message fanned out to the population
+        bcast_msgs = do_broadcast.to(torch.float32) * n
+        chan_state = dataclasses.replace(chan_state,
+                                         msgs=chan_state.msgs + bcast_msgs)
+        metrics["msgs"] = info["msgs"] + bcast_msgs
+        metrics["trigger_frac"] = info["trigger_frac"]
+        metrics["drop_frac"] = info["drop_frac"]
+    if probes is None:
+        return new_state, chan_state, metrics
+    metrics_state = probes.record(metrics_state, metrics, topo)
+    return new_state, chan_state, metrics_state, metrics
+
+
+def step_parts(out: tuple, scheduled: bool = False) -> tuple:
+    """What changes between steps in a step's return, probed or not:
+    ``(state, chan_state, metrics)``, with ``scheduled`` ``(state,
+    sched_state, chan_state, metrics)``. The probe ring is left out: it
+    was updated in place."""
+    return tuple(out[:3 if scheduled else 2]) + (out[-1],)
 
 
 def _stack(history) -> Dict[str, torch.Tensor]:
@@ -301,44 +329,60 @@ def _stack(history) -> Dict[str, torch.Tensor]:
 
 
 def run(state: NetESState, topo: Topology, reward_fn, cfg: NetESConfig,
-        num_iters: int, channel=None, chan_state=None):
+        num_iters: int, channel=None, chan_state=None, *, probes=None,
+        metrics_state=None):
     """``num_iters`` steps; returns ``(state, chan_state, metrics)`` with the
-    metrics stacked per iteration, still on the device."""
+    metrics stacked per iteration, still on the device; with ``probes``,
+    ``(state, chan_state, metrics_state, metrics)``."""
     history = []
     for _ in range(num_iters):
-        state, chan_state, m = netes_step(state, topo, reward_fn, cfg,
-                                          channel=channel,
-                                          chan_state=chan_state)
+        state, chan_state, m = step_parts(netes_step(
+            state, topo, reward_fn, cfg, channel=channel,
+            chan_state=chan_state, probes=probes,
+            metrics_state=metrics_state))
         history.append(m)
-    return state, chan_state, _stack(history)
+    if probes is None:
+        return state, chan_state, _stack(history)
+    return state, chan_state, metrics_state, _stack(history)
 
 
 def scheduled_step(state: NetESState, sched_state, reward_fn,
                    cfg: NetESConfig, schedule, draws: Optional[Draws] = None,
-                   channel=None, chan_state=None):
+                   channel=None, chan_state=None, probes=None,
+                   metrics_state=None):
     """One NetES iteration under a ``topology_sched.TopologySchedule``:
     ``netes_step`` on the topology in force (a channel draws its dropout
-    mask from it), then ``schedule.advance`` with ``draws.schedule_u``.
-    Returns ``(state, sched_state, chan_state, metrics)``. No host sync:
-    the schedule's iteration counter lives on the host."""
-    state, chan_state, metrics = netes_step(
+    mask from it, the ``graph`` probe reads it), then ``schedule.advance``
+    with ``draws.schedule_u``. Returns ``(state, sched_state, chan_state,
+    metrics)``, with ``probes`` ``(state, sched_state, chan_state,
+    metrics_state, metrics)``. No host sync: the schedule's iteration
+    counter lives on the host."""
+    state, chan_state, metrics = step_parts(netes_step(
         state, sched_state.topo, reward_fn, cfg, draws, channel=channel,
-        chan_state=chan_state)
-    u = None if draws is None else draws.schedule_u
-    return state, schedule.advance(sched_state, u), chan_state, metrics
+        chan_state=chan_state, probes=probes, metrics_state=metrics_state))
+    sched_state = schedule.advance(
+        sched_state, None if draws is None else draws.schedule_u)
+    if probes is None:
+        return state, sched_state, chan_state, metrics
+    return state, sched_state, chan_state, metrics_state, metrics
 
 
 def run_scheduled(state: NetESState, sched_state, reward_fn,
                   cfg: NetESConfig, schedule, num_iters: int, channel=None,
-                  chan_state=None, draws: Optional[Sequence[Draws]] = None):
+                  chan_state=None, draws: Optional[Sequence[Draws]] = None,
+                  *, probes=None, metrics_state=None):
     """``num_iters`` scheduled steps; returns ``(state, sched_state,
-    chan_state, metrics)`` with the metrics stacked per iteration.
-    ``draws``, if given, holds each iteration's ``Draws``."""
+    chan_state, metrics)`` with the metrics stacked per iteration, with
+    ``probes`` ``(state, sched_state, chan_state, metrics_state,
+    metrics)``. ``draws``, if given, holds each iteration's ``Draws``."""
     history = []
     for it in range(num_iters):
-        state, sched_state, chan_state, m = scheduled_step(
+        state, sched_state, chan_state, m = step_parts(scheduled_step(
             state, sched_state, reward_fn, cfg, schedule,
             None if draws is None else draws[it], channel=channel,
-            chan_state=chan_state)
+            chan_state=chan_state, probes=probes,
+            metrics_state=metrics_state), scheduled=True)
         history.append(m)
-    return state, sched_state, chan_state, _stack(history)
+    if probes is None:
+        return state, sched_state, chan_state, _stack(history)
+    return state, sched_state, chan_state, metrics_state, _stack(history)

@@ -41,8 +41,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from . import theory, topology_repr
 from . import topology as topo_gen
-from . import topology_repr
 from .topology import TopologySpec
 from .topology_repr import Topology
 
@@ -319,3 +319,27 @@ def compile_schedule(spec: Optional[ScheduleSpec], base: TopologySpec,
         k_max = pad_k_max(n, p_hi, observed)
     return TopologySchedule(spec=spec, base=base, representation=rep,
                             n=n, k_max=k_max)
+
+
+# ---------------------------------------------------------------------------
+# topology-health probe signals — DESIGN.md §15
+# ---------------------------------------------------------------------------
+
+def graph_signals(topo: Topology) -> dict:
+    """Live-graph health series for the ``graph`` probe stage: density
+    (self-loops excluded), degree min/max, and the Lemma 7.2 reachability
+    proxy ``theory.reachability_prior(n, p̂)`` at the realized density.
+    A read of ``topo.deg`` on its device, so it tracks schedules step by
+    step; 0-d float32 tensors, no draw, no host read."""
+    n = topo.n
+    deg = topo.deg.to(torch.float32)
+    # topo.deg counts the self-loop; the density/degree series report
+    # the communication graph proper (non-self edges only).
+    nbrs = deg - 1.0
+    density = (nbrs.sum() / (n * (n - 1))) if n > 1 else nbrs.sum()
+    return {
+        "density": density,
+        "deg_min": nbrs.min(),
+        "deg_max": nbrs.max(),
+        "reach_proxy": theory.reachability_prior(n, density),
+    }

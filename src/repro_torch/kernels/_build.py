@@ -7,6 +7,8 @@ that carries a hash of the source, the shared headers (``csrc/*.cuh``) and
 the flags, so an edited source or header rebuilds. A source includes a
 header by its plain name: nvcc looks beside the source first.
 ``build_all`` starts one nvcc per source at once and waits for all of them.
+Each nvcc run and each library loaded counts as one kernel build in
+``obs.cuda_watch`` (a trace span's ``compiles``).
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc.
@@ -21,6 +23,8 @@ import shutil
 import subprocess
 import tempfile
 from typing import Dict, Iterable, Sequence
+
+from ..obs import cuda_watch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -72,6 +76,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, pathlib.Path]:
                  str(CSRC / f"{name}.cu")],
                 stdout=log, stderr=subprocess.STDOUT)
         jobs.append((name, proc, tmp, target))
+        cuda_watch.report_build(f"nvcc {name}")
     failed = []
     for name, proc, tmp, target in jobs:
         if proc.wait() == 0:
@@ -100,6 +105,7 @@ class CudaKernel:
     def _load(self):
         path = build_all([self.source])[self.source]
         self._lib = ctypes.CDLL(str(path))
+        cuda_watch.report_build(f"load {path.name}")
         fn = getattr(self._lib, self.symbol)
         fn.argtypes = list(self.argtypes)
         fn.restype = ctypes.c_int

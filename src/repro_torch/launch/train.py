@@ -3,7 +3,9 @@
   python -m repro_torch.launch.train rl --task pendulum \
       --topology erdos_renyi --density 0.1 --agents 1000 --iters 100 \
       [--channel 'quantize(bits=8)|dropout(p=0.1,seed=0)'] \
-      [--schedule 'resample_er(period=8)'] [--checkpoint-dir DIR]
+      [--schedule 'resample_er(period=8)'] [--checkpoint-dir DIR] \
+      [--probes 'fitness|consensus|graph'] [--probe-capacity C] \
+      [--trace run.trace.jsonl]
 
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead.
@@ -42,6 +44,18 @@ def main(argv=None) -> None:
     ap.add_argument("--checkpoint-dir", default=None,
                     help="save the train state at every eval point and "
                          "resume from the latest one found here")
+    ap.add_argument("--probes", default=None,
+                    help="on-device telemetry stages, e.g. 'fitness|"
+                         "consensus|graph' or 'all' (DESIGN.md §15); "
+                         "the drained series lands in history['probes']")
+    ap.add_argument("--probe-capacity", type=int, default=0,
+                    help="probe ring capacity (0 = default; the ring "
+                         "keeps the LAST capacity iterations)")
+    ap.add_argument("--trace", default=None,
+                    help="write a structured JSONL run trace here (spans "
+                         "with wall time, kernel builds and host "
+                         "transfers; inspect with 'python -m "
+                         "repro_torch.obs summarize')")
     ap.add_argument("--agents", type=int, default=32)
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
@@ -58,7 +72,8 @@ def main(argv=None) -> None:
                               p=args.density, seed=args.topo_seed),
         representation=args.representation, channel=args.channel,
         schedule=args.schedule, checkpoint_dir=args.checkpoint_dir,
-        seed=args.seed,
+        probes=args.probes, probe_capacity=args.probe_capacity,
+        trace=args.trace, seed=args.seed,
         netes=NetESConfig(alpha=args.alpha, sigma=args.sigma,
                           p_broadcast=args.p_broadcast))
 
@@ -71,6 +86,9 @@ def main(argv=None) -> None:
     if "realized_msgs" in hist:
         print(f"realized messages: {hist['realized_msgs']:.0f} "
               f"({hist['realized_wire_bytes']} wire bytes)")
+    if "probes" in hist:    # np arrays → JSON-native lists
+        hist["probes"] = {k: v.tolist() if hasattr(v, "tolist") else v
+                          for k, v in hist["probes"].items()}
     if args.out:
         path = pathlib.Path(args.out)
         path.parent.mkdir(parents=True, exist_ok=True)

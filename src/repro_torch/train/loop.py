@@ -10,10 +10,13 @@ chunk of ``METRIC_DRAIN_CHUNK`` iterations and at eval points. With
 ``TrainConfig.schedule`` the graph anneals, resamples or rotates between
 iterations (``core.topology_sched``). With ``TrainConfig.checkpoint_dir``
 the run saves its state at every eval point and resumes from the last one.
+With ``TrainConfig.probes`` a probe ring on the device records the chosen
+signals every step and drains once at the end (``obs.probes``); with
+``TrainConfig.trace`` the run writes a JSONL trace of its chunks, steps,
+drains, evals and checkpoints (``obs.trace``).
 
-Not ported yet (setting one raises ``NotImplementedError``): the
-``probes`` and ``trace`` (slice 4) and ``shards`` (slice 7) fields of the
-reference's ``TrainConfig``.
+Not ported yet (setting it raises ``NotImplementedError``): the ``shards``
+field (slice 7) of the reference's ``TrainConfig``.
 """
 from __future__ import annotations
 
@@ -35,12 +38,14 @@ from ..core.topology_sched import (ScheduleSpec, TopologySchedule,
                                    compile_schedule)
 from ..envs import resolve_task
 from ..envs.rollout import evaluate_best
+from ..obs import (DEFAULT_CAPACITY, Probes, ProbeSpec, Trace,
+                   compile_probes, device_get)
 
 # Iterations whose device metrics accumulate before one host transfer.
 METRIC_DRAIN_CHUNK = 8
 
 # TrainConfig fields of the reference that later slices of the port carry.
-_NOT_YET_PORTED = ("shards", "probes", "trace")
+_NOT_YET_PORTED = ("shards",)
 
 
 @dataclasses.dataclass
@@ -72,10 +77,18 @@ class TrainConfig:
     # schedule, channel) at every eval point and resumes from
     # ``latest.json`` there if one exists.
     checkpoint_dir: Optional[str] = None
-    # Reference fields this slice does not carry: setting one raises.
-    shards: Optional[int] = None
-    probes: Optional[object] = None
+    # On-device telemetry (DESIGN.md §15): a ProbeSpec, or its string form
+    # ("fitness|consensus|graph", or "all"). A probed run equals the
+    # unprobed one bit for bit; the drained series lands in
+    # ``history["probes"]``. None ⇒ no ring.
+    probes: Optional[Union[ProbeSpec, str]] = None
+    # Ring capacity; 0 ⇒ obs.probes.DEFAULT_CAPACITY. The drained series
+    # holds the LAST ``capacity`` iterations in order.
+    probe_capacity: int = 0
+    # Path of a JSONL run trace (obs/trace.py). None ⇒ no trace file.
     trace: Optional[str] = None
+    # A reference field this slice does not carry: setting it raises.
+    shards: Optional[int] = None
 
     def __post_init__(self):
         unported = [f for f in _NOT_YET_PORTED if getattr(self, f) is not None]
@@ -95,6 +108,8 @@ class TrainConfig:
             self.channel = ChannelSpec.parse(self.channel)
         if isinstance(self.schedule, str):
             self.schedule = ScheduleSpec.parse(self.schedule)
+        if isinstance(self.probes, str):
+            self.probes = ProbeSpec.parse(self.probes)
 
 
 def build_topology(tc: TrainConfig,
@@ -122,6 +137,20 @@ def build_channel(tc: TrainConfig) -> Optional[Channel]:
     if tc.channel is None:
         return None
     return compile_channel(tc.channel, tc.n_agents, fused=tc.channel_fused)
+
+
+def build_probes(tc: TrainConfig, channel: Optional[Channel] = None,
+                 dim: Optional[int] = None) -> Optional[Probes]:
+    """``tc.probes`` compiled for the run (None for an unprobed run).
+    ``probe_capacity == 0`` means ``DEFAULT_CAPACITY``, deliberately not a
+    function of ``tc.iters``, so a run resumed with a longer horizon
+    restores its ring shape for shape."""
+    if tc.probes is None:
+        return None
+    capacity = (tc.probe_capacity if tc.probe_capacity > 0
+                else DEFAULT_CAPACITY)
+    return compile_probes(tc.probes, capacity=capacity, channel=channel,
+                          dim=dim)
 
 
 def eval_iterations(tc: TrainConfig) -> List[int]:
@@ -153,14 +182,20 @@ def train_rl_netes(task: str, tc: TrainConfig,
     realized messages ``msgs`` (and the channel's ``drop_frac`` and
     ``trigger_frac``), and the totals ``realized_msgs`` and
     ``realized_wire_bytes`` (messages × the encoded bytes of one message).
+    With ``tc.probes`` it holds ``probes``, the ring drained once at the
+    end: ``{signal: (T,) np.ndarray, "cursor", "dropped"}``.
 
     With ``tc.schedule`` each iteration is a ``netes.scheduled_step``: the
     graph in force, then the schedule's advance. With
     ``tc.checkpoint_dir`` the NetES state (its generator included), the
-    eval generator, and the schedule's and channel's states are saved at
-    every eval point; a call that finds ``latest.json`` there resumes
-    after that eval point, bit for bit, and its history covers only the
-    iterations after it.
+    eval generator, and the schedule's, channel's and probe ring's states
+    are saved at every eval point; a call that finds ``latest.json`` there
+    resumes after that eval point, bit for bit, and its history covers
+    only the iterations after it. With ``tc.trace`` the run writes its
+    spans: ``chunk`` (the steps between two drains or eval points, with
+    ``iters``) holding one ``step`` a step, ``eval``, ``checkpoint`` and
+    ``drain`` (``what`` = ``metrics``, ``eval`` or ``probes``; one host
+    transfer each).
 
     ``state`` replaces the initial population drawn from ``tc.seed`` (the
     tests start from the reference's θ⁽⁰⁾). ``step_draws(it)`` and
@@ -181,6 +216,8 @@ def train_rl_netes(task: str, tc: TrainConfig,
                                  init_fn=init_fn, device=dev)
     channel = build_channel(tc)
     cstate = channel.init(state.thetas) if channel is not None else None
+    probes = build_probes(tc, channel=channel, dim=dim)
+    mstate = probes.init(dev) if probes is not None else None
     eval_gen = torch.Generator(device=dev).manual_seed(tc.seed + 999)
 
     ckpt_dir = (pathlib.Path(tc.checkpoint_dir) if tc.checkpoint_dir
@@ -189,9 +226,9 @@ def train_rl_netes(task: str, tc: TrainConfig,
     if ckpt_dir is not None and (ckpt_dir / "latest.json").exists():
         done, blob = checkpoint.restore_train_state(ckpt_dir, {
             "netes": state, "eval_gen": eval_gen, "sched": sstate,
-            "chan": cstate})
+            "chan": cstate, "obs": mstate})
         state, eval_gen = blob["netes"], blob["eval_gen"]
-        sstate, cstate = blob["sched"], blob["chan"]
+        sstate, cstate, mstate = blob["sched"], blob["chan"], blob["obs"]
         start = done + 1
 
     history: Dict[str, List] = {"reward_mean": [], "reward_max": [],
@@ -200,6 +237,9 @@ def train_rl_netes(task: str, tc: TrainConfig,
     if channel is not None:
         drained += ["msgs", "drop_frac", "trigger_frac"]
         history.update({k: [] for k in drained[2:]})
+    tr = Trace(tc.trace, name=f"rl:{task}", device=dev, task=task,
+               n_agents=tc.n_agents, iters=tc.iters,
+               probes=None if probes is None else probes.spec.label())
     t0 = time.time()
 
     pending: List[Dict[str, torch.Tensor]] = []
@@ -207,54 +247,91 @@ def train_rl_netes(task: str, tc: TrainConfig,
 
     def drain():
         """One host transfer for the pending metrics and eval scores."""
-        if pending:
-            stacked = torch.stack([torch.stack([m[k].float()
-                                                for k in drained])
-                                   for m in pending]).cpu().double()
-            for c, k in enumerate(drained):
-                history[k].extend(stacked[:, c].tolist())
-            pending.clear()
-        if evals_pending:
-            scores = torch.stack([s for _, s in evals_pending]).cpu()
-            history["eval"].extend(scores.double().tolist())
-            history["eval_iter"].extend(it for it, _ in evals_pending)
-            evals_pending.clear()
+        if not pending and not evals_pending:
+            return
+        what = "eval" if evals_pending else "metrics"
+        with tr.span("drain", what=what, iters=len(pending),
+                     points=len(evals_pending)):
+            payload = []
+            if pending:
+                payload.append(torch.stack([
+                    torch.stack([m[k].float() for k in drained])
+                    for m in pending]))
+            if evals_pending:
+                payload.append(torch.stack([s for _, s in evals_pending])
+                               .float())
+            host = list(device_get(payload))
+            if pending:
+                stacked = host.pop(0).double()
+                for c, k in enumerate(drained):
+                    history[k].extend(stacked[:, c].tolist())
+                pending.clear()
+            if evals_pending:
+                history["eval"].extend(host.pop(0).double().tolist())
+                history["eval_iter"].extend(it for it, _ in evals_pending)
+                evals_pending.clear()
 
-    eval_set = set(eval_iterations(tc))
-    for it in range(start, tc.iters):
+    def step(it: int) -> None:
+        # the probe ring mstate is updated in place by the step
+        nonlocal state, sstate, cstate
         draws = step_draws(it) if step_draws is not None else None
+        kw = dict(channel=channel, chan_state=cstate, probes=probes,
+                  metrics_state=mstate)
         if schedule is None:
-            state, cstate, m = netes.netes_step(
-                state, topo, reward_fn, tc.netes, draws, channel=channel,
-                chan_state=cstate)
+            state, cstate, metrics = netes.step_parts(netes.netes_step(
+                state, topo, reward_fn, tc.netes, draws, **kw))
         else:
-            state, sstate, cstate, m = netes.scheduled_step(
-                state, sstate, reward_fn, tc.netes, schedule, draws,
-                channel=channel, chan_state=cstate)
-        pending.append(m)
-        if it in eval_set:
-            resets = eval_draws(it) if eval_draws is not None else None
-            if env is not None:
-                score = evaluate_best(env, policy, state.best_theta, resets,
-                                      episodes=tc.eval_episodes,
-                                      generator=eval_gen)
-            else:
-                if resets is None:
-                    resets = reward_fn.draw(eval_gen, 1)
-                score = reward_fn(state.best_theta[None], resets)[0]
-            evals_pending.append((it, score))
-            if ckpt_dir is not None:
-                checkpoint.save_train_state(
-                    ckpt_dir, it, {"netes": state, "eval_gen": eval_gen,
-                                   "sched": sstate, "chan": cstate},
-                    extra={"task": task})
-        if (len(pending) >= METRIC_DRAIN_CHUNK
-                or (it in eval_set and log is not None)):
-            drain()
-        if it in eval_set and log is not None:
-            log({"iter": it, "eval": history["eval"][-1],
-                 "reward_mean": history["reward_mean"][-1]})
-    drain()
+            state, sstate, cstate, metrics = netes.step_parts(
+                netes.scheduled_step(state, sstate, reward_fn, tc.netes,
+                                     schedule, draws, **kw), scheduled=True)
+        pending.append(metrics)
+
+    eval_its = sorted(i for i in eval_iterations(tc) if i >= start)
+    try:
+        it = start
+        while it < tc.iters:
+            # the steps up to the next eval point or a full chunk
+            stop = min([tc.iters - 1, it + METRIC_DRAIN_CHUNK
+                        - len(pending) - 1] + [e for e in eval_its
+                                               if e >= it][:1])
+            with tr.span("chunk", iters=stop - it + 1):
+                for i in range(it, stop + 1):
+                    with tr.span("step", iter=i):
+                        step(i)
+            it = stop + 1
+            at_eval = stop in eval_its
+            if at_eval:
+                resets = eval_draws(stop) if eval_draws is not None else None
+                with tr.span("eval", iter=stop):
+                    if env is not None:
+                        score = evaluate_best(env, policy, state.best_theta,
+                                              resets,
+                                              episodes=tc.eval_episodes,
+                                              generator=eval_gen)
+                    else:
+                        if resets is None:
+                            resets = reward_fn.draw(eval_gen, 1)
+                        score = reward_fn(state.best_theta[None], resets)[0]
+                evals_pending.append((stop, score))
+                if ckpt_dir is not None:
+                    with tr.span("checkpoint", iter=stop):
+                        checkpoint.save_train_state(
+                            ckpt_dir, stop,
+                            {"netes": state, "eval_gen": eval_gen,
+                             "sched": sstate, "chan": cstate, "obs": mstate},
+                            extra={"task": task})
+            if (len(pending) >= METRIC_DRAIN_CHUNK
+                    or (at_eval and log is not None)):
+                drain()
+            if at_eval and log is not None:
+                log({"iter": stop, "eval": history["eval"][-1],
+                     "reward_mean": history["reward_mean"][-1]})
+        drain()
+        if probes is not None:
+            with tr.span("drain", what="probes"):
+                history["probes"] = probes.drain(mstate)
+    finally:
+        tr.close()
     history["final_eval"] = history["eval"][-1] if history["eval"] else None
     history["max_eval"] = max(history["eval"]) if history["eval"] else None
     if channel is not None:

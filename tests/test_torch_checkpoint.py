@@ -214,3 +214,51 @@ def test_reads_the_netes_leaves_of_a_reference_checkpoint(tmp_path):
     assert state.step.dtype == torch.int32
     assert torch.equal(state.generator.get_state(),
                        torch.Generator().manual_seed(2).get_state())
+
+
+def _reference_ring(capacity=5, written=8):
+    """A reference ``MetricsState`` some way round its ring: ``written``
+    distinct columns recorded."""
+    from repro.obs import probes as ref_probes
+    rp = ref_probes.compile_probes("fitness|graph", capacity=capacity)
+    ms = rp.init()
+    buf = np.arange(rp.n_signals * capacity, dtype=np.float32).reshape(
+        rp.n_signals, capacity) / 7
+    return rp, ms._replace(buf=jax.numpy.asarray(buf),
+                           cursor=jax.numpy.asarray(written, jax.numpy.int32))
+
+
+def test_reference_probe_ring_restores_through_the_shared_keys(tmp_path):
+    """A reference checkpoint holding ``"obs"`` (its ``MetricsState``, a
+    NamedTuple: the path parts are ``.buf`` and ``.cursor``) loads into the
+    port's ``MetricsState`` by the keys both packages use, and drains to
+    the reference's series."""
+    from repro_torch.obs import compile_probes
+    rp, ref_ms = _reference_ring()
+    ref_io.save_train_state(tmp_path, 7, {"obs": ref_ms})
+    with np.load(tmp_path / "step_00000007.npz") as data:
+        assert sorted(data.files) == ["obs::.buf", "obs::.cursor"]
+    port_probes = compile_probes("fitness|graph", capacity=5)
+    step, blob = checkpoint.restore_train_state(
+        tmp_path, {"obs": port_probes.init("cpu")})
+    assert step == 7
+    ms = blob["obs"]
+    np.testing.assert_array_equal(ms.buf.numpy(), np.asarray(ref_ms.buf))
+    assert ms.cursor.dtype == torch.int32 and int(ms.cursor) == 8
+    got, want = port_probes.drain(ms), rp.drain(ref_ms)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_metrics_state_from_reference_round_trips(tmp_path):
+    rp, ref_ms = _reference_ring(capacity=4, written=3)
+    ms = convert.metrics_state_from_reference(ref_ms.buf, ref_ms.cursor,
+                                              device="cpu")
+    assert ms.buf.dtype == torch.float32 and ms.cursor.dtype == torch.int32
+    checkpoint.save_pytree(tmp_path / "port.npz", {"obs": ms})
+    back = ref_io.load_pytree(tmp_path / "port.npz", {"obs": rp.init()})
+    np.testing.assert_array_equal(np.asarray(back["obs"].buf),
+                                  np.asarray(ref_ms.buf))
+    assert int(back["obs"].cursor) == 3
+    assert back["obs"].cursor.dtype == jax.numpy.int32

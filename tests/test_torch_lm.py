@@ -25,6 +25,7 @@ the k-th and (k+1)-th probability of every routed token is above 1e-4,
 ≥ 1000× the two packages' rounding of a float32 probability.
 """
 import dataclasses
+import json
 import os
 import pathlib
 import subprocess
@@ -418,15 +419,53 @@ def test_launcher_serves_moonshot_on_cpu(capsys):
     assert "generated (2, 4) tokens" in capsys.readouterr().out
 
 
-def test_trace_and_frontend_inputs_raise():
+def test_frontend_inputs_raise():
     cfg = get_config(SMOKE)
     params = transformer.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="trace"):
-        ServeEngine(cfg, params, device="cpu", trace="serve.jsonl")
     engine = ServeEngine(cfg, params, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 6f"):
         engine.generate(np.zeros((1, 4), np.int64),
                         extra_batch={"patch_embeds": np.zeros((1, 2, 256))})
+
+
+def test_traced_generate_equals_untraced(tmp_path):
+    """``ServeEngine(trace=path)``: the tokens equal an untraced engine's,
+    the trace validates, and it holds a ``prefill`` and a ``decode`` span
+    per call (the tokens' one transfer inside ``decode``) and the two rate
+    events. The engine owns a trace it opened; a caller's ``Trace`` stays
+    open after ``close()``."""
+    from repro_torch.obs import Trace, validate_trace
+    cfg = get_config(SMOKE)
+    params = transformer.init_params(cfg, seed=2, device="cpu")
+    prompts = np.arange(2 * 6).reshape(2, 6) % cfg.vocab_size
+    plain = ServeEngine(cfg, params, device="cpu").generate(prompts, 4)
+    path = tmp_path / "serve.jsonl"
+    engine = ServeEngine(cfg, params, device="cpu", trace=str(path))
+    for _ in range(2):
+        np.testing.assert_array_equal(engine.generate(prompts, 4), plain)
+    engine.close()
+    assert validate_trace(path) == []
+    recs = [json.loads(x) for x in path.read_text().splitlines()]
+    assert recs[0]["name"] == f"serve:{cfg.name}"
+    assert recs[0]["backend"] == "cpu"
+    spans = [(r["name"], r.get("attrs")) for r in recs if r["kind"] == "span"]
+    assert spans == [("prefill", {"batch": 2, "prompt_tokens": 12}),
+                     ("decode", {"batch": 2, "new_tokens": 4})] * 2
+    assert [r["transfers"] for r in recs if r["kind"] == "span"] == \
+        [0, 1] * 2
+    events = [r for r in recs if r["kind"] == "event"]
+    assert [e["name"] for e in events] == ["prefill.rate",
+                                           "decode.rate"] * 2
+    assert all(e["attrs"]["tok_per_s"] > 0 for e in events)
+    assert [e["attrs"]["tokens"] for e in events[:2]] == [12, 8]
+
+    shared = Trace(tmp_path / "shared.jsonl", name="caller")
+    engine = ServeEngine(cfg, params, device="cpu", trace=shared)
+    engine.generate(prompts, 2)
+    engine.close()
+    assert shared.active
+    shared.close()
+    assert validate_trace(tmp_path / "shared.jsonl") == []
 
 
 def test_cuda_raises_without_a_gpu():

@@ -280,8 +280,7 @@ def test_paper_eval_protocol_iterations():
     assert loop.eval_iterations(loop.TrainConfig(iters=0)) == []
 
 
-@pytest.mark.parametrize("field,value", [
-    ("shards", 2), ("probes", "all"), ("trace", "trace.jsonl")])
+@pytest.mark.parametrize("field,value", [("shards", 2)])
 def test_unported_train_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         loop.TrainConfig(**{field: value})
@@ -336,6 +335,88 @@ def test_launcher_runs_a_schedule_and_resumes_on_cpu(tmp_path, capsys):
     assert "final eval:" in capsys.readouterr().out
 
 
+def test_train_rl_netes_with_probes_and_trace_equals_the_plain_run(
+        tmp_path):
+    """Pendulum at N = 16 on the sparse ER graph with an eval every 2
+    iterations: with probes and a trace the history equals the plain
+    run's EXACTLY, the fitness series is ``reward_mean`` in float32, the
+    graph series is the fixed graph's, and the trace validates with one
+    transfer per drain."""
+    from repro_torch.obs import validate_trace
+    tc = loop.TrainConfig(
+        iters=5, eval_every=2, eval_episodes=2, seed=3,
+        representation="sparse",
+        topology=TopologySpec(family="erdos_renyi", n_agents=N, p=0.3,
+                              seed=0),
+        netes=NetESConfig(alpha=0.05, sigma=0.1, p_broadcast=0.8))
+    plain = loop.train_rl_netes("pendulum", tc, device="cpu")
+    trace = tmp_path / "run.jsonl"
+    probed = loop.train_rl_netes("pendulum", dataclasses.replace(
+        tc, probes="fitness|consensus|graph", trace=str(trace)),
+        device="cpu")
+    series = probed.pop("probes")
+    for k in ("reward_mean", "reward_max", "eval", "eval_iter"):
+        assert probed[k] == plain[k], k
+    assert series["cursor"] == 5 and series["dropped"] == 0
+    np.testing.assert_array_equal(series["fitness_mean"],
+                                  np.asarray(plain["reward_mean"],
+                                             np.float32))
+    adj = TopologySpec(family="erdos_renyi", n_agents=N, p=0.3,
+                       seed=0).build()
+    density = np.float32((adj.sum() - N) / (N * (N - 1)))
+    np.testing.assert_array_equal(series["density"], np.full(5, density))
+    assert validate_trace(trace) == []
+    recs = [json.loads(x) for x in trace.read_text().splitlines()]
+    assert recs[0]["probes"] == "fitness|consensus|graph"
+    # no log: the 5 iterations' metrics and the 3 scores leave in one drain
+    drains = [r for r in recs if r.get("name") == "drain"]
+    assert [r["attrs"] for r in drains] == [
+        {"what": "eval", "iters": 5, "points": 3}, {"what": "probes"}]
+    assert all(r["transfers"] == 1 for r in drains)
+    assert [r["attrs"]["iter"] for r in recs if r.get("name") == "eval"] \
+        == [1, 3, 4]
+
+
+def test_launcher_probes_and_traces_a_channel_on_cpu(tmp_path, capsys):
+    from repro_torch.obs import validate_trace
+    out, trace = tmp_path / "hist.json", tmp_path / "run.jsonl"
+    launch_train.main(["rl", "--task", "landscape:sphere", "--agents", "8",
+                       "--iters", "4", "--density", "0.3", "--device", "cpu",
+                       "--channel", "quantize(bits=8)|dropout(p=0.1,seed=0)",
+                       "--probes", "all", "--probe-capacity", "3",
+                       "--trace", str(trace), "--out", str(out)])
+    assert "realized messages:" in capsys.readouterr().out
+    hist = json.loads(out.read_text())["history"]
+    probes = hist["probes"]
+    assert probes["cursor"] == 4 and probes["dropped"] == 1
+    assert probes["msgs"] == hist["msgs"][-3:]
+    assert len(probes["wire_bytes"]) == 3 and len(probes["density"]) == 3
+    assert validate_trace(trace) == []
+
+
+def test_launcher_probes_a_schedule_and_resumes_on_cpu(tmp_path):
+    """``--probes fitness|graph`` under ``--schedule``: the resumed run's
+    ring holds the whole series, equal to an uninterrupted run's."""
+    ck = tmp_path / "ck"
+    args = ["rl", "--task", "landscape:sphere", "--agents", "12",
+            "--density", "0.3", "--device", "cpu", "--representation",
+            "sparse", "--schedule", "resample_er(period=2)", "--probes",
+            "fitness|graph"]
+    launch_train.main(args + ["--iters", "6", "--out",
+                              str(tmp_path / "full.json")])
+    launch_train.main(args + ["--iters", "3", "--checkpoint-dir", str(ck),
+                              "--out", str(tmp_path / "a.json")])
+    launch_train.main(args + ["--iters", "6", "--checkpoint-dir", str(ck),
+                              "--out", str(tmp_path / "b.json")])
+    full = json.loads((tmp_path / "full.json").read_text())["history"]
+    resumed = json.loads((tmp_path / "b.json").read_text())["history"]
+    assert len(resumed["reward_mean"]) == 3
+    assert resumed["probes"] == full["probes"]
+    assert resumed["probes"]["cursor"] == 6
+    assert resumed["probes"]["density"][0] != resumed["probes"][
+        "density"][2]
+
+
 def test_port_imports_no_jax_and_no_reference():
     """Import every module of the port in a fresh interpreter: neither jax
     nor the reference package may be loaded. The sources (and
@@ -363,7 +444,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.kernels.mamba_scan",
             "repro_torch.configs.jamba_v01_52b",
             "repro_torch.core.topology_sched", "repro_torch.checkpoint.io",
-            "repro_torch.checkpoint"} <= set(mods)
+            "repro_torch.checkpoint", "repro_torch.core.theory",
+            "repro_torch.obs", "repro_torch.obs.probes",
+            "repro_torch.obs.trace", "repro_torch.obs.cuda_watch",
+            "repro_torch.obs.__main__"} <= set(mods)
 
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s+import\b))", re.MULTILINE)
