@@ -117,6 +117,26 @@ Phases, each printing one JSON line per case:
    same state and draws; one replay's kernels counted from a profiler
    trace (the Eq. 3 kernel must be there), its time per step by CUDA
    events beside the eager step's.
+5e. ``search`` — the topology search at N = 1000 on pendulum
+   (``SEARCH_COHORTS``, ``SEARCH_ARGV``, ``SEARCH_Q8``). ``search_parity``:
+   a sparse cohort (ER p = 0.05, 0.1, the lists widened to the cohort's
+   K_max) and a dense one (FC, ER p = 0.5), each a round of 4 iterations
+   through the tournament's round function against the same candidates as
+   independent ``netes.run``s from the same states and generators on the
+   same topologies, which it must equal bit for bit (θ, best θ, best
+   reward, score), and one batched rollout of the cohort's S·2N episodes
+   against each candidate's own. ``search``: ``launch/train.py --search``
+   with a checkpoint dir (two rounds, then 2 iterations on the winner;
+   the two Eq. 3 kernels 34 times in all), its rerun on a copy of the dir
+   whose ``latest.json`` points at round 0 (history, winner and score
+   equal), and a tournament through ``run_search`` of ER p = 0.1, two
+   graph seeds, static and ``resample_er(period=2)``, through q8 (both
+   fused kernels 16 times, on widened and on redrawn lists). ``no_sync``:
+   one cohort iteration of a static sparse, a static dense, a redrawing
+   scheduled and a q8 cohort under ``set_sync_debug_mode("error")``.
+   ``search_timing``: one iteration of the sparse cohort (S = 2) against 2
+   sequential ``netes_step``s, 10 pairs in turns, CUDA events and the
+   host clock.
 6. ``parity``  — one NetES step at N = 64 on the GPU and on the CPU from the
    same parameters and draws must agree, without and with a channel (whose
    dropout masks, drawn on each device, must be equal).
@@ -182,9 +202,10 @@ Then a ``{"kernels": [...]}`` line (``launches``: the main path's and
 channel run (a)'s; ``launches_schedule``: each schedule run's;
 ``launches_telemetry``: each probed run's and the traced generate's;
 ``launches_capture_replay``: the Eq. 3 kernel in one replay of each
-captured step), the ``nvidia-smi`` name and power limit,
-and last ``{"ok": true, "device": {...}}``. Any failure raises, so the
-script exits non-zero and prints no result. It imports nothing of JAX.
+captured step; ``launches_search``: each tournament's), the
+``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+{...}}``. Any failure raises, so the script exits non-zero and prints no
+result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -1935,20 +1956,22 @@ def _quartiles(xs) -> dict:
     return {"median": med, "q1": q1, "q3": q3}
 
 
-def _paired_step_times(plain, probed, pairs: int = STEP_PAIRS) -> dict:
-    """``pairs`` plain and as many probed steps from the same state, in
-    turns (plain first in even pairs, probed first in odd ones, so a drift
-    falls on both), each run to completion: the quartiles in ms of its CUDA
-    events (from the card reaching the step's first launch to its last)
-    and of the host clock, and of the probed-minus-plain difference within
-    each pair."""
+def _paired_step_times(first, second, pairs: int = STEP_PAIRS,
+                       names=("plain", "probed")) -> dict:
+    """``pairs`` calls of ``first`` and as many of ``second`` from the same
+    state, in turns (``first`` first in even pairs, ``second`` first in odd
+    ones, so a drift falls on both), each run to completion: the quartiles
+    in ms of its CUDA events (from the card reaching the call's first
+    launch to its last) and of the host clock, under ``names``, and of
+    the second-minus-first difference within each pair."""
     import torch
-    plain(), probed()
+    a, b = names
+    first(), second()
     torch.cuda.synchronize()
-    dev = {"plain": [], "probed": []}
-    host = {"plain": [], "probed": []}
+    dev = {a: [], b: []}
+    host = {a: [], b: []}
     for k in range(pairs):
-        order = (("plain", plain), ("probed", probed))
+        order = ((a, first), (b, second))
         for name, fn in (order if k % 2 == 0 else order[::-1]):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1962,8 +1985,8 @@ def _paired_step_times(plain, probed, pairs: int = STEP_PAIRS) -> dict:
     out = {"pairs": pairs}
     for clock, t in (("device_ms", dev), ("host_ms", host)):
         out[clock] = {name: _quartiles(t[name]) for name in t}
-        out[clock]["probed_minus_plain"] = _quartiles(
-            [b - a for a, b in zip(t["plain"], t["probed"])])
+        out[clock][f"{b}_minus_{a}"] = _quartiles(
+            [y - x for x, y in zip(t[a], t[b])])
     return out
 
 
@@ -2197,6 +2220,398 @@ def capture_phase(launches: dict, cases=CAPTURE_CASES) -> None:
               "nvidia_smi": smi})
         del graph, out, new
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the topology search
+# ---------------------------------------------------------------------------
+
+SEARCH_ITERS = 4         # iterations of the parity round and of round 0
+SEARCH_PAIRS = 10        # (sequential, cohort) step pairs timed in turns
+# the cohorts of the parity check and of the tournament: ER p = 0.05 and
+# 0.1 are sparse (the lists widened to the cohort's K_max), FC and ER
+# p = 0.5 dense
+SEARCH_COHORTS = (("sparse", (("erdos_renyi", 0.05), ("erdos_renyi", 0.1))),
+                  ("dense", (("fully_connected", 1.0),
+                             ("erdos_renyi", 0.5))))
+SEARCH_ARGV = ("rl", "--task", "pendulum", "--agents", str(MAIN_N),
+               "--search", "--search-families",
+               "erdos_renyi,fully_connected", "--search-densities",
+               "0.05,0.1,0.5", "--search-seeds", "0", "--search-pool", "4",
+               "--search-iters", str(SEARCH_ITERS), "--iters", "2")
+# the second tournament: two graph seeds, static and resampled, through q8
+SEARCH_Q8 = dict(families=("erdos_renyi",), densities=(MAIN_P_ER,),
+                 seeds=(0, 1), schedules=(None, "resample_er(period=2)"),
+                 channels=("quantize(bits=8)",), pool_size=4, round_iters=2,
+                 eval_episodes=1)
+# |Δ score| ≤ TOL_SCORE·|score| between a cohort's scores (its candidates'
+# eval episodes in one rollout of S·E rows) and each candidate's alone (E
+# rows), where their bits differ: cuBLAS may run another product for
+# another batch, and one rounding in a pendulum episode near the upright
+# equilibrium moves its return by up to 2e-3 relative (ROADMAP §3, slice 1)
+TOL_SCORE = 2e-3
+
+
+def _search_cohort(rep, graphs, channel=None, schedule=None):
+    """The plans of one cohort at N = 1000 (asserted to be one cohort)."""
+    from repro_torch.comm.channel import ChannelSpec
+    from repro_torch.core.topology import TopologySpec
+    from repro_torch.core.topology_sched import ScheduleSpec
+    from repro_torch.search import CandidateSpec, tournament
+    pool = [CandidateSpec(
+        topo=TopologySpec(family=fam, n_agents=MAIN_N, p=dens, seed=seed),
+        sched=None if schedule is None else ScheduleSpec.parse(schedule),
+        chan=None if channel is None else ChannelSpec.parse(channel))
+        for seed, (fam, dens) in enumerate(graphs)]
+    plans = tournament._make_plans(pool, "auto", "cuda")
+    check(len({p.cohort for p in plans}) == 1, f"search: {pool} make "
+          f"{len({p.cohort for p in plans})} cohorts, not 1")
+    kind = (plans[0].schedule.representation if schedule is not None
+            else plans[0].cohort[1])
+    check(kind == rep, f"search: the cohort is {kind}, not {rep}")
+    return plans
+
+
+def _search_states(plans, reward_fn, dim, init_fn):
+    """Each candidate's initial states and eval generator, as
+    ``run_search`` makes them."""
+    import torch
+
+    from repro_torch.core import netes
+    from repro_torch.search import tournament
+    states = [netes.init_state(MAIN_N, dim, seed=tournament._stream_seed(
+        0, c), init_fn=init_fn, device="cuda") for c in range(len(plans))]
+    gens = [torch.Generator(device="cuda").manual_seed(
+        tournament._stream_seed(999, c, 0)) for c in range(len(plans))]
+    return states, gens
+
+
+def _first_divergence(env, policy, thetas, resets) -> dict:
+    """The episodes of ``thetas (M, D)`` from ``resets (M, S)`` stepped as
+    one batch and one row at a time, call by call as ``episode_return``
+    makes them: the first call whose outputs differ, with its step and
+    the largest difference, or None if the returns are equal."""
+    import torch
+
+    m = thetas.shape[0]
+    batch = (policy.unflatten(thetas), resets)
+    rows = [(policy.unflatten(thetas[i:i + 1]), resets[i:i + 1])
+            for i in range(m)]
+    n_layers = len(batch[0]) // 2
+
+    def differs(name, t, got, own):
+        own = torch.cat(own)
+        if torch.equal(got, own):
+            return None
+        return {"step": t, "call": name, "rows": m,
+                "max_abs_diff": (got - own).abs().max().item()}
+
+    for t in range(env.episode_len):
+        outs = []
+        for params, state in [batch, *rows]:
+            h = env.observe(state)
+            trail = [("observe", h)]
+            for i in range(n_layers):
+                h = torch.baddbmm(params[2 * i + 1].unsqueeze(1),
+                                  h.unsqueeze(1), params[2 * i]).squeeze(1)
+                trail.append((f"baddbmm of layer {i}", h))
+                h = torch.tanh(h)
+                trail.append((f"tanh of layer {i}", h))
+            trail.append(("env.step", env.step(state, h)[0]))
+            outs.append(trail)
+        for k, (name, got) in enumerate(outs[0]):
+            found = differs(name, t, got, [o[k][1] for o in outs[1:]])
+            if found is not None:
+                return found
+        batch = (batch[0], outs[0][-1][1])
+        rows = [(params, o[-1][1]) for (params, _), o in zip(rows,
+                                                             outs[1:])]
+    return None
+
+
+def _search_parity() -> list:
+    """Per cohort of ``SEARCH_COHORTS``: a round of ``SEARCH_ITERS``
+    iterations through the tournament's round function against the same
+    candidates as independent ``netes.run``s from the same states and
+    generators on the same widened topologies, and one batched rollout
+    against the candidates' own."""
+    import torch
+
+    from repro_torch.core import netes, topology_repr
+    from repro_torch.envs import resolve_task
+    from repro_torch.search import tournament
+
+    reward_fn, dim, init_fn, env, policy = resolve_task("pendulum")
+    cfg = _schedule_config("erdos_renyi", MAIN_P_ER, None, None).netes
+    rows = []
+    for rep, graphs in SEARCH_COHORTS:
+        plans = _search_cohort(rep, graphs)
+        topos = topology_repr.unstack(topology_repr.stack(
+            [p.topo for p in plans]))
+        states, gens = _search_states(plans, reward_fn, dim, init_fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _, _, scores = tournament._round(
+            states, topos, reward_fn, cfg, SEARCH_ITERS, 1, gens)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        states, gens = _search_states(plans, reward_fn, dim, init_fn)
+        t0 = time.perf_counter()
+        alone = [netes.run(st, topo, reward_fn, cfg, SEARCH_ITERS)[0]
+                 for st, topo in zip(states, topos)]
+        alone_scores = torch.cat([tournament._eval_scores(
+            [st], reward_fn, 1, [g]) for st, g in zip(alone, gens)])
+        torch.cuda.synchronize()
+        alone_s = time.perf_counter() - t0
+
+        # one rollout of all candidates against each candidate's own
+        states, _ = _search_states(plans, reward_fn, dim, init_fn)
+        draws = [netes.draw(st, reward_fn, MAIN_N, dim) for st in states]
+        parts = [netes._perturb(st, cfg, d) for st, d in zip(states, draws)]
+        batched = reward_fn(torch.cat([c for c, _ in parts]),
+                            torch.cat([e for _, e in parts]))
+        own = torch.cat([reward_fn(c, e) for c, e in parts])
+
+        def diff(f):
+            return max((getattr(a, f).double() - getattr(b, f).double())
+                       .abs().max().item() for a, b in zip(got, alone))
+
+        states_equal = all(
+            torch.equal(getattr(a, f), getattr(b, f)) for a, b in
+            zip(got, alone) for f in ("thetas", "best_theta",
+                                      "best_reward"))
+        scores_equal = torch.equal(scores, alone_scores)
+        divergence = None
+        if not scores_equal:
+            # the eval episodes the scores came from, batched and alone
+            _, gens = _search_states(plans, reward_fn, dim, init_fn)
+            resets = torch.cat([reward_fn.draw(g, 1) for g in gens])
+            divergence = _first_divergence(
+                env, policy, torch.stack([st.best_theta for st in got]),
+                resets.reshape(len(got), -1))
+        rows.append({
+            "cohort": rep, "graphs": [list(g) for g in graphs],
+            "k_max": [p.topo.k_max for p in plans],
+            "k_max_shared": topos[0].k_max, "iters": SEARCH_ITERS,
+            "states_bit_equal": states_equal,
+            "scores_bit_equal": scores_equal,
+            "score_first_differing_call": divergence,
+            "tol_score_rel": TOL_SCORE, "max_abs_dtheta": diff("thetas"),
+            "max_abs_dbest_theta": diff("best_theta"),
+            "max_abs_dbest_reward": diff("best_reward"),
+            "max_abs_dscore": (scores - alone_scores).abs().max().item(),
+            "scores": scores.tolist(), "scores_alone": alone_scores.tolist(),
+            "rollout_rows": batched.shape[0],
+            "rollout_bit_equal": torch.equal(batched, own),
+            "rollout_max_abs_diff": (batched - own).abs().max().item(),
+            "round_s": round_s, "alone_s": alone_s})
+        check(states_equal and rows[-1]["rollout_bit_equal"],
+              f"search parity ({rep}): the cohort round differs from "
+              f"independent runs: {rows[-1]}")
+        check(bool(((scores - alone_scores).abs()
+                    <= TOL_SCORE * alone_scores.abs()).all()),
+              f"search parity ({rep}): scores beyond {TOL_SCORE} relative: "
+              f"{rows[-1]}")
+    return rows
+
+
+def _search_tournaments(launches: dict, tmp) -> dict:
+    """``launch/train.py --search`` (``SEARCH_ARGV``) with a checkpoint
+    dir, its resume from round 0 on a copy of the dir, and a q8 tournament
+    (``SEARCH_Q8``) through ``run_search``, the launch counters zeroed
+    just before each and read just after."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from repro_torch.core.netes import NetESConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.search import SearchConfig, run_search
+
+    def counted(fn):
+        counters = _counters()
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, wall, {name: k.launches for name, k in counters.items()}
+
+    def launch(ckpt):
+        out = pathlib.Path(tmp) / f"{ckpt}.json"
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            launch_train.main([*SEARCH_ARGV, "--search-checkpoint-dir",
+                               str(pathlib.Path(tmp) / ckpt), "--out",
+                               str(out)])
+        lines = text.getvalue().splitlines()
+        check(any(ln.startswith("search winner: ") for ln in lines),
+              f"search: no winner line in {lines}")
+        return json.loads(out.read_text())
+
+    rows = {}
+    full, wall, counts = counted(lambda: launch("full"))
+    search = full["search"]
+    hist = search["history"]
+    check([len(h["scores"]) for h in hist] == [4, 2],
+          f"search tournament: rounds of {[len(h['scores']) for h in hist]}"
+          " candidates, not [4, 2]")
+    scores = [s for h in hist for s in h["scores"].values()]
+    check(all(s > float("-inf") for s in scores),
+          f"search tournament: a score is not finite: {hist}")
+    eq3 = counts["netes_sparse_mixing"] + counts["netes_mixing"]
+    # round 0: 4 candidates × 4; round 1: 2 × 8; training: 2
+    check(counts["netes_sparse_mixing"] >= 2 * SEARCH_ITERS
+          and counts["netes_mixing"] >= 2 * SEARCH_ITERS
+          and eq3 == 8 * SEARCH_ITERS + 2, f"search tournament: launches "
+          f"{counts}")
+    rows["tournament"] = {"argv": " ".join(SEARCH_ARGV), "history": hist,
+                          "winner": search["winner"], "score":
+                          search["score"], "control_scores":
+                          search["control_scores"], "pool": search["pool"],
+                          "search_wall_s": search["wall_s"], "wall_s": wall,
+                          "final_eval": full["history"]["final_eval"],
+                          "launches": counts}
+
+    # the resume: the copy's latest.json points at round 0's step file
+    shutil.copytree(pathlib.Path(tmp) / "full", pathlib.Path(tmp) / "resume")
+    ckpt = pathlib.Path(tmp) / "resume"
+    (ckpt / "latest.json").write_text(
+        (ckpt / "step_00000000.json").read_text())
+    resumed, wall, counts_r = counted(lambda: launch("resume"))
+    for k in ("history", "winner", "score", "control_scores"):
+        check(resumed["search"][k] == search[k], f"search resume: {k} "
+              f"{resumed['search'][k]} resumed, {search[k]} uninterrupted")
+    check(counts_r["netes_sparse_mixing"] + counts_r["netes_mixing"]
+          == 4 * SEARCH_ITERS + 2, f"search resume: launches {counts_r}")
+    rows["tournament resumed"] = {"resumed_after_round": 0, "equal": True,
+                                  "wall_s": wall, "launches": counts_r}
+
+    sc = SearchConfig(n_agents=MAIN_N, netes=NetESConfig(alpha=0.05,
+                                                         sigma=0.1),
+                      **SEARCH_Q8)
+    result, wall, counts_q = counted(
+        lambda: run_search("pendulum", sc, device="cuda"))
+    # round 0: 4 candidates × 2; round 1: 2 × 4
+    for k in ("fused_neighbor_sum", "fused_broadcast_select"):
+        check(counts_q[k] == 16, f"q8 tournament: {k} launched "
+              f"{counts_q[k]} times, not 16")
+    check(counts_q["netes_sparse_mixing"] == counts_q["netes_mixing"] == 0,
+          f"q8 tournament: launches {counts_q}")
+    rows["q8 tournament"] = {"config": {k: list(v) if isinstance(v, tuple)
+                                        else v for k, v in SEARCH_Q8.items()},
+                             "history": result.history,
+                             "winner": result.winner.label(),
+                             "score": result.score, "wall_s": wall,
+                             "launches": counts_q}
+    for run, row in rows.items():
+        for k in EQ3_KERNELS:
+            launches.setdefault(k, {})[run] = row["launches"][k]
+    return rows
+
+
+def _search_no_sync() -> list:
+    """One cohort iteration of each cohort kind (static sparse, static
+    dense, scheduled with a redraw, static sparse through q8) after a
+    warm-up, under ``torch.cuda.set_sync_debug_mode("error")``."""
+    import torch
+
+    from repro_torch.core import topology_repr
+    from repro_torch.envs import resolve_task
+    from repro_torch.search import tournament
+
+    reward_fn, dim, init_fn, _, _ = resolve_task("pendulum")
+    cfg = _schedule_config("erdos_renyi", MAIN_P_ER, None, None).netes
+    sparse = SEARCH_COHORTS[0][1]
+    er = (("erdos_renyi", MAIN_P_ER),) * 2
+    cases = (("static sparse", "sparse", sparse, None, None),
+             ("static dense", "dense", SEARCH_COHORTS[1][1], None, None),
+             ("scheduled, redrawing", "sparse", er, None,
+              "resample_er(period=2)"),
+             ("q8", "sparse", sparse, "quantize(bits=8)", None))
+    checked = []
+    for label, rep, graphs, channel, schedule in cases:
+        plans = _search_cohort(rep, graphs, channel, schedule)
+        plan = plans[0]
+        states, _ = _search_states(plans, reward_fn, dim, init_fn)
+        kw = dict(channel=plan.channel, schedule=plan.schedule)
+        if plan.channel is not None:
+            kw["cstates"] = [plan.channel.init(s.thetas) for s in states]
+        topos = None
+        if plan.schedule is None:
+            topos = topology_repr.unstack(topology_repr.stack(
+                [p.topo for p in plans]))
+        else:   # at t = 1, so the advance to t = 2 redraws
+            kw["sstates"] = [plan.schedule.advance(p.schedule.init(
+                device="cuda")) for p in plans]
+            check(plan.schedule.redraws(2), "no_sync search: no redraw")
+
+        step = functools.partial(tournament._cohort_step, states, topos,
+                                 reward_fn, cfg, **kw)
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        except RuntimeError as err:
+            raise RuntimeError(f"no_sync search {label}: the cohort step "
+                               f"waits for the card: {err}") from err
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        checked.append(label)
+    return checked
+
+
+def _search_timing() -> dict:
+    """One cohort iteration of the sparse cohort (S = 2) against 2
+    sequential ``netes_step``s on the same candidates, states and
+    topologies, ``SEARCH_PAIRS`` pairs in turns."""
+    from repro_torch.core import netes, topology_repr
+    from repro_torch.envs import resolve_task
+    from repro_torch.search import tournament
+
+    reward_fn, dim, init_fn, _, _ = resolve_task("pendulum")
+    cfg = _schedule_config("erdos_renyi", MAIN_P_ER, None, None).netes
+    plans = _search_cohort(*SEARCH_COHORTS[0])
+    topos = topology_repr.unstack(topology_repr.stack(
+        [p.topo for p in plans]))
+    states, _ = _search_states(plans, reward_fn, dim, init_fn)
+
+    def sequential():
+        return [netes.netes_step(st, topo, reward_fn, cfg)
+                for st, topo in zip(states, topos)]
+
+    def cohort():
+        return tournament._cohort_step(states, topos, reward_fn, cfg)
+
+    return _paired_step_times(sequential, cohort, pairs=SEARCH_PAIRS,
+                              names=("sequential", "cohort"))
+
+
+def search_phase(launches: dict) -> None:
+    """The topology search at N = 1000 on pendulum: cohort parity, two
+    tournaments (one through the launcher, resumed from round 0), one
+    cohort iteration of each kind under the sync check, and the time of a
+    cohort iteration against sequential steps."""
+    import tempfile
+
+    smi = nvidia_smi()
+    for row in _search_parity():
+        emit({"phase": "search_parity", **row, "nvidia_smi": smi})
+    with tempfile.TemporaryDirectory() as tmp:
+        for run, row in _search_tournaments(launches, tmp).items():
+            emit({"phase": "search", "run": run, **row, "nvidia_smi": smi})
+    emit({"phase": "no_sync", "search_cohort_steps": _search_no_sync(),
+          "n_agents": MAIN_N, "sync_debug_mode": "error",
+          "step_synced": False})
+    emit({"phase": "search_timing", "cohort": "sparse",
+          "graphs": [list(g) for g in SEARCH_COHORTS[0][1]],
+          "n_agents": MAIN_N, **_search_timing(), "nvidia_smi": smi})
 
 
 # ---------------------------------------------------------------------------
@@ -3195,6 +3610,8 @@ def main() -> int:
     no_sync_step_phase(schedule_phase(sched_launches))
     telemetry_phase(tel_launches)
     capture_phase(cap_launches)
+    search_launches = {}
+    search_phase(search_launches)
     parity_phase()
     serve_parity_phase()
     serve_cpu_parity_phase(ARCH)
@@ -3223,7 +3640,8 @@ def main() -> int:
                      "share_of_bound": r["bound_ms"] / r["ms"],
                      "launches_schedule": sched_launches.get(name, {}),
                      "launches_telemetry": tel_launches.get(name, {}),
-                     "launches_capture_replay": cap_launches.get(name, {})})
+                     "launches_capture_replay": cap_launches.get(name, {}),
+                     "launches_search": search_launches.get(name, {})})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -21,6 +21,11 @@ Under a topology schedule (``core/topology_sched``, DESIGN.md §9),
 ``scheduled_step`` steps on the topology in force and then advances the
 schedule; ``run_scheduled`` loops it.
 
+A step is two phases around its one reward call: ``_perturb`` makes the
+candidates, ``_finish`` does everything after their rewards. The topology
+search (``search.tournament``) runs the phases per candidate and rewards a
+whole cohort of candidates in one call between them.
+
 Every random draw of a step (ε, the broadcast draw β, the episode reset
 states, with a channel the dropout mask, and under a schedule its uniform
 redraw) enters through one seam, ``Draws``: absent, the step draws them
@@ -233,21 +238,40 @@ def netes_step(state: NetESState, topo: Topology, reward_fn,
     if probes is not None and metrics_state is None:
         raise ValueError("probes need their ring: pass metrics_state="
                          "probes.init(device)")
-    n, dim = state.thetas.shape
     if draws is None:
-        draws = draw(state, reward_fn, n, dim)
+        draws = draw(state, reward_fn, *state.thetas.shape)
+    candidates, evals = _perturb(state, cfg, draws)
+    rewards = reward_fn(candidates, evals)
+    return _finish(state, topo, rewards, candidates, draws, cfg, channel,
+                   chan_state, probes, metrics_state)
+
+
+def _perturb(state: NetESState, cfg: NetESConfig, draws: Draws):
+    """The step's candidates and the evals they are rewarded on: with
+    antithetic sampling the ±ε halves (2N, D), both from the same N eval
+    draws, else θ + σε (N, D)."""
+    eps = draws.eps
+    if not cfg.antithetic:
+        return state.thetas + cfg.sigma * eps, draws.evals
+    candidates = torch.cat([state.thetas + cfg.sigma * eps,
+                            state.thetas - cfg.sigma * eps])
+    evals = (None if draws.evals is None
+             else torch.cat([draws.evals, draws.evals]))
+    return candidates, evals
+
+
+def _finish(state: NetESState, topo: Topology, rewards: torch.Tensor,
+            candidates: torch.Tensor, draws: Draws, cfg: NetESConfig,
+            channel, chan_state, probes, metrics_state):
+    """The rest of the step once the candidates' ``rewards`` are in:
+    fitness shaping, the channel, Eq. 3, the broadcast, the bookkeeping
+    and the metrics. Returns what ``netes_step`` returns."""
+    n = state.thetas.shape[0]
     eps = draws.eps
     if cfg.antithetic:
-        candidates = torch.cat([state.thetas + cfg.sigma * eps,
-                                state.thetas - cfg.sigma * eps])
-        evals = (None if draws.evals is None
-                 else torch.cat([draws.evals, draws.evals]))
-        rewards = reward_fn(candidates, evals)
         shaped_all = shape_fitness(rewards, cfg.fitness_shaping)
         shaped = shaped_all[:n] - shaped_all[n:]          # antithetic diff
     else:
-        candidates = state.thetas + cfg.sigma * eps
-        rewards = reward_fn(candidates, draws.evals)
         shaped = shape_fitness(rewards, cfg.fitness_shaping)
 
     payload = edge_mask = info = None

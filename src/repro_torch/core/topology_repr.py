@@ -30,7 +30,9 @@ the reference slot for slot (tests/test_torch_topology.py). A fused-eligible
 channel raises the sparse cutoff of ``select_representation``. The refresh
 functions at the end (``refresh_dense``, ``refresh_sparse``,
 ``shift_circulant``) are what a topology schedule (``core/topology_sched``)
-changes between steps: on the device, with every shape kept.
+changes between steps: on the device, with every shape kept. Last,
+``widen_sparse``, ``stack`` and ``unstack`` give the candidates of a
+topology search's cohort (``search.tournament``) one shared K_max.
 """
 from __future__ import annotations
 
@@ -371,3 +373,106 @@ def shift_circulant(topo: Topology, offsets: Sequence[int]) -> Topology:
     offs = [int(d) for d in offsets]
     return dataclasses.replace(topo, offsets=None,
                                shifts=tuple(offs + [topo.n - d for d in offs]))
+
+
+# ---------------------------------------------------------------------------
+# stacked topologies (the topology search's candidate axis)
+# ---------------------------------------------------------------------------
+#
+# The reference vmaps its training scan over a stacked Topology. The port
+# has no vmap that reaches through its kernels: the search stacks a cohort
+# to give every sparse candidate the cohort's shared K_max, then unstacks it
+# and runs each candidate's kernels on its own contiguous payloads. A
+# stacked Topology (leading S axis) is for ``unstack`` only; the other
+# functions of this module take unstacked ones.
+
+def widen_sparse(topo: Topology, k_max: int) -> Topology:
+    """Re-pad a sparse topology to a larger ``k_max``: each new slot
+    indexes its own row with weight 0, the payload convention, so the
+    graph, ``deg`` and the Eq. 3 kernels' results are unchanged."""
+    if topo.kind != "sparse":
+        raise ValueError(f"widen_sparse needs a sparse topology, "
+                         f"got {topo.kind!r}")
+    pad = k_max - topo.k_max
+    if pad < 0:
+        raise ValueError(f"cannot narrow k_max {topo.k_max} -> {k_max}")
+    if pad == 0:
+        return topo
+    dev = topo.device
+    self_idx = torch.arange(topo.n, dtype=torch.int32,
+                            device=dev)[:, None].expand(topo.n, pad)
+    return dataclasses.replace(
+        topo,
+        neighbor_idx=torch.cat([topo.neighbor_idx, self_idx], dim=1),
+        neighbor_mask=torch.cat(
+            [topo.neighbor_mask,
+             torch.zeros((topo.n, pad), dtype=torch.float32, device=dev)],
+            dim=1))
+
+
+def stack(topos: Sequence[Topology], k_max: Optional[int] = None
+          ) -> Topology:
+    """S same-kind, same-n topologies along a new leading axis.
+
+    * dense:     ``adj (S, N, N)``;
+    * sparse:    each candidate re-padded (``widen_sparse``) to the shared
+                 ``K_max = max(k_max, per-candidate K)``, then
+                 ``neighbor_idx/mask (S, N, K_max)``;
+    * circulant: every member must carry the same static ``offsets``;
+                 scheduled ones carry ``shifts`` of one length, kept as a
+                 tuple of per-candidate tuples.
+
+    ``deg`` stacks to ``(S, N)`` in every case. Raises ``ValueError`` on
+    an empty sequence, mixed kinds or sizes, and circulants that differ
+    where the reference's stack cannot batch them."""
+    topos = list(topos)
+    if not topos:
+        raise ValueError("stack needs at least one topology")
+    kind, n = topos[0].kind, topos[0].n
+    for t in topos:
+        if t.kind != kind or t.n != n:
+            raise ValueError(
+                f"cannot stack mixed topologies: ({t.kind}, n={t.n}) vs "
+                f"({kind}, n={n})")
+    deg = torch.stack([t.deg for t in topos])
+    if kind == "dense":
+        return Topology(kind=kind, n=n, deg=deg,
+                        adj=torch.stack([t.adj for t in topos]))
+    if kind == "sparse":
+        shared_k = max([k_max or 1] + [t.k_max for t in topos])
+        topos = [widen_sparse(t, shared_k) for t in topos]
+        return Topology(
+            kind=kind, n=n, deg=deg,
+            neighbor_idx=torch.stack([t.neighbor_idx for t in topos]),
+            neighbor_mask=torch.stack([t.neighbor_mask for t in topos]))
+    scheduled = [t.shifts is not None for t in topos]
+    if any(scheduled) and not all(scheduled):
+        raise ValueError("cannot stack static-offset and traced-shift "
+                         "circulants together")
+    if all(scheduled):
+        lens = {len(t.shifts) for t in topos}
+        if len(lens) > 1:
+            raise ValueError(f"traced shift chains differ in length: "
+                             f"{sorted(lens)}")
+        return Topology(kind=kind, n=n, deg=deg,
+                        shifts=tuple(t.shifts for t in topos))
+    if len({t.offsets for t in topos}) > 1:
+        raise ValueError(
+            "static circulant offsets cannot vary across a stack; use "
+            "traced shifts or the sparse representation for mixed-offset "
+            "candidate pools")
+    return Topology(kind=kind, n=n, deg=deg, offsets=topos[0].offsets)
+
+
+def unstack(stacked: Topology) -> list:
+    """Invert ``stack``: the per-candidate topologies, each payload a
+    contiguous view of the stacked one (the kernels take contiguous
+    operands)."""
+    out = []
+    for i in range(stacked.deg.shape[0]):
+        kw = {name: getattr(stacked, name)[i]
+              for name in ("deg", "adj", "neighbor_idx", "neighbor_mask",
+                           "shifts")
+              if getattr(stacked, name) is not None}
+        out.append(dataclasses.replace(stacked, **kw))
+    return out

@@ -7,6 +7,15 @@
       [--probes 'fitness|consensus|graph'] [--probe-capacity C] \
       [--trace run.trace.jsonl]
 
+With the topology search first (DESIGN.md §10): the tournament picks the
+communication graph, then training runs on the winner:
+
+  python -m repro_torch.launch.train rl --task pendulum --agents 1000 \
+      --iters 100 --search [--search-pool 6] [--search-iters 10] \
+      [--search-schedules 'static,resample_er(period=8)'] \
+      [--search-channels 'lossless;quantize(bits=8)'] \
+      [--search-checkpoint-dir DIR]
+
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead.
 """
@@ -18,6 +27,7 @@ import pathlib
 
 from ..core.netes import NetESConfig
 from ..core.topology import TopologySpec
+from ..search import SearchConfig, run_search
 from ..train.loop import TrainConfig, train_rl_netes
 
 
@@ -59,6 +69,37 @@ def main(argv=None) -> None:
     ap.add_argument("--agents", type=int, default=32)
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--search", action="store_true",
+                    help="run the topology-search tournament first and "
+                         "train on the winning graph (ignores "
+                         "--topology/--density; DESIGN.md §10)")
+    ap.add_argument("--search-families",
+                    default="erdos_renyi,fully_connected",
+                    help="comma-separated candidate families (default: "
+                         "the paper's headline ER-vs-FC comparison)")
+    ap.add_argument("--search-densities", default="0.1,0.2,0.5",
+                    help="comma-separated candidate edge densities")
+    ap.add_argument("--search-seeds", default="0,1",
+                    help="comma-separated candidate graph seeds")
+    ap.add_argument("--search-pool", type=int, default=6,
+                    help="tournament pool size after theory-prior pruning")
+    ap.add_argument("--search-iters", type=int, default=10,
+                    help="round-0 training iterations per candidate "
+                         "(doubles every halving round)")
+    ap.add_argument("--search-eval-episodes", type=int, default=4,
+                    help="noise-free eval episodes averaged per candidate "
+                         "score (doubles every halving round)")
+    ap.add_argument("--search-schedules", default=None,
+                    help="comma-separated schedule candidates, e.g. "
+                         "'static,resample_er(period=8)'")
+    ap.add_argument("--search-channels", default=None,
+                    help="semicolon-separated channel candidates, e.g. "
+                         "'lossless;quantize(bits=8);quantize(bits=4)' "
+                         "(';' because stages compose with '|') — the "
+                         "tournament co-optimizes graph × compression")
+    ap.add_argument("--search-checkpoint-dir", default=None,
+                    help="save tournament rounds; a rerun resumes after "
+                         "the last completed round")
     ap.add_argument("--alpha", type=float, default=0.05)
     ap.add_argument("--sigma", type=float, default=0.1)
     ap.add_argument("--p-broadcast", type=float, default=0.8)
@@ -66,19 +107,67 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
-    tc = TrainConfig(
-        n_agents=args.agents, iters=args.iters,
-        topology=TopologySpec(family=args.topology, n_agents=args.agents,
-                              p=args.density, seed=args.topo_seed),
-        representation=args.representation, channel=args.channel,
-        schedule=args.schedule, checkpoint_dir=args.checkpoint_dir,
-        probes=args.probes, probe_capacity=args.probe_capacity,
-        trace=args.trace, seed=args.seed,
-        netes=NetESConfig(alpha=args.alpha, sigma=args.sigma,
-                          p_broadcast=args.p_broadcast))
+    netes_cfg = NetESConfig(alpha=args.alpha, sigma=args.sigma,
+                            p_broadcast=args.p_broadcast)
 
     def log(d):
         print(json.dumps(d), flush=True)
+
+    search_payload = None
+    if args.search:
+        if args.representation == "circulant":
+            ap.error("--representation circulant is incompatible with "
+                     "--search: tournaments batch dense/sparse payloads "
+                     "(static circulant offsets are jit-static aux), and "
+                     "the winning graph is not guaranteed circulant")
+        if args.schedule is not None:
+            ap.error("--schedule conflicts with --search (training uses "
+                     "the WINNER's schedule); add scheduled candidates "
+                     "via --search-schedules instead")
+        if args.channel is not None:
+            ap.error("--channel conflicts with --search (training uses "
+                     "the WINNER's channel); add channel candidates "
+                     "via --search-channels instead")
+        sconf = SearchConfig(
+            n_agents=args.agents,
+            families=tuple(args.search_families.split(",")),
+            densities=tuple(float(p)
+                            for p in args.search_densities.split(",")),
+            seeds=tuple(int(s) for s in args.search_seeds.split(",")),
+            schedules=(tuple(args.search_schedules.split(","))
+                       if args.search_schedules else (None,)),
+            channels=(tuple(args.search_channels.split(";"))
+                      if args.search_channels else (None,)),
+            pool_size=args.search_pool,
+            round_iters=args.search_iters,
+            eval_episodes=args.search_eval_episodes,
+            seed=args.seed,
+            representation=args.representation,
+            checkpoint_dir=args.search_checkpoint_dir,
+            netes=netes_cfg)
+        result = run_search(args.task, sconf, log=log, device=args.device)
+        search_payload = result.to_json()
+        fc = result.control_scores.get("fully_connected")
+        print(f"search winner: {result.winner.label()} "
+              f"score={result.score:.3f}"
+              + (f" (fully_connected control: {fc:.3f})"
+                 if fc is not None else ""), flush=True)
+        tc = TrainConfig.from_search_result(
+            result, iters=args.iters, seed=args.seed,
+            representation=args.representation,
+            checkpoint_dir=args.checkpoint_dir, probes=args.probes,
+            probe_capacity=args.probe_capacity, trace=args.trace,
+            netes=netes_cfg)
+    else:
+        tc = TrainConfig(
+            n_agents=args.agents, iters=args.iters,
+            topology=TopologySpec(family=args.topology,
+                                  n_agents=args.agents, p=args.density,
+                                  seed=args.topo_seed),
+            representation=args.representation, channel=args.channel,
+            schedule=args.schedule, checkpoint_dir=args.checkpoint_dir,
+            probes=args.probes, probe_capacity=args.probe_capacity,
+            trace=args.trace, seed=args.seed, netes=netes_cfg)
 
     hist = train_rl_netes(args.task, tc, log=log, device=args.device)
     print(f"final eval: {hist['final_eval']}, max eval: "
@@ -92,7 +181,10 @@ def main(argv=None) -> None:
     if args.out:
         path = pathlib.Path(args.out)
         path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(json.dumps({"args": vars(args), "history": hist}))
+        payload = {"args": vars(args), "history": hist}
+        if search_payload is not None:
+            payload["search"] = search_payload
+        path.write_text(json.dumps(payload))
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ the run saves its state at every eval point and resumes from the last one.
 With ``TrainConfig.probes`` a probe ring on the device records the chosen
 signals every step and drains once at the end (``obs.probes``); with
 ``TrainConfig.trace`` the run writes a JSONL trace of its chunks, steps,
-drains, evals and checkpoints (``obs.trace``).
+drains, evals and checkpoints (``obs.trace``). ``search_topology`` runs a
+topology-search tournament first (``search``, DESIGN.md §10), and
+``TrainConfig.from_search_result`` trains on its winner.
 
 Not ported yet (setting it raises ``NotImplementedError``): the ``shards``
 field (slice 7) of the reference's ``TrainConfig``.
@@ -40,6 +42,7 @@ from ..envs import resolve_task
 from ..envs.rollout import evaluate_best
 from ..obs import (DEFAULT_CAPACITY, Probes, ProbeSpec, Trace,
                    compile_probes, device_get)
+from ..search import SearchConfig, run_search
 
 # Iterations whose device metrics accumulate before one host transfer.
 METRIC_DRAIN_CHUNK = 8
@@ -110,6 +113,18 @@ class TrainConfig:
             self.schedule = ScheduleSpec.parse(self.schedule)
         if isinstance(self.probes, str):
             self.probes = ProbeSpec.parse(self.probes)
+
+    @classmethod
+    def from_search_result(cls, result, **overrides) -> "TrainConfig":
+        """A TrainConfig from a ``search.SearchResult``: the tournament's
+        winning topology (and its schedule and channel, if the winner was
+        a time-varying or lossy-link candidate) becomes the run's
+        communication graph. Any field can be overridden (``iters``,
+        ``seed``, ``netes``, ...)."""
+        kw = dict(topology=result.topology, schedule=result.schedule,
+                  channel=result.channel)
+        kw.update(overrides)
+        return cls(**kw)
 
 
 def build_topology(tc: TrainConfig,
@@ -341,3 +356,18 @@ def train_rl_netes(task: str, tc: TrainConfig,
             round(total_msgs * channel.payload_bytes(dim)))
     history["wall_s"] = time.time() - t0
     return history
+
+
+def search_topology(task: str, sconfig=None,
+                    log: Optional[Callable[[Dict], None]] = None, *,
+                    device: Union[str, torch.device] = "cuda"
+                    ) -> TopologySpec:
+    """Optimize the communication graph for ``task`` on ``device`` and
+    return the winning ``TopologySpec``: the paper's closing claim, made
+    operational (DESIGN.md §10). ``sconfig`` is a ``search.SearchConfig``
+    (its defaults if None). For the whole tournament record (the round
+    history, the control scores, a winning schedule or channel), call
+    ``search.run_search`` and use ``TrainConfig.from_search_result``."""
+    result = run_search(task, sconfig or SearchConfig(), log=log,
+                        device=device)
+    return result.topology

@@ -447,9 +447,12 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.checkpoint", "repro_torch.core.theory",
             "repro_torch.obs", "repro_torch.obs.probes",
             "repro_torch.obs.trace", "repro_torch.obs.cuda_watch",
-            "repro_torch.obs.__main__"} <= set(mods)
+            "repro_torch.obs.__main__", "repro_torch.search",
+            "repro_torch.search.candidates",
+            "repro_torch.search.tournament"} <= set(mods)
 
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s+import\b))", re.MULTILINE)
-    for path in [*pkg.rglob("*.py"), SRC.parent / "chip_smoke.py"]:
+    for path in [*pkg.rglob("*.py"), SRC.parent / "chip_smoke.py",
+                 SRC.parent / "examples" / "quickstart_torch.py"]:
         assert not pattern.search(path.read_text()), path
