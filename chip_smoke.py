@@ -18,9 +18,14 @@ Phases, each printing one JSON line per case:
    (below one tile). The flash-attention kernel runs at
    mistral-nemo-12b's prefill of serve run (a) and ragged shapes
    (window, chunk, Sq ≠ Sk, rows without a key, head_dim 64, G = 1, 2, 4
-   and 5 with Sq·G off the 128-row query tile, B = 2), and at
-   moonshot-v1-16b-a3b's prefill (G = 1). The sparse Eq. 3 kernel runs on
-   ER p = 0.1 at N = 1000 and at the paper's N = 3000 (two sender chunks),
+   and 5 with Sq·G off the 128-row query tile, B = 2), at
+   moonshot-v1-16b-a3b's prefill (G = 1), and its head_dim-256 instance
+   at gemma3-4b's prefill of serve run (a) (8/4 heads, a global layer and
+   a sliding one of window 1024) and four ragged shapes (G = 2 off the
+   64-row tile with B = 2, rows without a key, a chunk, Sq ≠ Sk without
+   the causal mask); each flash row names the backend
+   ``scaled_dot_product_attention`` chose for its yardstick. The sparse
+   Eq. 3 kernel runs on ER p = 0.1 at N = 1000 and at the paper's N = 3000 (two sender chunks),
    at a ragged shape and at N = 5000, p = 0.02 (four chunks); the fused
    neighbor sum at N = 1000, the ragged shape and N = 5000 (four chunks),
    where one call must put exactly one kernel on the card (a profiler
@@ -193,16 +198,31 @@ Phases, each printing one JSON line per case:
    float32 weights; all 32 are 205.2 GB), after rwkv6's weights are
    freed, as in 9: 7 × 16 = 112 ``mamba_scan``, 1 flash and 4 × 16 = 64
    ``moe_topk`` launches per ``generate``.
-``no_sync`` (in phases 7, 13 and 16): one prefill of mistral-nemo-12b, one
-of rwkv6-7b and one of jamba-v0.1-52b (full width, 2 layers) under
-``torch.cuda.set_sync_debug_mode("error")``: any call that waits for the
-card raises there.
+19. ``gemma_parity`` — gemma3-4b at full width and 6 layers (one period: 5
+   sliding layers of window 1024, then a global one; qk-norm; heads of
+   256), B = 2, 1280-token prompts (the sliding layers' 1024-slot rings
+   wrap in prefill), 8 new tokens: the kernel path's prefill and decode
+   logits against the float64 ``forward`` on the card, within
+   1e-4·max|logit|, and each layer's cache slots.
+20. ``gemma_cpu_parity`` — the gemma smoke model's greedy serving on the
+   GPU against the CPU, 128-token prompts (twice its window of 64).
+21. ``serve`` of gemma3-4b at full width and full depth (34 layers, 15.52
+   GB of float32 weights), after jamba's weights are freed, as in 9: 34
+   flash launches per ``generate`` (the head_dim-256 instance), 5 of them
+   global and 29 windowed.
+Every ``serve`` phase counts the flash calls by mask (global or windowed)
+against the layers' kinds.
+``no_sync`` (in phases 7, 13, 16 and 19): one prefill of mistral-nemo-12b,
+of rwkv6-7b, of jamba-v0.1-52b (full width, 2 layers) and of gemma3-4b
+(6 layers) under ``torch.cuda.set_sync_debug_mode("error")``: any call
+that waits for the card raises there.
 
 Then a ``{"kernels": [...]}`` line (``launches``: the main path's and
 channel run (a)'s; ``launches_schedule``: each schedule run's;
 ``launches_telemetry``: each probed run's and the traced generate's;
 ``launches_capture_replay``: the Eq. 3 kernel in one replay of each
-captured step; ``launches_search``: each tournament's), the
+captured step; ``launches_search``: each tournament's; the flash row's
+``launches_gemma3_4b`` and its ``hd256`` and ``hd256_local`` times), the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -826,25 +846,40 @@ def masked_kernel_phase() -> None:
 # checks that it fails.
 TOL_ATTN = 2e-5
 
-ATTN_CASES = (  # (label, B, Sq, Sk, H, Hkv, hd, causal, window, chunk, main)
+# (label, B, Sq, Sk, H, Hkv, hd, causal, window, chunk, main): ``main``
+# names the row of the kernels line a case gives its times to
+ATTN_CASES = (
     # mistral-nemo-12b's prefill of serve run (a)
-    ("nemo_prefill_8192", 1, 8192, 8192, 32, 8, 128, True, 0, 0, True),
-    ("window256_g4", 2, 1000, 1000, 32, 8, 128, True, 256, 0, False),
-    ("chunk128_g1", 1, 300, 300, 8, 8, 128, True, 0, 128, False),
-    ("noncausal_sq200_sk333", 1, 200, 333, 32, 8, 128, False, 0, 0, False),
+    ("nemo_prefill_8192", 1, 8192, 8192, 32, 8, 128, True, 0, 0,
+     "flash_attention"),
+    ("window256_g4", 2, 1000, 1000, 32, 8, 128, True, 256, 0, ""),
+    ("chunk128_g1", 1, 300, 300, 8, 8, 128, True, 0, 128, ""),
+    ("noncausal_sq200_sk333", 1, 200, 333, 32, 8, 128, False, 0, 0, ""),
     # query rows 163 .. 299 have no valid key: the mean of v
-    ("rows_without_a_key_hd64", 1, 300, 100, 4, 2, 64, True, 64, 0, False),
+    ("rows_without_a_key_hd64", 1, 300, 100, 4, 2, 64, True, 64, 0, ""),
     # moonshot-v1-16b-a3b's prefill of its serve run (a): G = 1
-    ("moonshot_prefill_8192_g1", 1, 8192, 8192, 16, 16, 128, True, 0, 0,
-     False),
+    ("moonshot_prefill_8192_g1", 1, 8192, 8192, 16, 16, 128, True, 0, 0, ""),
     # G = 1, 2, 4, 5 with Sq·G not a multiple of the 128-row query tile
     # (G = 5: llama4's 40/8 heads); B = 2
-    ("g1_sq333", 1, 333, 333, 8, 8, 128, True, 0, 0, False),
-    ("g2_b2_sq333", 2, 333, 333, 16, 8, 128, True, 0, 0, False),
-    ("g4_sq333", 1, 333, 333, 32, 8, 128, True, 0, 0, False),
-    ("g5_sq333", 1, 333, 333, 40, 8, 128, True, 0, 0, False),
-    ("chunk128_g4", 1, 300, 300, 32, 8, 128, True, 0, 128, False),
-    ("hd64_g4", 1, 517, 517, 32, 8, 64, True, 0, 0, False),
+    ("g1_sq333", 1, 333, 333, 8, 8, 128, True, 0, 0, ""),
+    ("g2_b2_sq333", 2, 333, 333, 16, 8, 128, True, 0, 0, ""),
+    ("g4_sq333", 1, 333, 333, 32, 8, 128, True, 0, 0, ""),
+    ("g5_sq333", 1, 333, 333, 40, 8, 128, True, 0, 0, ""),
+    ("chunk128_g4", 1, 300, 300, 32, 8, 128, True, 0, 128, ""),
+    ("hd64_g4", 1, 517, 517, 32, 8, 64, True, 0, 0, ""),
+    # the head_dim-256 instance (64-row query tiles, 32-key tiles) at
+    # gemma3-4b's prefill of serve run (a), 8/4 heads: a global layer and
+    # a sliding one (window 1024); then ragged shapes: G = 2 with Sq·G off
+    # the 64-row tile and B = 2, rows 163 .. 299 without a valid key, a
+    # chunk, Sq ≠ Sk without the causal mask
+    ("gemma_global_prefill_8192", 1, 8192, 8192, 8, 4, 256, True, 0, 0,
+     "flash_attention_hd256"),
+    ("gemma_local_prefill_8192_w1024", 1, 8192, 8192, 8, 4, 256, True, 1024,
+     0, "flash_attention_hd256_local"),
+    ("hd256_g2_b2_sq333", 2, 333, 333, 8, 4, 256, True, 0, 0, ""),
+    ("rows_without_a_key_hd256", 1, 300, 100, 8, 4, 256, True, 64, 0, ""),
+    ("hd256_chunk128", 1, 300, 300, 8, 4, 256, True, 0, 128, ""),
+    ("hd256_noncausal_sq200_sk333", 1, 200, 333, 8, 4, 256, False, 0, 0, ""),
 )
 
 
@@ -880,6 +915,14 @@ def _attention_f64(q, k, v, ok, scale):
             out[bi, :, heads] = torch.einsum("gqk,kd->qgd", p,
                                              v[bi, :, j].double())
     return out
+
+
+def _sdpa_backend(*args, **kwargs) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for these
+    arguments, by PyTorch's own choice function."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(*args, **kwargs)).name
 
 
 def attention_kernel_phase(results: dict) -> None:
@@ -924,11 +967,11 @@ def attention_kernel_phase(results: dict) -> None:
         kt = k.repeat_interleave(gq, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(gq, dim=2).transpose(1, 2).contiguous()
         if causal and not window and not chunk and sq == sk:
-            lib = functools.partial(F.scaled_dot_product_attention, qt, kt,
-                                    vt, is_causal=True, scale=scale)
+            lib_kw = dict(is_causal=True, scale=scale)
         else:
-            lib = functools.partial(F.scaled_dot_product_attention, qt, kt,
-                                    vt, attn_mask=ok, scale=scale)
+            lib_kw = dict(attn_mask=ok, scale=scale)
+        lib = functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
+                                **lib_kw)
         rows = ok.any(dim=1)
         lib_err = (lib().transpose(1, 2).double() - exact)[:, rows]
         pairs = int(ok.sum().item())
@@ -948,6 +991,7 @@ def attention_kernel_phase(results: dict) -> None:
                "plain_ms": time_ms(plain),
                "library": "F.scaled_dot_product_attention (f32, KV heads "
                           "repeated outside)",
+               "library_backend": _sdpa_backend(qt, kt, vt, **lib_kw),
                "library_ms": time_ms(lib),
                "bound_ms": 1e3 * max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -955,14 +999,15 @@ def attention_kernel_phase(results: dict) -> None:
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         if main or label.startswith("moonshot"):
             row["library_kernels_ms"] = _device_ms(lib)
-        if main:
+        if main and causal and not window:
             bf16 = F.scaled_dot_product_attention(
                 qt.bfloat16(), kt.bfloat16(), vt.bfloat16(), is_causal=True,
                 scale=scale).transpose(1, 2).double()
             row["bf16_library_err_f64"] = (bf16 - exact).abs().max().item()
             check(row["bf16_library_err_f64"] > TOL_ATTN,
                   "bf16 attention passes the float32 tolerance: tighten it")
-            results["flash_attention"] = row
+        if main:
+            results[main] = row
         emit(row)
         del q, k, v, out_k, out_p, exact, qt, kt, vt, ok
         torch.cuda.empty_cache()
@@ -3362,6 +3407,92 @@ def jamba_parity_phase() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 19–21: serving of gemma3-4b (5:1 sliding/global attention, qk-norm,
+# head_dim 256)
+# ---------------------------------------------------------------------------
+
+GEMMA_ARCH = "gemma3-4b"
+# one period of the 34-layer stack: 5 sliding layers (window 1024), then a
+# global one; 4.95 GB of float32 weights
+GEMMA_PARITY_LAYERS = 6
+# longer than the window: the sliding layers' 1024-slot ring wraps in
+# prefill, and decode reads a ring whose oldest slots were overwritten
+GEMMA_PARITY_PROMPT = 1280
+GEMMA_SMOKE_PROMPT = 128    # twice the smoke's window of 64
+
+
+def gemma_parity_phase() -> None:
+    """gemma3-4b at full width and one period (5 sliding layers, then the
+    global one), B = 2, prompts longer than the window: the kernel path's
+    prefill and decode logits against the port's float64 ``forward`` on
+    the card, the ring caches' lengths, and one prefill with no sync."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config(GEMMA_ARCH),
+                              num_layers=GEMMA_PARITY_LAYERS)
+    check([ls.mixer for ls in cfg.layer_specs()]
+          == ["attn_sliding"] * 5 + ["attn_full"],
+          "gemma parity: the 6 layers are not 5 sliding, then 1 global")
+    b, p_len = PARITY_BATCH, GEMMA_PARITY_PROMPT
+    max_len = p_len + PARITY_NEW
+    rings = [c["kv"]["k"].shape[1] for c in transformer.init_cache(
+        cfg, 1, max_len, torch.float32, "cuda")["layers"]]
+    check(rings == [cfg.sliding_window] * 5 + [max_len],
+          f"gemma parity: cache slots per layer {rings}")
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p_len), generator=g,
+                            device="cuda")
+    fa.KERNEL.launches = 0
+    tokens, logits, _ = _greedy(params, cfg, prompts, PARITY_NEW)
+    check(fa.KERNEL.launches == GEMMA_PARITY_LAYERS, "gemma parity: flash "
+          f"attention launched {fa.KERNEL.launches} times in one generate")
+    no_sync_prefill(GEMMA_ARCH, params, cfg, prompts)
+    engine = ServeEngine(cfg, params, max_len=max_len)
+    check(np.array_equal(engine.generate(prompts, new_tokens=PARITY_NEW),
+                         tokens.cpu().numpy()),
+          "gemma parity: ServeEngine.generate differs from its own steps")
+    del engine
+    fed = torch.cat([prompts, tokens[:, :-1]], dim=1)
+    with torch.no_grad():
+        p64 = _cast(params, dtype=torch.float64)
+        ref64 = transformer.forward(p64, cfg, {"tokens": fed})[:, p_len - 1:]
+        del p64
+        plain32 = transformer.forward(params, cfg, {"tokens": fed})[
+            :, p_len - 1:]
+    got = torch.stack(logits, dim=1).double()
+    scale = max(1.0, ref64.abs().max().item())
+    tol = TOL_LOGITS * scale
+    err = (got - ref64).abs().max().item()
+    err_prefill = (got[:, 0] - ref64[:, 0]).abs().max().item()
+    err_plain = (plain32.double() - ref64).abs().max().item()
+    check(torch.isfinite(got).all().item(), "gemma parity: non-finite logits")
+    check(err <= tol, f"gemma parity: logits differ from float64 by {err} "
+          f"(tolerance {tol})")
+    emit({"phase": "gemma_parity", "arch": GEMMA_ARCH,
+          "num_layers": GEMMA_PARITY_LAYERS, "d_model": cfg.d_model,
+          "head_dim": cfg.head_dim, "window": cfg.sliding_window,
+          "cache_slots": rings, "batch": b, "prompt": p_len,
+          "new_tokens": PARITY_NEW, "weight_gb": 4 * cfg.count_params() / 1e9,
+          "max_abs_logit": scale, "max_abs_err": err,
+          "prefill_err": err_prefill, "plain_forward_f32_err": err_plain,
+          "tol": tol, "tol_rel": TOL_LOGITS, "generate_equal": True,
+          "flash_launches": GEMMA_PARITY_LAYERS})
+    del params, logits, ref64, plain32, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # Kernel names by kind in a profile: the port's two model kernels, cuBLAS
 # matrix products, and "dispatch": every indexing, sort, scan and
 # concatenation kernel (in an MoE model almost all of them are the
@@ -3416,6 +3547,25 @@ def _profile(fn):
                             for n, (t, c) in top]}
 
 
+@contextlib.contextmanager
+def _counting_flash_masks(seen: dict):
+    """Counts the attention layers' flash calls by mask: ``global`` (no
+    window, no chunk) and ``windowed`` (a sliding window or a chunk)."""
+    from repro_torch.models import attention
+    flash = attention.flash_attention
+
+    def counting(q, k, v, **kw):
+        kind = "windowed" if kw.get("window") or kw.get("chunk") else "global"
+        seen[kind] = seen.get(kind, 0) + 1
+        return flash(q, k, v, **kw)
+
+    attention.flash_attention = counting
+    try:
+        yield
+    finally:
+        attention.flash_attention = flash
+
+
 def serve_phase(arch: str, num_layers=None) -> dict:
     """``ServeEngine.generate`` of ``arch`` at full width and
     ``num_layers`` layers (None: full depth), random float32 weights from
@@ -3441,6 +3591,8 @@ def serve_phase(arch: str, num_layers=None) -> dict:
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
     n_attn, n_moe, n_rwkv, n_mamba = _layer_counts(cfg)
+    n_global = sum(ls.mixer == "attn_full" for ls in cfg.layer_specs())
+    masks_expected = {"global": n_global, "windowed": n_attn - n_global}
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -3458,10 +3610,14 @@ def serve_phase(arch: str, num_layers=None) -> dict:
             k.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        masks = {"global": 0, "windowed": 0}
         t0 = time.perf_counter()
-        out = engine.generate(prompts, new_tokens=NEW_TOKENS)
+        with _counting_flash_masks(masks):
+            out = engine.generate(prompts, new_tokens=NEW_TOKENS)
         wall = time.perf_counter() - t0
         counts = {name: k.launches for name, k in counters.items()}
+        check(masks == masks_expected, f"serve run ({run}): flash calls by "
+              f"mask {masks}, not {masks_expected}")
         peak = torch.cuda.max_memory_allocated()
         check(counts["flash_attention"] == n_attn,
               f"serve run ({run}): flash_attention launched "
@@ -3528,6 +3684,7 @@ def serve_phase(arch: str, num_layers=None) -> dict:
               "weight_bytes_floor_ms": floor_ms,
               "max_memory_allocated_gb": peak / 1e9,
               "logits_finite": finite, "launches": counts,
+              "flash_calls_by_mask": masks,
               "profile": prof, "tokens_row0": out[0].tolist()})
         del engine, logits, tokens, cache, state
         torch.cuda.empty_cache()
@@ -3627,6 +3784,9 @@ def main() -> int:
     serve_cpu_parity_phase(JAMBA_ARCH, JAMBA_SMOKE_PROMPT)
     launches["mamba_scan"] = serve_phase(JAMBA_ARCH,
                                          JAMBA_SERVE_LAYERS)["mamba_scan"]
+    gemma_parity_phase()
+    serve_cpu_parity_phase(GEMMA_ARCH, GEMMA_SMOKE_PROMPT)
+    gemma_flash = serve_phase(GEMMA_ARCH)["flash_attention"]
     rows = []
     for name in SOURCE_OF:
         r = results[name]
@@ -3642,6 +3802,18 @@ def main() -> int:
                      "launches_telemetry": tel_launches.get(name, {}),
                      "launches_capture_replay": cap_launches.get(name, {}),
                      "launches_search": search_launches.get(name, {})})
+        if name == "flash_attention":
+            # the head_dim-256 instance: gemma3-4b's global and sliding
+            # prefill layers, and its launches per serve (a) generate
+            rows[-1]["launches_gemma3_4b"] = gemma_flash
+            for key in ("flash_attention_hd256",
+                        "flash_attention_hd256_local"):
+                r = results[key]
+                rows[-1][key[len("flash_attention_"):]] = {
+                    k: r[k] for k in ("shape", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "library_backend",
+                                      "share_of_bound")}
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

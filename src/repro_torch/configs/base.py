@@ -17,11 +17,8 @@ _REGISTRY: Dict[str, "ModelConfig"] = {}
 # Architectures of the reference's registry that the port does not hold,
 # and why: the slice of the port (ROADMAP.md, queue 1) that brings each.
 # The "-smoke" variant of each goes with it.
-_CHUNKED = ("it comes with slice 6e (the sliding and chunked attention "
-            "configurations)")
+_CHUNKED = "it comes with slice 6e (chunked attention, with MoE top-1)"
 UNPORTED = {
-    "gemma3-4b": "it comes with slice 6e (the sliding and chunked attention "
-                 "configurations, with qk-norm)",
     "llama4-maverick-400b-a17b": _CHUNKED,
     "llama4-scout-17b-a16e": _CHUNKED,
     "llava-next-mistral-7b": "it comes with slice 6f (the vision and audio "
@@ -220,5 +217,6 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    from . import (jamba_v01_52b, mistral_nemo_12b,  # noqa: F401
-                   moonshot_v1_16b_a3b, phi3_medium_14b, rwkv6_7b)
+    from . import (gemma3_4b, jamba_v01_52b,  # noqa: F401
+                   mistral_nemo_12b, moonshot_v1_16b_a3b, phi3_medium_14b,
+                   rwkv6_7b)

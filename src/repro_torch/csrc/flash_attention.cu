@@ -71,6 +71,20 @@
 // tensor cores as three TF32 products, 11.9–12.1 ms) and 6.2 ms at G = 1
 // (SDPA 6.3 ms) on the same card (`chip_smoke.py`; PERF.md §6, row 5).
 //
+// head_dim 256 (gemma3-4b, 8/4 heads): the tiling above would need 416 KB
+// of shared memory (the block gets 227 KB) and 256 accumulator registers a
+// thread (the limit is 255). That instance takes BR = 64 rows and BKN = 32
+// keys a tile (`Tile<256>`): Qᵀ 64 KB, K and V double-buffered 2 × 32 KB
+// each, Pᵀ 8.5 KB, 201 KB in all; a thread owns the rows ty·4 + {0..3},
+// the keys tx + {0, 16} of S and the columns 64·c + 4·tx + {0..3}
+// (c < 4) of O, 64 accumulators. Everything else (masks, skipped tiles,
+// one barrier per key tile, the grid order) is the same code. Its S step
+// takes 32 FMAs per 6 shared loads (128 per 12 at hd 128). It took 8.13 ms
+// at gemma's global prefill of 1 × 8192 (50% of the 4.10 ms bound; SDPA
+// 7.73 ms) and 2.12 ms with window 1024 (45% of 0.96 ms; SDPA given the
+// mask 15.1 ms), 185 registers, no spill (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md §6, row 5).
+//
 // C interface (bound with ctypes): `flash_attention_f32` returns
 // cudaGetLastError() after the launch; `flash_attention_query` reports the
 // grid size and the resident blocks per SM at a shape. Launches on the
@@ -82,9 +96,18 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int BR = 128;              // (position, head) rows per block
-constexpr int BKN = 64;              // keys per tile
 constexpr float NEG_INF = -1e30f;
+
+// The tiling of the instance for HD: BR (position, head) rows per block,
+// BKN keys per tile. A thread of the 16 × 16 grid owns RT = BR / 16 rows
+// and KT = BKN / 16 keys of S, and RT rows of O.
+template <int HD>
+struct Tile {
+  static constexpr int BR = HD <= 128 ? 128 : 64;
+  static constexpr int BKN = HD <= 128 ? 64 : 32;
+  static constexpr int RT = BR / 16;
+  static constexpr int KT = BKN / 16;
+};
 
 // Shared memory: Qᵀ, two K and two V tiles, Pᵀ and the rows' key ranges.
 // K's 16-byte chunks are swizzled (chunk c of key r at c ^ (r % 8)), so that
@@ -92,6 +115,7 @@ constexpr float NEG_INF = -1e30f;
 // Pᵀ's rows are padded by 4 floats for the same reason.
 template <int HD>
 struct Layout {
+  static constexpr int BR = Tile<HD>::BR, BKN = Tile<HD>::BKN;
   static constexpr int PSTRIDE = BR + 4;
   static constexpr int Q = HD * BR;       // Qᵀ [HD][BR]
   static constexpr int K = BKN * HD;      // K  [BKN][HD], swizzled
@@ -145,30 +169,33 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// The online-softmax update of a key tile for a thread's 8 rows and 4
-// keys (a row's 64 keys lie on the 16 threads of one half warp): mask (only
-// if MASKED, a tile that crosses a row's key range or Sk), new row maxima,
-// P = 2^(s − m) in place of s, l, and O rescaled.
-template <bool MASKED, int NCH>
-__device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[8],
-                                               float (&l)[8], float (&o)[8][NCH][4],
+// The online-softmax update of a key tile for a thread's RT rows and KT
+// keys (a row's BKN keys lie on the 16 threads of one half warp): mask
+// (only if MASKED, a tile that crosses a row's key range or Sk), new row
+// maxima, P = 2^(s − m) in place of s, l, and O rescaled. Row i of the
+// thread is 64·(i / 4) + 4·ty + i % 4, key j is k0 + tx + 16·j.
+template <bool MASKED, int RT, int KT, int NCH>
+__device__ __forceinline__ void online_softmax(float (&s)[RT][KT], float (&m)[RT],
+                                               float (&l)[RT], float (&o)[RT][NCH][4],
                                                const int* row_lo, const int* row_hi,
                                                int k0, int sk, int ty, int tx) {
   if (MASKED) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = (i < 4 ? 0 : 64) + 4 * ty + (i & 3);
+    for (int i = 0; i < RT; ++i) {
+      const int r = 64 * (i >> 2) + 4 * ty + (i & 3);
       const int lo = row_lo[r], hi = row_hi[r];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KT; ++j) {
         const int kp = k0 + tx + 16 * j;
         if (kp < lo || kp > hi) s[i][j] = NEG_INF;
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float row_max = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+  for (int i = 0; i < RT; ++i) {
+    float row_max = s[i][0];
+#pragma unroll
+    for (int j = 1; j < KT; ++j) row_max = fmaxf(row_max, s[i][j]);
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
       row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
@@ -177,7 +204,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[8],
     m[i] = m_new;
     float row_sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < KT; ++j) {
       float p = exp2_ftz(s[i][j] - m_new);
       // a padded key (kp ≥ Sk) is no key: it adds nothing to l
       if (MASKED && k0 + tx + 16 * j >= sk) p = 0.f;
@@ -198,7 +225,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[8],
 template <int HD, bool SWIZZLE>
 __device__ __forceinline__ void load_keys(float* dst, const float* __restrict__ src,
                                           int k0, int sk, int hkv) {
-  constexpr int C4 = HD / 4;
+  constexpr int C4 = HD / 4, BKN = Tile<HD>::BKN;
 #pragma unroll
   for (int it = 0; it < BKN * C4 / THREADS; ++it) {
     const int f = threadIdx.x + it * THREADS, r = f / C4, c = f % C4;
@@ -217,6 +244,8 @@ flash_attention_kernel(const float* __restrict__ q,
                        bool causal, int window, int chunk, float qscale,
                        int tiles) {
   using L = Layout<HD>;
+  constexpr int BR = Tile<HD>::BR, BKN = Tile<HD>::BKN;
+  constexpr int RT = Tile<HD>::RT, KT = Tile<HD>::KT;
   constexpr int NCH = HD / 64;       // 64-column chunks of the output
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
@@ -279,9 +308,9 @@ flash_attention_kernel(const float* __restrict__ q,
     qs[(4 * c + 3) * BR + r] = val.w * qscale;
   }
 
-  float m[8], l[8], o[8][NCH][4];
+  float m[RT], l[RT], o[RT][NCH][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RT; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
@@ -303,31 +332,37 @@ flash_attention_kernel(const float* __restrict__ q,
       cp_async_commit();
     }
 
-    // S = Qᵀᵀ K for rows (i < 4 ? 0 : 64) + ty·4 + i % 4 and keys tx + 16j
-    float s[8][4];
+    // S = Qᵀᵀ K for rows 64·(i / 4) + ty·4 + i % 4 and keys tx + 16j
+    float s[RT][KT];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < KT; ++j) s[i][j] = 0.f;
 #pragma unroll 16
     for (int d4 = 0; d4 < HD / 4; ++d4) {
-      float4 kv[4];
+      float4 kv[KT];
       const int kc = 4 * (d4 ^ sw);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < KT; ++j)
         kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * HD + kc);
 #pragma unroll
       for (int dd = 0; dd < 4; ++dd) {
         const float* qrow = qs + (4 * d4 + dd) * BR;
-        const float4 qa = *reinterpret_cast<const float4*>(qrow + 4 * ty);
-        const float4 qb = *reinterpret_cast<const float4*>(qrow + 64 + 4 * ty);
-        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+        float qv[RT];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int gi = 0; gi < RT / 4; ++gi) {
+          const float4 qa = *reinterpret_cast<const float4*>(qrow + 64 * gi + 4 * ty);
+          qv[4 * gi + 0] = qa.x;
+          qv[4 * gi + 1] = qa.y;
+          qv[4 * gi + 2] = qa.z;
+          qv[4 * gi + 3] = qa.w;
+        }
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
           const float kd = dd == 0 ? kv[j].x : dd == 1 ? kv[j].y
                          : dd == 2 ? kv[j].z : kv[j].w;
 #pragma unroll
-          for (int i = 0; i < 8; ++i) s[i][j] = fmaf(qv[i], kd, s[i][j]);
+          for (int i = 0; i < RT; ++i) s[i][j] = fmaf(qv[i], kd, s[i][j]);
         }
       }
     }
@@ -338,29 +373,35 @@ flash_attention_kernel(const float* __restrict__ q,
     else
       online_softmax<true>(s, m, l, o, row_lo, row_hi, k0, sk, ty, tx);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < KT; ++j) {
       float* prow = ps + (tx + 16 * j) * L::PSTRIDE;
-      *reinterpret_cast<float4*>(prow + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-      *reinterpret_cast<float4*>(prow + 64 + 4 * ty) =
-          make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+#pragma unroll
+      for (int gi = 0; gi < RT / 4; ++gi)
+        *reinterpret_cast<float4*>(prow + 64 * gi + 4 * ty) = make_float4(
+            s[4 * gi][j], s[4 * gi + 1][j], s[4 * gi + 2][j], s[4 * gi + 3][j]);
     }
     // a row's P lies on the 16 threads of one half warp, which also
     // compute its O: no block barrier
     __syncwarp();
 
-    // O += P V over the 64 keys of the tile
+    // O += P V over the BKN keys of the tile
 #pragma unroll 16
     for (int kk = 0; kk < BKN; ++kk) {
       const float* prow = ps + kk * L::PSTRIDE;
-      const float4 pa = *reinterpret_cast<const float4*>(prow + 4 * ty);
-      const float4 pb = *reinterpret_cast<const float4*>(prow + 64 + 4 * ty);
-      const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+      float pv[RT];
+#pragma unroll
+      for (int gi = 0; gi < RT / 4; ++gi) {
+        const float4 pa = *reinterpret_cast<const float4*>(prow + 64 * gi + 4 * ty);
+        pv[4 * gi + 0] = pa.x;
+        pv[4 * gi + 1] = pa.y;
+        pv[4 * gi + 2] = pa.z;
+        pv[4 * gi + 3] = pa.w;
+      }
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
         const float4 vv = *reinterpret_cast<const float4*>(vs + kk * HD + 64 * c + 4 * tx);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < RT; ++i) {
           o[i][c][0] = fmaf(pv[i], vv.x, o[i][c][0]);
           o[i][c][1] = fmaf(pv[i], vv.y, o[i][c][1]);
           o[i][c][2] = fmaf(pv[i], vv.z, o[i][c][2]);
@@ -372,12 +413,12 @@ flash_attention_kernel(const float* __restrict__ q,
 
   // l: the partial sums of the row's 16 threads; out = o / max(l, 1e-30)
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RT; ++i) {
     float total = l[i];
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
       total += __shfl_xor_sync(0xffffffffu, total, off);
-    const int row = r0 + (i < 4 ? 0 : 64) + 4 * ty + (i & 3);
+    const int row = r0 + 64 * (i >> 2) + 4 * ty + (i & 3);
     if (row >= rows) continue;
     const float denom = fmaxf(total, 1e-30f);
     const int pos = row / g, head = kvh * g + row % g;
@@ -391,8 +432,9 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 }
 
+template <int HD>
 int query_tiles(int sq, int h, int hkv) {
-  return (sq * (h / hkv) + BR - 1) / BR;
+  return (sq * (h / hkv) + Tile<HD>::BR - 1) / Tile<HD>::BR;
 }
 
 template <int HD>
@@ -405,10 +447,11 @@ cudaError_t prepare() {
 template <int HD>
 int launch(const float* q, const float* k, const float* v, float* out, int b,
            int sq, int sk, int h, int hkv, int causal, int window, int chunk,
-           float qscale, cudaStream_t stream) {
+           float qscale, int tiles, cudaStream_t stream) {
+  if (tiles != query_tiles<HD>(sq, h, hkv))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = prepare<HD>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = query_tiles(sq, h, hkv);
   flash_attention_kernel<HD><<<tiles * hkv * b, THREADS, Layout<HD>::BYTES, stream>>>(
       q, k, v, out, b, sq, sk, h, hkv, causal != 0, window, chunk, qscale, tiles);
   return static_cast<int>(cudaGetLastError());
@@ -420,23 +463,22 @@ int query(int b, int sq, int h, int hkv, int* grid_blocks, int* resident) {
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       resident, flash_attention_kernel<HD>, THREADS, Layout<HD>::BYTES);
-  *grid_blocks = query_tiles(sq, h, hkv) * hkv * b;
+  *grid_blocks = query_tiles<HD>(sq, h, hkv) * hkv * b;
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// hd must be 64 or 128 (anything else returns cudaErrorInvalidValue), and
-// `tiles` the wrapper's count of query tiles per (batch, KV head), checked
-// against this source's; the wrapper checks shapes, layout and alignment
-// before the call.
+// hd must be 64, 128 or 256 (anything else returns cudaErrorInvalidValue),
+// and `tiles` the wrapper's count of query tiles per (batch, KV head),
+// checked against this source's; the wrapper checks shapes, layout and
+// alignment before the call.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int b, int sq,
                                    int sk, int h, int hkv, int hd, int causal,
                                    int window, int chunk, float scale,
                                    int tiles, void* stream) {
-  if (hkv <= 0 || h % hkv != 0 || tiles != query_tiles(sq, h, hkv))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (hkv <= 0 || h % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
@@ -444,18 +486,22 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   auto* st = static_cast<cudaStream_t>(stream);
   // scores in log2 units: exp(scale·x) = exp2(scale·log2 e·x)
   const float qscale = static_cast<float>((double)scale * 1.4426950408889634);
+  if (hd == 256)
+    return launch<256>(qf, kf, vf, of, b, sq, sk, h, hkv, causal, window,
+                       chunk, qscale, tiles, st);
   if (hd == 128)
     return launch<128>(qf, kf, vf, of, b, sq, sk, h, hkv, causal, window,
-                       chunk, qscale, st);
+                       chunk, qscale, tiles, st);
   if (hd == 64)
     return launch<64>(qf, kf, vf, of, b, sq, sk, h, hkv, causal, window,
-                      chunk, qscale, st);
+                      chunk, qscale, tiles, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int flash_attention_query(int b, int sq, int h, int hkv, int hd,
                                      int* grid_blocks, int* resident_per_sm) {
   if (hkv <= 0 || h % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 256) return query<256>(b, sq, h, hkv, grid_blocks, resident_per_sm);
   if (hd == 128) return query<128>(b, sq, h, hkv, grid_blocks, resident_per_sm);
   if (hd == 64) return query<64>(b, sq, h, hkv, grid_blocks, resident_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);

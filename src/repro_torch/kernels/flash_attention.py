@@ -7,7 +7,8 @@ with the causal, sliding-window and chunked-local masks and padded keys
 masked. Replaces the TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention``, with its signature and layout. On CUDA tensors it
 launches the hand-written sm_90a kernel (a block per query tile of the G
-heads of one KV head, see the source's note; its grid is :func:`plan`'s);
+heads of one KV head, see the source's note; its grid is :func:`plan`'s),
+an instance per head width of ``HEAD_DIMS``;
 on CPU tensors it runs the plain version ``ref.flash_attention_ref``.
 There is no other path. Float32 only.
 """
@@ -29,20 +30,27 @@ KERNEL = CudaKernel(
                                                   ctypes.c_int,
                                                   ctypes.c_void_p])
 
-HEAD_DIMS = (64, 128)   # the head widths the kernel is built for
-ROWS_PER_BLOCK = 128    # (position, head) rows of a block: the source's BR
+HEAD_DIMS = (64, 128, 256)   # the head widths the kernel is built for
+
+
+def rows_per_block(hd: int) -> int:
+    """(position, head) rows of a block at head width ``hd``: the source's
+    ``Tile<HD>::BR`` (64 at hd 256, whose 128-row tiles would not fit in
+    shared memory)."""
+    return 128 if hd <= 128 else 64
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """A block per (query tile, batch, KV head). A query tile is
-    ROWS_PER_BLOCK consecutive rows of the (position, head) sequence of the
-    G = H / Hkv query heads that read one KV head, position-major; each
-    (batch, KV head) has ``tiles`` of them."""
+    """A block per (query tile, batch, KV head). A query tile is ``rows``
+    consecutive rows of the (position, head) sequence of the G = H / Hkv
+    query heads that read one KV head, position-major; each (batch, KV
+    head) has ``tiles`` of them."""
     b: int
     sq: int
     h: int
     hkv: int
+    rows: int
     tiles: int
 
     @property
@@ -50,9 +58,10 @@ class Plan:
         return self.tiles * self.hkv * self.b
 
 
-def plan(b: int, sq: int, h: int, hkv: int) -> Plan:
-    rows = sq * (h // hkv)
-    return Plan(b=b, sq=sq, h=h, hkv=hkv, tiles=-(-rows // ROWS_PER_BLOCK))
+def plan(b: int, sq: int, h: int, hkv: int, hd: int) -> Plan:
+    br = rows_per_block(hd)
+    return Plan(b=b, sq=sq, h=h, hkv=hkv, rows=br,
+                tiles=-(-sq * (h // hkv) // br))
 
 
 def block_rows(pl: Plan, block: int) -> Iterator[Tuple[int, int, int]]:
@@ -61,9 +70,9 @@ def block_rows(pl: Plan, block: int) -> Iterator[Tuple[int, int, int]]:
     slowest and runs last-first, so that the longest causal tiles of every
     head are issued first."""
     g, heads = pl.h // pl.hkv, pl.hkv * pl.b
-    r0 = (pl.tiles - 1 - block // heads) * ROWS_PER_BLOCK
+    r0 = (pl.tiles - 1 - block // heads) * pl.rows
     kvh, bb = block % heads % pl.hkv, block % heads // pl.hkv
-    for row in range(r0, min(r0 + ROWS_PER_BLOCK, pl.sq * g)):
+    for row in range(r0, min(r0 + pl.rows, pl.sq * g)):
         yield bb, row // g, kvh * g + row % g
 
 
@@ -75,7 +84,7 @@ def launch_plan(b: int, sq: int, h: int, hkv: int, hd: int
                             + [ctypes.POINTER(ctypes.c_int)] * 2)
     grid, resident = ctypes.c_int(0), ctypes.c_int(0)
     err = query(b, sq, h, hkv, hd, ctypes.byref(grid), ctypes.byref(resident))
-    pl = plan(b, sq, h, hkv)
+    pl = plan(b, sq, h, hkv, hd)
     if err != 0 or grid.value != pl.grid_blocks:
         raise RuntimeError(f"flash_attention_query: cudaError_t {err}, grid "
                            f"{grid.value} against the plan's {pl.grid_blocks}")
@@ -121,6 +130,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, sq, sk, h, hkv, hd, int(bool(causal)), int(window),
-                  int(chunk), float(scale), plan(b, sq, h, hkv).tiles,
+                  int(chunk), float(scale), plan(b, sq, h, hkv, hd).tiles,
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out

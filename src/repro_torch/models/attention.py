@@ -1,4 +1,5 @@
-"""Attention: the port of ``repro/models/attention.py``. GQA with RoPE;
+"""Attention: the port of ``repro/models/attention.py``. GQA with RoPE and
+optional qk-norm (an RMSNorm of each query and key head before RoPE);
 full / sliding-window / chunked-local patterns; full-sequence attention,
 prefill that also fills the decode cache, and single-token decode.
 
@@ -41,6 +42,7 @@ class AttnSpec:
     window: int = 0                 # for sliding / chunked
     rope: bool = True
     rope_theta: float = 10000.0
+    qk_norm: bool = False
     softmax_scale: Optional[float] = None
 
     @property
@@ -49,13 +51,17 @@ class AttnSpec:
 
 
 def attn_init(gen: torch.Generator, d_model: int, spec: AttnSpec, dtype):
-    return {
+    p = {
         "wq": layers.dense_init(gen, (d_model, spec.num_heads, spec.head_dim), dtype),
         "wk": layers.dense_init(gen, (d_model, spec.num_kv_heads, spec.head_dim), dtype),
         "wv": layers.dense_init(gen, (d_model, spec.num_kv_heads, spec.head_dim), dtype),
         "wo": layers.dense_init(gen, (spec.num_heads, spec.head_dim, d_model), dtype,
                                 scale=1.0 / (spec.num_heads * spec.head_dim) ** 0.5),
     }
+    if spec.qk_norm:     # ones: no draw from the generator
+        p["q_norm"] = layers.rmsnorm_init(spec.head_dim, dtype, gen.device)
+        p["k_norm"] = layers.rmsnorm_init(spec.head_dim, dtype, gen.device)
+    return p
 
 
 def _masks(spec: AttnSpec) -> dict:
@@ -82,6 +88,9 @@ def _qkv(params, spec: AttnSpec, x: torch.Tensor, positions: torch.Tensor):
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if spec.qk_norm:     # over head_dim, before RoPE, as the reference
+        q = layers.rmsnorm(params["q_norm"], q)
+        k = layers.rmsnorm(params["k_norm"], k)
     if spec.rope:
         q = layers.apply_rope(q, positions, spec.rope_theta)
         k = layers.apply_rope(k, positions, spec.rope_theta)

@@ -50,10 +50,6 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.learned_pos:
         raise NotImplementedError(
             f"{cfg.name}: learned positions come with {_FRONTENDS}")
-    if cfg.qk_norm:
-        raise NotImplementedError(
-            f"{cfg.name}: qk-norm comes with slice 6e (the sliding and "
-            "chunked attention configurations)")
     if not cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name}: untied embeddings (no architecture of the "
@@ -75,6 +71,7 @@ def attn_spec(cfg: ModelConfig, lspec: LayerSpec) -> attention.AttnSpec:
         window=lspec.window,
         rope=cfg.use_rope,
         rope_theta=cfg.rope_theta,
+        qk_norm=cfg.qk_norm,
     )
 
 

@@ -1,6 +1,6 @@
 """The JAX reference's LM outputs for the port's tests, dumped to an npz.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_lm_ref.py OUT.npz [lm|moe|rwkv|mamba]
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_lm_ref.py OUT.npz [PART]
 
 ``repro.models`` does not import on this jax (ROADMAP queue 3, item a):
 ``models/attention.py:172`` asks ``prim in batching.primitive_batchers``,
@@ -9,16 +9,21 @@ length of the import only, this script puts a plain dict holding the
 barrier primitive in its place, so the reference registers no rule of its
 own, then restores the proxy. No file of the reference changes. It runs
 in a process of its own (``tests/test_torch_lm.py``,
-``tests/test_torch_moe.py``, ``tests/test_torch_rwkv6.py`` and
-``tests/test_torch_mamba.py`` start it), so no other test module ever sees
-the swap.
+``tests/test_torch_moe.py``, ``tests/test_torch_rwkv6.py``,
+``tests/test_torch_mamba.py`` and ``tests/test_torch_gemma3.py`` start
+it), so no other test module ever sees the swap.
 
-Four parts: ``lm`` (the default) dumps the models, ``moe`` the MoE
+Five parts (PART): ``lm`` (the default) dumps the models, ``moe`` the MoE
 layer's pieces, ``rwkv`` the rwkv6 pieces and the rwkv6-7b-smoke model (at
 2 layers, unrolled, and at 4, scanned as plan (0, 1, 4, 0)), ``mamba`` the
 mamba pieces and the jamba-v0.1-52b-smoke model (at 2 layers, unrolled,
 and at 8, scanned as plan (0, 2, 4, 0)) with 128-token prompts, twice its
-attention window of 64. Everything is drawn from fixed seeds: the weights
+attention window of 64, ``gemma`` the qk-norm attention pieces (sliding
+and global, at head_dim 64 and 256) and the gemma3-4b-smoke model (at 2
+layers, unrolled, and at 8, scanned as plan (0, 2, 4, 0); at 2 layers with
+head_dim 256; and a 34-layer model of gemma3-4b's layer pattern at tiny
+widths, plan (0, 6, 5, 4)) with 128-token prompts, twice its window of
+64. Everything is drawn from fixed seeds: the weights
 with the reference's own inits (mistral-nemo-12b-smoke at 2 layers,
 unrolled, and at 4 layers, scanned; moonshot-v1-16b-a3b-smoke at 2
 layers, unrolled, and at 6 layers, scanned as plan (1, 1, 5, 0): one
@@ -103,6 +108,9 @@ def main(path, part="lm"):
         return
     if part == "mamba":
         np.savez(path, **dump_mamba(transformer, ServeEngine))
+        return
+    if part == "gemma":
+        np.savez(path, **dump_gemma(attention, transformer, ServeEngine))
         return
     smoke = get_config("mistral-nemo-12b-smoke")
     rng = np.random.default_rng(0)
@@ -346,6 +354,76 @@ def dump_mamba(transformer, ServeEngine):
         dump_model(out, transformer, ServeEngine, cfg, f"jamba{n_layers}",
                    300 + n_layers, model_rng, prompt=JAMBA_PROMPT,
                    fwd_len=JAMBA_PROMPT, max_len=JAMBA_MAX_LEN)
+    return {key: np.asarray(a) for key, a in out.items()}
+
+
+# the gemma pieces: qk-norm attention of the smoke's widths (d 256, 4/2
+# heads) at head_dim 64 and 256, sliding (window 64) and global, over a
+# 100-token input whose prefill wraps the 64-slot ring; the models with
+# prompts and a forward of 128 tokens and a cache of 136 positions
+GEMMA_PIECE_LEN, GEMMA_PROMPT, GEMMA_MAX_LEN = 100, 128, 136
+GEMMA_HEAD_DIMS = (64, 256)
+GEMMA_KINDS = {"sliding": 0, "global": 1}     # layer of the smoke config
+# a 34-layer model of gemma3-4b's pattern (5 sliding, 1 global, stacked
+# 5 times, then 4 sliding) at tiny widths, window 8
+GEMMA_TINY = dict(d_model=32, num_heads=2, num_kv_heads=1, head_dim=16,
+                  d_ff=64, vocab_size=64, sliding_window=8)
+GEMMA_TINY_PROMPT, GEMMA_TINY_MAX_LEN = 16, 24
+
+
+def dump_gemma(attention, transformer, ServeEngine):
+    rng = np.random.default_rng(8)
+    out = {}
+    smoke = get_config("gemma3-4b-smoke")
+    d = smoke.d_model
+
+    def normal(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    for hd in GEMMA_HEAD_DIMS:
+        cfg = dataclasses.replace(smoke, head_dim=hd)
+        for kind, layer in GEMMA_KINDS.items():
+            p = f"attn{hd}_{kind}"
+            spec = transformer.attn_spec(cfg, cfg.layer_specs()[layer])
+            params = dict(attention.attn_init(jax.random.PRNGKey(hd + layer),
+                                              d, spec, jnp.float32))
+            # away from the init's ones, so that the scales move the output
+            params["q_norm"] = {"scale": 1 + normal(hd, scale=0.3)}
+            params["k_norm"] = {"scale": 1 + normal(hd, scale=0.3)}
+            out.update(flatten(params, f"{p}/params"))
+            x = normal(B, GEMMA_PIECE_LEN, d)
+            pos = jnp.arange(GEMMA_PIECE_LEN)
+            out[f"{p}/x"] = x
+            out[f"{p}/block"] = attention.attention_block(params, spec, x,
+                                                          pos)
+            kv = attention.init_kv_cache(B, spec, GEMMA_PIECE_LEN + 4,
+                                         jnp.float32)
+            y, kv = attention.prefill_attention(params, spec, x, pos, kv)
+            out.update({f"{p}/prefill": y, f"{p}/prefill_k": kv["k"],
+                        f"{p}/prefill_v": kv["v"]})
+            # row 0 appends at position 100, row 1 at 103: on the sliding
+            # ring, slots 36 and 39, over prompt positions 36 and 39
+            x1 = normal(B, 1, d)
+            dpos = np.array([GEMMA_PIECE_LEN, GEMMA_PIECE_LEN + 3], np.int32)
+            y, kv = attention.decode_attention(params, spec, x1, kv,
+                                               jnp.asarray(dpos))
+            out.update({f"{p}/decode_x": x1, f"{p}/decode_pos": dpos,
+                        f"{p}/decode": y, f"{p}/decode_k": kv["k"],
+                        f"{p}/decode_v": kv["v"]})
+
+    model_rng = np.random.default_rng(9)
+    for name, cfg in (("gemma2", dataclasses.replace(smoke, num_layers=2)),
+                      ("gemma8", dataclasses.replace(smoke, num_layers=8)),
+                      ("gemma2_hd256", dataclasses.replace(
+                          smoke, num_layers=2, head_dim=256))):
+        dump_model(out, transformer, ServeEngine, cfg, name,
+                   400 + len(name) + cfg.num_layers, model_rng,
+                   prompt=GEMMA_PROMPT, fwd_len=GEMMA_PROMPT,
+                   max_len=GEMMA_MAX_LEN)
+    tiny = dataclasses.replace(get_config("gemma3-4b"), **GEMMA_TINY)
+    dump_model(out, transformer, ServeEngine, tiny, "gemma34", 434,
+               model_rng, prompt=GEMMA_TINY_PROMPT,
+               fwd_len=GEMMA_TINY_PROMPT, max_len=GEMMA_TINY_MAX_LEN)
     return {key: np.asarray(a) for key, a in out.items()}
 
 

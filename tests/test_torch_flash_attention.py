@@ -34,6 +34,12 @@ CASES = {
     "rows_without_a_key": (1, 60, 30, 4, 2, 8, True, 8, 0),
     "noncausal_window": (1, 70, 45, 2, 1, 8, False, 10, 0),
     "noncausal_chunk_empty_rows": (1, 64, 20, 2, 1, 8, False, 0, 16),
+    # head_dim 256 (gemma3-4b's; the kernel's third instance): a window, a
+    # chunk, rows 40 .. 59 without a valid key, G = 2 off the 64-row tile
+    "hd256_window_g2": (2, 70, 70, 4, 2, 256, True, 16, 0),
+    "hd256_chunk_g2": (1, 90, 90, 4, 2, 256, True, 0, 32),
+    "hd256_rows_without_a_key": (1, 60, 30, 4, 2, 256, True, 8, 0),
+    "hd256_noncausal_g2": (1, 33, 50, 4, 2, 256, False, 0, 0),
 }
 
 

@@ -146,30 +146,58 @@ ATTN_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("b,sq,h,hkv", ATTN_SHAPES)
-def test_attention_plan_covers_every_row_once(b, sq, h, hkv):
-    pl = fa.plan(b, sq, h, hkv)
+# gemma3-4b's 8/4 heads of 256 (64-row query tiles): its serve runs (a) and
+# (b), Sq·G off the tile, B = 2, and one position
+ATTN_SHAPES_HD256 = [(1, 8192, 8, 4), (8, 512, 8, 4), (2, 333, 8, 4),
+                     (1, 1, 8, 4), (1, 77, 8, 8)]
+
+
+def _check_plan_covers_every_row_once(b, sq, h, hkv, hd):
+    pl = fa.plan(b, sq, h, hkv, hd)
+    assert pl.rows == fa.rows_per_block(hd)
     g = h // hkv
     seen = []
     for block in range(pl.grid_blocks):
         rows = list(fa.block_rows(pl, block))
-        assert 0 < len(rows) <= fa.ROWS_PER_BLOCK
+        assert 0 < len(rows) <= pl.rows
         # one batch row and one KV head per block
         assert len({(rb, head // g) for rb, _, head in rows}) == 1
         positions = sorted({pos for _, pos, _ in rows})
         # a tile's positions are contiguous: its masks are a key range
         assert positions == list(range(positions[0], positions[-1] + 1))
-        assert len(positions) <= -(-fa.ROWS_PER_BLOCK // g) + 1
+        assert len(positions) <= -(-pl.rows // g) + 1
         seen.extend(rows)
     assert len(seen) == len(set(seen)) == b * sq * h
     assert pl.grid_blocks == pl.tiles * hkv * b
 
 
-@pytest.mark.parametrize("b,sq,h,hkv", [(1, 8192, 32, 8), (2, 1000, 40, 8)])
-def test_attention_plan_issues_the_latest_positions_first(b, sq, h, hkv):
+@pytest.mark.parametrize("b,sq,h,hkv", ATTN_SHAPES)
+def test_attention_plan_covers_every_row_once(b, sq, h, hkv):
+    _check_plan_covers_every_row_once(b, sq, h, hkv, 128)
+
+
+@pytest.mark.parametrize("b,sq,h,hkv", ATTN_SHAPES_HD256)
+def test_attention_plan_covers_every_row_once_hd256(b, sq, h, hkv):
+    _check_plan_covers_every_row_once(b, sq, h, hkv, 256)
+
+
+def test_attention_rows_per_block_follow_the_head_width():
+    """The source's BR: 128 rows at hd 64 and 128, 64 at hd 256 (whose
+    128-row tiles would need 416 KB of shared memory)."""
+    assert [fa.rows_per_block(hd) for hd in fa.HEAD_DIMS] == [128, 128, 64]
+    assert fa.plan(1, 8192, 8, 4, 256).grid_blocks == 1024
+    assert fa.plan(1, 8192, 32, 8, 128).grid_blocks == 2048
+
+
+@pytest.mark.parametrize("b,sq,h,hkv,hd", [
+    pytest.param(1, 8192, 32, 8, 128, id="1-8192-32-8"),
+    pytest.param(2, 1000, 40, 8, 128, id="2-1000-40-8"),
+    pytest.param(1, 8192, 8, 4, 256, id="1-8192-8-4-hd256"),
+    pytest.param(2, 333, 8, 4, 256, id="2-333-8-4-hd256")])
+def test_attention_plan_issues_the_latest_positions_first(b, sq, h, hkv, hd):
     """Every (batch, KV head) starts its last query tile, the longest under
     a causal mask, before any block starts a shorter one."""
-    pl = fa.plan(b, sq, h, hkv)
+    pl = fa.plan(b, sq, h, hkv, hd)
     last_pos = [max(pos for _, pos, _ in fa.block_rows(pl, block))
                 for block in range(pl.grid_blocks)]
     assert last_pos == sorted(last_pos, reverse=True)

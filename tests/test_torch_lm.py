@@ -53,7 +53,8 @@ SMOKE = "mistral-nemo-12b-smoke"
 MOON = "moonshot-v1-16b-a3b-smoke"
 PORTED = {"mistral-nemo-12b", SMOKE, "phi3-medium-14b",
           "phi3-medium-14b-smoke", "moonshot-v1-16b-a3b", MOON, "rwkv6-7b",
-          "rwkv6-7b-smoke", "jamba-v0.1-52b", "jamba-v0.1-52b-smoke"}
+          "rwkv6-7b-smoke", "jamba-v0.1-52b", "jamba-v0.1-52b-smoke",
+          "gemma3-4b", "gemma3-4b-smoke"}
 # (arch, layers) of the reference's dumps; mistral's keep their ids
 MODELS = [pytest.param(SMOKE, 2, id="2"), pytest.param(SMOKE, 4, id="4"),
           pytest.param(MOON, 2, id="moonshot-2"),
@@ -187,7 +188,7 @@ def test_moe_archs_still_unported_name_their_slice(name, where):
 
 @pytest.mark.parametrize("change", [
     dict(encoder_layers=1), dict(frontend="vision"), dict(learned_pos=True),
-    dict(qk_norm=True), dict(tie_embeddings=False)])
+    dict(tie_embeddings=False)])
 def test_unported_branches_raise(change):
     cfg = dataclasses.replace(get_config(SMOKE), **change)
     why = "untied" if "tie_embeddings" in change else "slice"
