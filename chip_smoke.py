@@ -210,6 +210,34 @@ Phases, each printing one JSON line per case:
    GB of float32 weights), after jamba's weights are freed, as in 9: 34
    flash launches per ``generate`` (the head_dim-256 instance), 5 of them
    global and 29 windowed.
+22. ``lm_netes`` — NetES over LM agents (``train_lm_netes``, the replica
+   step of ``distributed.netes_dist``): gemma3-4b at full width and 6 of
+   its 34 layers (one period; 4.95 GB an agent), N = 8 agents of one
+   2048-token sequence each, 3 iterations (``LM_CASES``): (i) fully
+   connected (``netes_mixing``), (ii) ER p = 0.5, sparse
+   (``netes_sparse_mixing``), (iii) (ii) through channel (a) (both fused
+   kernels, and the sparse kernel for the ε term). The counters are
+   zeroed just before each run and read just after: each Eq. 3 kernel of
+   the case launches once a slab (125 a step), flash 96 times a step (6
+   layers × 16 evaluations, 5 windowed to 1 global). Per case the steps'
+   ms (CUDA events), losses, the peak device memory (under 60 GB), and
+   one more step under ``torch.profiler`` (the device's idle share); one
+   step of (i) and of (iii) under the sync check. Before (i), its first
+   step against float64 on the card: each agent's ± loss within 1e-5
+   relative, the order of every two rewards float64 separates, and the
+   last 4096 columns of every leaf's update within 3e-5·S.
+23. ``lm_netes_cpu_parity`` — one replica step of gemma3-4b-smoke (FC),
+   moonshot-v1-16b-a3b-smoke (ER: the router kernel) and
+   jamba-v0.1-52b-smoke (ER through channel (a): the scan kernel) on the
+   card against the CPU from the same parameters and draws, within 2e-5.
+The kernel phases also run the four Eq. 3 kernels at the LM step's
+shapes, N = 8 by 16,777,216 columns (gemma3-4b's embedding slab) and by
+5,242,880 (a layer's ``wq``), and flash at 1 × 2048, 8/4 heads of 256,
+global and window 1024. ``torch.sparse.mm``, the sparse and fused
+kernels' library yardstick, returns wrong values at 16,777,216 columns:
+there its error is printed (``library_agrees``: false) and its time left
+out. At both LM shapes those two kernels are also timed against
+``torch.matmul`` on the dense weight (``matmul_ms``, held to 3e-5·S).
 Every ``serve`` phase counts the flash calls by mask (global or windowed)
 against the layers' kinds.
 ``no_sync`` (in phases 7, 13, 16 and 19): one prefill of mistral-nemo-12b,
@@ -222,7 +250,9 @@ channel run (a)'s; ``launches_schedule``: each schedule run's;
 ``launches_telemetry``: each probed run's and the traced generate's;
 ``launches_capture_replay``: the Eq. 3 kernel in one replay of each
 captured step; ``launches_search``: each tournament's; the flash row's
-``launches_gemma3_4b`` and its ``hd256`` and ``hd256_local`` times), the
+``launches_gemma3_4b`` and its ``hd256`` and ``hd256_local`` times;
+``launches_lm_netes``: a step of each ``lm_netes`` case; ``lm_shapes``:
+the times at the LM step's shapes), the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -288,6 +318,37 @@ CLOCKS = ("clocks.sm,clocks.mem,clocks.max.sm,temperature.gpu,"
           "clocks_throttle_reasons.active")
 
 
+# NetES over LM agents (phase 22): gemma3-4b at full width and one period
+# of its stack (5 sliding layers of window 1024, then a global one; 4.95 GB
+# of float32 weights an agent), N = 8 agents (the reference launcher's
+# example), one 2048-token sequence an agent, 3 iterations; 39.6 GB of
+# parameters. (case, family, density, representation, channel)
+LM_N, LM_LAYERS, LM_SEQ, LM_ITERS, LM_P_ER = 8, 6, 2048, 3, 0.5
+LM_CASES = (("i", "fully_connected", 1.0, "dense", None),
+            ("ii", "erdos_renyi", LM_P_ER, "sparse", None),
+            ("iii", "erdos_renyi", LM_P_ER, "sparse", CHANNEL_RUNS[0][3]))
+# σ of 1e-3 against weights of ≈ 0.02; a step changes a weight by about
+# α/(Nσ²)·2σ = 2.5e-4, ≈ 1 % of it
+LM_ALPHA, LM_SIGMA, LM_P_BROADCAST = 1e-6, 1e-3, 0.5
+LM_PEAK_BYTES = 60e9        # the step's peak device memory must stay below
+TOL_LM_LOSS = 1e-5          # an agent's ± loss against float64, relative
+LM_CHECK_COLS = 4096        # columns of each leaf held against float64
+# the Eq. 3 kernels timed at the LM step's shapes: gemma3-4b's embedding
+# slab (SLAB_COLUMNS of its 671 M columns) and a layer's wq leaf (2560·8·256)
+LM_KERNEL_SHAPES = (("lm_embed_slab", 1 << 24), ("lm_wq_leaf", 5_242_880))
+# the dense yardstick (PyTorch's default keeps TF32 off for matmul)
+MATMUL = "torch.matmul (f32, TF32 off)"
+LM_KERNEL_GRAPHS = (("netes_mixing", "fully_connected", 1.0),
+                    ("netes_sparse_mixing", "erdos_renyi", LM_P_ER))
+# one replica step of each smoke model on the card and on the CPU with the
+# same draws: (arch, family, representation, channel); 128-token
+# sequences (two of the smoke's MoE groups, twice its window)
+LM_PARITY_CASES = (
+    ("gemma3-4b-smoke", "fully_connected", "dense", None),
+    ("moonshot-v1-16b-a3b-smoke", "erdos_renyi", "sparse", None),
+    ("jamba-v0.1-52b-smoke", "erdos_renyi", "sparse", CHANNEL_RUNS[0][3]))
+LM_PARITY_N, LM_PARITY_SEQ, LM_MIN_MARGIN = 4, 128, 2e-5
+
 L2_FLUSH_BYTES = 64 << 20   # above the H100's 50 MB L2
 SELECT_ITERS = 100          # timed launches of the broadcast select
 SPIN_CYCLES = 2_000_000     # ≈ 1 ms of the card's clock
@@ -337,6 +398,16 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def _lm_row(row: dict) -> dict:
+    """The numbers of a kernel row that the kernels line carries for an
+    LM NetES shape."""
+    keep = ("n", "p", "d", "k_max", "sq", "window", "max_abs_err", "ms",
+            "ms_q1", "ms_q3", "plain_ms", "library", "library_ms",
+            "library_agrees", "library_err_over_S", "matmul_ms",
+            "matmul_err_over_S", "bound_ms", "bound_by", "share_of_bound")
+    return {k: row[k] for k in keep if k in row}
+
+
 def _operands(n: int, p: int, seed: int):
     """θ at the policy's init scale, ε ~ N(0, 1) and the antithetic
     centered-rank weights R̃ of random returns, as one NetES step makes."""
@@ -357,9 +428,12 @@ def _graph(n: int, family: str, p: float, seed: int):
     return TopologySpec(family=family, n_agents=n, p=p, seed=seed).build()
 
 
-def _check_against_f64(name, out, adj64, w, theta, eps, sigma):
+def _check_against_f64(name, out, adj64, w, theta, eps, sigma,
+                       strict: bool = True):
     """The S-scaled bound above, against Eq. 3 in float64 on the dense
-    adjacency (the sparse function equals the dense one on its graph)."""
+    adjacency (the sparse function equals the dense one on its graph).
+    Returns the worst |err|/S; with ``strict=False`` it raises not and
+    returns (worst |err|/S, whether within the bound)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -370,6 +444,8 @@ def _check_against_f64(name, out, adj64, w, theta, eps, sigma):
              + (adj64 * w64[None, :]).sum(1).abs()[:, None] * th64.abs())
     excess = ((out.double() - exact).abs() - TOL_REL * scale).max().item()
     ratio = ((out.double() - exact).abs() / scale.clamp_min(1e-30)).max()
+    if not strict:
+        return ratio.item(), excess <= 0.0
     check(excess <= 0.0, f"{name}: error above {TOL_REL}·S "
           f"(worst |err|/S = {ratio.item():.3g})")
     return ratio.item()
@@ -428,7 +504,7 @@ def _kernel_launches(fn, calls: int = 5) -> dict:
                         if e.device_type == cuda}}
 
 
-def kernel_phase(results: dict) -> None:
+def kernel_phase(results: dict, lm_results: dict) -> None:
     import numpy as np
     import torch
 
@@ -455,7 +531,9 @@ def kernel_phase(results: dict) -> None:
         # four sender chunks: the slab of 5000 senders fits no block
         ("netes_sparse_mixing", "er_chunked", "erdos_renyi", 0.02, 5000, 700,
          False),
-    ]
+    ] + [(kname, label, family, dens, LM_N, p, False)
+         for kname, family, dens in LM_KERNEL_GRAPHS
+         for label, p in LM_KERNEL_SHAPES]
     for kname, label, family, dens, n, p, main in cases:
         adj_np = _graph(n, family, dens, seed=0)
         theta, eps, w = _operands(n, p, seed=n + p)
@@ -505,15 +583,28 @@ def kernel_phase(results: dict) -> None:
         wt = a * w[None, :]
         big_w = torch.cat([wt - torch.diag(wt.sum(1)), sigma * wt], dim=1)
         stacked = torch.cat([theta, eps], dim=0)
+        matmul = functools.partial(torch.matmul, big_w, stacked)
         if kname == "netes_mixing":
-            lib_name = "torch.matmul (f32, TF32 off)"
-            lib = functools.partial(torch.matmul, big_w, stacked)
+            lib_name, lib = MATMUL, matmul
         else:
             lib_name = "torch.sparse.mm (CSR)"
             big_csr = big_w.to_sparse_csr()
             lib = functools.partial(torch.sparse.mm, big_csr, stacked)
+        # at the LM shapes torch.sparse.mm has returned wrong values: its
+        # error is reported there, and a wrong result gets no time; the
+        # sparse kernel's LM rows also time torch.matmul on the dense
+        # weight (the same function), the yardstick where the CSR one fails
+        lm = label.startswith("lm_")
         rel_l = _check_against_f64(f"{kname}/{label} library", lib(), adj64,
-                                   w, theta, eps, sigma)
+                                   w, theta, eps, sigma, strict=not lm)
+        rel_l, lib_ok = rel_l if lm else (rel_l, True)
+        dense_lib = {}
+        if lm and kname != "netes_mixing":
+            dense_lib = {
+                "matmul_err_over_S": _check_against_f64(
+                    f"{kname}/{label} {MATMUL}", matmul(), adj64, w, theta,
+                    eps, sigma),
+                "matmul_ms": time_ms(matmul)}
 
         # Eq. 3's least work is its factored form (the same function):
         # Y = R̃θ·θ + σR̃ε·ε (3 flops an element), one FMA per edge and
@@ -531,7 +622,9 @@ def kernel_phase(results: dict) -> None:
                "plain_err_over_S": rel_p, "library_err_over_S": rel_l,
                "tol_over_S": TOL_REL, **launch,
                **time_stats(kernel), "plain_ms": time_ms(plain),
-               "library": lib_name, "library_ms": time_ms(lib),
+               "library": lib_name,
+               "library_ms": time_ms(lib) if lib_ok else None,
+               "library_agrees": lib_ok, **dense_lib,
                "bound_ms": 1e3 * max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "gflop": flops / 1e9, "mbytes": moved / 1e6,
@@ -545,6 +638,8 @@ def kernel_phase(results: dict) -> None:
         emit(row)
         if main:
             results[kname] = row
+        if label.startswith("lm_"):
+            lm_results.setdefault(kname, {})[label] = _lm_row(row)
         del out_k, out_p, args, big_w, stacked
         torch.cuda.empty_cache()
 
@@ -560,9 +655,10 @@ def _dropout_mask(topo, p: float, seed: int = 0):
     return channel.dropout_mask(key, topo, p)
 
 
-def _check_fused_f64(name, out, idx, ws, codes):
+def _check_fused_f64(name, out, idx, ws, codes, strict: bool = True):
     """|out − Σ_k ws·codes[idx]| ≤ TOL_REL·Σ_k |ws·codes[idx]| against a
-    float64 sum over the same folded float32 weights."""
+    float64 sum over the same folded float32 weights. ``strict=False`` as
+    in ``_check_against_f64``."""
     import torch
     idx_l = idx.long()
     ws64, c64 = ws.double(), codes.double()
@@ -575,12 +671,14 @@ def _check_fused_f64(name, out, idx, ws, codes):
     err = (out.double() - exact).abs()
     excess = (err - TOL_REL * scale).max().item()
     ratio = (err / scale.clamp_min(1e-30)).max().item()
+    if not strict:
+        return ratio, excess <= 0.0
     check(excess <= 0.0, f"{name}: error above {TOL_REL}·S "
           f"(worst |err|/S = {ratio:.3g})")
     return ratio
 
 
-def wire_kernel_phase(results: dict) -> None:
+def wire_kernel_phase(results: dict, lm_results: dict) -> None:
     """The two fused wire kernels: q8 codes from ``encode`` of a payload at
     the policy's scale, the channel's dropout mask folded into the slot
     weights, at the main path's shapes, a ragged one and N = 5000 (four
@@ -596,7 +694,9 @@ def wire_kernel_phase(results: dict) -> None:
     for label, dens, n, d, main in (("er_main", MAIN_P_ER, MAIN_N, 4481, True),
                                     ("er_ragged", 0.3, 257, 700, False),
                                     # four sender chunks
-                                    ("er_chunked", 0.02, 5000, 700, False)):
+                                    ("er_chunked", 0.02, 5000, 700, False),
+                                    *((label, LM_P_ER, LM_N, p, False)
+                                      for label, p in LM_KERNEL_SHAPES)):
         topo = from_dense(_graph(n, "erdos_renyi", dens, seed=0), "sparse",
                           device="cuda")
         theta, eps, w = _operands(n, d, seed=n + d)
@@ -620,13 +720,25 @@ def wire_kernel_phase(results: dict) -> None:
         # library: one CSR product of the folded (N, N) weights with the
         # codes widened to float32; both made outside the timed call
         rows = torch.arange(n, device="cuda").repeat_interleave(topo.k_max)
-        big = torch.zeros(n, n, device="cuda").index_put_(
+        dense = torch.zeros(n, n, device="cuda").index_put_(
             (rows, topo.neighbor_idx.reshape(-1).long()), ws.reshape(-1),
-            accumulate=True).to_sparse_csr()
+            accumulate=True)
+        big = dense.to_sparse_csr()
         codes_f32 = wp.codes.float()
         lib = functools.partial(torch.sparse.mm, big, codes_f32)
+        lm = label.startswith("lm_")     # as in kernel_phase
         rel_l = _check_fused_f64(f"fused_neighbor_sum/{label} library",
-                                 lib(), topo.neighbor_idx, ws, wp.codes)
+                                 lib(), topo.neighbor_idx, ws, wp.codes,
+                                 strict=not lm)
+        rel_l, lib_ok = rel_l if lm else (rel_l, True)
+        dense_lib = {}
+        if lm:
+            matmul = functools.partial(torch.matmul, dense, codes_f32)
+            dense_lib = {
+                "matmul_err_over_S": _check_fused_f64(
+                    f"fused_neighbor_sum/{label} {MATMUL}", matmul(),
+                    topo.neighbor_idx, ws, wp.codes),
+                "matmul_ms": time_ms(matmul)}
         nnz, k_max = int((ws != 0).sum().item()), topo.k_max
         # one launch per call, the weights folded in the kernel: the trace
         # of one wrapper call holds one kernel, and the plain fold is not
@@ -664,7 +776,8 @@ def wire_kernel_phase(results: dict) -> None:
                **_slab_launch(nfm, n, d), "kernels_per_call": launched,
                **time_stats(kernel), "plain_ms": time_ms(plain),
                "library": "torch.sparse.mm (CSR, codes cast to f32 outside)",
-               "library_ms": time_ms(lib),
+               "library_ms": time_ms(lib) if lib_ok else None,
+               "library_agrees": lib_ok, **dense_lib,
                "bound_ms": 1e3 * max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "gflop": flops / 1e9, "mbytes": moved / 1e6}
@@ -672,6 +785,9 @@ def wire_kernel_phase(results: dict) -> None:
         emit(row)
         if main:
             results["fused_neighbor_sum"] = row
+        if label.startswith("lm_"):
+            lm_results.setdefault("fused_neighbor_sum", {})[label] = \
+                _lm_row(row)
 
         # the broadcast of the best agent: equal to the plain version
         best = wire_format.encode(theta[3] + 0.1 * eps[3], 8, batched=False)
@@ -710,7 +826,10 @@ def wire_kernel_phase(results: dict) -> None:
         emit(row)
         if main:
             results["fused_broadcast_select"] = row
-        del out_k, out_p, big, codes_f32, theta, eps
+        if label.startswith("lm_"):
+            lm_results.setdefault("fused_broadcast_select", {})[label] = \
+                _lm_row({**row, "share_of_bound": row["bound_ms"] / row["ms"]})
+        del out_k, out_p, big, dense, codes_f32, theta, eps
         torch.cuda.empty_cache()
 
 
@@ -880,6 +999,10 @@ ATTN_CASES = (
     ("rows_without_a_key_hd256", 1, 300, 100, 8, 4, 256, True, 64, 0, ""),
     ("hd256_chunk128", 1, 300, 300, 8, 4, 256, True, 0, 128, ""),
     ("hd256_noncausal_sq200_sk333", 1, 200, 333, 8, 4, 256, False, 0, 0, ""),
+    # the NetES loss of gemma3-4b (lm_netes): one 2048-token sequence, a
+    # global layer and a sliding one
+    ("lm_gemma_2048", 1, 2048, 2048, 8, 4, 256, True, 0, 0, ""),
+    ("lm_gemma_2048_w1024", 1, 2048, 2048, 8, 4, 256, True, 1024, 0, ""),
 )
 
 
@@ -925,7 +1048,7 @@ def _sdpa_backend(*args, **kwargs) -> str:
     return SDPBackend(torch._fused_sdp_choice(*args, **kwargs)).name
 
 
-def attention_kernel_phase(results: dict) -> None:
+def attention_kernel_phase(results: dict, lm_results: dict) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -1008,6 +1131,8 @@ def attention_kernel_phase(results: dict) -> None:
                   "bf16 attention passes the float32 tolerance: tighten it")
         if main:
             results[main] = row
+        if label.startswith("lm_"):
+            lm_results.setdefault("flash_attention", {})[label] = _lm_row(row)
         emit(row)
         del q, k, v, out_k, out_p, exact, qt, kt, vt, ok
         torch.cuda.empty_cache()
@@ -2776,11 +2901,8 @@ TOL_SMOKE = 2e-5
 
 def _cast(tree, **kw):
     """The parameter tree with every tensor passed through ``.to(**kw)``."""
-    if isinstance(tree, dict):
-        return {key: _cast(val, **kw) for key, val in tree.items()}
-    if isinstance(tree, list):
-        return [_cast(val, **kw) for val in tree]
-    return tree.to(**kw)
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda t: t.to(**kw), tree)
 
 
 def _greedy(params, cfg, prompts, new_tokens, timed=False):
@@ -3499,6 +3621,10 @@ def gemma_parity_phase() -> None:
 # dispatch's gathers and scatters; the embedding lookup and the decode
 # cache writes count here too).
 PROFILE_KINDS = (("flash_attention", ("flash_attention_kernel",)),
+                 ("eq3", ("mixing_gemm", "mixing_weights", "mixing_fixup",
+                          "sparse_mixing_slab", "fused_neighbor_sum_slab",
+                          "fused_broadcast_select_kernel")),
+                 ("rng", ("normal", "philox", "distribution")),
                  ("moe_router", ("moe_topk_kernel",)),
                  ("rwkv6_wkv", ("wkv6_kernel", "wkv6_step_kernel")),
                  ("mamba_scan", ("mamba_scan_kernel",)),
@@ -3696,6 +3822,334 @@ def serve_phase(arch: str, num_layers=None) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 22: NetES over LM agents
+# ---------------------------------------------------------------------------
+
+def _lm_config(family, dens, rep, channel):
+    from repro_torch.core.netes import NetESConfig
+    from repro_torch.core.topology import TopologySpec
+    from repro_torch.train.loop import TrainConfig
+    return TrainConfig(
+        n_agents=LM_N, iters=LM_ITERS, seed=0, representation=rep,
+        channel=channel,
+        topology=TopologySpec(family=family, n_agents=LM_N, p=dens, seed=0),
+        netes=NetESConfig(alpha=LM_ALPHA, sigma=LM_SIGMA,
+                          p_broadcast=LM_P_BROADCAST))
+
+
+def _lm_inputs(cfg, tc, it):
+    """Iteration ``it``'s batch and draws in ``train_lm_netes``."""
+    from repro_torch.train.loop import lm_step_inputs
+    return lm_step_inputs(cfg, tc, it, LM_SEQ, device="cuda")
+
+
+def _lm_f64_check(cfg, tc, topo) -> dict:
+    """The first step of case (i), from the run's θ⁽⁰⁾, batch and ε, held
+    against float64 on the card: each agent's ± loss (the kernel path,
+    ``loss_fn`` on float32 weights) against ``loss_fn`` of the same
+    perturbed weights cast to float64 (the plain forward's layers) within
+    ``TOL_LM_LOSS`` relative; the order of every two rewards whose float64
+    gap exceeds that tolerance; and the last ``LM_CHECK_COLS`` columns of
+    every leaf's update against Eq. 3 in float64 from the same θ, ε and
+    shaped rewards: |Δθ − Δθ₆₄| ≤ TOL_REL·S + 2⁻²⁴·|θ'|, S the sum of the
+    update's terms' magnitudes (α/(Nσ²)·(Σ|a w_θ θ_i| + σΣ|a w_ε ε_i| +
+    |wsum θ_j|) + wd·|θ_j|), the last term the rounding of θ + Δθ. The
+    step's β is set to 1 (no broadcast), so that the update is Eq. 3's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import es_utils
+    from repro_torch.core.tree import flatten, tree_map
+    from repro_torch.distributed import netes_dist
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer
+    from repro_torch.train.loop import lm_population
+
+    ncfg = tc.netes
+    params = lm_population(cfg, tc, device="cuda")
+    batch, draws = _lm_inputs(cfg, tc, 0)
+    draws = dataclasses.replace(draws, beta=torch.ones((), device="cuda"))
+    r_pos, r_neg = netes_dist.agent_rewards(cfg, params, batch, draws.noise,
+                                            ncfg.sigma)
+    r32 = torch.cat([r_pos, r_neg]).double().cpu()
+    r64 = []
+    replica = tree_map(lambda leaf: torch.empty_like(leaf[0]), params)
+    for sign in (1.0, -1.0):
+        for a in range(LM_N):
+            theta = netes_dist.agent_params(params, a)
+            netes_dist.perturb_params(theta, draws.noise, a, ncfg.sigma,
+                                      out=replica)
+            if sign < 0:     # 2θ − (θ + σε), as the step makes θ − σε
+                tree_map(lambda p, t: p.mul_(-1.0).add_(t, alpha=2.0),
+                         replica, theta)
+            p64 = tree_map(lambda x: x.double(), replica)
+            loss = transformer.loss_fn(p64, cfg,
+                                       {k: v[a] for k, v in batch.items()})
+            r64.append(-loss.item())
+            del p64, loss
+    del replica
+    r64 = torch.tensor(r64, dtype=torch.float64)
+    rel = ((r32 - r64).abs() / r64.abs()).max().item()
+    check(rel <= TOL_LM_LOSS, f"lm_netes f64: a ± loss is {rel:.3g} "
+          f"relative from float64, above {TOL_LM_LOSS}")
+    gap = r64[:, None] - r64[None, :]
+    decided = gap.abs() > TOL_LM_LOSS * r64.abs()[:, None]
+    flips = int((decided & (torch.sign(r32[:, None] - r32[None, :])
+                            != torch.sign(gap))).sum().item())
+    check(flips == 0, f"lm_netes f64: {flips} reward pairs ordered "
+          "otherwise than in float64")
+
+    # the columns held, before the update: θ and ε of each leaf's last
+    # slab's tail
+    leaves = flatten(params)
+    held = []
+    for i, leaf in enumerate(leaves):
+        flat = leaf.view(LM_N, -1)
+        p = flat.shape[1]
+        s = (p - 1) // netes_dist.SLAB_COLUMNS
+        c0 = s * netes_dist.SLAB_COLUMNS
+        w = min(LM_CHECK_COLS, p - c0)
+        eps = torch.empty(LM_N, p - c0, device="cuda")
+        for a in range(LM_N):
+            draws.noise(eps[a], a, i, s, c0)
+        held.append((flat[:, p - w:].double(), eps[:, -w:].double(), w))
+        del eps
+    netes_dist.replica_update(params, r_pos, r_neg, draws, topo, ncfg)
+
+    shaped = es_utils.centered_rank(torch.cat([r_pos, r_neg])).double()
+    w_th, w_ep = shaped[:LM_N] + shaped[LM_N:], shaped[:LM_N] - shaped[LM_N:]
+    adj = topo.adj.double()
+    scale = ncfg.alpha / (LM_N * ncfg.sigma ** 2)
+    worst = 0.0
+    for leaf, (th, ep, w) in zip(leaves, held, strict=True):
+        new = leaf.view(LM_N, -1)[:, -w:].double()
+        mixed = ref.netes_mixing_ref(adj, w_th, w_ep, th, ep,
+                                     sigma=ncfg.sigma)
+        d64 = scale * mixed - ncfg.weight_decay * th
+        wa = adj.abs()
+        mag = (scale * ((wa * w_th.abs()) @ th.abs()
+                        + ncfg.sigma * ((wa * w_ep.abs()) @ ep.abs())
+                        + (adj @ w_th).abs()[:, None] * th.abs())
+               + ncfg.weight_decay * th.abs())
+        bound = TOL_REL * mag + 2.0 ** -24 * new.abs()
+        err = ((new - th) - d64).abs()
+        check(bool((err <= bound).all()),
+              f"lm_netes f64: an update is off Eq. 3 by "
+              f"{(err / bound).max().item():.3g} of its bound")
+        worst = max(worst, (err / mag.clamp_min(1e-30)).max().item())
+    del params, held
+    torch.cuda.empty_cache()
+    return {"loss_max_rel_err_f64": rel, "reward_order_flips": flips,
+            "reward_pairs_decided": int(decided.sum().item()) // 2,
+            "losses": r32.tolist(), "losses_f64": r64.tolist(),
+            "update_max_err_over_S": worst, "update_cols_per_leaf":
+            LM_CHECK_COLS, "tol_over_S": TOL_REL}
+
+
+def _no_sync_lm_step(label, step, args) -> None:
+    """One replica step under ``torch.cuda.set_sync_debug_mode("error")``."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(*args)
+    except RuntimeError as err:
+        raise RuntimeError(f"no_sync lm_netes ({label}): the step waits for "
+                           f"the card: {err}") from err
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def lm_netes_phase() -> dict:
+    """``train_lm_netes`` of gemma3-4b at full width, 6 layers, N = 8, one
+    2048-token sequence an agent, 3 iterations, in ``LM_CASES``: (i) fully
+    connected (the dense kernel), (ii) ER p = 0.5 (the sparse kernel),
+    (iii) (ii) through channel (a) (both fused kernels, and the sparse
+    kernel for the ε term). Each run's launch counters are zeroed just
+    before it and read just after; every Eq. 3 kernel of the case and the
+    flash kernel (6 layers × 2N evaluations a step, 5 windowed to 1
+    global) must launch. Per case: the steps' ms (CUDA events), the
+    losses, the peak device memory (under ``LM_PEAK_BYTES``), launches a
+    step, and one more step profiled (the device's idle share); one step
+    of (i) and of (iii) under the sync check. Before (i), its first step
+    against float64 (``_lm_f64_check``). Returns the launches a step of
+    each case."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import flatten
+    from repro_torch.distributed import netes_dist
+    from repro_torch.train.loop import (build_channel, build_topology,
+                                        lm_population, train_lm_netes)
+
+    cfg = dataclasses.replace(get_config(GEMMA_ARCH), num_layers=LM_LAYERS)
+    counters = _counters()
+    per_step = {}
+    for label, family, dens, rep, chan_text in LM_CASES:
+        tc = _lm_config(family, dens, rep, chan_text)
+        topo = build_topology(tc, device="cuda")
+        check(topo.kind == rep, f"lm_netes ({label}): {topo.kind} topology")
+        f64 = _lm_f64_check(cfg, tc, topo) if label == "i" else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters.values():
+            k.launches = 0
+        masks = {}
+        with _counting_flash_masks(masks):
+            t0 = time.perf_counter()
+            hist = train_lm_netes(cfg, tc, seq_len=LM_SEQ, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        check(all(math.isfinite(v) for v in hist["loss_mean"])
+              and len(hist["loss_mean"]) == LM_ITERS,
+              f"lm_netes ({label}): losses {hist['loss_mean']}")
+        check(peak < LM_PEAK_BYTES, f"lm_netes ({label}): peak memory "
+              f"{peak / 1e9:.2f} GB")
+        evals = LM_ITERS * 2 * LM_N
+        check(counts["flash_attention"] == LM_LAYERS * evals
+              and masks == {"windowed": 5 * evals, "global": evals},
+              f"lm_netes ({label}): flash launches {counts} by mask {masks}")
+        needed = {"dense": ["netes_mixing"], "sparse": ["netes_sparse_mixing"]
+                  }[rep] + (["fused_neighbor_sum", "fused_broadcast_select"]
+                            if chan_text else [])
+        for name in needed:
+            check(counts[name] > 0,
+                  f"lm_netes ({label}): {name} never launched")
+        per_step[label] = {k: v / LM_ITERS for k, v in counts.items() if v}
+
+        # the profiled and the no-sync steps: from the run's θ⁽⁰⁾ again
+        params = lm_population(cfg, tc, device="cuda")
+        channel = build_channel(tc)
+        step = netes_dist.make_replica_train_step(
+            cfg, tc.netes, LM_N, microbatch=1, topology=topo,
+            channel=channel)
+        batch, draws = _lm_inputs(cfg, tc, LM_ITERS)
+        states = [channel.init(params)] if channel is not None else []
+        prof = _profile(lambda: step(params, None, batch, draws, *states))
+        no_sync = label in ("i", "iii")
+        if no_sync:
+            batch, draws = _lm_inputs(cfg, tc, LM_ITERS + 1)
+            _no_sync_lm_step(label, step,
+                             (params, None, batch, draws, *states))
+        emit({"phase": "lm_netes", "case": label, "arch": cfg.name,
+              "num_layers": LM_LAYERS, "n_agents": LM_N, "seq": LM_SEQ,
+              "family": family, "density": dens, "representation": rep,
+              "k_max": topo.k_max, "channel": chan_text,
+              "iters": LM_ITERS, "netes": dataclasses.asdict(tc.netes),
+              "params_per_agent": sum(leaf[0].numel() for leaf in
+                                      flatten(params)),
+              "wall_s": wall, "step_ms": hist["step_ms"],
+              "step_ms_quartiles": _quartiles(hist["step_ms"]),
+              "loss_mean": hist["loss_mean"],
+              "reward_max": hist["reward_max"],
+              "peak_memory_gb": peak / 1e9, "launches": counts,
+              "launches_per_step": per_step[label],
+              "flash_by_mask": masks, "profiled_step": prof,
+              "no_sync_step": no_sync, "f64_first_step": f64})
+        del params, step, states, batch, draws
+        torch.cuda.empty_cache()
+    return per_step
+
+
+def lm_netes_cpu_parity_phase() -> None:
+    """Two replica steps of each smoke model in ``LM_PARITY_CASES`` on the
+    card and on the CPU from the same parameters, batch and draws (ε drawn
+    on the CPU for both; the channel's dropout mask is the same bits on
+    both devices): gemma3-4b-smoke fully connected (the dense kernel),
+    moonshot-v1-16b-a3b-smoke on ER (the sparse kernel and the router
+    kernel), jamba-v0.1-52b-smoke through channel (a) (the fused kernels
+    and the scan kernel). The first step's β is 1 (no broadcast: the
+    mixing is compared), the second's 0 (the broadcast is); the second
+    starts on both devices from the CPU's parameters after the first, as
+    q8 would round a 1e-7 difference of θ to a code apart on the rare
+    element near a half-integer. Before each step the rewards' smallest
+    gap must exceed ``LM_MIN_MARGIN``, so that both devices rank them
+    alike; after it, parameters and metrics within ``TOL_SMOKE`` (rtol =
+    atol)."""
+    import torch
+
+    from repro_torch.comm.channel import compile_channel
+    from repro_torch.configs import get_config
+    from repro_torch.core import topology_repr
+    from repro_torch.core.netes import NetESConfig
+    from repro_torch.core.topology import TopologySpec
+    from repro_torch.core.tree import flatten, tree_map
+    from repro_torch.data import make_batch
+    from repro_torch.distributed import netes_dist
+
+    ncfg = NetESConfig(alpha=0.01, sigma=0.02, p_broadcast=LM_P_BROADCAST)
+    n = LM_PARITY_N
+    for arch, family, rep, chan_text in LM_PARITY_CASES:
+        cfg = get_config(arch)
+        spec = TopologySpec(family=family, n_agents=n, p=LM_P_ER, seed=0)
+        gen = torch.Generator().manual_seed(4)
+        tokens = make_batch(cfg, dict(global_batch=n, seq_len=LM_PARITY_SEQ),
+                            gen)["tokens"].reshape(n, 1, LM_PARITY_SEQ)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = netes_dist.init_population(cfg, n, seed=3, device="cpu")
+            params = tree_map(lambda t, d=dev: t.to(d), params)
+            chan = compile_channel(chan_text, n) if chan_text else None
+            step = netes_dist.make_replica_train_step(
+                cfg, ncfg, n, microbatch=1,
+                topology=topology_repr.from_spec(spec, representation=rep,
+                                                 device=dev),
+                channel=chan)
+            tok = tokens.to(dev)
+            runs[dev] = (params, step, {"tokens": tok, "labels": tok},
+                         [chan.init(params)] if chan else [])
+        margins, worst, metrics = [], [], []
+        for t, beta in enumerate((1.0, 0.0)):
+            noise = netes_dist.NoiseStream(seed=5, step=t, device="cpu")
+            params, _, batch, _ = runs["cpu"]
+            raw = torch.sort(torch.cat(netes_dist.agent_rewards(
+                cfg, params, batch, noise, ncfg.sigma))).values
+            margins.append((raw[1:] - raw[:-1]).min().item())
+            check(margins[-1] > LM_MIN_MARGIN,
+                  f"lm_netes_cpu_parity {arch}: step {t}'s rewards "
+                  f"{margins[-1]:.3g} apart, too close to rank alike")
+            out = {}
+            for dev, (params, step, batch, states) in runs.items():
+                draws = netes_dist.StepDraws(
+                    noise=noise, beta=torch.full((), beta, device=dev))
+                res = step(params, None, batch, draws, *states)
+                states[:] = res[2:]
+                out[dev] = res[1]
+            err = 0.0
+            for got, want in zip(flatten(runs["cuda"][0]),
+                                 flatten(runs["cpu"][0]),
+                                 strict=True):
+                diff = (got.cpu() - want).abs()
+                check(bool((diff <= TOL_SMOKE * (1 + want.abs())).all()),
+                      f"lm_netes_cpu_parity {arch}: step {t}'s parameters "
+                      f"differ by {diff.max().item():.3g}")
+                err = max(err, diff.max().item())
+            worst.append(err)
+            for name, want in out["cpu"].items():
+                got = out["cuda"][name].cpu()
+                check(bool(torch.allclose(got, want, rtol=TOL_SMOKE,
+                                          atol=TOL_SMOKE)),
+                      f"lm_netes_cpu_parity {arch}: {name} {got} vs {want}")
+            check(float(out["cuda"]["broadcast"]) == (beta < LM_P_BROADCAST),
+                  f"lm_netes_cpu_parity {arch}: broadcast at β = {beta}")
+            metrics.append({k: v.item() for k, v in out["cuda"].items()})
+            tree_map(lambda g, c: g.copy_(c), runs["cuda"][0],
+                     runs["cpu"][0])
+        emit({"phase": "lm_netes_cpu_parity", "arch": arch,
+              "representation": rep, "channel": chan_text, "n_agents": n,
+              "seq": LM_PARITY_SEQ, "betas": [1.0, 0.0],
+              "reward_margins": margins, "max_abs_param_diff": worst,
+              "tol": TOL_SMOKE, "metrics": metrics})
+
+
 # the libraries of the redesigned kernels, whose ptxas lines must show no
 # spill
 REDESIGNED = ("netes_mixing", "flash_attention", "netes_sparse_mixing",
@@ -3750,11 +4204,11 @@ def main() -> int:
                   and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         check(not spills, f"{name}: ptxas reports spills: {spills}")
 
-    results, launches = {}, {}
-    kernel_phase(results)
-    wire_kernel_phase(results)
+    results, launches, lm_results = {}, {}, {}
+    kernel_phase(results, lm_results)
+    wire_kernel_phase(results, lm_results)
     fused_fold_phase()
-    attention_kernel_phase(results)
+    attention_kernel_phase(results, lm_results)
     router_kernel_phase(results)
     wkv_kernel_phase(results)
     scan_kernel_phase(results)
@@ -3787,6 +4241,8 @@ def main() -> int:
     gemma_parity_phase()
     serve_cpu_parity_phase(GEMMA_ARCH, GEMMA_SMOKE_PROMPT)
     gemma_flash = serve_phase(GEMMA_ARCH)["flash_attention"]
+    lm_launches = lm_netes_phase()
+    lm_netes_cpu_parity_phase()
     rows = []
     for name in SOURCE_OF:
         r = results[name]
@@ -3801,7 +4257,11 @@ def main() -> int:
                      "launches_schedule": sched_launches.get(name, {}),
                      "launches_telemetry": tel_launches.get(name, {}),
                      "launches_capture_replay": cap_launches.get(name, {}),
-                     "launches_search": search_launches.get(name, {})})
+                     "launches_search": search_launches.get(name, {}),
+                     "launches_lm_netes": {case: counts.get(name, 0)
+                                           for case, counts in
+                                           lm_launches.items()},
+                     "lm_shapes": lm_results.get(name, {})})
         if name == "flash_attention":
             # the head_dim-256 instance: gemma3-4b's global and sliding
             # prefill layers, and its launches per serve (a) generate

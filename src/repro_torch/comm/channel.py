@@ -29,23 +29,34 @@ multiple of 2⁻²⁴), and the bits are the same on the CPU and on the GPU.
 A caller that needs the reference's own masks passes them in
 (``Channel.apply(..., edge_mask=...)``, ``core.netes.Draws.edge_mask``).
 
-Payloads are single tensors (N, ...); the reference's pytree payloads (the
-distributed replica step) wait for the distributed slice.
+A payload is an (N, ...) tensor, or a tree (nested dicts, lists and
+tuples) of (N, ...) leaves, as the distributed replica step sends its
+parameters. In a tree, one message is one agent's whole tree: the
+quantize and top-k stages work per leaf and agent, the event trigger fires
+per agent across all leaves, and one drop mask a step serves every leaf.
+The quantize stage encodes a leaf ``WIRE_COLUMNS`` columns at a time
+(``wire_format.encode_columns``), so that a leaf of billions of elements
+needs no float temporary of its size.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
-from typing import Optional, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
 from ..core import topology_repr, wire_format
 from ..core.topology_repr import Topology
+from ..core.tree import flatten, tree_map
 
 # The codec's decode, uniform across q8/q4/q1 (``core.wire_format``).
 decode_block = wire_format.decode
+
+# Columns of a leaf's (N, P) view encoded at once.
+WIRE_COLUMNS = 1 << 24
 
 STAGE_KINDS = ("lossless", "quantize", "topk", "event_triggered",
                "dropout")
@@ -151,13 +162,14 @@ class ChannelState:
     ``seed`` and ``draws`` key the dropout PRF (they stand where the
     reference keeps its threefry key): the dropout stage's seed, and the
     number of masks drawn so far. ``last_sent`` is the per-agent last
-    transmitted payload (event triggering; None without an event stage),
+    transmitted payload, a tensor or a tree as the payload is (event
+    triggering; None without an event stage),
     and ``msgs`` the cumulative count of realized directed messages.
     """
 
     seed: torch.Tensor                 # () int64
     draws: torch.Tensor                # () int64
-    last_sent: Optional[torch.Tensor]  # payload-shaped, or None
+    last_sent: Optional[Any]           # payload-shaped, or None
     msgs: torch.Tensor                 # () float32
 
 
@@ -241,23 +253,23 @@ class Channel:
         return d * self.elem_bytes
 
     # -- state ------------------------------------------------------------
-    def init(self, template: torch.Tensor) -> ChannelState:
-        """Step-0 state for payloads shaped like ``template`` (N, ...), on
-        its device."""
-        dev = template.device
+    def init(self, template: Any) -> ChannelState:
+        """Step-0 state for payloads shaped like ``template`` (an (N, ...)
+        tensor or a tree of them), on its device."""
+        dev = flatten(template)[0].device
         seed = self.dropout_stage.seed if self.dropout_stage else 0
         return ChannelState(
             seed=torch.tensor(seed, dtype=torch.int64, device=dev),
             draws=torch.zeros((), dtype=torch.int64, device=dev),
-            last_sent=(torch.zeros_like(template) if self.event_stage
-                       else None),
+            last_sent=(tree_map(torch.zeros_like, template)
+                       if self.event_stage else None),
             msgs=torch.zeros((), dtype=torch.float32, device=dev))
 
     # -- per step ---------------------------------------------------------
-    def apply(self, state: ChannelState, topo: Topology,
-              payload: torch.Tensor,
+    def apply(self, state: ChannelState, topo: Topology, payload: Any,
               edge_mask: Optional[torch.Tensor] = None):
-        """One channel step over the per-source payloads ``(N, ...)``.
+        """One channel step over the per-source payloads, an ``(N, ...)``
+        tensor or a tree of them (one message = one agent's whole tree).
 
         Returns ``(payload', edge_mask, state', info)``: the payload the
         receivers see (fake-quantized), a representation-matched live-link
@@ -268,12 +280,12 @@ class Channel:
         """
         return self._run(state, topo, payload, False, edge_mask)
 
-    def apply_wire(self, state: ChannelState, topo: Topology,
-                   payload: torch.Tensor,
+    def apply_wire(self, state: ChannelState, topo: Topology, payload: Any,
                    edge_mask: Optional[torch.Tensor] = None):
         """``apply`` with the quantize stage left in wire form: the same
         stage order, triggers, masks and counts, but the payload comes
-        back as a ``WirePayload``. Needs ``wire_quantized``."""
+        back as a ``WirePayload`` (a tree of them for a tree). Needs
+        ``wire_quantized``."""
         if not self.wire_quantized:
             raise ValueError(
                 f"channel {self.spec.label()!r} is not wire-encodable: "
@@ -289,10 +301,12 @@ class Channel:
         triggered = mask = None
         for st in self.spec.stages:
             if st.kind == "quantize":
-                x = (wire_format.encode(x, st.bits, batched=True) if wire
-                     else _quantize(x, st.bits, batched=True))
+                x = tree_map(functools.partial(
+                    _encode if wire else _quantize, bits=st.bits,
+                    batched=True), x)
             elif st.kind == "topk":
-                x = _keep_topk(x, st.frac, batched=True)
+                x = tree_map(functools.partial(_keep_topk, frac=st.frac,
+                                               batched=True), x)
             elif st.kind == "event_triggered":
                 x, last, triggered = _event_select(x, state.last_sent,
                                                    st.threshold)
@@ -324,30 +338,35 @@ class Channel:
             info["drop_frac"] = torch.zeros((), device=dev)
         return info
 
-    def codec(self, x: torch.Tensor, batched: bool = False) -> torch.Tensor:
+    def codec(self, x: Any, batched: bool = False) -> Any:
         """The stateless payload compression alone (quantize, topk), for
         payloads outside the mixing links: the broadcast of the best
-        agent. ``batched=False`` treats ``x`` as one message."""
+        agent. ``batched=False`` treats each leaf of ``x`` as one
+        message."""
         for st in self.spec.stages:
             if st.kind == "quantize":
-                x = _quantize(x, st.bits, batched)
+                x = tree_map(functools.partial(_quantize, bits=st.bits,
+                                               batched=batched), x)
             elif st.kind == "topk":
-                x = _keep_topk(x, st.frac, batched)
+                x = tree_map(functools.partial(_keep_topk, frac=st.frac,
+                                               batched=batched), x)
         return x
 
-    def encode_wire(self, x: torch.Tensor, batched: bool = False):
+    def encode_wire(self, x: Any, batched: bool = False):
         """``codec`` with the quantize stage left in wire form: a
-        ``WirePayload`` for ``fused_broadcast_select``. Needs
-        ``wire_quantized``."""
+        ``WirePayload`` (a tree of them for a tree) for
+        ``fused_broadcast_select``. Needs ``wire_quantized``."""
         if not self.wire_quantized:
             raise ValueError(
                 f"channel {self.spec.label()!r} is not wire-encodable "
                 "(see Channel.wire_quantized)")
         for st in self.spec.stages:
             if st.kind == "quantize":
-                x = wire_format.encode(x, st.bits, batched)
+                x = tree_map(functools.partial(_encode, bits=st.bits,
+                                               batched=batched), x)
             elif st.kind == "topk":
-                x = _keep_topk(x, st.frac, batched)
+                x = tree_map(functools.partial(_keep_topk, frac=st.frac,
+                                               batched=batched), x)
         return x
 
 
@@ -365,6 +384,16 @@ def compile_channel(spec: Optional[Union[ChannelSpec, str]], n: int,
 # ---------------------------------------------------------------------------
 # payload codecs (rowwise when batched)
 # ---------------------------------------------------------------------------
+
+def _encode(x: torch.Tensor, bits: int,
+            batched: bool) -> wire_format.WirePayload:
+    """``wire_format.encode``, bit for bit, a column slab at a time."""
+    if batched:
+        return wire_format.encode_columns(x, bits, WIRE_COLUMNS)
+    wp = wire_format.encode_columns(x[None], bits, WIRE_COLUMNS)
+    return wire_format.WirePayload(codes=wp.codes[0], scale=wp.scale[0],
+                                   dtype=wp.dtype)
+
 
 def _quantize(x: torch.Tensor, bits: int, batched: bool) -> torch.Tensor:
     """Symmetric uniform quantization with a per-message absmax scale;
@@ -391,17 +420,25 @@ def _keep_topk(x: torch.Tensor, frac: float, batched: bool) -> torch.Tensor:
     return (flat * keep).reshape(x.shape)
 
 
-def _event_select(x: torch.Tensor, last: torch.Tensor, threshold: float):
-    """Source i re-sends iff the RMS change of its message against the last
-    transmitted one exceeds ``threshold`` (strictly). Returns (payload, new
-    last-sent reference, triggered (N,) bool)."""
-    n = x.shape[0]
-    diff = (x.float() - last.float()).reshape(n, -1)
-    dims = torch.full((), float(max(diff.shape[1], 1)), device=x.device)
-    rms = torch.sqrt((diff ** 2).sum(dim=1) / dims)
-    triggered = rms > threshold
-    wire = torch.where(triggered.reshape((n,) + (1,) * (x.ndim - 1)),
-                       x, last)
+def _event_select(x: Any, last: Any, threshold: float):
+    """Source i re-sends iff the RMS change of its message (its rows of
+    every leaf) against the last transmitted one exceeds ``threshold``
+    (strictly). Returns (payload, new last-sent reference, triggered (N,)
+    bool)."""
+    pairs = list(zip(flatten(x), flatten(last), strict=True))
+    lead = pairs[0][0]
+    n = lead.shape[0]
+    sq = sum(((a.float() - b.float()).reshape(n, -1) ** 2).sum(dim=1)
+             for a, b in pairs)
+    dims = torch.full((), float(max(sum(a[0].numel() for a, _ in pairs), 1)),
+                      device=lead.device)
+    triggered = torch.sqrt(sq / dims) > threshold
+
+    def select(new, old):
+        return torch.where(triggered.reshape((n,) + (1,) * (new.ndim - 1)),
+                           new, old)
+
+    wire = tree_map(select, x, last)
     return wire, wire, triggered
 
 

@@ -22,6 +22,7 @@ from .configs.base import ModelConfig
 from .core.netes import NetESState
 from .core.topology_repr import Topology
 from .core.topology_sched import ScheduleState, TopologySchedule
+from .core.tree import flatten, leaf_paths, tree_map
 from .obs.probes import MetricsState
 from .models.transformer import check_ported, stack_plan
 
@@ -218,3 +219,74 @@ def lm_params_from_reference(flat: Mapping[str, Any], cfg: ModelConfig, *,
         "layers": layers,
     }
     return params
+
+
+def _flat_leaves(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    """``tree``'s leaves into ``out`` as numpy arrays under "/"-joined
+    keys below ``prefix``."""
+    for path, leaf in zip(leaf_paths(tree), flatten(tree), strict=True):
+        out["/".join((prefix, *map(str, path)))] = (leaf.detach().cpu()
+                                                    .numpy())
+
+
+def lm_params_to_reference(params: Mapping[str, Any],
+                           cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`lm_params_from_reference`: the port's
+    parameters → the reference's flat layout (``layers_head/<i>/...``,
+    ``layers_scan/<j>/...`` stacked over the ``n_rep`` repetitions,
+    ``layers_tail/<i>/...``, as ``stack_plan`` says), as numpy arrays."""
+    check_ported(cfg)
+    head, period, n_rep, tail = stack_plan(cfg)
+    if n_rep == 1:
+        head, period, tail = cfg.num_layers, 0, 0
+    layers = params["layers"]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers, {cfg.name} has "
+                         f"{cfg.num_layers}")
+    flat: Dict[str, np.ndarray] = {"embed": params["embed"].detach().cpu()
+                                   .numpy()}
+    _flat_leaves(params["final_norm"], "final_norm", flat)
+    for i in range(head):
+        _flat_leaves(layers[i], f"layers_head/{i}", flat)
+    for j in range(period):
+        reps: Dict[str, list] = {}
+        for r in range(n_rep):
+            one: Dict[str, np.ndarray] = {}
+            _flat_leaves(layers[head + r * period + j], f"layers_scan/{j}",
+                         one)
+            for k, a in one.items():
+                reps.setdefault(k, []).append(a)
+        flat.update({k: np.stack(a) for k, a in reps.items()})
+    for i in range(tail):
+        _flat_leaves(layers[head + n_rep * period + i], f"layers_tail/{i}",
+                     flat)
+    return flat
+
+
+def lm_population_from_reference(flat: Mapping[str, Any], cfg: ModelConfig,
+                                 *, device: Union[str, torch.device] = "cuda"
+                                 ) -> Dict[str, Any]:
+    """The reference's replica-step parameters (every leaf of its
+    ``init_params`` tree with a leading agent axis N, the layers laid out
+    as ``stack_plan`` says) → the port's population: the port's tree
+    (``lm_params_from_reference`` of each agent) with the agent axis
+    leading every leaf, as ``distributed.netes_dist`` takes it."""
+    n = len(np.asarray(flat["embed"]))
+    agents = [lm_params_from_reference({k: np.asarray(a)[i]
+                                        for k, a in flat.items()},
+                                       cfg, device="cpu")
+              for i in range(n)]
+    dev = resolve_device(device)
+    return tree_map(lambda *leaves: torch.stack(leaves).to(dev), *agents)
+
+
+def lm_population_to_reference(params: Mapping[str, Any],
+                               cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`lm_population_from_reference`: the port's
+    population → the reference's flat layout with the agent axis leading
+    every leaf."""
+    n = params["embed"].shape[0]
+    per_agent = [lm_params_to_reference(
+                     tree_map(lambda leaf, i=i: leaf[i], params), cfg)
+                 for i in range(n)]
+    return {k: np.stack([p[k] for p in per_agent]) for k in per_agent[0]}

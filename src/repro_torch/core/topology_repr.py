@@ -313,6 +313,39 @@ def _wire_neighbor_sum(topo: Topology, coeff: torch.Tensor,
     return out.reshape(wp.codes.shape).to(wp.dtype)
 
 
+def neighbor_column(topo: Topology, i: int,
+                    edge_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Column i of the adjacency, ``a_:,i`` as an (N,) float32 vector,
+    from the live representation in O(N + K): the weights with which
+    every receiver hears source i. Relies on symmetry (column i ≡ row i),
+    which every generator guarantees. ``edge_mask`` drops links; it must
+    be link-symmetric (``comm.channel.dropout_mask`` is), so that row i's
+    mask entries stand for column i's."""
+    if topo.kind == "dense":
+        col = topo.adj[:, i]
+        return col if edge_mask is None else col * edge_mask[:, i]
+    if topo.kind == "circulant":
+        col = torch.zeros(topo.n, dtype=torch.float32, device=topo.device)
+        col[i] = 1.0
+        shifts = circulant_shifts(topo)
+        if not shifts:
+            return col
+        # receivers r = (i + d) mod n hear source i over the undirected
+        # link {i, r}, whose mask is row k's entry at receiver i
+        rs = torch.tensor([(i + d) % topo.n for d in shifts],
+                          device=topo.device)
+        w = (torch.ones(len(shifts), device=topo.device) if edge_mask is None
+             else edge_mask[:, i])
+        return col.index_add(0, rs, w)
+    mask_row = topo.neighbor_mask[i]
+    if edge_mask is not None:
+        mask_row = mask_row * edge_mask[i]
+    return torch.zeros(topo.n, dtype=torch.float32,
+                       device=topo.device).index_add(
+        0, topo.neighbor_idx[i].long(), mask_row)
+
+
 def weighted_row_sum(topo: Topology, coeff: torch.Tensor,
                      edge_mask: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:

@@ -22,8 +22,11 @@ takes a tensor divisor on the payload's device: PyTorch's CUDA division by
 a host scalar multiplies by its reciprocal instead, which rounds otherwise.
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
 
-``slice_stack`` (the distributed stacked-leaf slice) waits for the
-distributed slice of the port.
+``encode_columns`` encodes an (N, P) payload of N messages one column
+slab at a time, bit for bit ``encode(x, bits, batched=True)`` for q8 and
+q4: a leaf of billions of elements is encoded without a float temporary
+of its size. ``slice_stack`` indexes a stacked payload's axis 1 in wire
+form, as the reference's distributed replica step does.
 """
 from __future__ import annotations
 
@@ -91,3 +94,36 @@ def decode(codes: torch.Tensor, scale: torch.Tensor,
 def decode_payload(wp: WirePayload) -> torch.Tensor:
     """Decode a whole ``WirePayload`` back to its payload dtype."""
     return decode(wp.codes, wp.scale, wp.dtype)
+
+
+def encode_columns(x: torch.Tensor, bits: int, cols: int) -> WirePayload:
+    """``encode(x, bits, batched=True)`` of an (N, ...) payload whose
+    trailing axes are contiguous, taken ``cols`` columns of its (N, P)
+    view at a time: the absmax is the max of the slabs' maxima and each
+    slab's codes are the same elementwise quotients, so q8 and q4 come
+    out bit for bit; q1's mean is not a max and takes the whole ``encode``.
+    The scale has the payload's rank, as ``encode``'s."""
+    if bits == 1 or x.ndim < 2:
+        return encode(x, bits, batched=True)
+    n = x.shape[0]
+    flat = x.reshape(n, -1)
+    amax = None
+    for c0 in range(0, flat.shape[1], cols):
+        m = flat[:, c0:c0 + cols].abs().amax(dim=1, keepdim=True)
+        amax = m if amax is None else torch.maximum(amax, m)
+    scale = amax / levels_of(bits, x)
+    div = torch.where(scale > 0, scale, torch.ones_like(scale))
+    codes = torch.empty(flat.shape, dtype=torch.int8, device=x.device)
+    for c0 in range(0, flat.shape[1], cols):
+        codes[:, c0:c0 + cols] = torch.round(flat[:, c0:c0 + cols] / div)
+    return WirePayload(codes=codes.reshape(x.shape),
+                       scale=scale.reshape((n,) + (1,) * (x.ndim - 1)),
+                       dtype=x.dtype)
+
+
+def slice_stack(wp: WirePayload, r: int) -> WirePayload:
+    """Index a stacked payload's axis 1 (``(N, R, rest…) -> (N, rest…)``)
+    keeping wire form. ``scale``'s axis 1 has size 1 (the message axes are
+    reduced), so it is indexed at 0."""
+    return WirePayload(codes=wp.codes[:, r], scale=wp.scale[:, 0],
+                       dtype=wp.dtype)

@@ -1,0 +1,530 @@
+"""NetES over LM agents: the port of ``repro.distributed.netes_dist``'s
+replica train step and its serve steps, on one device.
+
+``make_replica_train_step`` is paper-faithful NetES over a population of
+N agents, each a whole replica of a registry model: the parameters are
+the port's tree (``models.transformer``) with a leading agent axis on
+every leaf. Agent i's reward is the negated ``transformer.loss_fn`` of
+θ_i ± σε_i on its own batch, and the update is Eq. 3 with mirrored
+sampling (paper §5.2 mod (2)): with shaped rewards s± of θ_i ± σε_i,
+
+    u_j = α/(Nσ²) Σ_i a_ji [ (s⁺_i + s⁻_i)(θ_i − θ_j) + (s⁺_i − s⁻_i) σ ε_i ].
+
+**Memory.** The agents are evaluated one after another, so one perturbed
+replica is alive at a time. The update walks every leaf in column slabs
+of its (N, P) view, ``SLAB_COLUMNS`` columns at a time: the slab's θ and
+regenerated ε go through the hand-written Eq. 3 kernels (dense →
+``netes_mixing``; sparse → ``netes_sparse_mixing``; a sparse wire payload
+→ ``fused_neighbor_sum``; the broadcast of a fused quantizing channel →
+``fused_broadcast_select``) with w_θ = s⁺ + s⁻ and w_ε = s⁺ − s⁻, and the
+result is written back into θ in place. No second (N, P) leaf is made and
+ε is never whole: a population of 40 GB of float32 parameters trains in
+80 GB. A circulant graph mixes by the plain roll chain.
+
+**Noise contract (seed replay).** ε of agent a, leaf l, slab s (the
+columns [s·W, (s+1)·W) of the leaf's flattened (N, P) view, W =
+``SLAB_COLUMNS``) is ``torch.randn`` of the slab's length from a
+generator seeded with ``stream_seed(agent_noise_seed(seed, a, step), l,
+s)`` (``core.es_utils``), on the device of the tensor it fills. Leaves
+are numbered in ``core.tree.flatten`` order (dict keys sorted). The perturbation and the update
+regenerate the same bits from the same (seed, step, a, l, s), and W is
+part of the contract: the perturbation and the update read the one module
+constant, at call time (a test sets it to cut leaves into more slabs). The reference folds threefry keys per (agent, leaf, stacked
+layer); the two streams give other numbers, and a comparison injects the
+reference's ε through the ``noise`` seam.
+
+**Draws.** Every random input of a step enters through ``StepDraws``:
+``noise`` (the ε seam: ``noise(out, agent, leaf, slab, start)`` fills
+``out``, the slab of ε starting at column ``start``), ``beta`` (the
+broadcast happens iff β < p_b), and with a channel or a schedule the
+edge mask and the schedule's uniform (None: their own draws). ``draw``
+makes a step's defaults; a test hands the reference's draws in.
+
+``mixing``: ``"seed_replay"`` (default) regenerates each slab's ε for the
+update; ``"gather"`` makes a leaf's ε whole first, as the reference's
+gather mode moves ε with θ, and with a quantizing channel sends it through
+the channel's codec too. Without a channel the two are equal bit for bit.
+
+The steps keep everything on the device: no ``.item()``, no host sync.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core import es_utils, topology_repr, wire_format
+from ..core.netes import NetESConfig
+from ..core.topology_repr import Topology
+from ..core.tree import flatten, tree_map
+from ..kernels.netes_fused_mixing import (fused_broadcast_select,
+                                          fused_neighbor_sum)
+from ..kernels.netes_mixing import netes_mixing
+from ..kernels.netes_sparse_mixing import netes_sparse_mixing
+from ..models import transformer
+
+# Columns of a leaf's (N, P) view mixed at once: at N = 8 an (N, W)
+# float32 operand is 512 MiB, and W stays inside every Eq. 3 kernel's
+# column range (the broadcast select's is the smallest, 33.5 M).
+SLAB_COLUMNS = 1 << 24
+MIXINGS = ("seed_replay", "gather")
+
+# fills ``out`` with ε of (agent, leaf, slab) from column ``start``
+NoiseFn = Callable[[torch.Tensor, int, int, int, int], Any]
+
+
+# ---------------------------------------------------------------------------
+# parameter trees with an agent axis
+# ---------------------------------------------------------------------------
+
+def agent_params(params: Any, i: int) -> Any:
+    """Agent i's parameters: views of row i of every leaf."""
+    return tree_map(lambda leaf: leaf[i], params)
+
+
+def init_population(cfg: ModelConfig, n_agents: int, seed: int = 0, *,
+                    same_init: bool = True, dtype=torch.float32,
+                    device="cuda") -> Any:
+    """N agents' parameters with a leading agent axis, built one agent at
+    a time (never N + 1 replicas at once). ``same_init`` (the paper's
+    Eq. 1/2 regime, the reference's default): every agent starts from
+    ``transformer.init_params(cfg, seed)``; else agent i from the seed
+    ``stream_seed(seed, i)``."""
+    def agent(i):
+        return transformer.init_params(
+            cfg, seed=seed if same_init else es_utils.stream_seed(seed, i),
+            dtype=dtype, device=device)
+
+    p = agent(0)
+    pop = tree_map(lambda leaf: torch.empty((n_agents,) + leaf.shape,
+                                            dtype=leaf.dtype,
+                                            device=leaf.device), p)
+    for i in range(n_agents):
+        if i and not same_init:
+            p = agent(i)
+        tree_map(lambda dst, src: dst[i].copy_(src), pop, p)
+    return pop
+
+
+# ---------------------------------------------------------------------------
+# draws
+# ---------------------------------------------------------------------------
+
+def slab_seed(seed: int, step: int, agent: int, leaf: int, slab: int) -> int:
+    """The seed of ε for (agent, leaf, slab) at ``step`` (the contract in
+    the module note)."""
+    return es_utils.stream_seed(
+        es_utils.agent_noise_seed(seed, agent, step), leaf, slab)
+
+
+class NoiseStream:
+    """The default ε of one step: the module note's contract. ``device``
+    (None: the device of the tensor filled) is where the numbers are
+    drawn; a CPU stream filling CUDA tensors gives the card the CPU's
+    numbers, for a comparison of the two."""
+
+    def __init__(self, seed: int, step: int, device=None):
+        self.seed, self.step = seed, step
+        self.device = None if device is None else torch.device(device)
+        self._gens: Dict[torch.device, torch.Generator] = {}
+
+    def __call__(self, out: torch.Tensor, agent: int, leaf: int, slab: int,
+                 start: int) -> None:
+        dev = out.device if self.device is None else self.device
+        gen = self._gens.get(dev)
+        if gen is None:
+            gen = self._gens[dev] = torch.Generator(device=dev)
+        gen.manual_seed(slab_seed(self.seed, self.step, agent, leaf, slab))
+        if dev == out.device:
+            es_utils.sample_noise(gen, out.shape, out.dtype, out=out)
+        else:
+            out.copy_(es_utils.sample_noise(gen, out.shape, out.dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class StepDraws:
+    """Every random input of one replica step (see the module note).
+    ``edge_mask``, for a channel with a dropout stage, replaces the
+    channel's own mask; ``schedule_u``, for a schedule whose advance
+    redraws the graph, replaces the schedule's uniform."""
+
+    noise: NoiseFn
+    beta: torch.Tensor
+    edge_mask: Optional[torch.Tensor] = None
+    schedule_u: Optional[torch.Tensor] = None
+
+
+def draw(seed: int, step: int, device="cuda") -> StepDraws:
+    """Step ``step``'s default draws: ε from ``NoiseStream(seed, step)``,
+    β from a generator on ``device`` seeded with ``stream_seed(seed,
+    step)``."""
+    gen = torch.Generator(device=device).manual_seed(
+        es_utils.stream_seed(seed, step))
+    return StepDraws(noise=NoiseStream(seed, step),
+                     beta=torch.rand((), generator=gen, device=device))
+
+
+# ---------------------------------------------------------------------------
+# the two phases of a step
+# ---------------------------------------------------------------------------
+
+def _slabs(p: int):
+    """(slab index, start, stop) of a row of ``p`` columns, in slabs of
+    ``SLAB_COLUMNS``."""
+    cols = SLAB_COLUMNS
+    return [(s, c0, min(p, c0 + cols))
+            for s, c0 in enumerate(range(0, p, cols))]
+
+
+def perturb_params(params: Any, noise: NoiseFn, agent: int, sigma: float,
+                   sign: float = 1.0, *, out: Any = None) -> Any:
+    """θ + sign·σ·ε of one agent's ``params`` (no agent axis), ε of
+    ``agent`` by slab from ``noise``; into ``out`` (a tree like
+    ``params``) if given. σε is rounded before the add, as the
+    reference's ``leaf + sign·σ·normal``."""
+    if out is None:
+        out = tree_map(torch.empty_like, params)
+    for i, (dst, src) in enumerate(zip(flatten(out), flatten(params),
+                                       strict=True)):
+        d, t = dst.view(-1), src.reshape(-1)
+        for s, c0, c1 in _slabs(d.numel()):
+            e = d[c0:c1]
+            noise(e, agent, i, s, c0)
+            e.mul_(sign * sigma).add_(t[c0:c1])
+    return out
+
+
+def _eval_loss(cfg: ModelConfig, theta: Any, abatch: Dict[str, torch.Tensor],
+               microbatch: int) -> torch.Tensor:
+    """Mean loss over an agent's batch in microbatches, so that the
+    activations are one microbatch's."""
+    b = abatch["tokens"].shape[0]
+    n_mb = max(1, min(microbatch, b))
+    if b % n_mb:
+        n_mb = 1
+    size = b // n_mb
+    total = None
+    for m in range(n_mb):
+        mb = {k: v[m * size:(m + 1) * size] for k, v in abatch.items()}
+        loss = transformer.loss_fn(theta, cfg, mb)
+        total = loss if total is None else total + loss
+    return total / n_mb
+
+
+def agent_rewards(cfg: ModelConfig, params: Any,
+                  batch: Dict[str, torch.Tensor], noise: NoiseFn,
+                  sigma: float, *, microbatch: int = 1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step's first phase: (R⁺, R⁻), each (N,), the negated losses of
+    θ_i + σε_i and θ_i − σε_i on agent i's batch (``batch`` leaves (N,
+    per_agent, S)). One perturbed replica is made, filled with θ_i + σε_i
+    and then turned into 2θ_i − (θ_i + σε_i), the reference's θ − σε."""
+    n = flatten(params)[0].shape[0]
+    replica = tree_map(lambda leaf: torch.empty_like(leaf[0]), params)
+    r_pos, r_neg = [], []
+    for a in range(n):
+        theta = agent_params(params, a)
+        abatch = {k: v[a] for k, v in batch.items()}
+        perturb_params(theta, noise, a, sigma, out=replica)
+        r_pos.append(-_eval_loss(cfg, replica, abatch, microbatch))
+        tree_map(lambda p, t: p.mul_(-1.0).add_(t, alpha=2.0), replica, theta)
+        r_neg.append(-_eval_loss(cfg, replica, abatch, microbatch))
+    return torch.stack(r_pos), torch.stack(r_neg)
+
+
+class _Mixer:
+    """Eq. 3's neighbor term on one slab, by representation, before the
+    α/(Nσ²) scale:
+
+        Σ_i a_ji em_ji (w_θi x_i + σ w_εi e_i) − (Σ_i a_ji em_ji w_θi) θ_j
+
+    with x the θ payload the receivers got (θ itself, a fake-quantized
+    slab, or a ``WirePayload`` slab) and e the ε payload (ε itself, or in
+    gather mode through a quantizing channel its codec's output)."""
+
+    def __init__(self, topo: Topology, w_theta: torch.Tensor,
+                 w_eps: torch.Tensor, sigma: float,
+                 edge_mask: Optional[torch.Tensor], wt_sum: torch.Tensor,
+                 fused: bool):
+        self.topo, self.w_theta, self.w_eps = topo, w_theta, w_eps
+        self.sigma, self.edge_mask, self.fused = sigma, edge_mask, fused
+        self.wt_sum = wt_sum[:, None]
+        if topo.kind == "dense":
+            self.adj = topo.adj if edge_mask is None else topo.adj * edge_mask
+        elif topo.kind == "sparse":
+            self.mask = (topo.neighbor_mask if edge_mask is None
+                         else topo.neighbor_mask * edge_mask)
+            self.zeros = torch.zeros_like(w_theta)
+
+    def _kernel(self, w_theta, x, e):
+        if self.topo.kind == "dense":
+            return netes_mixing(self.adj, w_theta, self.w_eps, x, e,
+                                sigma=self.sigma)
+        return netes_sparse_mixing(self.topo.neighbor_idx, self.mask,
+                                   w_theta, self.w_eps, x, e,
+                                   sigma=self.sigma)
+
+    def _wire_sum(self, coeff, wp: wire_format.WirePayload):
+        return fused_neighbor_sum(self.topo.neighbor_idx,
+                                  self.topo.neighbor_mask, coeff, wp.codes,
+                                  wp.scale, self.edge_mask)
+
+    def __call__(self, theta: torch.Tensor, eps: torch.Tensor, x=None,
+                 e=None) -> torch.Tensor:
+        if (isinstance(x, wire_format.WirePayload)
+                and not (self.fused and self.topo.kind == "sparse")):
+            x, e = (wire_format.decode_payload(v)
+                    if isinstance(v, wire_format.WirePayload) else v
+                    for v in (x, e))
+        if isinstance(x, wire_format.WirePayload):
+            # the θ term straight from the codes; the ε term from its own
+            # codes, or from the sparse kernel with w_θ = 0
+            mixed = self._wire_sum(self.w_theta, x)
+            if isinstance(e, wire_format.WirePayload):
+                mixed = mixed + self.sigma * self._wire_sum(self.w_eps, e)
+            else:
+                mixed = mixed + self._kernel(self.zeros, theta,
+                                             eps if e is None else e)
+            return mixed - self.wt_sum * theta
+        x = theta if x is None else x
+        e = eps if e is None else e
+        if self.topo.kind == "circulant":
+            return (topology_repr.weighted_neighbor_sum(
+                        self.topo, self.w_theta, x, self.edge_mask)
+                    + self.sigma * topology_repr.weighted_neighbor_sum(
+                        self.topo, self.w_eps, e, self.edge_mask)
+                    - self.wt_sum * theta)
+        mixed = self._kernel(self.w_theta, x, e)
+        # the kernel subtracts wsum·x_j; Eq. 3 subtracts wsum·θ_j
+        return mixed if x is theta else mixed + self.wt_sum * (x - theta)
+
+
+def _payload_slab(leaf_payload, c0: int, c1: int):
+    """Columns [c0, c1) of a leaf's (N, P) payload, contiguous."""
+    if leaf_payload is None:
+        return None
+    if isinstance(leaf_payload, wire_format.WirePayload):
+        n = leaf_payload.codes.shape[0]
+        return wire_format.WirePayload(
+            codes=leaf_payload.codes.reshape(n, -1)[:, c0:c1].contiguous(),
+            scale=leaf_payload.scale.reshape(n, 1),
+            dtype=leaf_payload.dtype)
+    n = leaf_payload.shape[0]
+    return leaf_payload.reshape(n, -1)[:, c0:c1].contiguous()
+
+
+def replica_update(params: Any, r_pos: torch.Tensor, r_neg: torch.Tensor,
+                   draws: StepDraws, topo: Topology, ncfg: NetESConfig, *,
+                   mixing: str = "seed_replay", channel=None, chan_state=None,
+                   probe_consensus: bool = False):
+    """The step's second phase: fitness shaping, the channel, Eq. 3 and
+    the broadcast, written into ``params`` in place, slab by slab.
+    Returns ``(metrics, chan_state)``; with ``probe_consensus`` the
+    metrics carry ``theta_spread`` and ``update_var`` (Σ over leaves and
+    columns of the variance over agents)."""
+    n = r_pos.shape[0]
+    sigma = ncfg.sigma
+    raw = torch.cat([r_pos, r_neg])
+    shaped = es_utils.centered_rank(raw)
+    s_pos, s_neg = shaped[:n], shaped[n:]
+    w_theta, w_eps = s_pos + s_neg, s_pos - s_neg
+    leaves = flatten(params)
+
+    edge_mask = info = wire = None
+    if channel is not None:
+        apply = (channel.apply_wire if channel.wire_quantized
+                 else channel.apply)
+        payload, edge_mask, chan_state, info = apply(
+            chan_state, topo, params, edge_mask=draws.edge_mask)
+        # a dropout-only channel passes θ through unchanged
+        if channel.transforms_payload:
+            wire = flatten(payload)
+    wt_sum = topology_repr.weighted_row_sum(topo, w_theta, edge_mask)
+    mix = _Mixer(topo, w_theta, w_eps, sigma, edge_mask, wt_sum,
+                 channel is not None and channel.fused)
+    scale = ncfg.alpha / (n * sigma ** 2)
+
+    # the broadcast candidate: the argmax over both ±ε halves, with the
+    # winning sign
+    best_flat = torch.argmax(raw)
+    best = torch.remainder(best_flat, n).reshape(1)
+    best_sigma = ((best_flat < n).to(torch.float32) * 2.0 - 1.0) * sigma
+    do_bcast = draws.beta < ncfg.p_broadcast
+    uvar = spread = torch.zeros((), dtype=torch.float32,
+                                device=r_pos.device)
+
+    for i, leaf in enumerate(leaves):
+        flat = leaf.view(n, -1)
+        p = flat.shape[1]
+        slabs = _slabs(p)
+        eps_leaf = eps_wire = None
+        if mixing == "gather":
+            eps_leaf = torch.empty_like(flat)
+            for s, c0, c1 in slabs:
+                for a in range(n):
+                    draws.noise(eps_leaf[a, c0:c1], a, i, s, c0)
+            if wire is not None:
+                eps_wire = (channel.encode_wire(eps_leaf, batched=True)
+                            if channel.wire_quantized
+                            else channel.codec(eps_leaf, batched=True))
+        # with a channel the broadcast message is the whole leaf's best
+        # perturbed parameters: gathered here, sent after the leaf's mixing
+        best_pert = (torch.empty(p, dtype=flat.dtype, device=flat.device)
+                     if channel is not None else None)
+        for s, c0, c1 in slabs:
+            theta = flat[:, c0:c1].contiguous()
+            if eps_leaf is None:
+                eps = torch.empty_like(theta)
+                for a in range(n):
+                    draws.noise(eps[a], a, i, s, c0)
+            else:
+                eps = eps_leaf[:, c0:c1].contiguous()
+            mixed = mix(theta, eps,
+                        None if wire is None else _payload_slab(wire[i], c0,
+                                                                c1),
+                        _payload_slab(eps_wire, c0, c1))
+            update = es_utils.apply_weight_decay(theta, scale * mixed,
+                                                 ncfg.weight_decay)
+            new = theta + update
+            bp = (theta.index_select(0, best)[0]
+                  + best_sigma * eps.index_select(0, best)[0])
+            if channel is None:
+                new = torch.where(do_bcast, bp[None], new)
+                if probe_consensus:
+                    spread = spread + new.var(dim=0, correction=0).sum()
+            else:
+                best_pert[c0:c1] = bp
+            if probe_consensus:
+                uvar = uvar + update.var(dim=0, correction=0).sum()
+            flat[:, c0:c1] = new
+        if channel is None:
+            continue
+        # the broadcast, as received over the lossy wire
+        if channel.fused and channel.wire_quantized:
+            msg = channel.encode_wire(best_pert, batched=False)
+        else:
+            msg = channel.codec(best_pert, batched=False)
+        for s, c0, c1 in slabs:
+            if isinstance(msg, wire_format.WirePayload):
+                new = fused_broadcast_select(msg.codes[c0:c1], msg.scale,
+                                             do_bcast,
+                                             flat[:, c0:c1].contiguous())
+            else:
+                new = torch.where(do_bcast, msg[None, c0:c1], flat[:, c0:c1])
+            if probe_consensus:
+                spread = spread + new.var(dim=0, correction=0).sum()
+            flat[:, c0:c1] = new
+
+    metrics = {
+        "reward_mean": raw.mean(),
+        "reward_max": raw.max(),
+        "reward_std": raw.std(correction=0),
+        "loss_mean": -raw.mean(),
+        "broadcast": do_bcast.to(torch.float32),
+    }
+    if probe_consensus:
+        metrics["theta_spread"] = spread
+        metrics["update_var"] = uvar
+    if channel is not None:
+        bcast_msgs = do_bcast.to(torch.float32) * n
+        metrics["msgs"] = info["msgs"] + bcast_msgs
+        metrics["trigger_frac"] = info["trigger_frac"]
+        metrics["drop_frac"] = info["drop_frac"]
+        chan_state = dataclasses.replace(chan_state,
+                                         msgs=chan_state.msgs + bcast_msgs)
+    return metrics, chan_state
+
+
+# ---------------------------------------------------------------------------
+# replica-mode NetES train step
+# ---------------------------------------------------------------------------
+
+def make_replica_train_step(cfg: ModelConfig, ncfg: NetESConfig,
+                            n_agents: int, mixing: str = "seed_replay",
+                            microbatch: int = 4,
+                            topology: Optional[Topology] = None,
+                            schedule=None, channel=None, probes=None
+                            ) -> Callable:
+    """Returns ``step(params, adj, batch, draws[, sched_state][,
+    chan_state][, metrics_state]) -> (params, metrics[, sched_state'][,
+    chan_state'][, metrics_state])``, the reference's order.
+
+    ``params``: the population tree (a leading agent axis N on every
+    leaf), updated IN PLACE and returned. ``adj``: an (N, N) adjacency,
+    ignored (pass None) when ``topology`` or ``schedule`` is given.
+    ``batch``: ``tokens`` and ``labels`` of shape (N, per_agent, S).
+    ``draws``: a ``StepDraws`` (``draw(seed, step)`` for the defaults).
+    ``microbatch``: an agent's batch is evaluated in this many pieces.
+
+    ``topology`` (a ``core.topology_repr.Topology``) picks the Eq. 3
+    kernel by its representation. ``schedule`` (a
+    ``core.topology_sched.TopologySchedule``): the step mixes over
+    ``sched_state.topo`` and returns the advanced state. ``channel`` (a
+    ``comm.channel.Channel``): θ, the payload every agent sends, passes
+    through the channel as one message per agent (the wire form when the
+    channel is wire-quantized, mixed from the codes by the fused kernel on
+    a sparse graph), dropped links leave both the θ and the ε terms (a
+    lost message loses the reward that keys the replay), and the broadcast
+    goes through the channel's codec (one fused select per slab when
+    fused); the metrics gain ``msgs``, ``trigger_frac`` and ``drop_frac``.
+    ``probes`` (an ``obs.probes.Probes``): the step records its metrics
+    (and the graph) into the ring, in place; the metrics gain
+    ``theta_spread`` and ``update_var``. Probes read only: a probed run
+    equals the unprobed one bit for bit.
+    """
+    if mixing not in MIXINGS:
+        raise ValueError(f"unknown mixing {mixing!r}; available: {MIXINGS}")
+
+    def step(params, adj, batch, draws: StepDraws, *states):
+        want = [s for s, on in (("sched_state", schedule), ("chan_state",
+                                                             channel),
+                                ("metrics_state", probes)) if on is not None]
+        if len(states) != len(want):
+            raise TypeError(f"the step takes {want} after the draws, got "
+                            f"{len(states)} state arguments")
+        given = dict(zip(want, states))
+        sstate = given.get("sched_state")
+        if sstate is not None:
+            topo = sstate.topo
+        elif topology is not None:
+            topo = topology
+        else:
+            topo = topology_repr.as_topology(adj)
+        r_pos, r_neg = agent_rewards(cfg, params, batch, draws.noise,
+                                     ncfg.sigma, microbatch=microbatch)
+        metrics, cstate = replica_update(
+            params, r_pos, r_neg, draws, topo, ncfg, mixing=mixing,
+            channel=channel, chan_state=given.get("chan_state"),
+            probe_consensus=probes is not None)
+        out = [params, metrics]
+        if schedule is not None:
+            out.append(schedule.advance(sstate, u=draws.schedule_u))
+        if channel is not None:
+            out.append(cstate)
+        if probes is not None:
+            out.append(probes.record(given["metrics_state"], metrics, topo))
+        return tuple(out)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """``prefill(params, batch) -> logits (B, S, V)``: the full forward."""
+    def prefill(params, batch):
+        return transformer.forward(params, cfg, batch)
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """``decode(params, token, cache, pos) -> (logits, cache)``."""
+    def decode(params, token, cache, pos):
+        return transformer.decode_step(params, cfg, token, cache, pos)
+
+    return decode

@@ -29,3 +29,22 @@ def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+# The largest column count the slab kernels' 32-bit column arithmetic
+# addresses (``csrc/_slab.cuh``: ``cols + SLAB − 1`` and a lane's last
+# column ``col0 + 63`` stay below 2³¹).
+SLAB_MAX_COLUMNS = 2**31 - 1 - 64
+
+
+def check_columns(name: str, t: torch.Tensor, limit: int) -> None:
+    """Raise ``ValueError`` if the last axis of ``t`` is longer than
+    ``limit``, the columns a kernel's index arithmetic can address. Reads
+    the shape only, so it holds for stride-only and meta tensors, and it
+    runs before the device dispatch: the plain version's domain is the
+    kernel's."""
+    cols = t.shape[-1] if t.dim() else 1
+    if cols > limit:
+        raise ValueError(
+            f"{name}: {cols} columns, more than the {limit} the kernel's "
+            "32-bit column index addresses; mix it in column slabs")

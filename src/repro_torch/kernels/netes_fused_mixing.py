@@ -28,7 +28,8 @@ import torch
 
 from . import _slab, ref
 from ._build import CudaKernel
-from ._checks import check_operand, on_cpu
+from ._checks import (SLAB_MAX_COLUMNS, check_columns, check_operand,
+                      on_cpu)
 
 NEIGHBOR_SUM = CudaKernel(
     "netes_fused_mixing", "fused_neighbor_sum_f32",
@@ -39,6 +40,10 @@ BROADCAST_SELECT = CudaKernel(
 OCCUPANCY = "fused_neighbor_sum_occupancy"
 
 SLAB = 64            # columns of codes per slab, held as bf16: 128 bytes
+# The broadcast select's grid has a y-block per 512 columns, and a grid's
+# y extent is at most 65535.
+SELECT_TILE = 512
+SELECT_MAX_COLUMNS = 65535 * SELECT_TILE
 
 block_work = _slab.block_work
 chunk_bounds = _slab.chunk_bounds
@@ -70,9 +75,10 @@ def fused_neighbor_sum(neighbor_idx: torch.Tensor,
 
     neighbor_idx (N, K_max) int32; neighbor_mask and edge_mask (N, K_max)
     float32; coeff (N,) float32; codes (N, D) int8; scale (N, 1) float32,
-    the per-message decode scale; all on one device. Returns (N, D)
-    float32.
+    the per-message decode scale; all on one device; D at most
+    ``_checks.SLAB_MAX_COLUMNS``. Returns (N, D) float32.
     """
+    check_columns("codes", codes, SLAB_MAX_COLUMNS)
     operands = [neighbor_idx, neighbor_mask, coeff, codes, scale]
     if edge_mask is not None:
         operands.append(edge_mask)
@@ -114,8 +120,10 @@ def fused_broadcast_select(codes: torch.Tensor, scale: torch.Tensor,
     agent adopts the decoded broadcast payload when the flag is set.
 
     codes (D,) int8; scale (1,) float32; do_broadcast () bool, read on the
-    device; thetas (N, D) float32. Returns a new (N, D) float32 tensor.
+    device; thetas (N, D) float32, D at most ``SELECT_MAX_COLUMNS``.
+    Returns a new (N, D) float32 tensor.
     """
+    check_columns("thetas", thetas, SELECT_MAX_COLUMNS)
     operands = (codes, scale, do_broadcast, thetas)
     if on_cpu(operands):
         return ref.broadcast_select_ref(codes, scale, do_broadcast, thetas)

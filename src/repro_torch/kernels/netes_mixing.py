@@ -24,7 +24,7 @@ import torch
 
 from . import ref
 from ._build import CudaKernel
-from ._checks import check_operand, on_cpu
+from ._checks import check_columns, check_operand, on_cpu
 
 KERNEL = CudaKernel(
     "netes_mixing", "netes_mixing_f32",
@@ -37,6 +37,9 @@ BM = BN = 128
 BK = 16
 WCHUNK = 64
 MIN_PIECE_K_TILES = 4   # the shortest stretch of K a split piece walks
+# The columns the GEMM's int arithmetic addresses: ``(p + BN − 1) / BN``
+# and a tile's last column ``col0 + BN − 1`` stay below 2³¹.
+MAX_COLUMNS = 2**31 - 1 - BN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,8 +140,10 @@ def netes_mixing(adj: torch.Tensor, w_theta: torch.Tensor,
     """Eq. 3 over a dense adjacency, before the α/(Nσ²) scale.
 
     adj (N, N); w_theta, w_eps (N,); theta, eps (N, P); all float32 and
-    contiguous on one device. Returns (N, P) float32.
+    contiguous on one device, P at most ``MAX_COLUMNS``. Returns (N, P)
+    float32.
     """
+    check_columns("theta", theta, MAX_COLUMNS)
     operands = (adj, w_theta, w_eps, theta, eps)
     if on_cpu(operands):
         return ref.netes_mixing_ref(*operands, sigma=sigma)

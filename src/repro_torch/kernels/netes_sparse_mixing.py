@@ -24,7 +24,8 @@ import torch
 
 from . import _slab, ref
 from ._build import CudaKernel
-from ._checks import check_operand, on_cpu
+from ._checks import (SLAB_MAX_COLUMNS, check_columns, check_operand,
+                      on_cpu)
 
 KERNEL = CudaKernel(
     "netes_sparse_mixing", "netes_sparse_mixing_f32",
@@ -63,9 +64,10 @@ def netes_sparse_mixing(neighbor_idx: torch.Tensor,
 
     neighbor_idx (N, K_max) int32 with entries in [0, N); neighbor_mask
     (N, K_max) float32 edge weights (0 on padding); w_theta, w_eps (N,);
-    theta, eps (N, P); float32 and contiguous on one device. Returns
-    (N, P) float32.
+    theta, eps (N, P); float32 and contiguous on one device, P at most
+    ``_checks.SLAB_MAX_COLUMNS``. Returns (N, P) float32.
     """
+    check_columns("theta", theta, SLAB_MAX_COLUMNS)
     operands = (neighbor_idx, neighbor_mask, w_theta, w_eps, theta, eps)
     if on_cpu(operands):
         return ref.sparse_mixing_ref(*operands, sigma=sigma)

@@ -1,4 +1,5 @@
-"""Training launcher of the port (the paper's RL experiments).
+"""Training launcher of the port: the paper's RL experiments, and NetES
+over LM agents.
 
   python -m repro_torch.launch.train rl --task pendulum \
       --topology erdos_renyi --density 0.1 --agents 1000 --iters 100 \
@@ -16,6 +17,12 @@ communication graph, then training runs on the winner:
       [--search-channels 'lossless;quantize(bits=8)'] \
       [--search-checkpoint-dir DIR]
 
+NetES over LM agents (each agent a replica of a registry architecture,
+trained on the synthetic corpus; ``train.loop.train_lm_netes``):
+
+  python -m repro_torch.launch.train lm --arch gemma3-4b-smoke \
+      --agents 8 --iters 20 [--seq-len 128] [--per-agent-batch 1]
+
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead.
 """
@@ -25,16 +32,23 @@ import argparse
 import json
 import pathlib
 
+from ..configs import get_config
 from ..core.netes import NetESConfig
 from ..core.topology import TopologySpec
 from ..search import SearchConfig, run_search
-from ..train.loop import TrainConfig, train_rl_netes
+from ..train.loop import TrainConfig, train_lm_netes, train_rl_netes
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("kind", choices=["rl"])
+    ap.add_argument("kind", choices=["rl", "lm"])
     ap.add_argument("--task", default="pendulum")
+    ap.add_argument("--arch", default="gemma3-4b-smoke",
+                    help="lm: the registry architecture each agent holds")
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="lm: tokens per sequence")
+    ap.add_argument("--per-agent-batch", type=int, default=1,
+                    help="lm: sequences per agent and iteration")
     ap.add_argument("--topology", default="erdos_renyi")
     ap.add_argument("--density", type=float, default=0.5)
     ap.add_argument("--representation", default="auto",
@@ -53,7 +67,7 @@ def main(argv=None) -> None:
                          "(DESIGN.md §9)")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="save the train state at every eval point and "
-                         "resume from the latest one found here")
+                         "resume from the latest one found here (rl only)")
     ap.add_argument("--probes", default=None,
                     help="on-device telemetry stages, e.g. 'fitness|"
                          "consensus|graph' or 'all' (DESIGN.md §15); "
@@ -114,6 +128,8 @@ def main(argv=None) -> None:
         print(json.dumps(d), flush=True)
 
     search_payload = None
+    if args.kind == "lm" and (args.search or args.checkpoint_dir):
+        ap.error("--search and --checkpoint-dir are rl only")
     if args.search:
         if args.representation == "circulant":
             ap.error("--representation circulant is incompatible with "
@@ -169,9 +185,17 @@ def main(argv=None) -> None:
             probes=args.probes, probe_capacity=args.probe_capacity,
             trace=args.trace, seed=args.seed, netes=netes_cfg)
 
-    hist = train_rl_netes(args.task, tc, log=log, device=args.device)
-    print(f"final eval: {hist['final_eval']}, max eval: "
-          f"{hist['max_eval']} ({hist['wall_s']:.1f}s)")
+    if args.kind == "lm":
+        hist = train_lm_netes(get_config(args.arch), tc,
+                              seq_len=args.seq_len,
+                              per_agent_batch=args.per_agent_batch, log=log,
+                              device=args.device)
+        print(f"loss: {hist['loss_mean'][0]:.4f} → "
+              f"{hist['loss_mean'][-1]:.4f}")
+    else:
+        hist = train_rl_netes(args.task, tc, log=log, device=args.device)
+        print(f"final eval: {hist['final_eval']}, max eval: "
+              f"{hist['max_eval']} ({hist['wall_s']:.1f}s)")
     if "realized_msgs" in hist:
         print(f"realized messages: {hist['realized_msgs']:.0f} "
               f"({hist['realized_wire_bytes']} wire bytes)")

@@ -3,12 +3,12 @@ optional qk-norm (an RMSNorm of each query and key head before RoPE);
 full / sliding-window / chunked-local patterns; full-sequence attention,
 prefill that also fills the decode cache, and single-token decode.
 
-Prefill's attention runs through the hand-written flash kernel
-(``kernels.flash_attention``) in place of the reference's
-``blockwise_attention``. ``attention_block`` (the full forward's attention)
-is the kernel's plain version, naive softmax attention in the input's
-dtype, so that the full forward also runs in float64 as a reference on the
-card. Decode is plain PyTorch, as in the reference, where no Pallas kernel
+Prefill's attention, and the training loss's (``kernel_attention``), runs
+through the hand-written flash kernel (``kernels.flash_attention``) in
+place of the reference's ``blockwise_attention``. ``attention_block`` (the
+full forward's attention) is the kernel's plain version, naive softmax
+attention in the input's dtype, so that the full forward also runs in
+float64 as a reference on the card. Decode is plain PyTorch, as in the reference, where no Pallas kernel
 lies on it.
 
 Patterns (``kind``):
@@ -109,6 +109,24 @@ def attention_block(params, spec: AttnSpec, x: torch.Tensor,
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 
+def _kernel_attention(params, spec: AttnSpec, x: torch.Tensor,
+                      positions: torch.Tensor):
+    """Self-attention over a full sequence through the flash kernel.
+    Returns (the block's output, k, v)."""
+    _check_arange(positions, x.shape[1])
+    q, k, v = _qkv(params, spec, x, positions)
+    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal=True, scale=spec.scale, **_masks(spec))
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), k, v
+
+
+def kernel_attention(params, spec: AttnSpec, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention over a full sequence through the flash
+    kernel, with no cache: the training loss's attention."""
+    return _kernel_attention(params, spec, x, positions)[0]
+
+
 def prefill_attention(params, spec: AttnSpec, x: torch.Tensor,
                       positions: torch.Tensor, cache: dict
                       ) -> tuple[torch.Tensor, dict]:
@@ -126,11 +144,7 @@ def prefill_attention(params, spec: AttnSpec, x: torch.Tensor,
             f"prefill of a {s}-token prompt into a {cache['k'].shape[1]}"
             "-slot full-attention cache is not decode-equivalent; size "
             "the cache to at least the prompt length")
-    _check_arange(positions, s)
-    q, k, v = _qkv(params, spec, x, positions)
-    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=True, scale=spec.scale, **_masks(spec))
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    y, k, v = _kernel_attention(params, spec, x, positions)
 
     length = cache["k"].shape[1]
     start = max(0, s - length)

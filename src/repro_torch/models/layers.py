@@ -131,3 +131,20 @@ def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default is the tanh approximation."""
     h = F.gelu(x @ params["w_in"] + params["b_in"], approximate="tanh")
     return h @ params["w_out"] + params["b_out"]
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Per-token cross-entropy, logits (..., V) and int labels (...,), in
+    the reference's order: log Σ exp(l − max) + max − l[label],
+    accumulated in float32 (float64 for a float64 input)."""
+    acc = acc_dtype(logits.dtype)
+    m = logits.amax(dim=-1, keepdim=True)
+    sumexp = torch.exp((logits - m).to(acc)).sum(dim=-1)
+    lse = torch.log(sumexp) + m[..., 0].to(acc)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - picked.to(acc)

@@ -7,9 +7,10 @@ mixer (swiglu / gelu / moe / rwkv_channel; ``first_dense_layers`` and
 jamba's interleave of mamba, attention and MoE layers reach it through
 ``cfg.layer_specs()``). ``prefill`` and ``decode_step`` run the flash
 kernel (prefill), the MoE router, the mamba scan and the WKV recurrence
-through their kernels; the full ``forward`` runs their plain versions
-(mamba: the associative scan, chunked past 1024 tokens; rwkv: the chunked
-form), so that in float64 it is the float64 reference.
+through their kernels, and so does ``loss_fn`` (the NetES reward) on
+float32 parameters, without a cache; the full ``forward`` runs their plain
+versions (mamba: the associative scan, chunked past 1024 tokens; rwkv: the
+chunked form), so that in float64 it is the float64 reference.
 Parameters are nested dicts of tensors with the layers as a plain list
 (the reference stacks identical layers for ``lax.scan``;
 ``convert.lm_params_from_reference`` unstacks them). The branches of the
@@ -19,6 +20,7 @@ naming their slice (ROADMAP.md, queue 1).
 API:
   init_params(cfg, seed, dtype, device)           -> params
   forward(params, cfg, batch)                     -> logits (B, S, V)
+  loss_fn(params, cfg, batch, xent_chunk)         -> mean next-token xent
   init_cache(cfg, batch, max_len, dtype, device)  -> decode cache
   prefill(params, cfg, batch, cache)              -> (logits (B, V), cache)
   decode_step(params, cfg, token, cache, pos)     -> (logits (B, 1, V), cache)
@@ -203,7 +205,7 @@ def _layer_forward(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
 def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     """Token embedding. Returns (x (B, S, D), positions (S,))."""
     check_ported(cfg)
-    extra = sorted(set(batch) - {"tokens"})
+    extra = sorted(set(batch) - {"tokens", "labels"})
     if extra:
         raise NotImplementedError(f"batch inputs {extra} come with "
                                   f"{_FRONTENDS}")
@@ -233,6 +235,65 @@ def forward(params, cfg: ModelConfig,
     mixer the associative scan, the rwkv time mix the chunked form), in
     the parameters' dtype: in float64 it is the float64 reference."""
     return unembed(params, cfg, _backbone(params, cfg, batch))
+
+
+def _kernel_layer(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """``_layer_forward`` through the kernels, as prefill runs it, with no
+    decode cache: attention through the flash kernel, the MoE router
+    through its kernel; mamba and rwkv through ``_prefill_layer`` from a
+    zero state (their state is a few rows; the discarded cache costs
+    nothing like attention's KV)."""
+    if lspec.mixer in ("mamba", "rwkv"):
+        cache = _layer_cache(cfg, lspec, x.shape[0], 0, x.dtype, x.device)
+        return _prefill_layer(p, cfg, lspec, x, cache, positions)[0]
+    h = _norm(cfg, p["norm1"], x)
+    x = x + attention.kernel_attention(p["attn"], attn_spec(cfg, lspec), h,
+                                       positions)
+    h = _norm(cfg, p["norm2"], x)
+    return x + _ffn(p, cfg, lspec, h)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            xent_chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy (a 0-d tensor on the parameters'
+    device), the unembedding and cross-entropy taken in sequence chunks
+    of ``xent_chunk`` so that the (B, S, V) logits are never whole (at
+    gemma3-4b's vocabulary a 2048-token row of them is 2.1 GB). The last
+    position, which has no next token, is masked out; a sequence that is
+    not a multiple of the chunk, or not longer than it, is one chunk, as
+    in the reference.
+
+    float32 parameters run the layers as ``prefill`` does, through the
+    kernels' wrappers (on the card the flash, router, scan and WKV
+    kernels; on the CPU their plain versions). float64 parameters run the
+    plain ``forward``'s layers: the float64 yardstick of the kernel path.
+    Any other dtype raises. No host sync."""
+    dtype = params["embed"].dtype
+    if dtype == torch.float64:
+        x = _backbone(params, cfg, batch)
+    elif dtype == torch.float32:
+        x, positions = embed_inputs(params, cfg, batch)
+        for p, ls in zip(params["layers"], cfg.layer_specs(), strict=True):
+            x = _kernel_layer(p, cfg, ls, x, positions)
+        x = _norm(cfg, params["final_norm"], x)
+    else:
+        raise TypeError(f"loss_fn: parameters of {dtype}; it takes float32 "
+                        "(the kernel path) or float64 (the plain yardstick)")
+    labels = batch["labels"]
+    b, s, _ = x.shape
+    labels_next = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+    mask = (torch.arange(s, device=x.device) < s - 1).to(
+        layers.acc_dtype(x.dtype))
+    chunk = s if s % xent_chunk or s <= xent_chunk else xent_chunk
+    total = None
+    for c0 in range(0, s, chunk):
+        per_tok = layers.softmax_cross_entropy(
+            unembed(params, cfg, x[:, c0:c0 + chunk]),
+            labels_next[:, c0:c0 + chunk])
+        part = (per_tok * mask[None, c0:c0 + chunk]).sum()
+        total = part if total is None else total + part
+    return total / (b * (s - 1))
 
 
 # ---------------------------------------------------------------------------

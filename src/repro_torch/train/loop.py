@@ -1,8 +1,10 @@
 """The paper's experiment: NetES over a population on an RL task (or a
 synthetic landscape), with the §5.2 evaluation protocol — periodic
-noise-free evaluation of the best perturbed parameters seen so far.
+noise-free evaluation of the best perturbed parameters seen so far; and
+NetES over LM agents (``train_lm_netes``), each agent a replica of a
+registry model trained on the synthetic corpus.
 
-The port of ``repro.train.loop``'s RL half. Steps run one after another on
+The port of ``repro.train.loop``. Steps run one after another on
 the device; their metrics stay there and are drained to the host once per
 chunk of ``METRIC_DRAIN_CHUNK`` iterations and at eval points. With
 ``TrainConfig.channel`` every inter-agent message rides a lossy channel
@@ -18,7 +20,7 @@ topology-search tournament first (``search``, DESIGN.md §10), and
 ``TrainConfig.from_search_result`` trains on its winner.
 
 Not ported yet (setting it raises ``NotImplementedError``): the ``shards``
-field (slice 7) of the reference's ``TrainConfig``.
+field (slice 7b, the sharded LM fleet) of the reference's ``TrainConfig``.
 """
 from __future__ import annotations
 
@@ -33,11 +35,15 @@ import torch
 from .. import checkpoint
 from .._device import resolve_device
 from ..comm.channel import Channel, ChannelSpec, compile_channel
-from ..core import netes, topology_repr
+from ..configs.base import ModelConfig
+from ..core import es_utils, netes, topology_repr
 from ..core.netes import Draws, NetESConfig, NetESState
 from ..core.topology import TopologySpec
+from ..core.tree import flatten
 from ..core.topology_sched import (ScheduleSpec, TopologySchedule,
                                    compile_schedule)
+from ..data import batch_seed, make_batch
+from ..distributed import netes_dist
 from ..envs import resolve_task
 from ..envs.rollout import evaluate_best
 from ..obs import (DEFAULT_CAPACITY, Probes, ProbeSpec, Trace,
@@ -97,7 +103,8 @@ class TrainConfig:
         unported = [f for f in _NOT_YET_PORTED if getattr(self, f) is not None]
         if unported:
             raise NotImplementedError(
-                f"TrainConfig fields not ported yet: {', '.join(unported)}")
+                f"TrainConfig fields not ported yet: {', '.join(unported)} "
+                "(slice 7b, the sharded LM fleet)")
         if self.topology is None:
             self.topology = TopologySpec(
                 family=self.topology_family, n_agents=self.n_agents,
@@ -371,3 +378,131 @@ def search_topology(task: str, sconfig=None,
     result = run_search(task, sconfig or SearchConfig(), log=log,
                         device=device)
     return result.topology
+
+
+# The streams of an LM run, each seeded with stream_seed(tc.seed, tag, ...):
+# the initial parameters, the batches, and the step draws.
+LM_INIT, LM_BATCH, LM_STEP = 0, 1, 2
+
+
+def lm_population(cfg: ModelConfig, tc: TrainConfig, same_init: bool = True,
+                  *, device: Union[str, torch.device] = "cuda"):
+    """The population ``train_lm_netes`` starts from, seeded with
+    ``stream_seed(tc.seed, LM_INIT)``."""
+    return netes_dist.init_population(
+        cfg, tc.n_agents, es_utils.stream_seed(tc.seed, LM_INIT),
+        same_init=same_init, device=resolve_device(device))
+
+
+def lm_step_inputs(cfg: ModelConfig, tc: TrainConfig, it: int,
+                   seq_len: int = 128, per_agent_batch: int = 1, *,
+                   device: Union[str, torch.device] = "cuda"):
+    """Iteration ``it``'s ``(batch, draws)`` in ``train_lm_netes``: the
+    batch's leaves (N, per_agent_batch, seq_len) from a generator seeded
+    with ``batch_seed(stream_seed(tc.seed, LM_BATCH), it)``, the draws
+    ``netes_dist.draw(stream_seed(tc.seed, LM_STEP), it)``."""
+    dev = resolve_device(device)
+    n = tc.n_agents
+    gen = torch.Generator(device=dev).manual_seed(
+        batch_seed(es_utils.stream_seed(tc.seed, LM_BATCH), it))
+    batch = make_batch(cfg, dict(seq_len=seq_len,
+                                 global_batch=n * per_agent_batch), gen)
+    batch = {k: v.reshape(n, per_agent_batch, seq_len)
+             for k, v in batch.items()}
+    return batch, netes_dist.draw(es_utils.stream_seed(tc.seed, LM_STEP),
+                                  it, dev)
+
+
+def train_lm_netes(cfg: ModelConfig, tc: TrainConfig, seq_len: int = 128,
+                   per_agent_batch: int = 1, same_init: bool = True,
+                   log: Optional[Callable[[Dict], None]] = None, *,
+                   device: Union[str, torch.device] = "cuda") -> Dict:
+    """NetES-trains a registry architecture on the synthetic corpus with
+    the replica step (``distributed.netes_dist``): N agents, each a whole
+    replica, evaluated one after another on ``per_agent_batch`` sequences
+    of ``seq_len`` tokens each, mixed by Eq. 3 over the run's graph
+    (``tc.topology``, ``tc.representation``, ``tc.schedule``,
+    ``tc.channel``).
+
+    ``same_init=True`` (paper Eq. 1/2 regime): all agents start from one
+    θ. At LM scale, independently initialized agents make Eq. 3's
+    θ-difference term O(weight norm) × α/(Nσ²), divergent for any useful α.
+
+    Returns the history: per-iteration ``loss_mean`` and ``reward_max``,
+    drained once every ``METRIC_DRAIN_CHUNK`` iterations; on the card
+    ``step_ms``, each step's time between CUDA events on the stream, read
+    at the drains; with ``tc.probes`` the drained ``probes``. With
+    ``tc.trace`` the run writes ``step`` and ``drain`` spans.
+
+    The run starts from ``lm_population`` and takes iteration ``it``'s
+    batch and draws from ``lm_step_inputs``.
+    """
+    dev = resolve_device(device)
+    n = tc.n_agents
+    params = lm_population(cfg, tc, same_init, device=dev)
+    schedule = build_schedule(tc)
+    channel = build_channel(tc)
+    if schedule is not None:
+        topo, sstate = None, schedule.init(device=dev)
+    else:
+        topo, sstate = build_topology(tc, device=dev), None
+    dim = sum(leaf[0].numel() for leaf in flatten(params))
+    probes = build_probes(tc, channel=channel, dim=dim)
+    step = netes_dist.make_replica_train_step(
+        cfg, tc.netes, n, microbatch=1, topology=topo, schedule=schedule,
+        channel=channel, probes=probes)
+    states = [s for s in (sstate,
+                          channel.init(params) if channel is not None
+                          else None,
+                          probes.init(dev) if probes is not None else None)
+              if s is not None]
+    tr = Trace(tc.trace, name=f"lm:{cfg.name}", device=dev, n_agents=n,
+               iters=tc.iters,
+               probes=None if probes is None else probes.spec.label())
+    history: Dict[str, List] = {"loss_mean": [], "reward_max": []}
+    timed = dev.type == "cuda"
+    if timed:
+        history["step_ms"] = []
+    pending: List = []
+
+    def drain():
+        if not pending:
+            return
+        with tr.span("drain", what="metrics", iters=len(pending)):
+            host = device_get(torch.stack([
+                torch.stack([m["loss_mean"], m["reward_max"]])
+                for _, m, _ in pending])).double()
+            for (it, _, ev), (loss, rmax) in zip(pending, host.tolist(),
+                                                 strict=True):
+                history["loss_mean"].append(loss)
+                history["reward_max"].append(rmax)
+                if timed:
+                    history["step_ms"].append(ev[0].elapsed_time(ev[1]))
+                if log and it % 10 == 0:
+                    log({"iter": it, "loss": loss})
+            pending.clear()
+
+    try:
+        for it in range(tc.iters):
+            batch, draws = lm_step_inputs(cfg, tc, it, seq_len,
+                                          per_agent_batch, device=dev)
+            ev = None
+            if timed:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            with tr.span("step", iter=it):
+                out = list(step(params, None, batch, draws, *states))
+            if timed:
+                ev[1].record()
+            params, metrics, states = out[0], out[1], out[2:]
+            pending.append((it, metrics, ev))
+            if len(pending) >= METRIC_DRAIN_CHUNK:
+                drain()
+        drain()
+        if probes is not None:
+            with tr.span("drain", what="probes"):
+                history["probes"] = probes.drain(states[-1])
+    finally:
+        tr.close()
+    return history

@@ -13,7 +13,7 @@ in a process of its own (``tests/test_torch_lm.py``,
 ``tests/test_torch_mamba.py`` and ``tests/test_torch_gemma3.py`` start
 it), so no other test module ever sees the swap.
 
-Five parts (PART): ``lm`` (the default) dumps the models, ``moe`` the MoE
+Six parts (PART): ``lm`` (the default) dumps the models, ``moe`` the MoE
 layer's pieces, ``rwkv`` the rwkv6 pieces and the rwkv6-7b-smoke model (at
 2 layers, unrolled, and at 4, scanned as plan (0, 1, 4, 0)), ``mamba`` the
 mamba pieces and the jamba-v0.1-52b-smoke model (at 2 layers, unrolled,
@@ -23,7 +23,10 @@ and global, at head_dim 64 and 256) and the gemma3-4b-smoke model (at 2
 layers, unrolled, and at 8, scanned as plan (0, 2, 4, 0); at 2 layers with
 head_dim 256; and a 34-layer model of gemma3-4b's layer pattern at tiny
 widths, plan (0, 6, 5, 4)) with 128-token prompts, twice its window of
-64. Everything is drawn from fixed seeds: the weights
+64, and ``netes`` the distributed replica step (``repro.distributed.
+netes_dist``) and ``loss_fn`` of gemma3-4b-smoke and moonshot-v1-16b-a3b-
+smoke at N = 4 agents with 64-token sequences (see ``dump_netes``).
+Everything is drawn from fixed seeds: the weights
 with the reference's own inits (mistral-nemo-12b-smoke at 2 layers,
 unrolled, and at 4 layers, scanned; moonshot-v1-16b-a3b-smoke at 2
 layers, unrolled, and at 6 layers, scanned as plan (1, 1, 5, 0): one
@@ -111,6 +114,9 @@ def main(path, part="lm"):
         return
     if part == "gemma":
         np.savez(path, **dump_gemma(attention, transformer, ServeEngine))
+        return
+    if part == "netes":
+        np.savez(path, **dump_netes(transformer))
         return
     smoke = get_config("mistral-nemo-12b-smoke")
     rng = np.random.default_rng(0)
@@ -425,6 +431,119 @@ def dump_gemma(attention, transformer, ServeEngine):
                model_rng, prompt=GEMMA_TINY_PROMPT,
                fwd_len=GEMMA_TINY_PROMPT, max_len=GEMMA_TINY_MAX_LEN)
     return {key: np.asarray(a) for key, a in out.items()}
+
+
+# the replica step: N agents, one 64-token sequence each, 3 steps; the
+# NetES constants; the run's three modes (family, representation, channel)
+NETES_N, NETES_SEQ, NETES_STEPS = 4, 64, 3
+NETES_ARCHS = ("gemma3-4b-smoke", "moonshot-v1-16b-a3b-smoke")
+NETES_CFG = dict(alpha=0.01, sigma=0.02, p_broadcast=0.5,
+                 weight_decay=0.005)
+NETES_CHANNEL = "quantize(bits=8)|dropout(p=0.1,seed=0)"
+NETES_MODES = {"fc": ("fully_connected", "dense", None),
+               "er": ("erdos_renyi", "sparse", None),
+               "chan": ("erdos_renyi", "sparse", NETES_CHANNEL)}
+# the broadcast pattern of the 3 steps (no, yes, no), so that step 1
+# holds the mixing alone and step 2 the broadcast
+NETES_BCAST = (False, True, False)
+XENT_CHUNK = 16
+
+
+def import_netes():
+    saved = batching.primitive_batchers
+    batching.primitive_batchers = {optimization_barrier_p: None}
+    try:
+        from repro.comm import channel
+        from repro.core import topology, topology_repr
+        from repro.core.netes import NetESConfig
+        from repro.data import make_batch
+        from repro.distributed import netes_dist
+    finally:
+        batching.primitive_batchers = saved
+    return channel, topology, topology_repr, NetESConfig, make_batch, \
+        netes_dist
+
+
+def dump_netes(transformer):
+    """Per arch, under ``<arch>/``: ``params`` (one agent's: every agent
+    starts from it), ``tokens<t>`` (N, 1, S) and the draws of step t:
+    ``beta<t>`` and ``eps<t>/<agent>/...`` (ε of each leaf, per stacked
+    slice as the reference's noise contract folds it, generated by its own
+    ``perturb_params`` at σ = 1 from zeros); ``loss`` and ``loss_chunked``
+    (``loss_fn`` of agent 0's θ on step 0's first sequence, whole and in
+    chunks of ``XENT_CHUNK``); per mode ``<mode>/adj`` (and for a sparse
+    mode its ``neighbor_idx``/``neighbor_mask``), the metrics of each step
+    ``<mode>/metrics<t>/<name>``, a channel's dropout masks
+    ``<mode>/edge_mask<t>``, and the parameters after steps 1, 3 (and for
+    the channel 2) ``<mode>/after<k>/...`` with the agent axis leading.
+    The step keys are ``fold_in(PRNGKey(seed), t)`` for the first seed
+    whose broadcast draws give ``NETES_BCAST``."""
+    channel, topology, topology_repr, NetESConfig, make_batch, netes_dist = \
+        import_netes()
+    ncfg = NetESConfig(**NETES_CFG)
+    n = NETES_N
+    seed = next(s for s in range(100) if tuple(
+        bool(jax.random.uniform(jax.random.split(
+            jax.random.fold_in(jax.random.PRNGKey(s), t))[1])
+             < ncfg.p_broadcast) for t in range(NETES_STEPS)) == NETES_BCAST)
+    keys = [jax.random.fold_in(jax.random.PRNGKey(seed), t)
+            for t in range(NETES_STEPS)]
+    out = {}
+    for a, arch in enumerate(NETES_ARCHS):
+        cfg = get_config(arch)
+        p0 = transformer.init_params(jax.random.PRNGKey(500 + a), cfg,
+                                     jnp.float32)
+        out.update(flatten(p0, f"{arch}/params"))
+        params = jax.tree.map(
+            lambda l: jnp.broadcast_to(l, (n,) + l.shape).copy(), p0)
+        zeros = jax.tree.map(jnp.zeros_like, p0)
+        batch_fn = jax.jit(lambda k, cfg=cfg: make_batch(
+            cfg, dict(seq_len=NETES_SEQ, global_batch=n), k))
+        eps_fn = jax.jit(lambda k, zeros=zeros: netes_dist.perturb_params(
+            zeros, k, 1.0, 1.0))
+        batches = []
+        for t, key in enumerate(keys):
+            b = batch_fn(jax.random.fold_in(jax.random.PRNGKey(700 + a), t))
+            b = jax.tree.map(lambda x: x.reshape((n, 1) + x.shape[1:]), b)
+            batches.append(b)
+            out[f"{arch}/tokens{t}"] = b["tokens"]
+            k_agents, k_beta = jax.random.split(key)
+            out[f"{arch}/beta{t}"] = jax.random.uniform(k_beta)
+            for i in range(n):
+                out.update(flatten(eps_fn(jax.random.fold_in(k_agents, i)),
+                                   f"{arch}/eps{t}/{i}"))
+        first = {k: v[0] for k, v in batches[0].items()}
+        out[f"{arch}/loss"] = transformer.loss_fn(p0, cfg, first)
+        out[f"{arch}/loss_chunked"] = transformer.loss_fn(
+            p0, cfg, first, xent_chunk=XENT_CHUNK)
+        for mode, (family, rep, chan_text) in NETES_MODES.items():
+            adj = np.asarray(topology.make_topology(family, n, p=0.5, seed=0),
+                             np.float32)
+            topo = topology_repr.from_dense(adj, rep)
+            out[f"{arch}/{mode}/adj"] = adj
+            if rep == "sparse":
+                out[f"{arch}/{mode}/neighbor_idx"] = topo.neighbor_idx
+                out[f"{arch}/{mode}/neighbor_mask"] = topo.neighbor_mask
+            chan = (channel.compile_channel(chan_text, n) if chan_text
+                    else None)
+            step = jax.jit(netes_dist.make_replica_train_step(
+                cfg, ncfg, n, microbatch=1, topology=topo, channel=chan))
+            p = params
+            cstate = chan.init(p) if chan is not None else None
+            for t, key in enumerate(keys):
+                if chan is not None:
+                    # the step's own dropout draw, made again
+                    _, sub = jax.random.split(cstate.key)
+                    out[f"{arch}/{mode}/edge_mask{t}"] = channel.dropout_mask(
+                        sub, topo, chan.dropout_stage.p)
+                    p, metrics, cstate = step(p, None, batches[t], key,
+                                              cstate)
+                else:
+                    p, metrics = step(p, None, batches[t], key)
+                out.update(flatten(metrics, f"{arch}/{mode}/metrics{t}"))
+                if t + 1 in ((1, 2, 3) if chan is not None else (1, 3)):
+                    out.update(flatten(p, f"{arch}/{mode}/after{t + 1}"))
+    return {key: np.asarray(v) for key, v in out.items()}
 
 
 if __name__ == "__main__":

@@ -48,3 +48,31 @@ def test_weight_decay_and_shaping_dispatch():
     assert torch.equal(shape_fitness(r, "none"), r)
     with pytest.raises(ValueError, match="fitness shaping"):
         shape_fitness(r, "bogus")
+
+
+def test_antithetic_pair():
+    eps = np.random.default_rng(0).standard_normal((3, 4)).astype(np.float32)
+    np.testing.assert_array_equal(
+        es_utils.antithetic_pair(torch.as_tensor(eps)).numpy(),
+        np.asarray(ref.antithetic_pair(jnp.asarray(eps))))
+
+
+def test_noise_seeds_and_samples():
+    """The port's stream seeds (its own, not threefry's): 63-bit, a
+    function of their parts in order, distinct for distinct agents and
+    steps; ``sample_noise`` gives a generator's normal draws again from
+    the same seed, into ``out`` as well."""
+    seeds = {es_utils.agent_noise_seed(7, a, t) for a in range(50)
+             for t in range(50)}
+    assert len(seeds) == 2500
+    assert all(0 <= s < 2 ** 63 for s in seeds)
+    assert es_utils.stream_seed(1, 2) != es_utils.stream_seed(2, 1)
+    assert es_utils.stream_seed(1, 2) == es_utils.stream_seed(1, 2)
+    with pytest.raises(ValueError):
+        es_utils.stream_seed(-1)
+    gen = torch.Generator().manual_seed(es_utils.agent_noise_seed(0, 1, 2))
+    a = es_utils.sample_noise(gen, (3, 5))
+    gen.manual_seed(es_utils.agent_noise_seed(0, 1, 2))
+    out = torch.empty(3, 5)
+    es_utils.sample_noise(gen, (3, 5), out=out)
+    assert torch.equal(a, out) and a.dtype == torch.float32

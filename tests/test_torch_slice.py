@@ -449,7 +449,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.obs.trace", "repro_torch.obs.cuda_watch",
             "repro_torch.obs.__main__", "repro_torch.search",
             "repro_torch.search.candidates",
-            "repro_torch.search.tournament"} <= set(mods)
+            "repro_torch.search.tournament", "repro_torch.data",
+            "repro_torch.data.synthetic", "repro_torch.distributed",
+            "repro_torch.distributed.netes_dist"} <= set(mods)
 
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s+import\b))", re.MULTILINE)
