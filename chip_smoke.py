@@ -23,7 +23,12 @@ Phases, each printing one JSON line per case:
    at gemma3-4b's prefill of serve run (a) (8/4 heads, a global layer and
    a sliding one of window 1024) and four ragged shapes (G = 2 off the
    64-row tile with B = 2, rows without a key, a chunk, Sq ≠ Sk without
-   the causal mask); each flash row names the backend
+   the causal mask), and at llama4-scout's prefill of serve run (c)
+   (1 × 16,384, 40/8 heads of 128: a global layer, and a chunked one
+   whose chunk of 8192 the prompt crosses; the plain version runs one KV
+   head at a time there, and the chunked time over the global one is
+   printed: ≈ 0.5 when the kernel skips the key tiles outside the chunk);
+   each flash row names the backend
    ``scaled_dot_product_attention`` chose for its yardstick. The sparse
    Eq. 3 kernel runs on ER p = 0.1 at N = 1000 and at the paper's N = 3000 (two sender chunks),
    at a ragged shape and at N = 5000, p = 0.02 (four chunks); the fused
@@ -42,8 +47,10 @@ Phases, each printing one JSON line per case:
    spill in any of their libraries, nor in the router's and the WKV
    recurrence's, redesigned too. The MoE router
    ``moe_topk`` runs at moonshot's prefill (8192 × 64 experts, top-6),
-   decode (8 × 64), one ragged shape (1000 × 128, top-8) and jamba's
-   prefill (8192 × 16, top-2): ids equal to
+   decode (8 × 64), one ragged shape (1000 × 128, top-8), jamba's
+   prefill (8192 × 16, top-2) and llama4's top-1 routers through the
+   generic instance (scout's 16,384 × 16, maverick's 8192 × 128 and
+   8 × 128): ids equal to
    the plain version's except on rows whose top probabilities lie within
    2 ulps of each other (counted and printed), gates within 1e-6. The
    WKV-6 recurrence
@@ -210,6 +217,31 @@ Phases, each printing one JSON line per case:
    GB of float32 weights), after jamba's weights are freed, as in 9: 34
    flash launches per ``generate`` (the head_dim-256 instance), 5 of them
    global and 29 windowed.
+21a. ``llama4_parity`` — llama4-scout-17b-a16e at full width and 2
+   layers (a chunked MoE layer with its chunk cut to 512, then a global
+   MoE layer: the offset cut to 1; 16 experts, top-1; qk-norm), B = 2,
+   1536-token prompts (two chunk boundaries, three MoE groups of 512 a
+   row), 4 decode steps from the first position of a new chunk: the
+   kernel path's last prefill and decode logits against the float64
+   ``forward`` with the MoE grouped as served, within 1e-4·max|logit|, on
+   each row up to its first routing difference (counted; each at a
+   float64 margin below 1e-5); the cache rings; one prefill under the
+   sync check.
+21b. ``serve_cpu_parity`` of both llama4 smoke models, 192-token prompts
+   (three of their chunks of 64).
+21c. ``serve`` of llama4-scout-17b-a16e at full width and 4 of its 48
+   layers (one period: 3 chunked layers and the global one, 37.36 GB),
+   as in 9 plus run (c) B = 1 × 16,384, where the chunk mask acts: 4
+   flash launches per ``generate`` (1 global, 3 windowed) and 4 × 16 = 64
+   ``moe_topk``.
+21d. ``maverick_moe`` and ``serve`` of llama4-maverick-400b-a17b at full
+   width and its first 2 layers (MoE of 128 experts, top-1, then SwiGLU;
+   both chunked; 69.57 GB): first its MoE layer on its own input from a
+   1 × 2048 prompt against a float64 product one expert at a time, with
+   the kernel's ids (checked against the plain version under the tie
+   rule) and the port's capacity and drops, within 1e-4·max|y|; then runs
+   (a) and (b) as in 9 (2 flash launches, 16 ``moe_topk``), each run's
+   peak under the card's total less 2 GB, with ``mem_get_info``.
 22. ``lm_netes`` — NetES over LM agents (``train_lm_netes``, the replica
    step of ``distributed.netes_dist``): gemma3-4b at full width and 6 of
    its 34 layers (one period; 4.95 GB an agent), N = 8 agents of one
@@ -240,17 +272,22 @@ out. At both LM shapes those two kernels are also timed against
 ``torch.matmul`` on the dense weight (``matmul_ms``, held to 3e-5·S).
 Every ``serve`` phase counts the flash calls by mask (global or windowed)
 against the layers' kinds.
-``no_sync`` (in phases 7, 13, 16 and 19): one prefill of mistral-nemo-12b,
-of rwkv6-7b, of jamba-v0.1-52b (full width, 2 layers) and of gemma3-4b
-(6 layers) under ``torch.cuda.set_sync_debug_mode("error")``: any call
-that waits for the card raises there.
+``no_sync`` (in phases 7, 13, 16, 19 and 21a): one prefill of
+mistral-nemo-12b, of rwkv6-7b, of jamba-v0.1-52b (full width, 2 layers),
+of gemma3-4b (6 layers) and of llama4-scout (2 layers) under
+``torch.cuda.set_sync_debug_mode("error")``: any call that waits for the
+card raises there.
 
 Then a ``{"kernels": [...]}`` line (``launches``: the main path's and
 channel run (a)'s; ``launches_schedule``: each schedule run's;
 ``launches_telemetry``: each probed run's and the traced generate's;
 ``launches_capture_replay``: the Eq. 3 kernel in one replay of each
 captured step; ``launches_search``: each tournament's; the flash row's
-``launches_gemma3_4b`` and its ``hd256`` and ``hd256_local`` times;
+``launches_gemma3_4b`` and its ``hd256`` and ``hd256_local`` times,
+``launches_llama4_scout`` (runs (a) and (c), by mask) and
+``launches_llama4_maverick``, and its ``llama4_global`` and
+``llama4_chunk`` times; the router row's ``launches_llama4`` (each run of
+scout and maverick) and ``llama4_cases``;
 ``launches_lm_netes``: a step of each ``lm_netes`` case; ``lm_shapes``:
 the times at the LM step's shapes), the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -1003,7 +1040,19 @@ ATTN_CASES = (
     # global layer and a sliding one
     ("lm_gemma_2048", 1, 2048, 2048, 8, 4, 256, True, 0, 0, ""),
     ("lm_gemma_2048_w1024", 1, 2048, 2048, 8, 4, 256, True, 1024, 0, ""),
+    # llama4-scout-17b-a16e's prefill of serve run (c), 1 × 16,384 over
+    # 40/8 heads of 128 (G = 5): a global layer, and a chunked one whose
+    # chunk of 8192 the prompt crosses once
+    ("scout_global_16384", 1, 16384, 16384, 40, 8, 128, True, 0, 0,
+     "flash_attention_llama4_global"),
+    ("scout_chunk8192_16384", 1, 16384, 16384, 40, 8, 128, True, 0, 8192,
+     "flash_attention_llama4_chunk"),
 )
+# The plain version materialises every (B, H, Sq, Sk) score: above this
+# many bytes of float32 scores (scout's 16,384² × 40 heads: 43 GB) it runs
+# one KV head and its G query heads at a time, which the heads' independence
+# makes the same function
+PLAIN_SCORE_BYTES = 8e9
 
 
 def _attn_mask(sq, sk, causal, window, chunk):
@@ -1064,7 +1113,10 @@ def attention_kernel_phase(results: dict, lm_results: dict) -> None:
         scale = hd ** -0.5
         kw = dict(causal=causal, window=window, chunk=chunk, scale=scale)
         kernel = functools.partial(fa.flash_attention, q, k, v, **kw)
-        plain = functools.partial(ref.flash_attention_ref, q, k, v, **kw)
+        by_kv_head = 4.0 * b * h * sq * sk > PLAIN_SCORE_BYTES
+        plain = functools.partial(_plain_by_kv_head if by_kv_head
+                                  else ref.flash_attention_ref, q, k, v,
+                                  **kw)
         out_k, out_p = kernel(), plain()
         torch.cuda.synchronize()
         check(torch.isfinite(out_k).all().item(),
@@ -1111,7 +1163,7 @@ def attention_kernel_phase(results: dict, lm_results: dict) -> None:
                "library_err_f64": lib_err.abs().max().item(),
                "tol_f64": TOL_ATTN, "grid_blocks": pl.grid_blocks,
                "resident_blocks_per_sm": resident, **time_stats(kernel),
-               "plain_ms": time_ms(plain),
+               "plain_ms": time_ms(plain), "plain_by_kv_head": by_kv_head,
                "library": "F.scaled_dot_product_attention (f32, KV heads "
                           "repeated outside)",
                "library_backend": _sdpa_backend(qt, kt, vt, **lib_kw),
@@ -1122,7 +1174,7 @@ def attention_kernel_phase(results: dict, lm_results: dict) -> None:
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         if main or label.startswith("moonshot"):
             row["library_kernels_ms"] = _device_ms(lib)
-        if main and causal and not window:
+        if main and causal and not window and not chunk:
             bf16 = F.scaled_dot_product_attention(
                 qt.bfloat16(), kt.bfloat16(), vt.bfloat16(), is_causal=True,
                 scale=scale).transpose(1, 2).double()
@@ -1136,6 +1188,30 @@ def attention_kernel_phase(results: dict, lm_results: dict) -> None:
         emit(row)
         del q, k, v, out_k, out_p, exact, qt, kt, vt, ok
         torch.cuda.empty_cache()
+    # the chunked layer computes half the global one's (query, key) pairs
+    # at 16,384 tokens: its time over the global one's ≈ 0.5 if the kernel
+    # skips the key tiles outside the chunk, ≈ 1 if it does not (recorded,
+    # not a failure)
+    chunked = results["flash_attention_llama4_chunk"]
+    full = results["flash_attention_llama4_global"]
+    emit({"phase": "kernel", "name": "flash_attention",
+          "check": "chunk_skip", "shapes": [chunked["shape"], full["shape"]],
+          "pairs_ratio": chunked["allowed_pairs"] / full["allowed_pairs"],
+          "ms_ratio": chunked["ms"] / full["ms"],
+          "skip_works": chunked["ms"] / full["ms"] < 0.75})
+
+
+def _plain_by_kv_head(q, k, v, **kw):
+    """``ref.flash_attention_ref`` one KV head (and its G query heads) at
+    a time, so that one (G, Sq, Sk) block of scores is live at once."""
+    import torch
+
+    from repro_torch.kernels import ref
+    hkv = k.shape[2]
+    g = q.shape[2] // hkv
+    return torch.cat([ref.flash_attention_ref(
+        q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1], **kw)
+        for j in range(hkv)], dim=2)
 
 
 # ---------------------------------------------------------------------------
@@ -1158,6 +1234,11 @@ ROUTER_CASES = (  # (label, T, E, k, main)
     ("ragged_1000_e128_k8", 1000, 128, 8, False),
     # jamba-v0.1-52b's router at serve run (a)'s prefill: the 16 / 2 instance
     ("jamba_prefill_8192", 8192, 16, 2, False),
+    # llama4's top-1 routers, through the generic instance: scout's at
+    # serve run (c)'s prefill, maverick's at run (a)'s and (b)'s decode
+    ("scout_prefill_16384", 16384, 16, 1, False),
+    ("maverick_prefill_8192", 8192, 128, 1, False),
+    ("maverick_decode_b8", 8, 128, 1, False),
 )
 
 
@@ -1237,6 +1318,12 @@ def router_kernel_phase(results: dict) -> None:
         emit(row)
         if main:
             results["moe_topk"] = row
+        if label.startswith(("scout", "maverick")):
+            results.setdefault("moe_topk_llama4", {})[label] = {
+                key: row[key] for key in (
+                    "max_abs_err", "gates_err_f64", "near_tie_rows",
+                    "rows_ids_differ", "grid_blocks", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by")}
 
 
 # ---------------------------------------------------------------------------
@@ -3425,6 +3512,15 @@ def _moe_groups_as_served(prompt: int):
         moe.moe_block = block
 
 
+def _first_routing_difference(agree_by_layer, b: int):
+    """(B,) the first position of each row whose routing differs from
+    float64 in any MoE layer (the row's length where none does)."""
+    import torch
+    agree = torch.stack([a.reshape(b, -1) for a in agree_by_layer]).all(0)
+    return torch.where(agree.all(dim=1), agree.shape[1],
+                       (~agree).int().argmax(dim=1))
+
+
 def jamba_parity_phase() -> None:
     """jamba at full width and 2 layers (mamba + MoE, then sliding
     attention + SwiGLU): the kernel path's logits of every prompt position
@@ -3493,8 +3589,7 @@ def jamba_parity_phase() -> None:
     # positions of each row before its first routing difference
     agree = torch.cat([agree_pre.reshape(b, -1), agree_dec.reshape(b, -1)],
                       dim=1)
-    first = torch.where(agree.all(dim=1), agree.shape[1],
-                        (~agree).int().argmax(dim=1))
+    first = _first_routing_difference([agree], b)
     live = torch.arange(agree.shape[1], device="cuda")[None] < first[:, None]
     got = torch.cat([all32, torch.stack(logits[1:], dim=1)], dim=1).double()
     err = (got - ref64).abs().amax(dim=-1)                  # (B, S + new − 1)
@@ -3615,6 +3710,234 @@ def gemma_parity_phase() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 21a–21d: llama4-scout-17b-a16e and llama4-maverick-400b-a17b serving
+# (chunked-local attention with a global layer every 4th, qk-norm, top-1
+# MoE at E = 16 on every layer and E = 128 on every other one)
+# ---------------------------------------------------------------------------
+
+SCOUT_ARCH = "llama4-scout-17b-a16e"
+MAVERICK_ARCH = "llama4-maverick-400b-a17b"
+# one period of scout's 48 layers: 3 chunked layers and the global one,
+# 37.36 GB of float32 weights (all 48: 402.8 GB); run (c)'s prompt
+# crosses the chunk of 8192 once
+SCOUT_SERVE_LAYERS = 4
+SCOUT_SERVE_RUNS = SERVE_RUNS + (("c", 1, 16384),)
+# maverick's first two layers (MoE of 128 experts, then SwiGLU; both
+# chunked), 69.57 GB: the first global layer is index 3, and 4 layers are
+# 135.0 GB
+MAVERICK_SERVE_LAYERS = 2
+MAVERICK_HEADROOM = 2e9     # maverick's peak stays under the card's total
+                            # less this
+# scout's widths at 2 layers, f32 20.75 GB beside 41.50 GB of float64:
+# layer 0 chunked (chunk cut to 512), layer 1 global (offset cut to 1);
+# prompts of 1536 cross two chunk boundaries and fill three MoE groups of
+# 512 a row, then 4 decode steps from the first position of a new chunk
+LLAMA_PARITY_CUTS = dict(num_layers=2, global_offset=1, chunk_size=512)
+LLAMA_PARITY_PROMPT = 1536
+LLAMA_PARITY_NEW = 5
+LLAMA_SMOKE_PROMPT = 192    # three of the smokes' chunks (and groups) of 64
+MAVERICK_MOE_PROMPT = 2048  # maverick's MoE layer on a 1 × 2048 prompt
+# |y − y64| ≤ TOL_MOE_Y · max|y64| for the MoE layer's output: float32
+# products over 5120 and 8192 terms leave ≈ 1e-6 of the scale; a wrong
+# expert, a token kept past its capacity or a lost gate moves it by O(1)
+TOL_MOE_Y = 1e-4
+
+
+def llama4_parity_phase() -> None:
+    """llama4-scout at full width and 2 layers (a chunked MoE layer, then
+    a global one), B = 2, 1536-token prompts across two chunk boundaries,
+    4 decode steps: the kernel path's last prefill and decode logits
+    against the port's float64 ``forward`` with the MoE grouped as served,
+    on each row up to its first routing difference from float64 (counted;
+    each must lie at a float64 margin below 1e-5); the cache rings; one
+    prefill with no sync."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config(SCOUT_ARCH), **LLAMA_PARITY_CUTS)
+    spec = transformer.moe_spec(cfg)
+    check([(ls.mixer, ls.ffn) for ls in cfg.layer_specs()]
+          == [("attn_chunked", "moe"), ("attn_full", "moe")],
+          "llama4 parity: the 2 layers are not chunked + MoE, then global + "
+          "MoE")
+    b, p_len, new = PARITY_BATCH, LLAMA_PARITY_PROMPT, LLAMA_PARITY_NEW
+    max_len = p_len + new
+    rings = [c["kv"]["k"].shape[1] for c in transformer.init_cache(
+        cfg, 1, max_len, torch.float32, "cuda")["layers"]]
+    check(rings == [cfg.chunk_size, max_len],
+          f"llama4 parity: cache slots per layer {rings}")
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p_len), generator=g,
+                            device="cuda")
+    seen32 = []
+    with _recording_moe_inputs(seen32):
+        fa.KERNEL.launches = mr.KERNEL.launches = 0
+        tokens, logits, _ = _greedy(params, cfg, prompts, new)
+        launched = (fa.KERNEL.launches, mr.KERNEL.launches)
+    check(launched == (2, 2 * new), f"llama4 parity: {launched} flash and "
+          f"moe_topk launches in one generate of {new} tokens")
+    engine = ServeEngine(cfg, params, max_len=max_len)
+    check(np.array_equal(engine.generate(prompts, new_tokens=new),
+                         tokens.cpu().numpy()),
+          "llama4 parity: ServeEngine.generate differs from its own steps")
+    del engine
+    no_sync_prefill(SCOUT_ARCH, params, cfg, prompts)
+    fed = torch.cat([prompts, tokens[:, :-1]], dim=1)
+    seen64 = []
+    with torch.no_grad(), _recording_moe_inputs(seen64), \
+            _moe_groups_as_served(p_len):
+        p64 = _cast(params, dtype=torch.float64)
+        x64 = transformer._backbone(p64, cfg, {"tokens": fed})
+        ref64 = transformer.unembed(p64, cfg, x64[:, p_len - 1:])
+        routers64 = [lay["moe"]["router"] for lay in p64["layers"]]
+        del p64, x64
+        x32 = transformer._backbone(params, cfg, {"tokens": fed})
+        plain32 = transformer.unembed(params, cfg, x32[:, p_len - 1:])
+        del x32
+    agree, summaries = [], {}
+    for i in range(cfg.num_layers):
+        router32 = params["layers"][i]["moe"]["router"]
+        a_pre, summaries[f"layer{i}_prefill"] = _compare_routing(
+            f"llama4 layer {i} prefill", router32, routers64[i], seen32[i],
+            seen64[2 * i], spec, cfg.moe_group_size)
+        dec32 = torch.cat([seen32[2 * step + i] for step in range(1, new)],
+                          dim=1)
+        a_dec, summaries[f"layer{i}_decode"] = _compare_routing(
+            f"llama4 layer {i} decode", router32, routers64[i], dec32,
+            seen64[2 * i + 1], spec, 1)
+        agree.append(torch.cat([a_pre.reshape(b, -1), a_dec.reshape(b, -1)],
+                               dim=1))
+    first = _first_routing_difference(agree, b)
+    pos = p_len - 1 + torch.arange(new, device="cuda")
+    live = pos[None] < first[:, None]                       # (B, new)
+    got = torch.stack(logits, dim=1).double()
+    err = (got - ref64).abs().amax(dim=-1)
+    scale = max(1.0, ref64.abs().max().item())
+    tol = TOL_LOGITS * scale
+    worst = err[live].max().item() if live.any() else 0.0
+    err_plain = (plain32.double() - ref64).abs().amax(dim=-1)[live]
+    check(bool(live[:, 0].any()), "llama4 parity: every row's routing "
+          "differs from float64 before the prompt's end")
+    check(bool(torch.isfinite(got).all()), "llama4 parity: non-finite "
+          "logits")
+    check(worst <= tol, f"llama4 parity: logits differ from float64 by "
+          f"{worst} (tolerance {tol})")
+    emit({"phase": "llama4_parity", "arch": SCOUT_ARCH,
+          "cuts": {**LLAMA_PARITY_CUTS, "why": "depth 2 (one chunked and "
+                   "one global layer; a period of 4 in float64 is 74.7 GB), "
+                   "the global layer's offset 3 → 1, chunk 8192 → 512 so "
+                   "that 1536-token prompts cross two chunk boundaries"},
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "head_dim": cfg.head_dim, "experts": spec.num_experts,
+          "top_k": spec.experts_per_token, "cache_slots": rings,
+          "batch": b, "prompt": p_len, "decode_steps": new - 1,
+          "capacity": moe.group_capacity(spec, cfg.moe_group_size),
+          "weight_gb": 4 * cfg.count_params() / 1e9,
+          "positions_compared": int(live.sum()),
+          "positions_total": int(live.numel()),
+          "max_abs_logit": scale, "max_abs_err": worst,
+          "prefill_err": err[:, 0][live[:, 0]].max().item(),
+          "plain_forward_f32_err": err_plain.max().item()
+          if err_plain.numel() else 0.0,
+          "tol": tol, "tol_rel": TOL_LOGITS, "flip_margin": MOE_FLIP_MARGIN,
+          "routing": summaries, "generate_equal": True,
+          "launches": {"flash_attention": 2, "moe_topk": 2 * new}})
+    del params, logits, ref64, plain32, got, seen32, seen64
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def maverick_moe_check(cfg, params) -> None:
+    """maverick's MoE layer (layer 0, 128 experts, top-1) on its own input
+    from a 1 × 2048 prompt at full width: the kernel path's output against
+    a float64 product one expert at a time (each expert's three matrices
+    cast in turn: the whole layer in float64 is 129 GB), with the kernel's
+    ids, held against the plain version's under the tie rule, and the same
+    capacity and drops as the port, decided here from those ids alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe, transformer
+
+    spec = transformer.moe_spec(cfg)
+    check(cfg.layer_specs()[0].ffn == "moe", "maverick: layer 0 is not MoE")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab_size, (1, MAVERICK_MOE_PROMPT),
+                            generator=g, device="cuda")
+    seen = []
+    with torch.no_grad(), _recording_moe_inputs(seen):
+        cache = transformer.init_cache(cfg, 1, MAVERICK_MOE_PROMPT,
+                                       torch.float32, "cuda")
+        transformer.prefill(params, cfg, {"tokens": prompts}, cache)
+        del cache
+        h = seen[0]                                         # (1, S, D)
+        lay = params["layers"][0]["moe"]
+        y32 = moe.moe_block(lay, spec, h)
+        logits = moe._router_logits(lay, h.reshape(-1, cfg.d_model))
+        _, ids = mr.moe_topk(logits, 1)
+        _, ids_plain = ref.moe_topk_ref(logits, 1)
+        _, ids64 = ref.moe_topk_ref(moe._router_logits(
+            {"router": lay["router"].double()},
+            h.double().reshape(-1, cfg.d_model)), 1)
+    near = _near_tie_rows(logits, 1)
+    differ = (ids != ids_plain).any(dim=1)
+    check(not bool((differ & ~near).any()), "maverick MoE: kernel ids differ "
+          "from the plain version's on rows without a near-tie")
+    # capacity: the first `cap` tokens of each group of `group` that chose
+    # an expert keep their slot, the rest are dropped (weight 0)
+    t_all = ids.shape[0]
+    group = min(spec.group_size, t_all)
+    cap = moe.group_capacity(spec, group)
+    e_of = ids[:, 0].long()
+    onehot = F.one_hot(e_of, spec.num_experts).reshape(
+        t_all // group, group, spec.num_experts)
+    rank = (onehot.cumsum(dim=1) - 1).reshape(t_all, -1).gather(
+        1, e_of[:, None])[:, 0]
+    kept = rank < cap
+    x64 = h.reshape(-1, cfg.d_model).double()
+    y64 = torch.zeros_like(x64)
+    for e in range(spec.num_experts):
+        rows = torch.nonzero(kept & (e_of == e)).flatten()
+        if rows.numel() == 0:
+            continue
+        wg, wu, wd = (lay[k][e].double() for k in ("w_gate", "w_up",
+                                                   "w_down"))
+        xe = x64[rows]
+        y64[rows] = (F.silu(xe @ wg) * (xe @ wu)) @ wd      # gate 1 (top-1)
+        del wg, wu, wd
+    y = y32.reshape(-1, cfg.d_model).double()
+    scale = y64.abs().max().item()
+    err = (y - y64).abs().max().item()
+    check(bool(torch.isfinite(y32).all()), "maverick MoE: non-finite output")
+    check(err <= TOL_MOE_Y * scale, f"maverick MoE: output differs from the "
+          f"per-expert float64 product by {err} (tolerance "
+          f"{TOL_MOE_Y * scale})")
+    emit({"phase": "maverick_moe", "arch": MAVERICK_ARCH, "layer": 0,
+          "experts": spec.num_experts, "top_k": spec.experts_per_token,
+          "tokens": t_all, "group": group, "capacity": cap,
+          "tokens_dropped": int((~kept).sum()),
+          "experts_used": int(torch.unique(e_of).numel()),
+          "near_tie_rows": int(near.sum()),
+          "rows_ids_differ_plain": int(differ.sum()),
+          "rows_ids_differ_f64": int((ids.long() != ids64.long()).any(
+              dim=1).sum()),
+          "max_abs_y": scale, "max_abs_err": err,
+          "tol": TOL_MOE_Y * scale, "tol_rel": TOL_MOE_Y})
+
+
 # Kernel names by kind in a profile: the port's two model kernels, cuBLAS
 # matrix products, and "dispatch": every indexing, sort, scan and
 # concatenation kernel (in an MoE model almost all of them are the
@@ -3692,12 +4015,16 @@ def _counting_flash_masks(seen: dict):
         attention.flash_attention = flash
 
 
-def serve_phase(arch: str, num_layers=None) -> dict:
+def serve_phase(arch: str, num_layers=None, runs=SERVE_RUNS, by_run=None,
+                with_params=None, peak_bound=None) -> dict:
     """``ServeEngine.generate`` of ``arch`` at full width and
     ``num_layers`` layers (None: full depth), random float32 weights from
-    a seed, once per run of SERVE_RUNS, the launch counters zeroed just
+    a seed, once per run of ``runs``, the launch counters zeroed just
     before and read just after; then the same steps timed with CUDA
-    events, and profiled. Returns run (a)'s launch counts."""
+    events, and profiled. ``with_params(cfg, params)`` runs once, after
+    the draw and before the runs; ``peak_bound`` (bytes) bounds each run's
+    peak memory. Fills ``by_run`` with each run's launch counts and flash
+    calls by mask, and returns run (a)'s launch counts."""
     import dataclasses
     import gc
 
@@ -3726,7 +4053,11 @@ def serve_phase(arch: str, num_layers=None) -> dict:
     n_params = cfg.count_params()
     weight_bytes = 4 * n_params
     floor_ms = 1e3 * weight_bytes / HBM_BYTES_PER_S
-    for run, b, s in SERVE_RUNS:
+    if with_params is not None:
+        with_params(cfg, params)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for run, b, s in runs:
         engine = ServeEngine(cfg, params, max_len=s + NEW_TOKENS)
         g = torch.Generator(device="cuda").manual_seed(10 + b)
         prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
@@ -3764,6 +4095,19 @@ def serve_phase(arch: str, num_layers=None) -> dict:
         check(out.shape == (b, NEW_TOKENS), f"serve run ({run}): {out.shape}")
         if run == "a":
             counts_a = counts
+        if by_run is not None:
+            by_run[run] = {"launches": counts, "flash_calls_by_mask": masks}
+        if peak_bound is not None:
+            free, total = torch.cuda.mem_get_info()
+            emit({"phase": "serve_memory", "run": run, "arch": arch,
+                  "mem_get_info_free_gb": free / 1e9,
+                  "mem_get_info_total_gb": total / 1e9,
+                  "max_memory_allocated_gb": peak / 1e9,
+                  "max_memory_reserved_gb":
+                      torch.cuda.max_memory_reserved() / 1e9,
+                  "peak_bound_gb": peak_bound / 1e9})
+            check(peak < peak_bound, f"serve run ({run}) of {arch}: peak "
+                  f"{peak / 1e9:.2f} GB, not under {peak_bound / 1e9:.2f}")
 
         tokens, logits, times = _greedy(params, cfg, prompts, NEW_TOKENS,
                                         timed=True)
@@ -4241,6 +4585,15 @@ def main() -> int:
     gemma_parity_phase()
     serve_cpu_parity_phase(GEMMA_ARCH, GEMMA_SMOKE_PROMPT)
     gemma_flash = serve_phase(GEMMA_ARCH)["flash_attention"]
+    llama4_parity_phase()
+    serve_cpu_parity_phase(SCOUT_ARCH, LLAMA_SMOKE_PROMPT)
+    serve_cpu_parity_phase(MAVERICK_ARCH, LLAMA_SMOKE_PROMPT)
+    scout_runs, maverick_runs = {}, {}
+    serve_phase(SCOUT_ARCH, SCOUT_SERVE_LAYERS, runs=SCOUT_SERVE_RUNS,
+                by_run=scout_runs)
+    serve_phase(MAVERICK_ARCH, MAVERICK_SERVE_LAYERS, by_run=maverick_runs,
+                with_params=maverick_moe_check,
+                peak_bound=torch.cuda.mem_get_info()[1] - MAVERICK_HEADROOM)
     lm_launches = lm_netes_phase()
     lm_netes_cpu_parity_phase()
     rows = []
@@ -4264,16 +4617,34 @@ def main() -> int:
                      "lm_shapes": lm_results.get(name, {})})
         if name == "flash_attention":
             # the head_dim-256 instance: gemma3-4b's global and sliding
-            # prefill layers, and its launches per serve (a) generate
+            # prefill layers, and its launches per serve (a) generate;
+            # llama4-scout's per serve (a) and (c) generate, by mask, and
+            # its global and chunked prefill of (c)
             rows[-1]["launches_gemma3_4b"] = gemma_flash
+            rows[-1]["launches_llama4_scout"] = {
+                run: {"flash_attention": scout_runs[run]["launches"][
+                    "flash_attention"], **scout_runs[run][
+                        "flash_calls_by_mask"]} for run in ("a", "c")}
+            rows[-1]["launches_llama4_maverick"] = {
+                run: maverick_runs[run]["launches"]["flash_attention"]
+                for run in ("a", "b")}
             for key in ("flash_attention_hd256",
-                        "flash_attention_hd256_local"):
+                        "flash_attention_hd256_local",
+                        "flash_attention_llama4_global",
+                        "flash_attention_llama4_chunk"):
                 r = results[key]
                 rows[-1][key[len("flash_attention_"):]] = {
                     k: r[k] for k in ("shape", "max_abs_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_ms", "library_backend",
                                       "share_of_bound")}
+        if name == "moe_topk":
+            rows[-1]["launches_llama4"] = {
+                f"{arch}_{run}": runs[run]["launches"]["moe_topk"]
+                for arch, runs in (("scout", scout_runs),
+                                   ("maverick", maverick_runs))
+                for run in runs}
+            rows[-1]["llama4_cases"] = results["moe_topk_llama4"]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

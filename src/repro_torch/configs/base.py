@@ -17,10 +17,7 @@ _REGISTRY: Dict[str, "ModelConfig"] = {}
 # Architectures of the reference's registry that the port does not hold,
 # and why: the slice of the port (ROADMAP.md, queue 1) that brings each.
 # The "-smoke" variant of each goes with it.
-_CHUNKED = "it comes with slice 6e (chunked attention, with MoE top-1)"
 UNPORTED = {
-    "llama4-maverick-400b-a17b": _CHUNKED,
-    "llama4-scout-17b-a16e": _CHUNKED,
     "llava-next-mistral-7b": "it comes with slice 6f (the vision and audio "
                              "frontends)",
     "whisper-tiny": "it comes with slice 6f (the vision and audio "
@@ -218,5 +215,6 @@ def _ensure_loaded():
         return
     _LOADED = True
     from . import (gemma3_4b, jamba_v01_52b,  # noqa: F401
+                   llama4_maverick_400b_a17b, llama4_scout_17b_a16e,
                    mistral_nemo_12b, moonshot_v1_16b_a3b, phi3_medium_14b,
                    rwkv6_7b)

@@ -6,8 +6,9 @@
 Replaces the TPU kernel ``repro/kernels/moe_router.py::moe_topk``, with
 its signature: logits (T, E) → (gates (T, k) float32, ids (T, k) int32).
 On CUDA tensors it launches the hand-written sm_90a kernel (an instance
-templated on (E, k) for the registry's routers, 64 / 6 and 16 / 2, and a
-generic one; see the source's note); on CPU tensors it runs the plain
+templated on (E, k) for moonshot's and jamba's routers, 64 / 6 and
+16 / 2, and a generic one, which llama4's 16 / 1 and 128 / 1 take; see the
+source's note); on CPU tensors it runs the plain
 version ``ref.moe_topk_ref``. There is no other path. Float32 only,
 E ≤ 128 and k ≤ 8 (the reference's tests use E ∈ {8, 16, 64, 128},
 k ∈ {1, 2, 6, 8}).

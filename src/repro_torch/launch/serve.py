@@ -6,12 +6,16 @@
       --prompt-len 8192 --new-tokens 16
   python -m repro_torch.launch.serve --arch jamba-v0.1-52b-smoke --batch 2 \
       --prompt-len 128 --new-tokens 8 --device cpu
+  python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e-smoke \
+      --batch 2 --prompt-len 192 --new-tokens 8 --device cpu
 
 Random weights and prompts from ``--seed``. Runs on the GPU; ``--device
 cpu`` runs the kernels' plain versions on the CPU instead. A prompt
 longer than an MoE layer's group (512 tokens; 64 for the smokes) must be
 a multiple of it. jamba-v0.1-52b's 32 layers (205 GB in float32) do not
-fit one card: ``chip_smoke.py`` serves 8 of them.
+fit one card: ``chip_smoke.py`` serves 8 of them; of llama4-scout-17b-a16e's
+48 (402.8 GB) it serves 4, one period of 3 chunked layers and a global
+one, and of llama4-maverick-400b-a17b's (1.57 TB) 2.
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ in a process of its own (``tests/test_torch_lm.py``,
 ``tests/test_torch_mamba.py`` and ``tests/test_torch_gemma3.py`` start
 it), so no other test module ever sees the swap.
 
-Six parts (PART): ``lm`` (the default) dumps the models, ``moe`` the MoE
+Seven parts (PART): ``lm`` (the default) dumps the models, ``moe`` the MoE
 layer's pieces, ``rwkv`` the rwkv6 pieces and the rwkv6-7b-smoke model (at
 2 layers, unrolled, and at 4, scanned as plan (0, 1, 4, 0)), ``mamba`` the
 mamba pieces and the jamba-v0.1-52b-smoke model (at 2 layers, unrolled,
@@ -25,7 +25,10 @@ head_dim 256; and a 34-layer model of gemma3-4b's layer pattern at tiny
 widths, plan (0, 6, 5, 4)) with 128-token prompts, twice its window of
 64, and ``netes`` the distributed replica step (``repro.distributed.
 netes_dist``) and ``loss_fn`` of gemma3-4b-smoke and moonshot-v1-16b-a3b-
-smoke at N = 4 agents with 64-token sequences (see ``dump_netes``).
+smoke at N = 4 agents with 64-token sequences (see ``dump_netes``), and
+``llama4`` the chunked qk-norm attention pieces, the MoE layer at E = 16
+and 128 with top-1, and the llama4 smoke models and 48-layer models of
+their patterns at tiny widths (see ``dump_llama4``).
 Everything is drawn from fixed seeds: the weights
 with the reference's own inits (mistral-nemo-12b-smoke at 2 layers,
 unrolled, and at 4 layers, scanned; moonshot-v1-16b-a3b-smoke at 2
@@ -117,6 +120,10 @@ def main(path, part="lm"):
         return
     if part == "netes":
         np.savez(path, **dump_netes(transformer))
+        return
+    if part == "llama4":
+        np.savez(path, **dump_llama4(attention, moe, transformer,
+                                     ServeEngine))
         return
     smoke = get_config("mistral-nemo-12b-smoke")
     rng = np.random.default_rng(0)
@@ -544,6 +551,100 @@ def dump_netes(transformer):
                 if t + 1 in ((1, 2, 3) if chan is not None else (1, 3)):
                     out.update(flatten(p, f"{arch}/{mode}/after{t + 1}"))
     return {key: np.asarray(v) for key, v in out.items()}
+
+
+# the llama4 pieces: qk-norm attention of the smokes' widths (d 256, 4/2
+# heads of 64) on the smoke's chunked layer (chunk 64) and its global one,
+# over a 192-token input; prefill of 192 tokens (the end of a chunk) and of
+# 176 (inside one), each followed by two decode steps at P and P + 1 (at
+# P = 192 the first position of a new chunk, then inside it)
+LLAMA_PIECE_LEN = 192
+LLAMA_PIECE_PROMPTS = (192, 176)
+LLAMA_KINDS = {"chunked": 0, "global": 1}     # layer of the smoke config
+# the MoE layer at top-1: (E, d, d_ff, group, tokens per row) — E = 16
+# and 128 over two groups of 64 a row, and E = 128 over one token a row
+# (decode's group of one, one slot an expert)
+LLAMA_MOE = {"e16": (16, 64, 128, 64, 128), "e128": (128, 64, 128, 64, 128),
+             "e128_decode": (128, 64, 128, 512, 1)}
+# the smoke models: prompts and a forward of 192 tokens (three chunks of
+# 64, three MoE groups of 64) and a cache of 200 positions
+LLAMA_SMOKES = {"scout": "llama4-scout-17b-a16e-smoke",
+                "maverick": "llama4-maverick-400b-a17b-smoke"}
+LLAMA_PROMPT, LLAMA_MAX_LEN = 192, 200
+# 48-layer models of the full configs' patterns at tiny widths, chunk 8,
+# MoE groups of 16: 16-token prompts cross a chunk boundary. d_ff is 16:
+# the reference draws the experts with fan-in E (1/4 at E = 16, twice the
+# dense layers' 1/√32), and at d_ff 64 scout's 48 MoE layers grow float32
+# rounding past 2e-5 in the deepest caches (≈ 5e-5 at layer 43, the two
+# packages alike); at 16 it stays ≈ 1e-5
+LLAMA_TINY = dict(d_model=32, num_heads=2, num_kv_heads=1, head_dim=16,
+                  d_ff=16, vocab_size=64, chunk_size=8, moe_group_size=16)
+LLAMA_FULL = {"scout48": "llama4-scout-17b-a16e",
+              "maverick48": "llama4-maverick-400b-a17b"}
+LLAMA_TINY_PROMPT, LLAMA_TINY_MAX_LEN = 16, 24
+
+
+def dump_llama4(attention, moe, transformer, ServeEngine):
+    rng = np.random.default_rng(10)
+    out = {}
+    scout = get_config(LLAMA_SMOKES["scout"])
+    d = scout.d_model
+
+    def normal(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    for kind, layer in LLAMA_KINDS.items():
+        p = f"attn_{kind}"
+        spec = transformer.attn_spec(scout, scout.layer_specs()[layer])
+        params = dict(attention.attn_init(jax.random.PRNGKey(600 + layer), d,
+                                          spec, jnp.float32))
+        # away from the init's ones, so that the scales move the output
+        params["q_norm"] = {"scale": 1 + normal(spec.head_dim, scale=0.3)}
+        params["k_norm"] = {"scale": 1 + normal(spec.head_dim, scale=0.3)}
+        out.update(flatten(params, f"{p}/params"))
+        x = normal(B, LLAMA_PIECE_LEN, d)
+        out[f"{p}/x"] = x
+        out[f"{p}/block"] = attention.attention_block(
+            params, spec, x, jnp.arange(LLAMA_PIECE_LEN))
+        for s in LLAMA_PIECE_PROMPTS:
+            q = f"{p}/p{s}"
+            kv = attention.init_kv_cache(B, spec, s + 8, jnp.float32)
+            y, kv = attention.prefill_attention(params, spec, x[:, :s],
+                                                jnp.arange(s), kv)
+            out.update({f"{q}/prefill": y, f"{q}/prefill_k": kv["k"],
+                        f"{q}/prefill_v": kv["v"]})
+            for step in range(2):
+                x1 = normal(B, 1, d)
+                pos = jnp.full((B,), s + step, jnp.int32)
+                y, kv = attention.decode_attention(params, spec, x1, kv, pos)
+                out.update({f"{q}/decode{step}_x": x1,
+                            f"{q}/decode{step}": y,
+                            f"{q}/decode{step}_k": kv["k"],
+                            f"{q}/decode{step}_v": kv["v"]})
+
+    for name, (e, dm, ff, group, s) in LLAMA_MOE.items():
+        spec = moe.MoESpec(num_experts=e, experts_per_token=1, d_model=dm,
+                           d_ff=ff, group_size=group)
+        params = moe.moe_init(jax.random.PRNGKey(700 + len(name) + e), spec,
+                              jnp.float32)
+        out.update(flatten(params, f"{name}/params"))
+        x = normal(B, s, dm)
+        logits = jnp.asarray(x).reshape(-1, dm) @ params["router"]
+        _, ids = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), 1)
+        out.update({f"{name}/x": x, f"{name}/ids": ids,
+                    f"{name}/moe_block": moe.moe_block(params, spec, x)})
+
+    model_rng = np.random.default_rng(11)
+    for i, (name, arch) in enumerate(LLAMA_SMOKES.items()):
+        dump_model(out, transformer, ServeEngine, get_config(arch), name,
+                   800 + i, model_rng, prompt=LLAMA_PROMPT,
+                   fwd_len=LLAMA_PROMPT, max_len=LLAMA_MAX_LEN)
+    for i, (name, arch) in enumerate(LLAMA_FULL.items()):
+        tiny = dataclasses.replace(get_config(arch), **LLAMA_TINY)
+        dump_model(out, transformer, ServeEngine, tiny, name, 848 + i,
+                   model_rng, prompt=LLAMA_TINY_PROMPT,
+                   fwd_len=LLAMA_TINY_PROMPT, max_len=LLAMA_TINY_MAX_LEN)
+    return {key: np.asarray(a) for key, a in out.items()}
 
 
 if __name__ == "__main__":

@@ -54,7 +54,9 @@ MOON = "moonshot-v1-16b-a3b-smoke"
 PORTED = {"mistral-nemo-12b", SMOKE, "phi3-medium-14b",
           "phi3-medium-14b-smoke", "moonshot-v1-16b-a3b", MOON, "rwkv6-7b",
           "rwkv6-7b-smoke", "jamba-v0.1-52b", "jamba-v0.1-52b-smoke",
-          "gemma3-4b", "gemma3-4b-smoke"}
+          "gemma3-4b", "gemma3-4b-smoke", "llama4-scout-17b-a16e",
+          "llama4-scout-17b-a16e-smoke", "llama4-maverick-400b-a17b",
+          "llama4-maverick-400b-a17b-smoke"}
 # (arch, layers) of the reference's dumps; mistral's keep their ids
 MODELS = [pytest.param(SMOKE, 2, id="2"), pytest.param(SMOKE, 4, id="4"),
           pytest.param(MOON, 2, id="moonshot-2"),
@@ -175,14 +177,6 @@ def test_registry_holds_only_ported_archs():
                                   if n not in PORTED])
 def test_unported_arch_raises_naming_its_slice(name):
     with pytest.raises(NotImplementedError, match="slice"):
-        get_config(name)
-
-
-@pytest.mark.parametrize("name,where", [
-    ("llama4-scout-17b-a16e", "slice 6e"),
-    ("llama4-maverick-400b-a17b-smoke", "slice 6e")])
-def test_moe_archs_still_unported_name_their_slice(name, where):
-    with pytest.raises(NotImplementedError, match=where):
         get_config(name)
 
 
