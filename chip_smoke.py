@@ -27,8 +27,11 @@ Phases, each printing one JSON line per case:
    (1 × 16,384, 40/8 heads of 128: a global layer, and a chunked one
    whose chunk of 8192 the prompt crosses; the plain version runs one KV
    head at a time there, and the chunked time over the global one is
-   printed: ≈ 0.5 when the kernel skips the key tiles outside the chunk);
-   each flash row names the backend
+   printed: ≈ 0.5 when the kernel skips the key tiles outside the chunk),
+   at whisper-tiny's encoder (1 × 1500, non-causal, 6/6 heads of 64: a
+   ragged last key tile) and run (b)'s cross attention (8 × 432 queries
+   over 1500 keys, non-causal), and at llava's loss (1 × 4096, causal,
+   32/8 × 128); each flash row names the backend
    ``scaled_dot_product_attention`` chose for its yardstick. The sparse
    Eq. 3 kernel runs on ER p = 0.1 at N = 1000 and at the paper's N = 3000 (two sender chunks),
    at a ragged shape and at N = 5000, p = 0.02 (four chunks); the fused
@@ -242,6 +245,29 @@ Phases, each printing one JSON line per case:
    rule) and the port's capacity and drops, within 1e-4·max|y|; then runs
    (a) and (b) as in 9 (2 flash launches, 16 ``moe_topk``), each run's
    peak under the card's total less 2 GB, with ``mem_get_info``.
+21e. ``whisper_parity`` — whisper-tiny at full width and depth (4
+   encoder and 4 decoder layers), B = 2, 1500 stub frames, 64-token
+   prompts, 8 new tokens: the kernel path's prefill and decode logits
+   against the float64 ``forward``, within 1e-4·max|logit|, and the
+   encoder's output against its float64; 12 flash launches a prefill (4
+   encoder, 4 self, 4 cross); one prefill under the sync check.
+21f. ``serve_cpu_parity`` of whisper-tiny-smoke at 2 heads of 64 (its 4
+   heads of 32 are below the flash kernel's narrowest instance), with
+   frames; ``serve`` of whisper-tiny at full depth (0.155 GB) with 1500
+   stub frames: (a) B = 1 and (b) B = 8 with a 4-token prompt, (c) B = 1
+   with a 432-token one (448 positions with the new tokens, the model
+   card's context): 12 flash launches per ``generate``, all global.
+21g. ``llava_parity`` — llava-next-mistral-7b at full width and 2
+   layers: serving (B = 2, 256-token prompts, the patches given to
+   ``generate`` and dropped, as the reference's serving drops them)
+   against the float64 ``forward``; then a vision batch of 2880 patches
+   and 1216 tokens: the fused ``forward`` against float64 within
+   1e-4·max|logit| and ``loss_fn`` (the kernels) within 1e-5 relative.
+21h. ``serve_cpu_parity`` of the llava smoke; ``llava_loss`` (``loss_fn``
+   at all 32 layers on a vision batch of 4096 positions: CUDA-event ms,
+   peak, 32 flash launches, one call under the sync check) and ``serve``
+   of llava-next-mistral-7b at all 32 layers (28.44 GB) as in 9, the
+   patches given and dropped: 32 flash launches per ``generate``.
 22. ``lm_netes`` — NetES over LM agents (``train_lm_netes``, the replica
    step of ``distributed.netes_dist``): gemma3-4b at full width and 6 of
    its 34 layers (one period; 4.95 GB an agent), N = 8 agents of one
@@ -258,6 +284,11 @@ Phases, each printing one JSON line per case:
    step against float64 on the card: each agent's ± loss within 1e-5
    relative, the order of every two rewards float64 separates, and the
    last 4096 columns of every leaf's update within 3e-5·S.
+22b. ``lm_netes`` of whisper-tiny at full width and depth (49.6 M
+   parameters an agent), N = 8, one 448-token sequence beside 1500 frames
+   an agent, 3 iterations on fully connected and on ER p = 0.5, as in 22
+   (12 flash launches a loss, all global; the first step against float64;
+   one step of each under the sync check).
 23. ``lm_netes_cpu_parity`` — one replica step of gemma3-4b-smoke (FC),
    moonshot-v1-16b-a3b-smoke (ER: the router kernel) and
    jamba-v0.1-52b-smoke (ER through channel (a): the scan kernel) on the
@@ -286,7 +317,9 @@ captured step; ``launches_search``: each tournament's; the flash row's
 ``launches_gemma3_4b`` and its ``hd256`` and ``hd256_local`` times,
 ``launches_llama4_scout`` (runs (a) and (c), by mask) and
 ``launches_llama4_maverick``, and its ``llama4_global`` and
-``llama4_chunk`` times; the router row's ``launches_llama4`` (each run of
+``llama4_chunk`` times, ``launches_whisper_tiny`` (each run, by mask),
+``launches_llava`` and the ``whisper_encoder``, ``whisper_cross`` and
+``llava_loss`` times; the router row's ``launches_llama4`` (each run of
 scout and maverick) and ``llama4_cases``;
 ``launches_lm_netes``: a step of each ``lm_netes`` case; ``lm_shapes``:
 the times at the LM step's shapes), the
@@ -385,6 +418,13 @@ LM_PARITY_CASES = (
     ("moonshot-v1-16b-a3b-smoke", "erdos_renyi", "sparse", None),
     ("jamba-v0.1-52b-smoke", "erdos_renyi", "sparse", CHANNEL_RUNS[0][3]))
 LM_PARITY_N, LM_PARITY_SEQ, LM_MIN_MARGIN = 4, 128, 2e-5
+# NetES over whisper-tiny agents at full width and depth (4 + 4 layers;
+# 49.6 M parameters an agent with the 32,768-row position table): one
+# 448-token sequence (the model card's context) beside 1500 frames an
+# agent, fully connected and ER p = 0.5
+LM_WHISPER_SEQ = 448
+LM_WHISPER_CASES = (("whisper-i", "fully_connected", 1.0, "dense", None),
+                    ("whisper-ii", "erdos_renyi", LM_P_ER, "sparse", None))
 
 L2_FLUSH_BYTES = 64 << 20   # above the H100's 50 MB L2
 SELECT_ITERS = 100          # timed launches of the broadcast select
@@ -1047,6 +1087,18 @@ ATTN_CASES = (
      "flash_attention_llama4_global"),
     ("scout_chunk8192_16384", 1, 16384, 16384, 40, 8, 128, True, 0, 8192,
      "flash_attention_llama4_chunk"),
+    # whisper-tiny (6/6 heads of 64, G = 1): the encoder over its 1500
+    # frames, non-causal (1500 = 11·128 + 92: a ragged last key tile that
+    # no mask trims), and run (b)'s cross attention of 8 × 432 prompt
+    # positions over the 1500 encoder positions
+    ("whisper_encoder_1500", 1, 1500, 1500, 6, 6, 64, False, 0, 0,
+     "flash_attention_whisper_encoder"),
+    ("whisper_cross_b8", 8, 432, 1500, 6, 6, 64, False, 0, 0,
+     "flash_attention_whisper_cross"),
+    # llava-next-mistral-7b's loss on a vision batch: 2880 patches and
+    # 1216 tokens, causal over 4096 positions, 32/8 heads of 128
+    ("llava_loss_4096", 1, 4096, 4096, 32, 8, 128, True, 0, 0,
+     "flash_attention_llava_loss"),
 )
 # The plain version materialises every (B, H, Sq, Sk) score: above this
 # many bytes of float32 scores (scout's 16,384² × 40 heads: 43 GB) it runs
@@ -1141,8 +1193,8 @@ def attention_kernel_phase(results: dict, lm_results: dict) -> None:
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(gq, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(gq, dim=2).transpose(1, 2).contiguous()
-        if causal and not window and not chunk and sq == sk:
-            lib_kw = dict(is_causal=True, scale=scale)
+        if not window and not chunk and (sq == sk or not causal):
+            lib_kw = dict(is_causal=causal, scale=scale)
         else:
             lib_kw = dict(attn_mask=ok, scale=scale)
         lib = functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
@@ -2992,16 +3044,18 @@ def _cast(tree, **kw):
     return tree_map(lambda t: t.to(**kw), tree)
 
 
-def _greedy(params, cfg, prompts, new_tokens, timed=False):
+def _greedy(params, cfg, prompts, new_tokens, timed=False, extra=None):
     """What ``ServeEngine.generate`` does, greedy, keeping the logits: the
-    prefill, then ``new_tokens − 1`` decode steps. With ``timed``, CUDA
-    events around the prefill and around each decode step. Returns
-    (tokens (B, new_tokens), [logits (B, V)] * new_tokens, times in ms)."""
+    prefill (given the frontends' inputs ``extra``, e.g. whisper's frames),
+    then ``new_tokens − 1`` decode steps. With ``timed``, CUDA events
+    around the prefill and around each decode step. Returns (tokens (B,
+    new_tokens), [logits (B, V)] * new_tokens, times in ms)."""
     import torch
 
     from repro_torch.models import transformer
     b, s = prompts.shape
     dev = prompts.device
+    extra = extra or {}
     cache = transformer.init_cache(cfg, b, s + new_tokens, torch.float32,
                                    dev)
     events = []
@@ -3013,8 +3067,8 @@ def _greedy(params, cfg, prompts, new_tokens, timed=False):
 
     with torch.no_grad():
         mark()
-        last, cache = transformer.prefill(params, cfg, {"tokens": prompts},
-                                          cache)
+        last, cache = transformer.prefill(params, cfg,
+                                          {"tokens": prompts, **extra}, cache)
         mark()
         logits = [last]
         token = torch.argmax(last, dim=-1, keepdim=True)
@@ -3059,10 +3113,11 @@ def _forward_bf16_attention(params, cfg, tokens):
     return transformer.unembed(params, cfg, x)
 
 
-def no_sync_prefill(arch: str, params, cfg, prompts) -> None:
-    """One ``transformer.prefill`` under
-    ``torch.cuda.set_sync_debug_mode("error")``: a call in it that waits
-    for the card (a copy to the host, ``.item()``, ``nonzero``) raises."""
+def no_sync_prefill(arch: str, params, cfg, prompts, extra=None) -> None:
+    """One ``transformer.prefill`` (given the frontends' inputs ``extra``)
+    under ``torch.cuda.set_sync_debug_mode("error")``: a call in it that
+    waits for the card (a copy to the host, ``.item()``, ``nonzero``)
+    raises."""
     import torch
 
     from repro_torch.models import transformer
@@ -3072,7 +3127,8 @@ def no_sync_prefill(arch: str, params, cfg, prompts) -> None:
     torch.cuda.set_sync_debug_mode("error")
     try:
         with torch.no_grad():
-            transformer.prefill(params, cfg, {"tokens": prompts}, cache)
+            transformer.prefill(params, cfg,
+                                {"tokens": prompts, **(extra or {})}, cache)
     except RuntimeError as err:
         raise RuntimeError(f"no_sync {arch}: prefill waits for the card: "
                            f"{err}") from err
@@ -3153,9 +3209,45 @@ def _layer_counts(cfg):
             sum(ls.mixer == "mamba" for ls in specs))
 
 
-def serve_cpu_parity_phase(arch: str, prompt: int = 24) -> None:
-    """``arch``'s smoke model's greedy serving on the GPU and on the CPU
-    from the same weights: tokens equal, logits within TOL_SMOKE."""
+def _flash_masks(cfg) -> dict:
+    """The flash calls of one prefill (or one ``loss_fn``) by mask:
+    ``windowed`` (sliding or chunked layers) and ``global`` (full
+    attention layers, and an encoder-decoder's encoder layers and its
+    decoder's cross attention blocks)."""
+    specs = cfg.layer_specs()
+    n_global = sum(ls.mixer == "attn_full" for ls in specs)
+    if cfg.is_encoder_decoder:
+        n_global += cfg.encoder_layers + cfg.num_layers
+    return {"global": n_global,
+            "windowed": sum(ls.mixer in ("attn_sliding", "attn_chunked")
+                            for ls in specs)}
+
+
+def _frontend_inputs(cfg, b: int, device: str, seed: int = 3) -> dict:
+    """The frontends' stub inputs of ``b`` rows on ``device``: whisper's
+    ``frames``, llava's ``patch_embeds`` (none for a text model)."""
+    import torch
+
+    from repro_torch.models import frontends
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.frontend == "audio":
+        return {"frames": frontends.audio_frames(cfg, b, gen)}
+    if cfg.frontend == "vision":
+        return {"patch_embeds": frontends.vision_patches(cfg, b, gen)}
+    return {}
+
+
+def _served(extra: dict) -> dict:
+    """``extra`` as ``ServeEngine.generate`` passes it to the prefill:
+    without ``patch_embeds``, which its serving drops, as the
+    reference's."""
+    return {k: v for k, v in extra.items() if k != "patch_embeds"}
+
+
+def serve_cpu_parity_phase(arch: str, prompt: int = 24, cfg=None) -> None:
+    """``arch``'s smoke model's (or ``cfg``'s) greedy serving on the GPU
+    and on the CPU from the same weights and frontend inputs: tokens
+    equal, logits within TOL_SMOKE."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3165,17 +3257,19 @@ def serve_cpu_parity_phase(arch: str, prompt: int = 24) -> None:
     from repro_torch.kernels import rwkv6_wkv as rw
     from repro_torch.models import transformer
 
-    cfg = get_config(arch + "-smoke")
+    cfg = cfg or get_config(arch + "-smoke")
     n_attn, n_moe, n_rwkv, n_mamba = _layer_counts(cfg)
+    n_flash = sum(_flash_masks(cfg).values())
     cpu = transformer.init_params(cfg, seed=0, device="cpu")
     prompts = torch.randint(0, cfg.vocab_size, (2, prompt),
                             generator=torch.Generator().manual_seed(2))
-    tok_c, lg_c, _ = _greedy(cpu, cfg, prompts, 8)
+    extra = _served(_frontend_inputs(cfg, 2, "cpu"))
+    tok_c, lg_c, _ = _greedy(cpu, cfg, prompts, 8, extra=extra)
     fa.KERNEL.launches = mr.KERNEL.launches = rw.KERNEL.launches = 0
     ms.KERNEL.launches = 0
     tok_g, lg_g, _ = _greedy(_cast(cpu, device="cuda"), cfg, prompts.cuda(),
-                             8)
-    check(fa.KERNEL.launches == n_attn,
+                             8, extra=_cast(extra, device="cuda"))
+    check(fa.KERNEL.launches == n_flash,
           f"smoke parity: {fa.KERNEL.launches} flash launches")
     check(mr.KERNEL.launches == 8 * n_moe,
           f"smoke parity: {mr.KERNEL.launches} moe_topk launches")
@@ -3191,6 +3285,7 @@ def serve_cpu_parity_phase(arch: str, prompt: int = 24) -> None:
           f"{TOL_SMOKE} (rtol and atol)")
     emit({"phase": "serve_cpu_parity", "arch": cfg.name, "batch": 2,
           "prompt": prompt, "new_tokens": 8, "head_dim": cfg.head_dim,
+          "num_heads": cfg.num_heads, "frontend_inputs": sorted(extra),
           "tokens_equal": True, "moe_layers": n_moe, "rwkv_layers": n_rwkv,
           "mamba_layers": n_mamba,
           "max_abs_err": (got - want).abs().max().item(),
@@ -3239,8 +3334,8 @@ def _prefill_all_logits(params, cfg, prompts):
     b, s = prompts.shape
     cache = transformer.init_cache(cfg, b, s, torch.float32, prompts.device)
     with torch.no_grad():
-        x, positions = transformer.embed_inputs(params, cfg,
-                                                {"tokens": prompts})
+        x, positions, _ = transformer.embed_inputs(
+            params, cfg, {"tokens": prompts}, kernel=True)
         for i, (p, ls) in enumerate(zip(params["layers"], cfg.layer_specs())):
             x, cache["layers"][i] = transformer._prefill_layer(
                 p, cfg, ls, x, cache["layers"][i], positions)
@@ -4019,12 +4114,14 @@ def serve_phase(arch: str, num_layers=None, runs=SERVE_RUNS, by_run=None,
                 with_params=None, peak_bound=None) -> dict:
     """``ServeEngine.generate`` of ``arch`` at full width and
     ``num_layers`` layers (None: full depth), random float32 weights from
-    a seed, once per run of ``runs``, the launch counters zeroed just
-    before and read just after; then the same steps timed with CUDA
-    events, and profiled. ``with_params(cfg, params)`` runs once, after
-    the draw and before the runs; ``peak_bound`` (bytes) bounds each run's
-    peak memory. Fills ``by_run`` with each run's launch counts and flash
-    calls by mask, and returns run (a)'s launch counts."""
+    a seed, once per run of ``runs``, given the frontends' stub inputs
+    (whisper's frames; llava's patches, which the engine drops), the
+    launch counters zeroed just before and read just after; then the same
+    steps timed with CUDA events, and profiled. ``with_params(cfg,
+    params)`` runs once, after the draw and before the runs;
+    ``peak_bound`` (bytes) bounds each run's peak memory. Fills ``by_run``
+    with each run's launch counts and flash calls by mask, and returns run
+    (a)'s launch counts."""
     import dataclasses
     import gc
 
@@ -4044,8 +4141,8 @@ def serve_phase(arch: str, num_layers=None, runs=SERVE_RUNS, by_run=None,
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
     n_attn, n_moe, n_rwkv, n_mamba = _layer_counts(cfg)
-    n_global = sum(ls.mixer == "attn_full" for ls in cfg.layer_specs())
-    masks_expected = {"global": n_global, "windowed": n_attn - n_global}
+    masks_expected = _flash_masks(cfg)
+    n_flash = sum(masks_expected.values())
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -4062,6 +4159,7 @@ def serve_phase(arch: str, num_layers=None, runs=SERVE_RUNS, by_run=None,
         g = torch.Generator(device="cuda").manual_seed(10 + b)
         prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
                                 device="cuda")
+        extra = _frontend_inputs(cfg, b, "cuda")
         counters = _counters()
         for k in counters.values():
             k.launches = 0
@@ -4070,16 +4168,17 @@ def serve_phase(arch: str, num_layers=None, runs=SERVE_RUNS, by_run=None,
         masks = {"global": 0, "windowed": 0}
         t0 = time.perf_counter()
         with _counting_flash_masks(masks):
-            out = engine.generate(prompts, new_tokens=NEW_TOKENS)
+            out = engine.generate(prompts, new_tokens=NEW_TOKENS,
+                                  extra_batch=extra)
         wall = time.perf_counter() - t0
         counts = {name: k.launches for name, k in counters.items()}
         check(masks == masks_expected, f"serve run ({run}): flash calls by "
               f"mask {masks}, not {masks_expected}")
         peak = torch.cuda.max_memory_allocated()
-        check(counts["flash_attention"] == n_attn,
+        check(counts["flash_attention"] == n_flash,
               f"serve run ({run}): flash_attention launched "
-              f"{counts['flash_attention']} times in one generate of "
-              f"{n_attn} attention layers")
+              f"{counts['flash_attention']} times in one generate, not "
+              f"{n_flash}")
         # the router and the WKV kernel: once per layer of theirs in the
         # prefill and in each of the NEW_TOKENS − 1 decode steps
         check(counts["moe_topk"] == n_moe * NEW_TOKENS,
@@ -4109,8 +4208,9 @@ def serve_phase(arch: str, num_layers=None, runs=SERVE_RUNS, by_run=None,
             check(peak < peak_bound, f"serve run ({run}) of {arch}: peak "
                   f"{peak / 1e9:.2f} GB, not under {peak_bound / 1e9:.2f}")
 
+        served = _served(extra)
         tokens, logits, times = _greedy(params, cfg, prompts, NEW_TOKENS,
-                                        timed=True)
+                                        timed=True, extra=served)
         finite = all(torch.isfinite(lg).all().item() for lg in logits)
         check(finite, f"serve run ({run}): non-finite logits")
         check(np.array_equal(tokens.cpu().numpy(), out),
@@ -4125,7 +4225,7 @@ def serve_phase(arch: str, num_layers=None, runs=SERVE_RUNS, by_run=None,
         def prefill():
             with torch.no_grad():
                 state["last"], _ = transformer.prefill(
-                    params, cfg, {"tokens": prompts}, cache)
+                    params, cfg, {"tokens": prompts, **served}, cache)
 
         def decode_3_steps():
             token = torch.argmax(state["last"], dim=-1, keepdim=True)
@@ -4154,9 +4254,10 @@ def serve_phase(arch: str, num_layers=None, runs=SERVE_RUNS, by_run=None,
               "weight_bytes_floor_ms": floor_ms,
               "max_memory_allocated_gb": peak / 1e9,
               "logits_finite": finite, "launches": counts,
-              "flash_calls_by_mask": masks,
+              "flash_calls_by_mask": masks, "frontend_inputs": {
+                  k: list(v.shape) for k, v in extra.items()},
               "profile": prof, "tokens_row0": out[0].tolist()})
-        del engine, logits, tokens, cache, state
+        del engine, logits, tokens, cache, state, extra, served
         torch.cuda.empty_cache()
     del params
     gc.collect()
@@ -4165,6 +4266,263 @@ def serve_phase(arch: str, num_layers=None, runs=SERVE_RUNS, by_run=None,
 
 
 # ---------------------------------------------------------------------------
+# phases 21e–21h: whisper-tiny (encoder-decoder, cross attention, learned
+# positions) and llava-next-mistral-7b (early-fused patches) serving
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-tiny"
+LLAVA_ARCH = "llava-next-mistral-7b"
+# whisper's serve runs: (a) B = 1 and (b) B = 8 with the 4-token
+# start-of-transcript prompt; (c) B = 1 with a 432-token prompt, which with
+# the 16 new tokens fills the model card's native 448-token context
+WHISPER_SERVE_RUNS = (("a", 1, 4), ("b", 8, 4), ("c", 1, 432))
+WHISPER_PARITY_PROMPT = 64
+# the smoke's GPU-against-CPU parity at 2 heads of 64: the smoke's 4 heads
+# of 32 are narrower than the flash kernel's narrowest instance
+# (kernels/flash_attention.HEAD_DIMS)
+WHISPER_SMOKE_CUTS = dict(num_heads=2, num_kv_heads=2, head_dim=64)
+LLAVA_PARITY_LAYERS = 2
+# llava's vision batch: 2880 patches and 1216 tokens in 4096 positions
+# (the reference's train_4k); 1216 is no multiple of the 512-token xent
+# chunk, so the loss unembeds the text in one chunk (156 MB of logits)
+LLAVA_LOSS_SEQ = 4096
+LLAVA_LOSS_ITERS = 3
+
+
+def whisper_smoke_on_card():
+    """whisper-tiny-smoke at 2 heads of 64 (``WHISPER_SMOKE_CUTS``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(WHISPER_ARCH + "-smoke"),
+                               **WHISPER_SMOKE_CUTS)
+
+
+def whisper_parity_phase() -> None:
+    """whisper-tiny at full width and full depth (4 encoder and 4 decoder
+    layers), B = 2, 1500 stub frames, 64-token prompts, 8 new tokens: the
+    kernel path's prefill and decode logits against the port's float64
+    ``forward`` over the prompt and the tokens fed back, within
+    1e-4·max|logit|, and the encoder's output through the kernel against
+    its float64; 12 flash launches a prefill (4 encoder, 4 self, 4
+    cross); ``generate`` equal to its own steps; one prefill with no
+    sync."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(WHISPER_ARCH)
+    b, p_len, new = PARITY_BATCH, WHISPER_PARITY_PROMPT, PARITY_NEW
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p_len), generator=g,
+                            device="cuda")
+    extra = _frontend_inputs(cfg, b, "cuda")
+    n_flash = sum(_flash_masks(cfg).values())
+    fa.KERNEL.launches = 0
+    tokens, logits, _ = _greedy(params, cfg, prompts, new, extra=extra)
+    check(fa.KERNEL.launches == n_flash == 12, "whisper parity: flash "
+          f"attention launched {fa.KERNEL.launches} times in one generate")
+    no_sync_prefill(WHISPER_ARCH, params, cfg, prompts, extra)
+    engine = ServeEngine(cfg, params, max_len=p_len + new)
+    check(np.array_equal(engine.generate(prompts, new_tokens=new,
+                                         extra_batch=extra),
+                         tokens.cpu().numpy()),
+          "whisper parity: ServeEngine.generate differs from its own steps")
+    fed = torch.cat([prompts, tokens[:, :-1]], dim=1)
+    with torch.no_grad():
+        p64 = _cast(params, dtype=torch.float64)
+        ref64 = transformer.forward(p64, cfg, {"tokens": fed, **extra})[
+            :, p_len - 1:]
+        plain32 = transformer.forward(params, cfg, {"tokens": fed, **extra})[
+            :, p_len - 1:]
+        enc64 = transformer._encode(p64, cfg, extra["frames"].double(),
+                                    kernel=False)
+        enc32 = transformer._encode(params, cfg, extra["frames"],
+                                    kernel=True)
+        del p64
+    got = torch.stack(logits, dim=1).double()
+    scale = max(1.0, ref64.abs().max().item())
+    tol = TOL_LOGITS * scale
+    err = (got - ref64).abs().max().item()
+    err_prefill = (got[:, 0] - ref64[:, 0]).abs().max().item()
+    err_plain = (plain32.double() - ref64).abs().max().item()
+    enc_scale = enc64.abs().max().item()
+    enc_err = (enc32.double() - enc64).abs().max().item()
+    check(torch.isfinite(got).all().item(), "whisper parity: non-finite "
+          "logits")
+    check(err <= tol, f"whisper parity: logits differ from float64 by {err} "
+          f"(tolerance {tol})")
+    check(enc_err <= TOL_LOGITS * enc_scale, "whisper parity: the encoder's "
+          f"output differs from float64 by {enc_err}")
+    emit({"phase": "whisper_parity", "arch": WHISPER_ARCH,
+          "num_layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+          "frames": cfg.encoder_seq, "d_model": cfg.d_model, "batch": b,
+          "prompt": p_len, "new_tokens": new,
+          "weight_gb": 4 * cfg.count_params() / 1e9,
+          "max_abs_logit": scale, "max_abs_err": err,
+          "prefill_err": err_prefill, "plain_forward_f32_err": err_plain,
+          "encoder_max_abs": enc_scale, "encoder_err": enc_err,
+          "tol": tol, "tol_rel": TOL_LOGITS, "generate_equal": True,
+          "flash_launches": n_flash})
+    del params, logits, ref64, plain32, got, enc32, enc64, engine, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def llava_parity_phase() -> None:
+    """llava-next-mistral-7b at full width and 2 layers. Serving: B = 2,
+    256-token prompts, 8 new tokens, the patches given to ``generate`` and
+    dropped (its tokens equal to the steps' without them), the prefill and
+    decode logits against the float64 ``forward`` of the tokens within
+    1e-4·max|logit|, one prefill with no sync. Early fusion: one vision
+    batch of 2880 patches and 1216 tokens (4096 positions; the text at
+    RoPE positions 2880 .. 4095): the float32 ``forward`` against the
+    float64 one at every position within 1e-4·max|logit|, and ``loss_fn``
+    through the kernels (a flash launch a layer over the 4096 positions)
+    against its float64 within ``TOL_LM_LOSS`` relative."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config(LLAVA_ARCH),
+                              num_layers=LLAVA_PARITY_LAYERS)
+    b, p_len, new = PARITY_BATCH, PARITY_PROMPT, PARITY_NEW
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p_len), generator=g,
+                            device="cuda")
+    fa.KERNEL.launches = 0
+    tokens, logits, _ = _greedy(params, cfg, prompts, new)
+    check(fa.KERNEL.launches == LLAVA_PARITY_LAYERS, "llava parity: flash "
+          f"attention launched {fa.KERNEL.launches} times in one generate")
+    no_sync_prefill(LLAVA_ARCH, params, cfg, prompts)
+    engine = ServeEngine(cfg, params, max_len=p_len + new)
+    check(np.array_equal(engine.generate(
+        prompts, new_tokens=new,
+        extra_batch=_frontend_inputs(cfg, b, "cuda")), tokens.cpu().numpy()),
+        "llava parity: generate given the patches differs from the steps "
+        "without them")
+    del engine
+    fed = torch.cat([prompts, tokens[:, :-1]], dim=1)
+    p64 = _cast(params, dtype=torch.float64)
+    with torch.no_grad():
+        ref64 = transformer.forward(p64, cfg, {"tokens": fed})[:, p_len - 1:]
+    got = torch.stack(logits, dim=1).double()
+    scale = max(1.0, ref64.abs().max().item())
+    err = (got - ref64).abs().max().item()
+    check(torch.isfinite(got).all().item(), "llava parity: non-finite logits")
+    check(err <= TOL_LOGITS * scale, f"llava parity: logits differ from "
+          f"float64 by {err} (tolerance {TOL_LOGITS * scale})")
+    del ref64, got, logits
+
+    batch = make_batch(cfg, dict(global_batch=1, seq_len=LLAVA_LOSS_SEQ),
+                       torch.Generator(device="cuda").manual_seed(4))
+    s_text = LLAVA_LOSS_SEQ - cfg.num_patches
+    check(tuple(batch["tokens"].shape) == (1, s_text),
+          f"llava parity: tokens {tuple(batch['tokens'].shape)}")
+    fused = {"tokens": batch["tokens"], "patch_embeds": batch["patch_embeds"]}
+    with torch.no_grad():
+        fa.KERNEL.launches = 0
+        loss32 = transformer.loss_fn(params, cfg, batch).item()
+        loss_launches = fa.KERNEL.launches
+        loss64 = transformer.loss_fn(p64, cfg, batch).item()
+        f64 = transformer.forward(p64, cfg, fused)
+        f32 = transformer.forward(params, cfg, fused)
+    check(f64.shape[1] == LLAVA_LOSS_SEQ, f"llava parity: forward over "
+          f"{f64.shape[1]} positions")
+    fscale = max(1.0, f64.abs().max().item())
+    ferr = (f32.double() - f64).abs().max().item()
+    rel = abs(loss32 - loss64) / abs(loss64)
+    check(ferr <= TOL_LOGITS * fscale, f"llava parity: the fused forward "
+          f"differs from float64 by {ferr}")
+    check(rel <= TOL_LM_LOSS, f"llava parity: loss {loss32} is {rel:.3g} "
+          f"relative from float64's {loss64}")
+    check(loss_launches == LLAVA_PARITY_LAYERS,
+          f"llava parity: {loss_launches} flash launches in one loss_fn")
+    emit({"phase": "llava_parity", "arch": LLAVA_ARCH,
+          "num_layers": LLAVA_PARITY_LAYERS, "d_model": cfg.d_model,
+          "batch": b, "prompt": p_len, "new_tokens": new,
+          "max_abs_logit": scale, "max_abs_err": err,
+          "tol": TOL_LOGITS * scale, "generate_with_patches_equal": True,
+          "vision_batch": {"patches": cfg.num_patches, "tokens": s_text},
+          "fused_forward_max_abs_logit": fscale,
+          "fused_forward_err": ferr, "loss": loss32, "loss_f64": loss64,
+          "loss_rel_err": rel, "tol_loss_rel": TOL_LM_LOSS,
+          "loss_flash_launches": loss_launches})
+    del params, p64, f64, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def llava_loss_check(cfg, params) -> None:
+    """llava's ``loss_fn`` at full width and depth on one vision batch of
+    2880 patches and 1216 tokens (``LLAVA_LOSS_SEQ``): CUDA-event ms of
+    ``LLAVA_LOSS_ITERS`` calls after one warm-up, the peak memory, one
+    flash launch a layer (causal over the 4096 positions), a finite loss;
+    one call under the sync check."""
+    import math
+
+    import torch
+
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+
+    batch = make_batch(cfg, dict(global_batch=1, seq_len=LLAVA_LOSS_SEQ),
+                       torch.Generator(device="cuda").manual_seed(5))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fa.KERNEL.launches = 0
+        loss = transformer.loss_fn(params, cfg, batch)
+        launches = fa.KERNEL.launches
+        times = []
+        for _ in range(LLAVA_LOSS_ITERS):
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            a.record()
+            transformer.loss_fn(params, cfg, batch)
+            z.record()
+            times.append((a, z))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            transformer.loss_fn(params, cfg, batch)
+        except RuntimeError as err:
+            raise RuntimeError(f"no_sync llava loss_fn: it waits for the "
+                               f"card: {err}") from err
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    ms = [a.elapsed_time(z) for a, z in times]
+    value = loss.item()
+    check(launches == cfg.num_layers, f"llava loss: {launches} flash "
+          f"launches, not {cfg.num_layers}")
+    check(math.isfinite(value), f"llava loss: {value}")
+    emit({"phase": "llava_loss", "arch": cfg.name,
+          "num_layers": cfg.num_layers, "seq": LLAVA_LOSS_SEQ,
+          "patches": cfg.num_patches,
+          "tokens": LLAVA_LOSS_SEQ - cfg.num_patches, "loss": value,
+          "loss_ms": ms, "loss_ms_median": statistics.median(ms),
+          "peak_memory_gb": peak / 1e9,
+          "weight_gb": 4 * cfg.count_params() / 1e9,
+          "flash_launches": launches, "no_sync": True})
+
 
 # ---------------------------------------------------------------------------
 # phase 22: NetES over LM agents
@@ -4182,13 +4540,13 @@ def _lm_config(family, dens, rep, channel):
                           p_broadcast=LM_P_BROADCAST))
 
 
-def _lm_inputs(cfg, tc, it):
+def _lm_inputs(cfg, tc, it, seq):
     """Iteration ``it``'s batch and draws in ``train_lm_netes``."""
     from repro_torch.train.loop import lm_step_inputs
-    return lm_step_inputs(cfg, tc, it, LM_SEQ, device="cuda")
+    return lm_step_inputs(cfg, tc, it, seq, device="cuda")
 
 
-def _lm_f64_check(cfg, tc, topo) -> dict:
+def _lm_f64_check(cfg, tc, topo, seq) -> dict:
     """The first step of case (i), from the run's θ⁽⁰⁾, batch and ε, held
     against float64 on the card: each agent's ± loss (the kernel path,
     ``loss_fn`` on float32 weights) against ``loss_fn`` of the same
@@ -4213,7 +4571,7 @@ def _lm_f64_check(cfg, tc, topo) -> dict:
 
     ncfg = tc.netes
     params = lm_population(cfg, tc, device="cuda")
-    batch, draws = _lm_inputs(cfg, tc, 0)
+    batch, draws = _lm_inputs(cfg, tc, 0, seq)
     draws = dataclasses.replace(draws, beta=torch.ones((), device="cuda"))
     r_pos, r_neg = netes_dist.agent_rewards(cfg, params, batch, draws.noise,
                                             ncfg.sigma)
@@ -4307,39 +4665,41 @@ def _no_sync_lm_step(label, step, args) -> None:
     torch.cuda.synchronize()
 
 
-def lm_netes_phase() -> dict:
-    """``train_lm_netes`` of gemma3-4b at full width, 6 layers, N = 8, one
-    2048-token sequence an agent, 3 iterations, in ``LM_CASES``: (i) fully
-    connected (the dense kernel), (ii) ER p = 0.5 (the sparse kernel),
-    (iii) (ii) through channel (a) (both fused kernels, and the sparse
-    kernel for the ε term). Each run's launch counters are zeroed just
-    before it and read just after; every Eq. 3 kernel of the case and the
-    flash kernel (6 layers × 2N evaluations a step, 5 windowed to 1
-    global) must launch. Per case: the steps' ms (CUDA events), the
-    losses, the peak device memory (under ``LM_PEAK_BYTES``), launches a
-    step, and one more step profiled (the device's idle share); one step
-    of (i) and of (iii) under the sync check. Before (i), its first step
-    against float64 (``_lm_f64_check``). Returns the launches a step of
-    each case."""
+def lm_netes_phase(cfg, seq: int, cases, no_sync_cases) -> dict:
+    """``train_lm_netes`` of ``cfg`` at N = 8, one ``seq``-token sequence
+    an agent (whisper: beside its 1500 frames), 3 iterations, in
+    ``cases``: for gemma3-4b (6 layers) ``LM_CASES``, (i) fully connected
+    (the dense kernel), (ii) ER p = 0.5 (the sparse kernel), (iii) (ii)
+    through channel (a) (both fused kernels, and the sparse kernel for the
+    ε term); for whisper-tiny (full depth) ``LM_WHISPER_CASES``, (i) and
+    (ii). Each run's launch counters are zeroed just before it and read
+    just after; every Eq. 3 kernel of the case and the flash kernel (the
+    calls of one ``loss_fn`` by mask, ``_flash_masks``, × 2N evaluations a
+    step) must launch. Per case: the steps' ms (CUDA events), the losses,
+    the peak device memory (under ``LM_PEAK_BYTES``), launches a step, and
+    one more step profiled (the device's idle share); one step of each
+    case in ``no_sync_cases`` under the sync check. Before the first
+    case, its first step against float64 (``_lm_f64_check``). Returns the
+    launches a step of each case, keyed by its label."""
     import dataclasses
     import math
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core.tree import flatten
     from repro_torch.distributed import netes_dist
     from repro_torch.train.loop import (build_channel, build_topology,
                                         lm_population, train_lm_netes)
 
-    cfg = dataclasses.replace(get_config(GEMMA_ARCH), num_layers=LM_LAYERS)
     counters = _counters()
     per_step = {}
-    for label, family, dens, rep, chan_text in LM_CASES:
+    per_eval = _flash_masks(cfg)
+    for label, family, dens, rep, chan_text in cases:
         tc = _lm_config(family, dens, rep, chan_text)
         topo = build_topology(tc, device="cuda")
         check(topo.kind == rep, f"lm_netes ({label}): {topo.kind} topology")
-        f64 = _lm_f64_check(cfg, tc, topo) if label == "i" else None
+        f64 = (_lm_f64_check(cfg, tc, topo, seq) if label == cases[0][0]
+               else None)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for k in counters.values():
@@ -4347,7 +4707,7 @@ def lm_netes_phase() -> dict:
         masks = {}
         with _counting_flash_masks(masks):
             t0 = time.perf_counter()
-            hist = train_lm_netes(cfg, tc, seq_len=LM_SEQ, device="cuda")
+            hist = train_lm_netes(cfg, tc, seq_len=seq, device="cuda")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         counts = {name: k.launches for name, k in counters.items()}
@@ -4358,8 +4718,9 @@ def lm_netes_phase() -> dict:
         check(peak < LM_PEAK_BYTES, f"lm_netes ({label}): peak memory "
               f"{peak / 1e9:.2f} GB")
         evals = LM_ITERS * 2 * LM_N
-        check(counts["flash_attention"] == LM_LAYERS * evals
-              and masks == {"windowed": 5 * evals, "global": evals},
+        want = {k: n * evals for k, n in per_eval.items() if n}
+        check(counts["flash_attention"] == sum(want.values())
+              and masks == want,
               f"lm_netes ({label}): flash launches {counts} by mask {masks}")
         needed = {"dense": ["netes_mixing"], "sparse": ["netes_sparse_mixing"]
                   }[rep] + (["fused_neighbor_sum", "fused_broadcast_select"]
@@ -4375,16 +4736,19 @@ def lm_netes_phase() -> dict:
         step = netes_dist.make_replica_train_step(
             cfg, tc.netes, LM_N, microbatch=1, topology=topo,
             channel=channel)
-        batch, draws = _lm_inputs(cfg, tc, LM_ITERS)
+        batch, draws = _lm_inputs(cfg, tc, LM_ITERS, seq)
         states = [channel.init(params)] if channel is not None else []
         prof = _profile(lambda: step(params, None, batch, draws, *states))
-        no_sync = label in ("i", "iii")
+        no_sync = label in no_sync_cases
         if no_sync:
-            batch, draws = _lm_inputs(cfg, tc, LM_ITERS + 1)
+            batch, draws = _lm_inputs(cfg, tc, LM_ITERS + 1, seq)
             _no_sync_lm_step(label, step,
                              (params, None, batch, draws, *states))
         emit({"phase": "lm_netes", "case": label, "arch": cfg.name,
-              "num_layers": LM_LAYERS, "n_agents": LM_N, "seq": LM_SEQ,
+              "num_layers": cfg.num_layers,
+              "encoder_layers": cfg.encoder_layers, "n_agents": LM_N,
+              "seq": seq, "batch_leaves": {k: list(v.shape)
+                                           for k, v in batch.items()},
               "family": family, "density": dens, "representation": rep,
               "k_max": topo.k_max, "channel": chan_text,
               "iters": LM_ITERS, "netes": dataclasses.asdict(tc.netes),
@@ -4520,12 +4884,15 @@ SOURCE_OF = {
 
 
 def main() -> int:
+    import dataclasses
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside the repository)
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
     smi = nvidia_smi()
@@ -4594,7 +4961,19 @@ def main() -> int:
     serve_phase(MAVERICK_ARCH, MAVERICK_SERVE_LAYERS, by_run=maverick_runs,
                 with_params=maverick_moe_check,
                 peak_bound=torch.cuda.mem_get_info()[1] - MAVERICK_HEADROOM)
-    lm_launches = lm_netes_phase()
+    whisper_parity_phase()
+    serve_cpu_parity_phase(WHISPER_ARCH, cfg=whisper_smoke_on_card())
+    whisper_runs, llava_runs = {}, {}
+    serve_phase(WHISPER_ARCH, runs=WHISPER_SERVE_RUNS, by_run=whisper_runs)
+    llava_parity_phase()
+    serve_cpu_parity_phase(LLAVA_ARCH)
+    serve_phase(LLAVA_ARCH, by_run=llava_runs, with_params=llava_loss_check)
+    lm_launches = lm_netes_phase(
+        dataclasses.replace(get_config(GEMMA_ARCH), num_layers=LM_LAYERS),
+        LM_SEQ, LM_CASES, ("i", "iii"))
+    lm_launches.update(lm_netes_phase(get_config(WHISPER_ARCH),
+                                      LM_WHISPER_SEQ, LM_WHISPER_CASES,
+                                      ("whisper-i", "whisper-ii")))
     lm_netes_cpu_parity_phase()
     rows = []
     for name in SOURCE_OF:
@@ -4628,10 +5007,22 @@ def main() -> int:
             rows[-1]["launches_llama4_maverick"] = {
                 run: maverick_runs[run]["launches"]["flash_attention"]
                 for run in ("a", "b")}
+            # whisper-tiny's per generate of each run, by mask (4 encoder,
+            # 4 self, 4 cross: all global), and llava's
+            rows[-1]["launches_whisper_tiny"] = {
+                run: {"flash_attention": r["launches"]["flash_attention"],
+                      **r["flash_calls_by_mask"]}
+                for run, r in whisper_runs.items()}
+            rows[-1]["launches_llava"] = {
+                run: r["launches"]["flash_attention"]
+                for run, r in llava_runs.items()}
             for key in ("flash_attention_hd256",
                         "flash_attention_hd256_local",
                         "flash_attention_llama4_global",
-                        "flash_attention_llama4_chunk"):
+                        "flash_attention_llama4_chunk",
+                        "flash_attention_whisper_encoder",
+                        "flash_attention_whisper_cross",
+                        "flash_attention_llava_loss"):
                 r = results[key]
                 rows[-1][key[len("flash_attention_"):]] = {
                     k: r[k] for k in ("shape", "max_abs_err", "ms",

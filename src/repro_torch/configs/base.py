@@ -3,9 +3,9 @@
 ``ModelConfig`` fully determines a model; the per-layer layout comes from
 the family knobs (``layer_specs``). The dataclasses and the parameter count
 are the reference's, field for field, so a config compares equal to its
-reference. The port's registry holds only the architectures whose every
-layer kind is ported; asking for another architecture of the reference's
-registry raises ``NotImplementedError`` naming the slice that brings it.
+reference. The port's registry holds every architecture of the
+reference's but the NetES policy ``paper-mlp``, for which asking raises
+``NotImplementedError`` naming where the port has it.
 """
 from __future__ import annotations
 
@@ -15,13 +15,8 @@ from typing import Dict, Optional, Tuple
 _REGISTRY: Dict[str, "ModelConfig"] = {}
 
 # Architectures of the reference's registry that the port does not hold,
-# and why: the slice of the port (ROADMAP.md, queue 1) that brings each.
-# The "-smoke" variant of each goes with it.
+# and why. The "-smoke" variant of each goes with it.
 UNPORTED = {
-    "llava-next-mistral-7b": "it comes with slice 6f (the vision and audio "
-                             "frontends)",
-    "whisper-tiny": "it comes with slice 6f (the vision and audio "
-                    "frontends, with the encoder-decoder stack)",
     "paper-mlp": "the NetES policy was ported in slice 1 as "
                  "envs/policy.MLPPolicy, which the port builds without the "
                  "registry",
@@ -216,5 +211,6 @@ def _ensure_loaded():
     _LOADED = True
     from . import (gemma3_4b, jamba_v01_52b,  # noqa: F401
                    llama4_maverick_400b_a17b, llama4_scout_17b_a16e,
-                   mistral_nemo_12b, moonshot_v1_16b_a3b, phi3_medium_14b,
-                   rwkv6_7b)
+                   llava_next_mistral_7b, mistral_nemo_12b,
+                   moonshot_v1_16b_a3b, phi3_medium_14b, rwkv6_7b,
+                   whisper_tiny)

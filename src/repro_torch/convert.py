@@ -194,6 +194,11 @@ def lm_params_from_reference(flat: Mapping[str, Any], cfg: ModelConfig, *,
     (d_inner, d_state), ``out_proj`` (d_inner, d)). A hybrid stack such as
     jamba's scans a period of several layers (plan (0, 8, 4, 0) at 32
     layers: ``layers_scan/0`` … ``layers_scan/7``, each stacked 4 times).
+    Learned positions are ``pos_embed`` (max_position, d); an
+    encoder-decoder's decoder layers each hold ``cross/…`` (an attention
+    block) and ``norm_cross``, and its encoder is ``enc_layers/<i>/…``
+    (a plain list, never stacked), ``enc_norm`` and ``enc_pos_embed``
+    (encoder_seq, d). A key of ``flat`` that none of these take raises.
     """
     check_ported(cfg)
     dev = resolve_device(device)
@@ -207,18 +212,29 @@ def lm_params_from_reference(flat: Mapping[str, Any], cfg: ModelConfig, *,
     layers += [_nest(flat, f"layers_scan/{j}", r, dev)
                for r in range(n_rep) for j in range(period)]
     layers += [_nest(flat, f"layers_tail/{i}", None, dev) for i in range(tail)]
-    stray = [k for k in flat if k.startswith("layers_")
-             and not any(k.startswith(p + "/") for p in prefixes)]
+    enc = [f"enc_layers/{i}" for i in range(cfg.encoder_layers)]
+    whole = [k for k in _LM_ARRAYS if k in flat]
+    nested = prefixes + enc + [k for k in _LM_NORMS if k + "/scale" in flat]
+    stray = [k for k in flat if k not in whole
+             and not any(k.startswith(p + "/") for p in nested)]
     if len(layers) != cfg.num_layers or not all(layers) or stray:
         raise ValueError(f"the reference parameters are not the "
                          f"{cfg.num_layers} layers of {cfg.name} laid out as "
                          f"stack_plan {stack_plan(cfg)} says (stray: {stray})")
     params: Dict[str, Any] = {
-        "embed": torch.as_tensor(np.asarray(flat["embed"]), device=dev),
-        "final_norm": _nest(flat, "final_norm", None, dev),
-        "layers": layers,
-    }
+        k: torch.as_tensor(np.asarray(flat[k]), device=dev) for k in whole}
+    params.update({k: _nest(flat, k, None, dev) for k in _LM_NORMS
+                   if k + "/scale" in flat})
+    params["layers"] = layers
+    if enc:
+        params["enc_layers"] = [_nest(flat, p, None, dev) for p in enc]
     return params
+
+
+# the top-level leaves of an LM's parameter tree besides its layers: whole
+# arrays, and norms (a dict of ``scale`` and, for a LayerNorm, ``bias``)
+_LM_ARRAYS = ("embed", "pos_embed", "enc_pos_embed")
+_LM_NORMS = ("final_norm", "enc_norm")
 
 
 def _flat_leaves(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -243,9 +259,13 @@ def lm_params_to_reference(params: Mapping[str, Any],
     if len(layers) != cfg.num_layers:
         raise ValueError(f"{len(layers)} layers, {cfg.name} has "
                          f"{cfg.num_layers}")
-    flat: Dict[str, np.ndarray] = {"embed": params["embed"].detach().cpu()
-                                   .numpy()}
-    _flat_leaves(params["final_norm"], "final_norm", flat)
+    flat: Dict[str, np.ndarray] = {k: params[k].detach().cpu().numpy()
+                                   for k in _LM_ARRAYS if k in params}
+    for k in _LM_NORMS:
+        if k in params:
+            _flat_leaves(params[k], k, flat)
+    for i, lay in enumerate(params.get("enc_layers", ())):
+        _flat_leaves(lay, f"enc_layers/{i}", flat)
     for i in range(head):
         _flat_leaves(layers[i], f"layers_head/{i}", flat)
     for j in range(period):

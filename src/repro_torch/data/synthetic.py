@@ -10,8 +10,9 @@ batch without communication.
 
 The draws come from a ``torch.Generator``, not from threefry, so the
 tokens are not the reference's; the shapes, dtypes, labels and the chain's
-statistics are. The reference's vision and audio inputs come with slice 6f
-(``models.transformer.check_ported`` names it).
+statistics are. A vision model's batch also holds the frontend's stub
+``patch_embeds`` and its tokens fill the rest of the sequence; an
+encoder-decoder's holds stub ``frames`` (``models.frontends``).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from ..core.es_utils import stream_seed
-from ..models.transformer import check_ported
+from ..models import frontends
 
 NOISE_P = 0.15         # share of uniform (non-chain) successors
 
@@ -46,12 +47,24 @@ def _markov_tokens(gen: torch.Generator, batch: int, seq: int,
 def make_batch(cfg: ModelConfig, shape: Dict[str, int],
                generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """One global batch of ``shape["global_batch"]`` sequences of
-    ``shape["seq_len"]`` tokens, drawn from ``generator`` on its device:
-    ``tokens`` and ``labels`` (the same tensor; the loss shifts it)."""
-    check_ported(cfg)
-    tokens = _markov_tokens(generator, shape["global_batch"],
-                            shape["seq_len"], cfg.vocab_size)
-    return {"tokens": tokens, "labels": tokens}
+    ``shape["seq_len"]`` positions, drawn from ``generator`` on its
+    device: ``tokens`` and ``labels`` (the same tensor; the loss shifts
+    it). For a vision model ``num_patches`` of the positions are the
+    stub ``patch_embeds`` (B, P, D) and the tokens the other
+    ``seq_len − num_patches``; an encoder-decoder's batch adds stub
+    ``frames`` (B, encoder_seq, D). The tokens are drawn first."""
+    b, s = shape["global_batch"], shape["seq_len"]
+    s_text = s - cfg.num_patches if cfg.frontend == "vision" else s
+    if s_text < 1:
+        raise ValueError(f"{cfg.name}: seq_len {s} leaves no token after "
+                         f"its {cfg.num_patches} patches")
+    tokens = _markov_tokens(generator, b, s_text, cfg.vocab_size)
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = frontends.vision_patches(cfg, b, generator)
+    elif cfg.frontend == "audio":
+        batch["frames"] = frontends.audio_frames(cfg, b, generator)
+    return batch
 
 
 def batch_seed(seed: int, step: int) -> int:

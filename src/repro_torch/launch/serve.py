@@ -8,9 +8,15 @@
       --prompt-len 128 --new-tokens 8 --device cpu
   python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e-smoke \
       --batch 2 --prompt-len 192 --new-tokens 8 --device cpu
+  python -m repro_torch.launch.serve --arch whisper-tiny --batch 1 \
+      --prompt-len 4 --new-tokens 16
+  python -m repro_torch.launch.serve --arch llava-next-mistral-7b \
+      --batch 1 --prompt-len 512 --new-tokens 16
 
-Random weights and prompts from ``--seed``. Runs on the GPU; ``--device
-cpu`` runs the kernels' plain versions on the CPU instead. A prompt
+Random weights and prompts from ``--seed``, and for whisper and llava the
+frontends' stub frames or patches (the engine drops llava's patches, as
+the reference's does). Runs on the GPU; ``--device cpu`` runs the
+kernels' plain versions on the CPU instead. A prompt
 longer than an MoE layer's group (512 tokens; 64 for the smokes) must be
 a multiple of it. jamba-v0.1-52b's 32 layers (205 GB in float32) do not
 fit one card: ``chip_smoke.py`` serves 8 of them; of llama4-scout-17b-a16e's
@@ -25,7 +31,7 @@ import time
 import torch
 
 from ..configs import get_config
-from ..models import transformer
+from ..models import frontends, transformer
 from ..serve import ServeEngine
 
 
@@ -49,9 +55,15 @@ def main(argv=None) -> None:
     prompts = torch.randint(0, cfg.vocab_size,
                             (args.batch, args.prompt_len), generator=gen,
                             device=args.device)
+    extra = {}
+    if cfg.frontend == "audio":
+        extra["frames"] = frontends.audio_frames(cfg, args.batch, gen)
+    elif cfg.frontend == "vision":
+        extra["patch_embeds"] = frontends.vision_patches(cfg, args.batch, gen)
     t0 = time.perf_counter()
     out = engine.generate(prompts, new_tokens=args.new_tokens,
-                          temperature=args.temperature, generator=gen)
+                          temperature=args.temperature, generator=gen,
+                          extra_batch=extra)
     dt = time.perf_counter() - t0
     total = args.batch * args.new_tokens
     print(f"generated {out.shape} tokens in {dt:.2f}s "

@@ -8,8 +8,13 @@ through the hand-written flash kernel (``kernels.flash_attention``) in
 place of the reference's ``blockwise_attention``. ``attention_block`` (the
 full forward's attention) is the kernel's plain version, naive softmax
 attention in the input's dtype, so that the full forward also runs in
-float64 as a reference on the card. Decode is plain PyTorch, as in the reference, where no Pallas kernel
-lies on it.
+float64 as a reference on the card. Decode is plain PyTorch, as in the
+reference, where no Pallas kernel lies on it.
+
+Both full-sequence forms take ``kv_x``: the keys and values are then
+projected from ``kv_x`` (at ``kv_positions``) instead of ``x``, which is
+cross attention (whisper's decoder over the encoder's output), and
+``causal=False`` drops the causal mask (the encoder, and cross attention).
 
 Patterns (``kind``):
   * ``full``     — causal.
@@ -84,47 +89,73 @@ def _check_arange(positions: torch.Tensor, s: int) -> None:
         raise ValueError("full-sequence positions must be arange(S)")
 
 
-def _qkv(params, spec: AttnSpec, x: torch.Tensor, positions: torch.Tensor):
+def _qkv(params, spec: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
+         kv_x: Optional[torch.Tensor] = None,
+         kv_positions: Optional[torch.Tensor] = None):
+    """q from ``x`` at ``positions``; k and v from ``kv_x`` at
+    ``kv_positions`` (by default ``x`` and ``positions``)."""
+    src = x if kv_x is None else kv_x
+    src_pos = positions if kv_positions is None else kv_positions
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    k = torch.einsum("bsd,dhk->bshk", src, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, params["wv"])
     if spec.qk_norm:     # over head_dim, before RoPE, as the reference
         q = layers.rmsnorm(params["q_norm"], q)
         k = layers.rmsnorm(params["k_norm"], k)
     if spec.rope:
         q = layers.apply_rope(q, positions, spec.rope_theta)
-        k = layers.apply_rope(k, positions, spec.rope_theta)
+        k = layers.apply_rope(k, src_pos, spec.rope_theta)
     return q, k, v
 
 
-def attention_block(params, spec: AttnSpec, x: torch.Tensor,
-                    positions: torch.Tensor, causal: bool = True
-                    ) -> torch.Tensor:
-    """Self-attention over a full sequence (the full forward), as naive
-    softmax attention in plain PyTorch, in float64 for a float64 input."""
+def _checked_qkv(params, spec: AttnSpec, x, positions, kv_x, kv_positions):
+    """``_qkv`` of a full sequence, each side's positions checked to be
+    the indices of its own sequence."""
     _check_arange(positions, x.shape[1])
-    q, k, v = _qkv(params, spec, x, positions)
+    if kv_x is not None:
+        _check_arange(positions if kv_positions is None else kv_positions,
+                      kv_x.shape[1])
+    return _qkv(params, spec, x, positions, kv_x, kv_positions)
+
+
+def attention_block(params, spec: AttnSpec, x: torch.Tensor,
+                    positions: torch.Tensor,
+                    kv_x: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Self (or, with ``kv_x``, cross) attention over a full sequence (the
+    full forward), as naive softmax attention in plain PyTorch, in float64
+    for a float64 input."""
+    q, k, v = _checked_qkv(params, spec, x, positions, kv_x, kv_positions)
     out = flash_attention_ref(q, k, v, causal=causal, scale=spec.scale,
                               **_masks(spec))
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 
 def _kernel_attention(params, spec: AttnSpec, x: torch.Tensor,
-                      positions: torch.Tensor):
-    """Self-attention over a full sequence through the flash kernel.
-    Returns (the block's output, k, v)."""
-    _check_arange(positions, x.shape[1])
-    q, k, v = _qkv(params, spec, x, positions)
+                      positions: torch.Tensor,
+                      kv_x: Optional[torch.Tensor] = None,
+                      kv_positions: Optional[torch.Tensor] = None,
+                      causal: bool = True):
+    """``attention_block`` through the flash kernel. Returns (the block's
+    output, k, v)."""
+    q, k, v = _checked_qkv(params, spec, x, positions, kv_x, kv_positions)
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=True, scale=spec.scale, **_masks(spec))
+                          causal=causal, scale=spec.scale, **_masks(spec))
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), k, v
 
 
 def kernel_attention(params, spec: AttnSpec, x: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention over a full sequence through the flash
-    kernel, with no cache: the training loss's attention."""
-    return _kernel_attention(params, spec, x, positions)[0]
+                     positions: torch.Tensor,
+                     kv_x: Optional[torch.Tensor] = None,
+                     kv_positions: Optional[torch.Tensor] = None,
+                     causal: bool = True) -> torch.Tensor:
+    """Self (or, with ``kv_x``, cross) attention over a full sequence
+    through the flash kernel, with no cache: the training loss's
+    attention, the encoder's (``causal=False``) and cross attention in
+    prefill (``kv_x``, ``causal=False``)."""
+    return _kernel_attention(params, spec, x, positions, kv_x, kv_positions,
+                             causal)[0]
 
 
 def prefill_attention(params, spec: AttnSpec, x: torch.Tensor,

@@ -1,21 +1,31 @@
-"""Model assembly: the port of ``repro/models/transformer.py``, the
-attention, mamba (hybrid) and rwkv6 decoder branches.
+"""Model assembly: the port of ``repro/models/transformer.py``, every
+branch of the reference's but untied embeddings (no architecture of the
+registry has them).
 
-A config-driven decoder: the per-layer ``LayerSpec`` picks the sequence
-mixer (full / sliding / chunked attention, mamba, or rwkv) and the channel
-mixer (swiglu / gelu / moe / rwkv_channel; ``first_dense_layers`` and
-jamba's interleave of mamba, attention and MoE layers reach it through
-``cfg.layer_specs()``). ``prefill`` and ``decode_step`` run the flash
-kernel (prefill), the MoE router, the mamba scan and the WKV recurrence
-through their kernels, and so does ``loss_fn`` (the NetES reward) on
-float32 parameters, without a cache; the full ``forward`` runs their plain
-versions (mamba: the associative scan, chunked past 1024 tokens; rwkv: the
-chunked form), so that in float64 it is the float64 reference.
-Parameters are nested dicts of tensors with the layers as a plain list
-(the reference stacks identical layers for ``lax.scan``;
-``convert.lm_params_from_reference`` unstacks them). The branches of the
-reference that the port does not have yet raise ``NotImplementedError``
-naming their slice (ROADMAP.md, queue 1).
+A config-driven decoder (and encoder-decoder): the per-layer ``LayerSpec``
+picks the sequence mixer (full / sliding / chunked attention, mamba, or
+rwkv) and the channel mixer (swiglu / gelu / moe / rwkv_channel;
+``first_dense_layers`` and jamba's interleave of mamba, attention and MoE
+layers reach it through ``cfg.layer_specs()``). The frontends are stubs
+(``frontends.py``): early fusion puts a vision model's patch embeddings
+before its token embeddings in one sequence; an encoder-decoder (whisper)
+runs a non-causal stack of ``encoder_layers`` over its audio frames once,
+and each decoder layer attends the encoder's output through a cross
+attention block after its self attention. Learned position tables
+(``pos_embed``, ``enc_pos_embed``) take the place of RoPE where
+``cfg.learned_pos``.
+
+``prefill`` and ``decode_step`` run the flash kernel (prefill: self,
+encoder and cross attention), the MoE router, the mamba scan and the WKV
+recurrence through their kernels, and so does ``loss_fn`` (the NetES
+reward) on float32 parameters, without a cache; the full ``forward`` runs
+their plain versions (mamba: the associative scan, chunked past 1024
+tokens; rwkv: the chunked form), so that in float64 it is the float64
+reference. Decode's cross attention is plain PyTorch, as in the
+reference: it projects the encoder's keys and values again at every step.
+Parameters are nested dicts of tensors with the decoder layers as a plain
+list (the reference stacks identical layers for ``lax.scan``;
+``convert.lm_params_from_reference`` unstacks them).
 
 API:
   init_params(cfg, seed, dtype, device)           -> params
@@ -27,7 +37,7 @@ API:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -37,21 +47,9 @@ from ..kernels.moe_router import moe_topk
 from ..kernels.ref import moe_topk_ref
 from . import attention, layers, mamba, moe, rwkv6
 
-_FRONTENDS = "slice 6f (the vision and audio frontends)"
-
-
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the slice of the port that
-    brings any part of ``cfg`` this port cannot run yet."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder stack comes with {_FRONTENDS}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend comes with {_FRONTENDS}")
-    if cfg.learned_pos:
-        raise NotImplementedError(
-            f"{cfg.name}: learned positions come with {_FRONTENDS}")
+    """Raise ``NotImplementedError`` for the one branch of the reference
+    this port does not have."""
     if not cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name}: untied embeddings (no architecture of the "
@@ -130,7 +128,7 @@ def _norm(cfg: ModelConfig, p, x):
 # ---------------------------------------------------------------------------
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, lspec: LayerSpec,
-                dtype) -> Dict[str, Any]:
+                dtype, cross: bool = False) -> Dict[str, Any]:
     dev = gen.device
     p: Dict[str, Any] = {"norm1": _norm_init(cfg, cfg.d_model, dtype, dev),
                          "norm2": _norm_init(cfg, cfg.d_model, dtype, dev)}
@@ -151,7 +149,21 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, lspec: LayerSpec,
         p["ffn"] = rwkv6.rwkv6_channel_init(gen, cfg.d_model, cfg.d_ff, dtype)
     else:
         raise ValueError(lspec.ffn)
+    if cross:
+        p["cross"] = attention.attn_init(gen, cfg.d_model, _cross_spec(cfg),
+                                         dtype)
+        p["norm_cross"] = _norm_init(cfg, cfg.d_model, dtype, dev)
     return p
+
+
+def _cross_spec(cfg: ModelConfig) -> attention.AttnSpec:
+    """The spec of a decoder layer's cross attention (full attention;
+    ``causal=False`` at the call)."""
+    return attn_spec(cfg, LayerSpec("attn_full", "swiglu"))
+
+
+def _encoder_spec(cfg: ModelConfig) -> LayerSpec:
+    return LayerSpec(mixer="attn_full", ffn=cfg.ffn_kind)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
@@ -164,8 +176,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
         "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": _norm_init(cfg, cfg.d_model, dtype, gen.device),
     }
-    params["layers"] = [_layer_init(gen, cfg, ls, dtype)
+    if cfg.learned_pos:
+        params["pos_embed"] = layers.embed_init(gen, cfg.max_position,
+                                                cfg.d_model, dtype)
+    cross = cfg.is_encoder_decoder
+    params["layers"] = [_layer_init(gen, cfg, ls, dtype, cross=cross)
                         for ls in cfg.layer_specs()]
+    if cfg.is_encoder_decoder:
+        params["enc_layers"] = [_layer_init(gen, cfg, _encoder_spec(cfg),
+                                            dtype)
+                                for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = _norm_init(cfg, cfg.d_model, dtype, gen.device)
+        if cfg.learned_pos:
+            params["enc_pos_embed"] = layers.embed_init(
+                gen, cfg.encoder_seq, cfg.d_model, dtype)
     return params
 
 
@@ -188,8 +212,22 @@ def _ffn(p, cfg: ModelConfig, lspec: LayerSpec, h, topk=moe_topk,
     raise ValueError(lspec.ffn)
 
 
+def _cross(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+           enc_out: torch.Tensor, kernel: bool) -> torch.Tensor:
+    """A decoder layer's cross attention block (pre-norm, residual) over
+    the encoder's output, through the flash kernel or its plain version."""
+    block = attention.kernel_attention if kernel else \
+        attention.attention_block
+    enc_pos = torch.arange(enc_out.shape[1], device=enc_out.device)
+    hc = _norm(cfg, p["norm_cross"], x)
+    return x + block(p["cross"], _cross_spec(cfg), hc, positions,
+                     kv_x=enc_out, kv_positions=enc_pos, causal=False)
+
+
 def _layer_forward(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor,
+                   enc_out: Optional[torch.Tensor] = None,
+                   causal: bool = True) -> torch.Tensor:
     h = _norm(cfg, p["norm1"], x)
     if lspec.mixer == "rwkv":
         x = x + rwkv6.rwkv6_block(p["rwkv"], rwkv_spec(cfg), h)
@@ -197,29 +235,85 @@ def _layer_forward(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
         x = x + mamba.mamba_block(p["mamba"], mamba_spec(cfg), h)
     else:
         x = x + attention.attention_block(p["attn"], attn_spec(cfg, lspec),
-                                          h, positions)
+                                          h, positions, causal=causal)
+    if enc_out is not None:
+        x = _cross(p, cfg, x, positions, enc_out, kernel=False)
     h = _norm(cfg, p["norm2"], x)
     return x + _ffn(p, cfg, lspec, h, topk=moe_topk_ref)
 
 
-def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """Token embedding. Returns (x (B, S, D), positions (S,))."""
+def _encode(params, cfg: ModelConfig, frames: torch.Tensor,
+            kernel: bool) -> torch.Tensor:
+    """The whisper-style encoder over stub frame embeddings (B, T, D): the
+    learned positions, a non-causal stack of full-attention layers, then
+    ``enc_norm``; through the kernels or their plain versions."""
+    t = frames.shape[1]
+    x = frames
+    if cfg.learned_pos:
+        x = x + params["enc_pos_embed"][None, :t]
+    pos = torch.arange(t, device=x.device)
+    layer = _kernel_layer if kernel else _layer_forward
+    for p in params["enc_layers"]:
+        x = layer(p, cfg, _encoder_spec(cfg), x, pos, causal=False)
+    return _norm(cfg, params["enc_norm"], x)
+
+
+def check_lengths(cfg: ModelConfig, positions: int,
+                  frames: Optional[int] = None) -> None:
+    """Raise ``ValueError`` where a learned position table has no row for
+    a position: the decoder's ``positions`` (its longest sequence, the
+    tokens fed back in decode included) against ``max_position``, and
+    ``frames`` against the encoder's ``encoder_seq``. A host check, made
+    before the work: on the card an index past a table is a device assert,
+    not an error the caller can catch."""
+    if not cfg.learned_pos:
+        return
+    if positions > cfg.max_position:
+        raise ValueError(f"{cfg.name}: {positions} positions, the learned "
+                         f"table holds {cfg.max_position}")
+    if frames is not None and frames > cfg.encoder_seq:
+        raise ValueError(f"{cfg.name}: {frames} frames, the encoder's "
+                         f"learned table holds {cfg.encoder_seq}")
+
+
+def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                 kernel: bool = False):
+    """Token embedding with early fusion (a vision model's
+    ``patch_embeds`` (B, P, D) before the tokens' embeddings), the learned
+    positions, and an encoder-decoder's encoder over ``frames`` (B, T, D),
+    run once, through the kernels if ``kernel``. Returns (x (B, S, D),
+    positions (S,), the encoder's output (B, T, D) or None)."""
     check_ported(cfg)
-    extra = sorted(set(batch) - {"tokens", "labels"})
+    allowed = {"tokens", "labels"}
+    if cfg.frontend == "vision":
+        allowed.add("patch_embeds")
+    if cfg.is_encoder_decoder:
+        allowed.add("frames")
+    extra = sorted(set(batch) - allowed)
     if extra:
-        raise NotImplementedError(f"batch inputs {extra} come with "
-                                  f"{_FRONTENDS}")
+        raise ValueError(f"{cfg.name} takes no batch inputs {extra}")
+    if cfg.is_encoder_decoder and "frames" not in batch:
+        raise ValueError(f"{cfg.name}: an encoder-decoder needs 'frames'")
     tokens = batch["tokens"]
-    x = params["embed"][tokens]                       # (B, S, D)
+    x = params["embed"][tokens]                       # (B, S_text, D)
+    if "patch_embeds" in batch:                       # early fusion
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    frames = batch.get("frames")
+    check_lengths(cfg, x.shape[1], None if frames is None else
+                  frames.shape[1])
+    if cfg.learned_pos:
+        x = x + params["pos_embed"][None, :x.shape[1]]
     positions = torch.arange(x.shape[1], device=x.device)
-    return x, positions
+    enc_out = (None if frames is None else
+               _encode(params, cfg, frames.to(x.dtype), kernel))
+    return x, positions, enc_out
 
 
 def _backbone(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """Embed + all layers + final norm. Returns x (B, S, D)."""
-    x, positions = embed_inputs(params, cfg, batch)
+    """Embed + all layers + final norm, plain. Returns x (B, S, D)."""
+    x, positions, enc_out = embed_inputs(params, cfg, batch)
     for p, ls in zip(params["layers"], cfg.layer_specs(), strict=True):
-        x = _layer_forward(p, cfg, ls, x, positions)
+        x = _layer_forward(p, cfg, ls, x, positions, enc_out)
     return _norm(cfg, params["final_norm"], x)
 
 
@@ -230,26 +324,31 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Returns logits (B, S, V). Plain PyTorch throughout (no kernel: the
-    attention and the MoE router take their plain versions, the mamba
-    mixer the associative scan, the rwkv time mix the chunked form), in
-    the parameters' dtype: in float64 it is the float64 reference."""
+    """Returns logits (B, S, V), S the patches and the tokens for a vision
+    model. Plain PyTorch throughout (no kernel: the attention and the MoE
+    router take their plain versions, the mamba mixer the associative
+    scan, the rwkv time mix the chunked form), in the parameters' dtype:
+    in float64 it is the float64 reference."""
     return unembed(params, cfg, _backbone(params, cfg, batch))
 
 
 def _kernel_layer(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor,
+                  enc_out: Optional[torch.Tensor] = None,
+                  causal: bool = True) -> torch.Tensor:
     """``_layer_forward`` through the kernels, as prefill runs it, with no
-    decode cache: attention through the flash kernel, the MoE router
-    through its kernel; mamba and rwkv through ``_prefill_layer`` from a
-    zero state (their state is a few rows; the discarded cache costs
-    nothing like attention's KV)."""
+    decode cache: attention (self, the encoder's, cross) through the flash
+    kernel, the MoE router through its kernel; mamba and rwkv through
+    ``_prefill_layer`` from a zero state (their state is a few rows; the
+    discarded cache costs nothing like attention's KV)."""
     if lspec.mixer in ("mamba", "rwkv"):
         cache = _layer_cache(cfg, lspec, x.shape[0], 0, x.dtype, x.device)
         return _prefill_layer(p, cfg, lspec, x, cache, positions)[0]
     h = _norm(cfg, p["norm1"], x)
     x = x + attention.kernel_attention(p["attn"], attn_spec(cfg, lspec), h,
-                                       positions)
+                                       positions, causal=causal)
+    if enc_out is not None:
+        x = _cross(p, cfg, x, positions, enc_out, kernel=True)
     h = _norm(cfg, p["norm2"], x)
     return x + _ffn(p, cfg, lspec, h)
 
@@ -262,7 +361,8 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     gemma3-4b's vocabulary a 2048-token row of them is 2.1 GB). The last
     position, which has no next token, is masked out; a sequence that is
     not a multiple of the chunk, or not longer than it, is one chunk, as
-    in the reference.
+    in the reference. A vision model's patch positions are dropped before
+    the cross-entropy: ``labels`` are the text tokens.
 
     float32 parameters run the layers as ``prefill`` does, through the
     kernels' wrappers (on the card the flash, router, scan and WKV
@@ -273,14 +373,15 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if dtype == torch.float64:
         x = _backbone(params, cfg, batch)
     elif dtype == torch.float32:
-        x, positions = embed_inputs(params, cfg, batch)
+        x, positions, enc_out = embed_inputs(params, cfg, batch, kernel=True)
         for p, ls in zip(params["layers"], cfg.layer_specs(), strict=True):
-            x = _kernel_layer(p, cfg, ls, x, positions)
+            x = _kernel_layer(p, cfg, ls, x, positions, enc_out)
         x = _norm(cfg, params["final_norm"], x)
     else:
         raise TypeError(f"loss_fn: parameters of {dtype}; it takes float32 "
                         "(the kernel path) or float64 (the plain yardstick)")
     labels = batch["labels"]
+    x = x[:, x.shape[1] - labels.shape[1]:]      # vlm: drop the patches
     b, s, _ = x.shape
     labels_next = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
     mask = (torch.arange(s, device=x.device) < s - 1).to(
@@ -316,14 +417,21 @@ def _layer_cache(cfg: ModelConfig, ls: LayerSpec, batch: int, max_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
-    """Decode cache: one entry per layer, in layer order."""
+    """Decode cache: one entry per layer, in layer order; an
+    encoder-decoder's also holds the encoder's output ``enc_out`` (B,
+    encoder_seq, D), which ``prefill`` replaces by the prompt's."""
     check_ported(cfg)
     dev = resolve_device(device)
-    return {"layers": [_layer_cache(cfg, ls, batch, max_len, dtype, dev)
-                       for ls in cfg.layer_specs()]}
+    cache: Dict[str, Any] = {
+        "layers": [_layer_cache(cfg, ls, batch, max_len, dtype, dev)
+                   for ls in cfg.layer_specs()]}
+    if cfg.is_encoder_decoder:
+        cache["enc_out"] = torch.zeros(
+            (batch, cfg.encoder_seq, cfg.d_model), dtype=dtype, device=dev)
+    return cache
 
 
-def _decode_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, pos):
+def _decode_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, pos, enc_out):
     h = _norm(cfg, p["norm1"], x)
     if ls.mixer == "rwkv":
         mix, state = rwkv6.rwkv6_decode(p["rwkv"], rwkv_spec(cfg), h,
@@ -338,6 +446,8 @@ def _decode_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, pos):
                                              h, c["kv"], pos)
         cnew = {"kv": kv}
     x = x + mix
+    if enc_out is not None:
+        x = _cross_decode(p, cfg, x, enc_out)
     h = _norm(cfg, p["norm2"], x)
     if ls.ffn == "rwkv_channel":
         f = _ffn(p, cfg, ls, h, x_prev=c["channel_x_prev"])
@@ -349,18 +459,25 @@ def _decode_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, pos):
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
                 pos: torch.Tensor):
-    """One-token decode. token: (B, 1) int; pos: (B,) absolute position.
+    """One-token decode. token: (B, 1) int; pos: (B,) absolute position,
+    each below ``max_position`` where the positions are learned (the
+    caller checks, ``check_lengths``: here the index runs on the device).
     Returns (logits (B, 1, V), cache), the cache updated in place."""
     x = params["embed"][token]                        # (B,1,D)
+    if cfg.learned_pos:
+        x = x + params["pos_embed"][pos][:, None]
+    enc_out = cache.get("enc_out")
     for i, (p, ls) in enumerate(zip(params["layers"], cfg.layer_specs(),
                                     strict=True)):
         x, cache["layers"][i] = _decode_layer(p, cfg, ls, x,
-                                              cache["layers"][i], pos)
+                                              cache["layers"][i], pos,
+                                              enc_out)
     x = _norm(cfg, params["final_norm"], x)
     return unembed(params, cfg, x), cache
 
 
-def _prefill_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, positions):
+def _prefill_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, positions,
+                   enc_out=None):
     """``_layer_forward`` through the kernels that also fills the layer's
     decode cache (attention's KV slots; mamba's SSM state and conv ring;
     rwkv's WKV state and token shifts)."""
@@ -378,6 +495,8 @@ def _prefill_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, positions):
                                               h, positions, c["kv"])
         cnew = {"kv": kv}
     x = x + mix
+    if enc_out is not None:
+        x = _cross(p, cfg, x, positions, enc_out, kernel=True)
     h = _norm(cfg, p["norm2"], x)
     f = _ffn(p, cfg, ls, h)
     if ls.ffn == "rwkv_channel":
@@ -391,12 +510,26 @@ def _prefill_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, positions):
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             cache: Dict):
     """Prompt prefill: ONE full-sequence forward that writes the decode
-    cache directly. Returns ``(last-position logits (B, V), cache)`` — the
-    logits that predict the first generated token."""
-    x, positions = embed_inputs(params, cfg, batch)
+    cache directly (an encoder-decoder's ``enc_out`` too). Returns
+    ``(last-position logits (B, V), cache)`` — the logits that predict the
+    first generated token."""
+    x, positions, enc_out = embed_inputs(params, cfg, batch, kernel=True)
+    if enc_out is not None:
+        cache["enc_out"] = enc_out.to(cache["enc_out"].dtype)
     for i, (p, ls) in enumerate(zip(params["layers"], cfg.layer_specs(),
                                     strict=True)):
         x, cache["layers"][i] = _prefill_layer(p, cfg, ls, x,
-                                               cache["layers"][i], positions)
+                                               cache["layers"][i], positions,
+                                               enc_out)
     x = _norm(cfg, params["final_norm"], x[:, -1:])
     return unembed(params, cfg, x)[:, 0], cache
+
+
+def _cross_decode(p, cfg: ModelConfig, x, enc_out):
+    """Cross attention for one decode token, plain, as the reference: the
+    encoder's keys and values are projected again at every step (the
+    cache holds only the encoder's output). The query position is 0: cross
+    attention is non-causal and whisper's positions are learned, not
+    rotary, so it is exact."""
+    q_pos = torch.zeros((1,), dtype=torch.long, device=x.device)
+    return _cross(p, cfg, x, q_pos, enc_out, kernel=False)

@@ -1,7 +1,8 @@
 """Batched serving engine: the port of ``repro/serve/engine.py``. One
-full-sequence prefill (attention through the flash kernel; an MoE
-layer's router, a mamba layer's scan and an rwkv layer's WKV recurrence
-through theirs), then a token loop of ``decode_step``.
+full-sequence prefill (attention through the flash kernel, an
+encoder-decoder's encoder and cross attention too; an MoE layer's router,
+a mamba layer's scan and an rwkv layer's WKV recurrence through theirs),
+then a token loop of ``decode_step``.
 
 With ``trace`` the engine writes serve telemetry into the JSONL trace
 layer (``obs.trace``, DESIGN.md §15): a ``prefill`` span and a ``decode``
@@ -93,13 +94,27 @@ class ServeEngine:
         token. Greedy unless ``temperature > 0`` and a ``generator`` is
         given, in which case each token is sampled from
         softmax(logits / temperature) with that generator.
+
+        ``extra_batch`` holds the frontends' inputs. An encoder-decoder
+        (whisper) needs ``frames`` (B, T, D): the encoder runs once in the
+        prefill, and every step attends its output. A vision model's
+        ``patch_embeds`` are dropped, as the reference drops them: its
+        ``decode_step`` embeds tokens only, so its serving never attends
+        the patches, and the prompt's positions start at 0.
         """
-        if extra_batch:
-            raise NotImplementedError(
-                f"batch inputs {sorted(extra_batch)} come with slice 6f "
-                "(the vision and audio frontends)")
+        extra = dict(extra_batch or {})
+        extra.pop("patch_embeds", None)
+        if self.cfg.is_encoder_decoder and extra.get("frames") is None:
+            raise ValueError("encoder-decoder serving needs 'frames'")
+        extra = {k: torch.as_tensor(v, device=self.device, dtype=self.dtype)
+                 for k, v in extra.items()}
         prompts = torch.as_tensor(prompts, device=self.device).long()
         b, s_prompt = prompts.shape
+        frames = extra.get("frames")
+        # the last step feeds position s_prompt + new_tokens − 2 back
+        transformer.check_lengths(self.cfg, s_prompt + new_tokens - 1,
+                                  None if frames is None else
+                                  frames.shape[1])
         cache = transformer.init_cache(
             self.cfg, b, max(self.max_len, s_prompt + new_tokens),
             self.dtype, self.device)
@@ -116,7 +131,8 @@ class ServeEngine:
             m0 = self._mark()
             with tr.span("prefill", batch=b, prompt_tokens=b * s_prompt):
                 last_logits, cache = transformer.prefill(
-                    self.params, self.cfg, {"tokens": prompts}, cache)
+                    self.params, self.cfg, {"tokens": prompts, **extra},
+                    cache)
                 token = pick(last_logits)
             m1 = self._mark()
             out = [token]

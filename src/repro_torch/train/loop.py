@@ -398,8 +398,10 @@ def lm_step_inputs(cfg: ModelConfig, tc: TrainConfig, it: int,
                    seq_len: int = 128, per_agent_batch: int = 1, *,
                    device: Union[str, torch.device] = "cuda"):
     """Iteration ``it``'s ``(batch, draws)`` in ``train_lm_netes``: the
-    batch's leaves (N, per_agent_batch, seq_len) from a generator seeded
-    with ``batch_seed(stream_seed(tc.seed, LM_BATCH), it)``, the draws
+    batch's leaves (N, per_agent_batch, ...) — tokens of ``seq_len``, or
+    of ``seq_len − num_patches`` beside a vision model's patches, and an
+    encoder-decoder's frames — from a generator seeded with
+    ``batch_seed(stream_seed(tc.seed, LM_BATCH), it)``, the draws
     ``netes_dist.draw(stream_seed(tc.seed, LM_STEP), it)``."""
     dev = resolve_device(device)
     n = tc.n_agents
@@ -407,7 +409,7 @@ def lm_step_inputs(cfg: ModelConfig, tc: TrainConfig, it: int,
         batch_seed(es_utils.stream_seed(tc.seed, LM_BATCH), it))
     batch = make_batch(cfg, dict(seq_len=seq_len,
                                  global_batch=n * per_agent_batch), gen)
-    batch = {k: v.reshape(n, per_agent_batch, seq_len)
+    batch = {k: v.reshape((n, per_agent_batch) + v.shape[1:])
              for k, v in batch.items()}
     return batch, netes_dist.draw(es_utils.stream_seed(tc.seed, LM_STEP),
                                   it, dev)

@@ -28,7 +28,11 @@ netes_dist``) and ``loss_fn`` of gemma3-4b-smoke and moonshot-v1-16b-a3b-
 smoke at N = 4 agents with 64-token sequences (see ``dump_netes``), and
 ``llama4`` the chunked qk-norm attention pieces, the MoE layer at E = 16
 and 128 with top-1, and the llama4 smoke models and 48-layer models of
-their patterns at tiny widths (see ``dump_llama4``).
+their patterns at tiny widths (see ``dump_llama4``), and ``frontends``
+cross and non-causal attention pieces, whisper-tiny-smoke with the
+frontend's frames and llava-next-mistral-7b-smoke with its patches (see
+``dump_frontends``). The ``netes`` part's archs include
+whisper-tiny-smoke, whose batches carry the reference's frames.
 Everything is drawn from fixed seeds: the weights
 with the reference's own inits (mistral-nemo-12b-smoke at 2 layers,
 unrolled, and at 4 layers, scanned; moonshot-v1-16b-a3b-smoke at 2
@@ -70,22 +74,27 @@ def flatten(tree, prefix):
 
 
 def dump_model(out, transformer, ServeEngine, cfg, p, key, rng,
-               prompt=PROMPT, fwd_len=FWD_LEN, max_len=MAX_LEN):
+               prompt=PROMPT, fwd_len=FWD_LEN, max_len=MAX_LEN, extra=None):
     """``cfg``'s weights from ``PRNGKey(key)`` and its outputs under the
     keys ``p/...``: forward, prefill with its cache, 4 teacher-forced
-    decode steps with the cache after them, greedy ``generate``."""
+    decode steps with the cache after them, greedy ``generate``. The
+    frontends' inputs ``extra`` go into the forward and ``generate``, and
+    into the prefill but for ``patch_embeds``, which the reference's
+    serving drops."""
     v = cfg.vocab_size
+    extra = extra or {}
+    served = {k: a for k, a in extra.items() if k != "patch_embeds"}
     params = transformer.init_params(jax.random.PRNGKey(key), cfg,
                                      jnp.float32)
     out.update(flatten(params, f"{p}/params"))
     tokens = rng.integers(0, v, (B, fwd_len)).astype(np.int32)
     out[f"{p}/forward_tokens"] = tokens
     out[f"{p}/forward_logits"] = transformer.forward(
-        params, cfg, {"tokens": tokens})
+        params, cfg, {"tokens": tokens, **extra})
     prompts = rng.integers(0, v, (B, prompt)).astype(np.int32)
     cache = transformer.init_cache(cfg, B, max_len, jnp.float32)
-    last, cache = transformer.prefill(params, cfg, {"tokens": prompts},
-                                      cache)
+    last, cache = transformer.prefill(params, cfg,
+                                      {"tokens": prompts, **served}, cache)
     out.update({f"{p}/prompts": prompts, f"{p}/prefill_logits": last})
     out.update(flatten(cache, f"{p}/prefill_cache"))
     steps = rng.integers(0, v, (B, STEPS)).astype(np.int32)
@@ -100,7 +109,8 @@ def dump_model(out, transformer, ServeEngine, cfg, p, key, rng,
     out.update(flatten(cache, f"{p}/decode_cache"))
     engine = ServeEngine(cfg, params, max_len=max_len)
     out[f"{p}/generate_tokens"] = engine.generate(jnp.asarray(prompts),
-                                                  new_tokens=NEW)
+                                                  new_tokens=NEW,
+                                                  extra_batch=extra)
     return params
 
 
@@ -124,6 +134,9 @@ def main(path, part="lm"):
     if part == "llama4":
         np.savez(path, **dump_llama4(attention, moe, transformer,
                                      ServeEngine))
+        return
+    if part == "frontends":
+        np.savez(path, **dump_frontends(attention, transformer, ServeEngine))
         return
     smoke = get_config("mistral-nemo-12b-smoke")
     rng = np.random.default_rng(0)
@@ -443,7 +456,8 @@ def dump_gemma(attention, transformer, ServeEngine):
 # the replica step: N agents, one 64-token sequence each, 3 steps; the
 # NetES constants; the run's three modes (family, representation, channel)
 NETES_N, NETES_SEQ, NETES_STEPS = 4, 64, 3
-NETES_ARCHS = ("gemma3-4b-smoke", "moonshot-v1-16b-a3b-smoke")
+NETES_ARCHS = ("gemma3-4b-smoke", "moonshot-v1-16b-a3b-smoke",
+               "whisper-tiny-smoke")
 NETES_CFG = dict(alpha=0.01, sigma=0.02, p_broadcast=0.5,
                  weight_decay=0.005)
 NETES_CHANNEL = "quantize(bits=8)|dropout(p=0.1,seed=0)"
@@ -514,6 +528,8 @@ def dump_netes(transformer):
             b = jax.tree.map(lambda x: x.reshape((n, 1) + x.shape[1:]), b)
             batches.append(b)
             out[f"{arch}/tokens{t}"] = b["tokens"]
+            if "frames" in b:
+                out[f"{arch}/frames{t}"] = b["frames"]
             k_agents, k_beta = jax.random.split(key)
             out[f"{arch}/beta{t}"] = jax.random.uniform(k_beta)
             for i in range(n):
@@ -644,6 +660,66 @@ def dump_llama4(attention, moe, transformer, ServeEngine):
         dump_model(out, transformer, ServeEngine, tiny, name, 848 + i,
                    model_rng, prompt=LLAMA_TINY_PROMPT,
                    fwd_len=LLAMA_TINY_PROMPT, max_len=LLAMA_TINY_MAX_LEN)
+    return {key: np.asarray(a) for key, a in out.items()}
+
+
+# the frontends part: cross attention (Sq 10 over 24 keys) and non-causal
+# self attention pieces of whisper-tiny-smoke's widths (4 heads of 32, no
+# RoPE) and of llava-next-mistral-7b-smoke's (4/2 heads of 64, RoPE);
+# whisper-tiny-smoke with 64 frames (its encoder_seq) at 2 decoder layers
+# (unrolled) and 4 (scanned as plan (0, 1, 4, 0)); llava-next-mistral-7b-
+# smoke with 16 patches, its forward and generate with the patches (which
+# the reference's serving drops), and its loss_fn over the patches and 10
+# tokens (one chunk) and 32 tokens (chunks of 16)
+CROSS_SQ, CROSS_SK = 10, 24
+FRONT_ARCHS = {"whisper": "whisper-tiny-smoke",
+               "llava": "llava-next-mistral-7b-smoke"}
+WHISPER_LAYERS = (2, 4)
+LLAVA_LOSS_LENS, LLAVA_XENT_CHUNK = (10, 32), 16
+
+
+def dump_frontends(attention, transformer, ServeEngine):
+    from repro.configs import LayerSpec
+    rng = np.random.default_rng(12)
+    out = {}
+
+    def normal(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    for name, arch in FRONT_ARCHS.items():
+        cfg = get_config(arch)
+        d = cfg.d_model
+        spec = transformer.attn_spec(cfg, LayerSpec("attn_full", "swiglu"))
+        params = attention.attn_init(jax.random.PRNGKey(900 + len(name)), d,
+                                     spec, jnp.float32)
+        out.update(flatten(params, f"attn_{name}/params"))
+        x, kv = normal(B, CROSS_SQ, d), normal(B, CROSS_SK, d)
+        out.update({f"attn_{name}/x": x, f"attn_{name}/kv_x": kv})
+        out[f"attn_{name}/cross"] = attention.attention_block(
+            params, spec, x, jnp.arange(CROSS_SQ), kv_x=kv,
+            kv_positions=jnp.arange(CROSS_SK), causal=False)
+        out[f"attn_{name}/noncausal"] = attention.attention_block(
+            params, spec, kv, jnp.arange(CROSS_SK), causal=False)
+
+    whisper = get_config(FRONT_ARCHS["whisper"])
+    for n_layers in WHISPER_LAYERS:
+        cfg = dataclasses.replace(whisper, num_layers=n_layers)
+        frames = normal(B, cfg.encoder_seq, cfg.d_model, scale=0.02)
+        out[f"whisper{n_layers}/frames"] = frames
+        dump_model(out, transformer, ServeEngine, cfg, f"whisper{n_layers}",
+                   950 + n_layers, rng, extra={"frames": frames})
+
+    llava = get_config(FRONT_ARCHS["llava"])
+    patches = normal(B, llava.num_patches, llava.d_model, scale=0.02)
+    out["llava/patch_embeds"] = patches
+    params = dump_model(out, transformer, ServeEngine, llava, "llava", 960,
+                        rng, extra={"patch_embeds": patches})
+    for s in LLAVA_LOSS_LENS:
+        tokens = rng.integers(0, llava.vocab_size, (B, s)).astype(np.int32)
+        batch = {"tokens": tokens, "labels": tokens, "patch_embeds": patches}
+        out[f"llava/loss{s}_tokens"] = tokens
+        out[f"llava/loss{s}"] = transformer.loss_fn(
+            params, llava, batch, xent_chunk=LLAVA_XENT_CHUNK)
     return {key: np.asarray(a) for key, a in out.items()}
 
 

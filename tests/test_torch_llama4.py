@@ -194,8 +194,8 @@ def test_config_equals_reference(name):
 
 
 def test_unported_holds_only_the_frontends_and_the_paper_policy():
-    assert set(UNPORTED) == {"llava-next-mistral-7b", "whisper-tiny",
-                             "paper-mlp"}
+    """Since the frontends' slice, only the paper's NetES policy."""
+    assert set(UNPORTED) == {"paper-mlp"}
 
 
 @pytest.mark.parametrize("name,params,moe_layers", [

@@ -5,10 +5,11 @@ launcher) against the JAX reference's replica step.
 ``repro.distributed.netes_dist`` imports ``repro.models``, which does not
 import in this process (ROADMAP queue 3, item a), so a session fixture
 runs the ``netes`` part of ``tests/_torch_lm_ref.py`` once in a
-subprocess: for gemma3-4b-smoke and moonshot-v1-16b-a3b-smoke (a dense
-layer, then an MoE layer of 4 experts, top-2) at N = 4 agents, one
-64-token sequence each, the reference's own draws of 3 steps (the
-batches, ε of every agent and leaf, per stacked slice as its noise
+subprocess: for gemma3-4b-smoke, moonshot-v1-16b-a3b-smoke (a dense
+layer, then an MoE layer of 4 experts, top-2) and whisper-tiny-smoke (the
+encoder-decoder, each agent's sequence beside its 64 frames) at N = 4
+agents, one 64-token sequence each, the reference's own draws of 3 steps
+(the batches, ε of every agent and leaf, per stacked slice as its noise
 contract folds it, β and the channel's dropout masks), its ``loss_fn``,
 and its parameters after 1 and 3 steps on fully connected (dense), on
 Erdős–Rényi p = 0.5 (sparse) and through channel (a)
@@ -140,8 +141,12 @@ class RefNoise:
 
 
 def batch_of(ref, arch, t):
+    """Step t's batch: tokens, and for whisper the reference's frames."""
     tokens = torch.as_tensor(ref[f"{arch}/tokens{t}"])
-    return {"tokens": tokens, "labels": tokens}
+    batch = {"tokens": tokens, "labels": tokens}
+    if f"{arch}/frames{t}" in ref.files:
+        batch["frames"] = torch.as_tensor(ref[f"{arch}/frames{t}"])
+    return batch
 
 
 def topology_of(ref, arch, mode):

@@ -451,10 +451,14 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.search.candidates",
             "repro_torch.search.tournament", "repro_torch.data",
             "repro_torch.data.synthetic", "repro_torch.distributed",
-            "repro_torch.distributed.netes_dist"} <= set(mods)
+            "repro_torch.distributed.netes_dist",
+            "repro_torch.models.frontends", "repro_torch.optim",
+            "repro_torch.optim.adam", "repro_torch.optim.sgd",
+            "repro_torch.configs.whisper_tiny",
+            "repro_torch.configs.llava_next_mistral_7b"} <= set(mods)
 
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s+import\b))", re.MULTILINE)
     for path in [*pkg.rglob("*.py"), SRC.parent / "chip_smoke.py",
-                 SRC.parent / "examples" / "quickstart_torch.py"]:
+                 *(SRC.parent / "examples").glob("*_torch.py")]:
         assert not pattern.search(path.read_text()), path
