@@ -152,6 +152,32 @@ Phases, each printing one JSON line per case:
    ``search_timing``: one iteration of the sparse cohort (S = 2) against 2
    sequential ``netes_step``s, 10 pairs in turns, CUDA events and the
    host clock.
+5f. ``kernel_shard`` — the receiver ≠ sender (R × S) instances of the
+   three Eq. 3 kernels (``netes_mixing_rs``, ``netes_sparse_mixing_rs``,
+   ``fused_neighbor_sum_rs``; the sharded fleet's per-shard contraction)
+   at the operands of shards 0 and 3 of a 4-way ``make_comm_plan`` of N =
+   1000, D = 4481 (ER p = 0.1 for the sparse pair, q8 codes for the fused
+   one; ER p = 0.5 dense) and shard 0 of an 8-way plan of N = 16,384 (ER
+   p = 0.0005): each shard's rows, from the buffer its halo rounds
+   deliver, equal to the world-size-1 rows and to the plain version bit
+   for bit, within ``TOL_REL``·S of float64, the same bits on two
+   launches; time, plain and library times, bound and grid
+   (``SHARD_KERNEL_CASES``). Run with the kernel phases.
+5g. ``shard`` (after ``parity``) — ``launch/train.py rl --shards 1``
+   through NCCL (a world of one) on pendulum at N = 1000, ``SHARD_RUNS``:
+   ER p = 0.1 (halo), ER through q8 (halo, the fused instance), FC
+   (dense), channel (a) and schedule s-a (replicated). Each run's
+   kernels counted (its R × S instance once a step, the square kernels
+   never); its history and last
+   checkpoint (θ, best θ, best reward) equal bit for bit to the
+   ``mesh=None`` engine's from the same seed; a sharded step's host-clock
+   ms beside ``netes_step``'s; one step of each under
+   ``set_sync_debug_mode("error")`` (a wait is named, and fails unless it
+   is inside a ``torch.distributed`` collective).
+5h. ``shard_scale`` — N = 16,384, ER p = 0.0005, 2 iterations of
+   ``--shards 1``: the wall, a step's ms and the peak device memory; the
+   8-way plans' ``collective_bytes`` at D = 4481: ER's halo below FC's
+   gather, q8 a quarter of ER's float32 payload.
 6. ``parity``  — one NetES step at N = 64 on the GPU and on the CPU from the
    same parameters and draws must agree, without and with a channel (whose
    dropout masks, drawn on each device, must be equal).
@@ -322,7 +348,10 @@ captured step; ``launches_search``: each tournament's; the flash row's
 ``llava_loss`` times; the router row's ``launches_llama4`` (each run of
 scout and maverick) and ``llama4_cases``;
 ``launches_lm_netes``: a step of each ``lm_netes`` case; ``lm_shapes``:
-the times at the LM step's shapes), the
+the times at the LM step's shapes; ``launches_shard``: each ``shard`` and
+``shard_scale`` run's launches of the row's R × S instance (the select's
+own); rows 1–3's ``rs`` and ``rs_cases``: the R × S instance's numbers
+from ``kernel_shard``), the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -1665,6 +1694,9 @@ def _counters():
     return {"netes_mixing": nm.KERNEL, "netes_sparse_mixing": nsm.KERNEL,
             "fused_neighbor_sum": nfm.NEIGHBOR_SUM,
             "fused_broadcast_select": nfm.BROADCAST_SELECT,
+            "netes_mixing_rs": nm.KERNEL_RS,
+            "netes_sparse_mixing_rs": nsm.KERNEL_RS,
+            "fused_neighbor_sum_rs": nfm.NEIGHBOR_SUM_RS,
             "flash_attention": fa.KERNEL, "moe_topk": mr.KERNEL,
             "rwkv6_wkv": rw.KERNEL, "mamba_scan": ms.KERNEL}
 
@@ -4858,6 +4890,438 @@ def lm_netes_cpu_parity_phase() -> None:
               "tol": TOL_SMOKE, "metrics": metrics})
 
 
+# ---------------------------------------------------------------------------
+# the sharded fleet (distributed/fleet_shard.py): its kernels, its runs
+# ---------------------------------------------------------------------------
+
+SHARD_D = 4481             # the pendulum policy's parameters
+# (label, density, N, shards of the plan, the shards held, kernels)
+SHARD_KERNEL_CASES = (
+    ("er_4way", MAIN_P_ER, MAIN_N, 4, (0, 3),
+     ("netes_sparse_mixing", "fused_neighbor_sum")),
+    ("er_dense_4way", 0.5, MAIN_N, 4, (0, 3), ("netes_mixing",)),
+    ("er16k_8way", 0.0005, 16384, 8, (0,),
+     ("netes_sparse_mixing", "fused_neighbor_sum")),
+)
+RS_KERNEL_OF = {"netes_mixing": "dense", "netes_sparse_mixing": "sparse",
+                "fused_neighbor_sum": "sparse"}
+
+
+def _rs_call(kname, plan, s, w, x, codes, scale, theta):
+    """The R × S instance ``kname`` and its plain version on shard s of
+    ``plan``: its rows of the plan's operands, and the buffer the halo
+    rounds deliver to it (the payload rows at the shard's ``gid_buf``);
+    a dense plan reads all N senders. Returns (kernel, plain, args, the
+    dense float64 (R, S) weights, the sender rows, R, lo)."""
+    import torch
+
+    from repro_torch.kernels import netes_fused_mixing as nfm
+    from repro_torch.kernels import netes_mixing as nm
+    from repro_torch.kernels import netes_sparse_mixing as nsm
+    from repro_torch.kernels import ref
+    n, n_loc = plan.n, plan.n_loc
+    lo = s * n_loc
+    r = min(n_loc, n - lo)
+    rows = slice(lo, lo + r)
+    dev = theta.device
+    op = {k: torch.as_tensor(v, device=dev) for k, v in plan.operands.items()}
+    th = theta[rows].contiguous()
+    if kname == "netes_mixing":
+        adjb = op["adj_block"][rows].contiguous()
+        args = (adjb, w, x, th)
+        a64 = adjb.double() * w.double()[None, :]
+        return nm.netes_mixing_rs, ref.netes_mixing_rs_ref, args, a64, x, r, lo
+    pad = plan.n_pad - n
+    gid = op["gid_buf"][s].long()
+    coeff = torch.cat([w, w.new_zeros(pad)])[gid].contiguous()
+    ridx = op["remap_idx"][rows].contiguous()
+    rmask = op["remap_mask"][rows].contiguous()
+    a64 = torch.zeros(r, gid.numel(), dtype=torch.float64, device=dev)
+    a64.index_put_((torch.arange(r, device=dev).repeat_interleave(
+        ridx.shape[1]), ridx.reshape(-1).long()),
+        (rmask * coeff[ridx.long()]).reshape(-1).double(), accumulate=True)
+    if kname == "fused_neighbor_sum":
+        bc = torch.cat([codes, codes.new_zeros(pad, codes.shape[1])])[gid]
+        bs = torch.cat([scale, scale.new_zeros(pad, 1)])[gid]
+        args = (ridx, rmask, coeff, bc.contiguous(), bs.contiguous(), th)
+        senders = bc.double() * bs.double()
+        return (nfm.fused_neighbor_sum_rs, ref.fused_neighbor_sum_rs_ref,
+                args, a64, senders, r, lo)
+    buf = torch.cat([x, x.new_zeros(pad, x.shape[1])])[gid].contiguous()
+    args = (ridx, rmask, coeff, buf, th)
+    return (nsm.netes_sparse_mixing_rs, ref.sparse_mixing_rs_ref, args, a64,
+            buf, r, lo)
+
+
+def _rs_f64_check(name, out, a64, senders, theta) -> float:
+    """|out − exact| ≤ TOL_REL·S elementwise, exact = A·x − (A·1)·θ in
+    float64 and S = |A|·|x| + |A·1|·|θ|. Returns the worst |err|/S."""
+    senders = senders.double()
+    ws = a64.sum(dim=1, keepdim=True)
+    th64 = theta.double()
+    exact = a64 @ senders - ws * th64
+    scale = a64.abs() @ senders.abs() + ws.abs() * th64.abs()
+    err = (out.double() - exact).abs()
+    check(((err - TOL_REL * scale).max() <= 0).item(),
+          f"{name}: error above {TOL_REL}·S (worst |err|/S = "
+          f"{(err / scale.clamp_min(1e-30)).max().item():.3g})")
+    return (err / scale.clamp_min(1e-30)).max().item()
+
+
+def kernel_shard_phase(results: dict) -> None:
+    """The receiver ≠ sender instances of the three Eq. 3 kernels at the
+    operands of shards of a ``fleet_shard.make_comm_plan`` (``
+    SHARD_KERNEL_CASES``): each shard's rows, computed from the buffer its
+    halo rounds deliver (the plain version bit for bit, within TOL_REL·S
+    of float64, the same bits on two launches), must equal the rows of the
+    world-size-1 plan bit for bit. Times, bounds, grids."""
+    import torch
+
+    from repro_torch.core import wire_format
+    from repro_torch.core.topology_repr import from_dense
+    from repro_torch.distributed import fleet_shard
+
+    for label, dens, n, n_dev, shards, knames in SHARD_KERNEL_CASES:
+        rep = "dense" if knames == ("netes_mixing",) else "sparse"
+        topo = from_dense(_graph(n, "erdos_renyi", dens, seed=0), rep,
+                          device="cuda")
+        theta, eps, w = _operands(n, SHARD_D, seed=n + n_dev)
+        x = theta + 0.1 * eps
+        wp = wire_format.encode(x, 8, batched=True)
+        plans = {1: fleet_shard.make_comm_plan(topo, 1),
+                 n_dev: fleet_shard.make_comm_plan(topo, n_dev)}
+        for kname in knames:
+            kernel, _, args1, _, _, _, _ = _rs_call(
+                kname, plans[1], 0, w, x, wp.codes, wp.scale, theta)
+            whole = kernel(*args1)
+            for s in shards:
+                kernel, plain, args, a64, senders, r, lo = _rs_call(
+                    kname, plans[n_dev], s, w, x, wp.codes, wp.scale, theta)
+                name = f"{kname}_rs/{label}/shard{s}"
+                out = kernel(*args)
+                check(torch.equal(kernel(*args), out),
+                      f"{name}: two launches differ")
+                check(torch.equal(out, whole[lo:lo + r]),
+                      f"{name}: rows differ from the world-size-1 rows")
+                out_p = plain(*args)
+                max_abs = (out - out_p).abs().max().item()
+                check(max_abs == 0.0, f"{name}: differs from its plain "
+                      f"version by {max_abs}")
+                rel = _rs_f64_check(name, out, a64, senders, args[-1])
+                n_send = senders.shape[0]
+                nnz = int(torch.count_nonzero(a64).item())
+                d = SHARD_D
+                if kname == "netes_mixing":
+                    flops = 2.0 * r * n_send * d + 2.0 * r * d
+                    moved = 4.0 * (r * n_send + n_send + n_send * d
+                                   + 2 * r * d)
+                    grid = [-(-d // 64), -(-r // 64)]
+                    lib_w = (args[0] * w[None, :])
+                    lib = functools.partial(torch.matmul, lib_w, x)
+                    lib_name = MATMUL
+                else:
+                    k = args[0].shape[1]
+                    flops = 2.0 * nnz * d + 2.0 * r * d
+                    elem = 1 if kname == "fused_neighbor_sum" else 4
+                    moved = (elem * n_send * d + 8.0 * n_send + 8.0 * r * k
+                             + 8.0 * r * d)
+                    if kname == "fused_neighbor_sum":
+                        flops += n_send * d       # each sender decoded once
+                    grid = [r, -(-d // 1024)]
+                    if kname == "fused_neighbor_sum":
+                        lib_w = (a64 * args[4].double().reshape(1, -1)).float()
+                        lib_x = args[3].float()
+                    else:
+                        lib_w, lib_x = a64.float(), args[3]
+                    lib = functools.partial(torch.sparse.mm,
+                                            lib_w.to_sparse_csr(), lib_x)
+                    lib_name = "torch.sparse.mm (CSR)"
+                t_ops, t_bytes = flops / F32_FLOPS, moved / HBM_BYTES_PER_S
+                row = {"phase": "kernel_shard", "name": kname,
+                       "case": label, "n": n, "n_dev": n_dev, "shard": s,
+                       "receivers": r, "senders": n_send, "d": d,
+                       "nnz": nnz, "grid": grid, "max_abs_err": max_abs,
+                       "max_err_over_S": rel, "tol_over_S": TOL_REL,
+                       "equals_world_size_1_rows": True,
+                       **time_stats(functools.partial(kernel, *args)),
+                       "plain_ms": time_ms(functools.partial(plain, *args),
+                                           warmup=1, iters=5),
+                       "library": lib_name, "library_ms": time_ms(lib),
+                       "bound_ms": 1e3 * max(t_ops, t_bytes),
+                       "bound_by": ("operations" if t_ops >= t_bytes
+                                    else "bytes"),
+                       "gflop": flops / 1e9, "mbytes": moved / 1e6}
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
+                emit(row)
+                if s == 0 and label != "er16k_8way":
+                    results[kname + "_rs"] = row
+                else:
+                    results.setdefault(kname + "_rs_cases", []).append(
+                        {key: row[key] for key in (
+                            "case", "shard", "receivers", "senders", "ms",
+                            "bound_ms", "plain_ms", "library_ms",
+                            "max_abs_err", "max_err_over_S")})
+                del out, out_p, args, a64, senders
+            del whole, args1
+        del topo, theta, eps, x, wp, plans
+        torch.cuda.empty_cache()
+
+
+# (run, family, density, channel, schedule, the plan's mode, kernels that
+# launch once a step)
+SHARD_RUNS = (
+    ("er", "erdos_renyi", MAIN_P_ER, None, None, "halo",
+     ("netes_sparse_mixing_rs",)),
+    ("er_q8", "erdos_renyi", MAIN_P_ER, "quantize(bits=8)", None, "halo",
+     ("fused_neighbor_sum_rs", "fused_broadcast_select")),
+    ("fc", "fully_connected", 1.0, None, None, "dense", ("netes_mixing_rs",)),
+    ("a", "erdos_renyi", MAIN_P_ER, CHANNEL_RUNS[0][3], None, "replicated",
+     ("fused_neighbor_sum_rs", "fused_broadcast_select")),
+    ("s-a", "erdos_renyi", MAIN_P_ER, None, SCHEDULE_RUNS[0][3], "replicated",
+     ("netes_sparse_mixing_rs",)),
+)
+SHARD_SCALE_N, SHARD_SCALE_P, SHARD_SCALE_ITERS = 16384, 0.0005, 2
+SHARD_SCALE_DEVICES = 8       # the plans whose collective bytes are printed
+
+
+def _shard_argv(family, dens, channel, schedule, n, iters, ckpt, out):
+    argv = ["rl", "--task", "pendulum", "--agents", str(n), "--iters",
+            str(iters), "--topology", family, "--density", str(dens),
+            "--seed", "0", "--shards", "1", "--checkpoint-dir", str(ckpt),
+            "--out", str(out)]
+    if channel is not None:
+        argv += ["--channel", channel]
+    if schedule is not None:
+        argv += ["--schedule", schedule]
+    return argv
+
+
+def _sync_check(label: str, step) -> dict:
+    """One step under ``set_sync_debug_mode("error")``. A wait for the
+    card raises; the frames of the call that waited are named, and the
+    check fails unless it sits inside ``torch.distributed`` (a collective
+    that itself waits for the host)."""
+    import traceback
+
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+        synced = None
+    except RuntimeError as err:
+        frames = traceback.extract_tb(err.__traceback__)
+        synced = {"error": str(err)[:300],
+                  "frames": [f"{f.filename.split('/')[-1]}:{f.lineno} "
+                             f"{f.name}" for f in frames[-6:]]}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if synced is not None:
+        in_collective = any("distributed" in f for f in synced["frames"])
+        check(in_collective, f"shard {label}: the step waits for the card "
+              f"outside a collective: {synced}")
+    return {"label": label, "synced": synced}
+
+
+def shard_phase(launches_shard: dict) -> None:
+    """``launch/train.py rl --shards 1`` on pendulum at N = 1000 through
+    NCCL (a world of one), ``SHARD_RUNS``: each run's kernels counted
+    (the R × S instances once a step, the square ones never), its
+    history and its last checkpoint's state equal bit for bit to the
+    ``mesh=None`` engine's from the same seed; step times of the sharded
+    engine beside ``netes_step``'s; one step of each under the sync
+    check."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import netes
+    from repro_torch.distributed import fleet_shard
+    from repro_torch.envs import resolve_task
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.loop import (build_channel, build_schedule,
+                                        build_topology)
+
+    mesh = fleet_shard.build_mesh(1, device="cuda")
+    check(mesh.device.type == "cuda" and torch.distributed.get_backend()
+          == "nccl", f"shard: the mesh is not NCCL on the card: {mesh}")
+    reward_fn, dim, init_fn, _, _ = resolve_task("pendulum")
+    synced = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for run, family, dens, channel, text, mode, kernels in SHARD_RUNS:
+                ck, out = pathlib.Path(tmp) / run, pathlib.Path(tmp) / (
+                    run + ".json")
+                counters = _counters()
+                for k in counters.values():
+                    k.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                launch_train.main(_shard_argv(family, dens, channel, text,
+                                              MAIN_N, MAIN_ITERS, ck, out))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = {name: k.launches for name, k in counters.items()}
+                for name in kernels:
+                    check(counts[name] == MAIN_ITERS, f"shard {run}: {name} "
+                          f"launched {counts[name]} times, not once a step")
+                for name in EQ3_KERNELS[:3]:
+                    check(counts[name] == 0, f"shard {run}: the square "
+                          f"{name} launched on the sharded path")
+                launches_shard[run] = {k: v for k, v in counts.items() if v}
+                hist = json.loads(out.read_text())["history"]
+
+                # the mesh=None engine from the same seed
+                tc = _schedule_config(family, dens, text, channel)
+                ch, sched = build_channel(tc), build_schedule(tc)
+                topo = None if sched is not None else build_topology(
+                    tc, device="cuda")
+                state = netes.init_state(MAIN_N, dim, seed=0,
+                                         init_fn=init_fn, device="cuda")
+                solo = fleet_shard.ShardedNetES(
+                    topo, reward_fn, tc.netes, channel=ch, schedule=sched)
+                check(solo.plan.mode == mode,
+                      f"shard {run}: plan mode {solo.plan.mode}")
+                res = solo.run(state, MAIN_ITERS,
+                               chan_state=None if ch is None
+                               else ch.init(state.thetas),
+                               sched_state=None if sched is None
+                               else sched.init(device="cuda"))
+                metrics = res[-1]
+                for key in ("reward_mean", "reward_max"):
+                    check(hist[key] == metrics[key].double().tolist(),
+                          f"shard {run}: {key} differs from the mesh=None "
+                          "engine's")
+                if ch is not None:
+                    check(hist["msgs"] == metrics["msgs"].double().tolist(),
+                          f"shard {run}: msgs differ")
+                with np.load(ck / f"step_{MAIN_ITERS - 1:08d}.npz") as saved:
+                    for leaf in ("thetas", "best_theta", "best_reward"):
+                        check(np.array_equal(
+                            saved[f"netes::.{leaf}"],
+                            getattr(res[0], leaf).cpu().numpy()),
+                              f"shard {run}: saved {leaf} differs from the "
+                              "mesh=None engine's")
+
+                # step times: the sharded engine (world of one) and
+                # netes_step, from one state
+                sharded = fleet_shard.ShardedNetES(
+                    topo, reward_fn, tc.netes, mesh=mesh, channel=ch,
+                    schedule=sched)
+                st = netes.init_state(MAIN_N, dim, seed=1, init_fn=init_fn,
+                                      device="cuda")
+                cs0 = None if ch is None else ch.init(st.thetas)
+                ss0 = None if sched is None else sched.init(device="cuda")
+
+                def sharded_step():
+                    sharded.run(st, 1, chan_state=cs0, sched_state=ss0)
+
+                def plain_step():
+                    kw = dict(channel=ch, chan_state=cs0)
+                    if sched is None:
+                        netes.netes_step(st, topo, reward_fn, tc.netes, **kw)
+                    else:
+                        netes.scheduled_step(st, ss0, reward_fn, tc.netes,
+                                             sched, **kw)
+
+                step_ms = 1e3 * _host_time(sharded_step, 3)
+                plain_ms = 1e3 * _host_time(plain_step, 3)
+                synced.append(_sync_check(run, sharded_step))
+                emit({"phase": "shard", "run": run, "family": family,
+                      "density": dens, "channel": channel, "schedule": text,
+                      "mode": mode, "n_agents": MAIN_N, "iters": MAIN_ITERS,
+                      "backend": torch.distributed.get_backend(),
+                      "world_size": mesh.world_size, "wall_s": wall,
+                      "step_ms": step_ms, "netes_step_ms": plain_ms,
+                      "launches": launches_shard[run],
+                      "equals_mesh_none_engine": True,
+                      "reward_mean": hist["reward_mean"],
+                      "eval": hist["eval"]})
+        emit({"phase": "shard_no_sync", "steps": synced})
+    finally:
+        mesh.close()
+
+
+def shard_scale_phase(launches_shard: dict) -> None:
+    """N = 16,384 on pendulum at ER p = 0.0005 (``--shards 1``, NCCL, 2
+    iterations): the wall, a step's ms and the peak device memory; and the
+    8-way plans' ``collective_bytes`` at D = 4481: ER's halo below FC's
+    gather, q8 about a quarter of ER's float32 payload."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.comm.channel import compile_channel
+    from repro_torch.core import netes
+    from repro_torch.core.netes import NetESConfig
+    from repro_torch.distributed import fleet_shard
+    from repro_torch.envs import resolve_task
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.loop import build_topology
+
+    n, p = SHARD_SCALE_N, SHARD_SCALE_P
+    reward_fn, dim, init_fn, _, _ = resolve_task("pendulum")
+    mesh = fleet_shard.build_mesh(1, device="cuda")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            counters = _counters()
+            for k in counters.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            launch_train.main(_shard_argv(
+                "erdos_renyi", p, None, None, n, SHARD_SCALE_ITERS,
+                pathlib.Path(tmp) / "ck", pathlib.Path(tmp) / "h.json"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            counts = {name: k.launches for name, k in counters.items() if
+                      k.launches}
+            check(counts.get("netes_sparse_mixing_rs") == SHARD_SCALE_ITERS,
+                  f"shard_scale: launches {counts}")
+            launches_shard["scale_16k"] = counts
+            hist = json.loads((pathlib.Path(tmp) / "h.json").read_text())[
+                "history"]
+        cfg = NetESConfig(alpha=0.05, sigma=0.1)
+        tc = _schedule_config("erdos_renyi", p, None, None, n_agents=n,
+                              topology=None, density=p)
+        topo = build_topology(tc, device="cuda")
+        eng = fleet_shard.ShardedNetES(topo, reward_fn, cfg, mesh=mesh)
+        state = netes.init_state(n, dim, seed=1, init_fn=init_fn,
+                                 device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = 1e3 * _host_time(lambda: eng.run(state, 1), 2)
+        step_peak = torch.cuda.max_memory_allocated()
+    finally:
+        mesh.close()
+    plans = {}
+    q8 = compile_channel("quantize(bits=8)", n)
+    for label, tp, ch in (("er", topo, None),
+                          ("fc", fleet_shard.FullyConnected(n), None),
+                          ("er_q8", topo, q8)):
+        e = fleet_shard.ShardedNetES(tp, reward_fn, cfg, channel=ch)
+        e.plan = fleet_shard.make_comm_plan(tp, SHARD_SCALE_DEVICES,
+                                            channel=ch)
+        plans[label] = {"mode": e.plan.mode, "rounds": len(e.plan.rounds),
+                        **e.collective_bytes(dim)}
+    er, fc, q = (plans[k]["payload_bytes"] for k in ("er", "fc", "er_q8"))
+    check(er < fc, f"shard_scale: ER's halo {er} B not below FC's gather "
+          f"{fc} B")
+    check(0.24 < q / er < 0.27, f"shard_scale: q8 payload {q} B is "
+          f"{q / er:.3f} of ER's float32 {er} B")
+    emit({"phase": "shard_scale", "n_agents": n, "density": p,
+          "k_max": topo.k_max, "dim": dim, "iters": SHARD_SCALE_ITERS,
+          "wall_s": wall, "peak_bytes_run": peak, "step_ms": step_ms,
+          "peak_bytes_step": step_peak,
+          "theta_bytes": n * dim * 4, "launches": counts,
+          "reward_mean": hist["reward_mean"], "eval": hist["eval"],
+          "collective_bytes_8way": plans, "q8_over_er": q / er,
+          "er_over_fc": er / fc})
+
+
 # the libraries of the redesigned kernels, whose ptxas lines must show no
 # spill
 REDESIGNED = ("netes_mixing", "flash_attention", "netes_sparse_mixing",
@@ -4881,6 +5345,12 @@ SOURCE_OF = {
     "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:41"),
 }
+
+
+# the square kernel's row → its receiver ≠ sender instance's counter
+RS_NAME = {"netes_mixing": "netes_mixing_rs",
+           "netes_sparse_mixing": "netes_sparse_mixing_rs",
+           "fused_neighbor_sum": "fused_neighbor_sum_rs"}
 
 
 def main() -> int:
@@ -4924,6 +5394,7 @@ def main() -> int:
     wkv_kernel_phase(results)
     scan_kernel_phase(results)
     masked_kernel_phase()
+    kernel_shard_phase(results)
     emit({"phase": "clocks", "after": "kernel phases",
           "query": CLOCKS, "nvidia_smi": nvidia_smi(CLOCKS)})
     main_phase(launches)
@@ -4935,6 +5406,9 @@ def main() -> int:
     search_launches = {}
     search_phase(search_launches)
     parity_phase()
+    shard_launches = {}
+    shard_phase(shard_launches)
+    shard_scale_phase(shard_launches)
     serve_parity_phase()
     serve_cpu_parity_phase(ARCH)
     launches["flash_attention"] = serve_phase(ARCH)["flash_attention"]
@@ -4993,7 +5467,20 @@ def main() -> int:
                      "launches_lm_netes": {case: counts.get(name, 0)
                                            for case, counts in
                                            lm_launches.items()},
-                     "lm_shapes": lm_results.get(name, {})})
+                     "lm_shapes": lm_results.get(name, {}),
+                     "launches_shard": {
+                         run: counts.get(RS_NAME.get(name, name), 0)
+                         for run, counts in shard_launches.items()}})
+        if name in RS_NAME:
+            # the receiver ≠ sender instance at shard 0 of a 4-way plan
+            # of N = 1000 (D = 4481), and its other shards and N = 16,384
+            r = results[name + "_rs"]
+            rows[-1]["rs"] = {k: r[k] for k in (
+                "case", "receivers", "senders", "grid", "max_abs_err",
+                "max_err_over_S", "ms", "ms_q1", "ms_q3", "plain_ms",
+                "library", "library_ms", "bound_ms", "bound_by",
+                "share_of_bound")}
+            rows[-1]["rs_cases"] = results[name + "_rs_cases"]
         if name == "flash_attention":
             # the head_dim-256 instance: gemma3-4b's global and sliding
             # prefill layers, and its launches per serve (a) generate;

@@ -136,19 +136,28 @@ def load_pytree(path: PathLike, like: Any) -> Any:
 
 
 def save_train_state(directory: PathLike, step: int, tree: Any,
-                     extra: Optional[Dict] = None) -> pathlib.Path:
+                     extra: Optional[Dict] = None, *,
+                     mesh=None) -> pathlib.Path:
     """``step_<step>.npz`` and ``.json``, then ``latest.json`` pointing at
     them, written to a temporary file and renamed over the old pointer:
-    a crash while writing leaves the previous pointer whole."""
+    a crash while writing leaves the previous pointer whole.
+
+    With ``mesh`` (a ``launch.mesh.Mesh``: a sharded run, whose ranks each
+    hold the whole gathered state) rank 0 writes and every rank waits for
+    it, so the file is the same for any shard count and restores at any
+    other (the reference's ``device_get``)."""
     directory = pathlib.Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     ckpt = directory / f"step_{step:08d}.npz"
-    save_pytree(ckpt, tree)
-    meta = {"step": step, **(extra or {})}
-    (directory / f"step_{step:08d}.json").write_text(json.dumps(meta))
-    tmp = directory / "latest.json.tmp"
-    tmp.write_text(json.dumps(meta))
-    os.replace(tmp, directory / "latest.json")
+    if mesh is None or mesh.rank == 0:
+        directory.mkdir(parents=True, exist_ok=True)
+        save_pytree(ckpt, tree)
+        meta = {"step": step, **(extra or {})}
+        (directory / f"step_{step:08d}.json").write_text(json.dumps(meta))
+        tmp = directory / "latest.json.tmp"
+        tmp.write_text(json.dumps(meta))
+        os.replace(tmp, directory / "latest.json")
+    if mesh is not None:
+        mesh.barrier()
     return ckpt
 
 

@@ -228,6 +228,15 @@ class Channel:
         after = kinds[kinds.index("quantize") + 1:]
         return all(k == "dropout" for k in after)
 
+    @property
+    def collective_eligible(self) -> bool:
+        """True iff every stage is a stateless payload codec (quantize,
+        topk): the subset a collective-layer wire encoder can apply
+        (DESIGN.md §13). Event triggers and dropout carry state or need
+        globally consistent draws, so a sharded engine falls back to
+        replicated mixing for them (``distributed/fleet_shard``)."""
+        return self.event_stage is None and self.dropout_stage is None
+
     def wire_fused(self, topo: Topology) -> bool:
         """Whether a step on ``topo`` mixes from the wire form: sparse
         graphs only, where the fused kernel replaces the (N, K, D) gather

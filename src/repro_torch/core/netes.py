@@ -34,6 +34,12 @@ redraw from the schedule's generator); present, the caller's draws are
 used as they are — the tests hand the port the JAX reference's own draws
 there.
 
+With ``mesh=`` (``distributed.fleet_shard``, DESIGN.md §13) ``run`` and
+``run_scheduled`` hand the iterations to the sharded engine: each rank of
+the mesh's process group steps its slab of agents, with the same draws
+(every rank draws the whole step from its copy of the generator), and the
+run returns the gathered state.
+
 Every step function returns ``(state, chan_state, metrics)``, the
 scheduled ones ``(state, sched_state, chan_state, metrics)``; without a
 channel ``chan_state`` is None. With ``probes`` (``obs.probes``, DESIGN.md
@@ -354,10 +360,18 @@ def _stack(history) -> Dict[str, torch.Tensor]:
 
 def run(state: NetESState, topo: Topology, reward_fn, cfg: NetESConfig,
         num_iters: int, channel=None, chan_state=None, *, probes=None,
-        metrics_state=None):
+        metrics_state=None, mesh=None):
     """``num_iters`` steps; returns ``(state, chan_state, metrics)`` with the
     metrics stacked per iteration, still on the device; with ``probes``,
-    ``(state, chan_state, metrics_state, metrics)``."""
+    ``(state, chan_state, metrics_state, metrics)``. With ``mesh`` (a
+    ``launch.mesh.Mesh``) the steps run sharded over its ranks
+    (``fleet_shard.run_sharded``; ``topo`` may be a ``FullyConnected``
+    marker there) and return the same."""
+    if mesh is not None:
+        from ..distributed import fleet_shard
+        return fleet_shard.run_sharded(state, topo, reward_fn, cfg,
+                                       num_iters, mesh, channel, chan_state,
+                                       probes, metrics_state)
     history = []
     for _ in range(num_iters):
         state, chan_state, m = step_parts(netes_step(
@@ -394,11 +408,20 @@ def scheduled_step(state: NetESState, sched_state, reward_fn,
 def run_scheduled(state: NetESState, sched_state, reward_fn,
                   cfg: NetESConfig, schedule, num_iters: int, channel=None,
                   chan_state=None, draws: Optional[Sequence[Draws]] = None,
-                  *, probes=None, metrics_state=None):
+                  *, probes=None, metrics_state=None, mesh=None):
     """``num_iters`` scheduled steps; returns ``(state, sched_state,
     chan_state, metrics)`` with the metrics stacked per iteration, with
     ``probes`` ``(state, sched_state, chan_state, metrics_state,
-    metrics)``. ``draws``, if given, holds each iteration's ``Draws``."""
+    metrics)``. ``draws``, if given, holds each iteration's ``Draws``.
+    With ``mesh`` the steps run sharded, mixing replicated
+    (``fleet_shard.run_sharded_scheduled``), with the same return."""
+    if mesh is not None:
+        if draws is not None:
+            raise ValueError("a sharded run draws its own steps")
+        from ..distributed import fleet_shard
+        return fleet_shard.run_sharded_scheduled(
+            state, sched_state, reward_fn, cfg, schedule, num_iters, mesh,
+            channel, chan_state, probes, metrics_state)
     history = []
     for it in range(num_iters):
         state, sched_state, chan_state, m = step_parts(scheduled_step(

@@ -46,6 +46,11 @@
 //    widening per FMA. Beside them: the stagings, 64 KB of codes a slab,
 //    and the walk of 71 slabs × 1000 receivers.
 //
+// 1b. fused_neighbor_sum_rs_f32 — the receiver ≠ sender instance for the
+//    sharded fleet (R receivers over S senders in wire form, with the
+//    Eq. 3 correction −(Σ_k w_jk)·θ_j): the payload decoded code · scale
+//    per slot, then the plain slot loop of csrc/_rows.cuh (see its note).
+//
 // 2. fused_broadcast_select_f32 — the quantized broadcast of the best agent:
 //
 //      out[j, :] = flag ? codes[:] · scale : theta[j, :]
@@ -66,6 +71,7 @@
 // stream, never synchronises, allocates nothing (the wrapper passes the
 // scratch).
 
+#include "_rows.cuh"
 #include "_slab.cuh"
 
 namespace {
@@ -175,6 +181,34 @@ fused_neighbor_sum_slab(const int* __restrict__ idx,
   slab::run(op, smem, idx, out, lists, lens, n, k_max, d, chunk_rows, chunks);
 }
 
+// ---- the R × S instance of the neighbor sum (csrc/_rows.cuh) ----
+
+// a sender's payload decoded from its codes: code · scale, the one decode
+// of core/wire_format.decode
+struct CodeRows {
+  const int8_t* codes;
+  const float* scale;
+  int cols;
+  __device__ __forceinline__ float factor(int i) const {
+    return __ldg(scale + i);
+  }
+  __device__ __forceinline__ float value(int i, int col, float s) const {
+    return __fmul_rn(static_cast<float>(codes[(size_t)i * cols + col]), s);
+  }
+};
+
+__global__ void __launch_bounds__(rows::THREADS)
+fused_neighbor_sum_rs(const int* __restrict__ idx,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ w,
+                      const int8_t* __restrict__ codes,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ theta,
+                      float* __restrict__ out, int k_max, int d) {
+  rows::slot_rows(CodeRows{codes, scale, d}, idx, mask, w, theta, out, k_max,
+                  d);
+}
+
 // ---- fused_broadcast_select ----
 
 constexpr int THREADS = 128;
@@ -235,6 +269,25 @@ extern "C" int fused_neighbor_sum_f32(const void* idx, const void* mask,
                   &k_max,   &d,      &chunk_rows,      &chunks};
   return slab::launch((const void*)fused_neighbor_sum_slab, args, n, k_max,
                       d, chunk_rows, chunks, grid, stream);
+}
+
+// R receivers over S senders in wire form: idx, mask (R, k_max), w (S,),
+// codes (S, d) int8, scale (S,), theta and out (R, d); entries of idx in
+// [0, S).
+extern "C" int fused_neighbor_sum_rs_f32(const void* idx, const void* mask,
+                                         const void* w, const void* codes,
+                                         const void* scale, const void* theta,
+                                         void* out, int r, int s, int k_max,
+                                         int d, void* stream) {
+  if (!rows::shape_ok(r, s, k_max, d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  fused_neighbor_sum_rs<<<rows::grid(r, d), rows::THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(idx), static_cast<const float*>(mask),
+      static_cast<const float*>(w), static_cast<const int8_t*>(codes),
+      static_cast<const float*>(scale), static_cast<const float*>(theta),
+      static_cast<float*>(out), k_max, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int fused_broadcast_select_f32(const void* codes,

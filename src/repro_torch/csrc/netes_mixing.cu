@@ -51,6 +51,10 @@
 // and 3.92 ms at N = 3000 (61%; `torch.matmul` 3.47 ms) on the same card
 // (`chip_smoke.py`; PERF.md §6, row 1).
 //
+// The receiver ≠ sender instance `netes_mixing_rs_f32` (R receivers over
+// S senders of a payload, the sharded fleet's per-shard contraction) is a
+// plain tiled kernel of its own; see its note below.
+//
 // C interface (bound with ctypes): `netes_mixing_f32` launches the three
 // kernels and returns cudaGetLastError(); `netes_mixing_occupancy` reports
 // the resident blocks per SM of `mixing_gemm` and the SM count. Launches
@@ -349,6 +353,90 @@ mixing_fixup(const float* __restrict__ partial, const float* __restrict__ wsum,
   out[o] = s - wsum[j] * theta[o];
 }
 
+// ---- the receiver ≠ sender (R × S) instance ----
+//
+// out[j, :] = Σ_s (a_js·w_s)·x[s, :] − (Σ_s a_js·w_s)·θ[j, :] for R
+// receivers over S senders, the sharded fleet's per-shard contraction
+// (distributed/fleet_shard.py): a row block of the adjacency against all
+// S senders' payload x, with the receivers' own θ in the correction.
+// The sum runs over s = 0, 1, .., S − 1 in order for every row, each
+// weight, product and sum rounded on its own (__fmul_rn, __fadd_rn), as
+// the plain version (kernels/ref.py: dense_contract) computes it. K is not
+// split: a row's bits depend on its own adjacency row and the senders
+// alone, not on R or on the tile that holds it, so the sharded trajectory
+// is the same for every shard count (DESIGN.md §13).
+//
+// A 64 × 64 output tile per block of 256 threads, 4 × 4 a thread (rows
+// ty + 16·a, columns tx + 16·b), over S in stages of 16 senders through
+// shared memory; the weighted adjacency a_js·w_s is formed as the stage is
+// loaded. Separate multiply and add run at half the FMA rate: the cost of
+// the rounding the plain version fixes (PERF.md §6 row 1).
+
+constexpr int RS_BM = 64, RS_BN = 64, RS_BK = 16, RS_THREADS = 256;
+
+__global__ void __launch_bounds__(RS_THREADS)
+mixing_rs(const float* __restrict__ adj, const float* __restrict__ w,
+          const float* __restrict__ x, const float* __restrict__ theta,
+          float* __restrict__ out, int r, int s, int p) {
+  __shared__ float sa[RS_BK][RS_BM + 1];   // a_js·w_s, sender-major
+  __shared__ float sx[RS_BK][RS_BN];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int row0 = blockIdx.y * RS_BM, col0 = blockIdx.x * RS_BN;
+  float acc[4][4], ws[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    ws[a] = 0.f;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+  }
+  for (int k0 = 0; k0 < s; k0 += RS_BK) {
+    for (int e = threadIdx.x; e < RS_BM * RS_BK; e += RS_THREADS) {
+      const int rr = e / RS_BK, kk = e % RS_BK;
+      const int gr = row0 + rr, gk = k0 + kk;
+      sa[kk][rr] = gr < r && gk < s
+                       ? __fmul_rn(__ldg(adj + (size_t)gr * s + gk),
+                                   __ldg(w + gk))
+                       : 0.f;
+    }
+    for (int e = threadIdx.x; e < RS_BK * RS_BN; e += RS_THREADS) {
+      const int kk = e / RS_BN, cc = e % RS_BN;
+      const int gk = k0 + kk, gc = col0 + cc;
+      sx[kk][cc] = gk < s && gc < p ? __ldg(x + (size_t)gk * p + gc) : 0.f;
+    }
+    __syncthreads();
+    // senders past S hold weight 0 and payload 0: their terms add +0
+    const int kn = min(RS_BK, s - k0);
+    for (int kk = 0; kk < kn; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) av[a] = sa[kk][ty + 16 * a];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) bv[b] = sx[kk][tx + 16 * b];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        ws[a] = __fadd_rn(ws[a], av[a]);
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          acc[a][b] = __fadd_rn(acc[a][b], __fmul_rn(av[a], bv[b]));
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int gr = row0 + ty + 16 * a;
+    if (gr >= r) continue;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int gc = col0 + tx + 16 * b;
+      if (gc < p) {
+        const size_t o = (size_t)gr * p + gc;
+        out[o] = __fsub_rn(acc[a][b], __fmul_rn(ws[a], __ldg(theta + o)));
+      }
+    }
+  }
+}
+
 bool plan_is_consistent(const Plan& pl) {
   const int col_tiles = (pl.p + BN - 1) / BN;
   return pl.n > 0 && pl.p > 0 && pl.kh == (pl.n + BK - 1) / BK * BK &&
@@ -419,5 +507,21 @@ extern "C" int netes_mixing_f32(const void* adj, const void* w_theta,
                              static_cast<const float*>(theta), static_cast<float*>(out), pl);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// R receivers over S senders: adj (R, S), w (S,), x (S, p), theta and out
+// (R, p); all float32, row-major.
+extern "C" int netes_mixing_rs_f32(const void* adj, const void* w,
+                                   const void* x, const void* theta,
+                                   void* out, int r, int s, int p,
+                                   void* stream) {
+  if (r < 1 || s < 1 || p < 1 || (r + RS_BM - 1) / RS_BM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((p + RS_BN - 1) / RS_BN, (r + RS_BM - 1) / RS_BM);
+  mixing_rs<<<grid, RS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(adj), static_cast<const float*>(w),
+      static_cast<const float*>(x), static_cast<const float*>(theta),
+      static_cast<float*>(out), r, s, p);
   return static_cast<int>(cudaGetLastError());
 }

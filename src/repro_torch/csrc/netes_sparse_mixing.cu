@@ -83,6 +83,10 @@
 // and epilogues, and the lists are re-read by every block that touches a
 // receiver, slabs·nnz·8 ≈ 115 MB from L2.
 //
+// The receiver ≠ sender instance `netes_sparse_mixing_rs_f32` (R receivers
+// over S senders of a payload, the sharded fleet's per-shard contraction)
+// is the plain slot loop of csrc/_rows.cuh; see its note.
+//
 // C interface (bound with ctypes): `netes_sparse_mixing_f32` makes the
 // cooperative launch and returns its cudaError_t;
 // `netes_sparse_mixing_occupancy` reports resident blocks per SM at a
@@ -90,6 +94,7 @@
 // thread. Launches on the caller's stream, never synchronises, allocates
 // nothing (the wrapper passes the scratch).
 
+#include "_rows.cuh"
 #include "_slab.cuh"
 
 namespace {
@@ -196,7 +201,44 @@ sparse_mixing_slab(const int* __restrict__ idx, const float* __restrict__ mask,
   slab::run(op, smem, idx, out, lists, lens, n, k_max, p, chunk_rows, chunks);
 }
 
+// ---- the R × S instance (csrc/_rows.cuh): float32 payload rows ----
+
+struct FloatRows {
+  const float* x;
+  int cols;
+  __device__ __forceinline__ float factor(int) const { return 0.f; }
+  __device__ __forceinline__ float value(int i, int col, float) const {
+    return __ldg(x + (size_t)i * cols + col);
+  }
+};
+
+__global__ void __launch_bounds__(rows::THREADS)
+sparse_mixing_rs(const int* __restrict__ idx, const float* __restrict__ mask,
+                 const float* __restrict__ w, const float* __restrict__ x,
+                 const float* __restrict__ theta, float* __restrict__ out,
+                 int k_max, int p) {
+  rows::slot_rows(FloatRows{x, p}, idx, mask, w, theta, out, k_max, p);
+}
+
 }  // namespace
+
+// R receivers over S senders: idx, mask (R, k_max), w (S,), x (S, p),
+// theta and out (R, p). Entries of idx lie in [0, S) (the caller's
+// contract; the kernel does not check them).
+extern "C" int netes_sparse_mixing_rs_f32(const void* idx, const void* mask,
+                                          const void* w, const void* x,
+                                          const void* theta, void* out, int r,
+                                          int s, int k_max, int p,
+                                          void* stream) {
+  if (!rows::shape_ok(r, s, k_max, p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  sparse_mixing_rs<<<rows::grid(r, p), rows::THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(idx), static_cast<const float*>(mask),
+      static_cast<const float*>(w), static_cast<const float*>(x),
+      static_cast<const float*>(theta), static_cast<float*>(out), k_max, p);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int netes_sparse_mixing_occupancy(int smem, int* resident_per_sm,
                                              int* sm_count, int* registers,

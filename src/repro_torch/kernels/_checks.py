@@ -37,6 +37,11 @@ def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
 SLAB_MAX_COLUMNS = 2**31 - 1 - 64
 
 
+# The columns the receiver ≠ sender instances of the sparse pair address
+# (``csrc/_rows.cuh``: a y-block of 1024 columns, at most 65535 of them).
+RS_MAX_COLUMNS = 65535 * 1024
+
+
 def check_columns(name: str, t: torch.Tensor, limit: int) -> None:
     """Raise ``ValueError`` if the last axis of ``t`` is longer than
     ``limit``, the columns a kernel's index arithmetic can address. Reads

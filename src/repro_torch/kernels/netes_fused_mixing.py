@@ -15,6 +15,12 @@ bf16: one launch per call. On CUDA tensors each wrapper launches its
 hand-written sm_90a kernel (see the source's note); on CPU tensors it
 runs the plain version in ``kernels/ref.py``. There is no other path.
 
+``fused_neighbor_sum_rs`` is the receiver ≠ sender instance of the
+sharded fleet (``distributed.fleet_shard``): R receivers over S senders'
+codes, each slot's code decoded (code · scale) and weighted in slot order,
+with Eq. 3's correction term, equal to ``ref.fused_neighbor_sum_rs_ref``
+bit for bit.
+
 The neighbor sum's launch plan (slab width, sender chunks, grid) is made
 here by :func:`plan` (``kernels/_slab.py``) from the library's occupancy
 query; :func:`block_work` is the per-block work the kernel computes.
@@ -28,8 +34,8 @@ import torch
 
 from . import _slab, ref
 from ._build import CudaKernel
-from ._checks import (SLAB_MAX_COLUMNS, check_columns, check_operand,
-                      on_cpu)
+from ._checks import (RS_MAX_COLUMNS, SLAB_MAX_COLUMNS, check_columns,
+                      check_operand, on_cpu)
 
 NEIGHBOR_SUM = CudaKernel(
     "netes_fused_mixing", "fused_neighbor_sum_f32",
@@ -38,6 +44,10 @@ BROADCAST_SELECT = CudaKernel(
     "netes_fused_mixing", "fused_broadcast_select_f32",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 OCCUPANCY = "fused_neighbor_sum_occupancy"
+# The receiver ≠ sender instance (``fused_neighbor_sum_rs``, csrc/_rows.cuh)
+NEIGHBOR_SUM_RS = CudaKernel(
+    "netes_fused_mixing", "fused_neighbor_sum_rs_f32",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 SLAB = 64            # columns of codes per slab, held as bf16: 128 bytes
 # The broadcast select's grid has a y-block per 512 columns, and a grid's
@@ -110,6 +120,46 @@ def fused_neighbor_sum(neighbor_idx: torch.Tensor,
                         lists.data_ptr(), n, k_max, d, pl.chunk_rows,
                         pl.chunks, pl.grid,
                         torch.cuda.current_stream(codes.device).cuda_stream)
+    return out
+
+
+def fused_neighbor_sum_rs(neighbor_idx: torch.Tensor,
+                          neighbor_mask: torch.Tensor, w: torch.Tensor,
+                          codes: torch.Tensor, scale: torch.Tensor,
+                          theta: torch.Tensor) -> torch.Tensor:
+    """Eq. 3 of R receivers over S senders' wire codes, before the
+    α/(Nσ²) scale:
+
+        out_j = Σ_k m_jk·w_i·(codes_i·scale_i) − (Σ_k m_jk·w_i)·θ_j,
+
+    i = idx[j, k], over the slots in order, each product rounded before
+    its add. neighbor_idx (R, K) int32 in [0, S); neighbor_mask (R, K)
+    float32; w (S,) float32; codes (S, D) int8; scale (S, 1) float32;
+    theta (R, D) float32; on one device. Returns (R, D) float32.
+    """
+    check_columns("codes", codes, RS_MAX_COLUMNS)
+    operands = (neighbor_idx, neighbor_mask, w, codes, scale, theta)
+    if on_cpu(operands):
+        return ref.fused_neighbor_sum_rs_ref(*operands)
+    r, d = theta.shape
+    s = codes.shape[0]
+    k_max = neighbor_idx.shape[1] if neighbor_idx.dim() == 2 else -1
+    check_operand("neighbor_idx", neighbor_idx, torch.int32, (r, k_max))
+    check_operand("codes", codes, torch.int8, (s, d))
+    for name, t, shape in (("neighbor_mask", neighbor_mask, (r, k_max)),
+                           ("w", w, (s,)), ("scale", scale, (s, 1)),
+                           ("theta", theta, (r, d))):
+        check_operand(name, t, torch.float32, shape)
+    out = torch.empty_like(theta)
+    if out.numel() == 0:
+        return out
+    if k_max == 0 or s == 0:
+        return out.zero_()
+    NEIGHBOR_SUM_RS.launch(neighbor_idx.data_ptr(), neighbor_mask.data_ptr(),
+                           w.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                           theta.data_ptr(), out.data_ptr(), r, s, k_max, d,
+                           torch.cuda.current_stream(theta.device)
+                           .cuda_stream)
     return out
 
 

@@ -9,6 +9,11 @@ source axis, and a fixed-order sum of the split tiles; see the source's
 note); on CPU tensors it runs the plain version ``ref.netes_mixing_ref``.
 There is no other path.
 
+``netes_mixing_rs`` is the receiver ≠ sender instance of the sharded
+fleet (``distributed.fleet_shard``): R receivers, S senders of a payload,
+the sum in sender order with each product rounded, equal to the plain
+version ``ref.netes_mixing_rs_ref`` bit for bit.
+
 The launch plan (which output tiles run whole, how the tiles of the last,
 partial wave are split along the source axis, and the scratch this takes)
 is made here by :func:`plan` from the library's occupancy query.
@@ -30,6 +35,14 @@ KERNEL = CudaKernel(
     "netes_mixing", "netes_mixing_f32",
     [ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_int] * 10
     + [ctypes.c_void_p])
+
+# The receiver ≠ sender instance (``netes_mixing_rs``): R receivers over S
+# senders, the sharded fleet's per-shard contraction.
+KERNEL_RS = CudaKernel(
+    "netes_mixing", "netes_mixing_rs_f32",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+RS_BM = 64           # its output rows per block (the grid's y extent ≤ 65535)
+RS_MAX_ROWS = 65535 * RS_BM
 
 # The source's tile constants: output tile BM × BN, BK source rows per
 # stage, WCHUNK source rows per block of the weighting pre-pass.
@@ -163,4 +176,41 @@ def netes_mixing(adj: torch.Tensor, w_theta: torch.Tensor,
                   scratch.data_ptr(), float(sigma), n, p, pl.kh, pl.npad,
                   pl.row_tiles, pl.k_tiles, pl.w_chunks, pl.full, pl.split,
                   pl.rem, torch.cuda.current_stream(theta.device).cuda_stream)
+    return out
+
+
+def netes_mixing_rs(adj: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+                    theta: torch.Tensor) -> torch.Tensor:
+    """Eq. 3 of R receivers over S senders, before the α/(Nσ²) scale:
+
+        out_j = Σ_s a_js·w_s·x_s − (Σ_s a_js·w_s)·θ_j,
+
+    over s = 0 .. S − 1 in order, each product rounded before its add (so
+    a row's bits do not depend on R or on which rows ride with it).
+
+    adj (R, S) the receivers' rows of the adjacency; w (S,) the senders'
+    weights; x (S, P) the senders' payload θ + σε; theta (R, P) the
+    receivers' own θ; float32 and contiguous on one device, P at most
+    ``MAX_COLUMNS``, R at most ``RS_MAX_ROWS``. Returns (R, P) float32.
+    """
+    check_columns("x", x, MAX_COLUMNS)
+    operands = (adj, w, x, theta)
+    if on_cpu(operands):
+        return ref.netes_mixing_rs_ref(*operands)
+    r, p = theta.shape
+    s = x.shape[0]
+    if r > RS_MAX_ROWS:
+        raise ValueError(f"theta: {r} receivers, more than the "
+                         f"{RS_MAX_ROWS} the grid addresses")
+    for name, t, shape in (("adj", adj, (r, s)), ("w", w, (s,)),
+                           ("x", x, (s, p)), ("theta", theta, (r, p))):
+        check_operand(name, t, torch.float32, shape)
+    out = torch.empty_like(theta)
+    if out.numel() == 0:
+        return out
+    if s == 0:
+        return out.zero_()
+    KERNEL_RS.launch(adj.data_ptr(), w.data_ptr(), x.data_ptr(),
+                     theta.data_ptr(), out.data_ptr(), r, s, p,
+                     torch.cuda.current_stream(theta.device).cuda_stream)
     return out

@@ -11,6 +11,11 @@ into lists, then gathered from a slab of 32 columns of Y held in shared
 memory; see the source's note); on CPU tensors it runs the plain version
 ``ref.sparse_mixing_ref``. There is no other path.
 
+``netes_sparse_mixing_rs`` is the receiver ≠ sender instance of the
+sharded fleet (``distributed.fleet_shard``): R receivers, S senders of a
+payload, the slots in order with each product rounded (``csrc/_rows.cuh``),
+equal to the plain version ``ref.sparse_mixing_rs_ref`` bit for bit.
+
 The launch plan (slab width, sender chunks, grid) is made here by
 :func:`plan` (``kernels/_slab.py``) from the library's occupancy query;
 :func:`block_work` is the per-block work the kernel computes. The wrapper
@@ -24,14 +29,18 @@ import torch
 
 from . import _slab, ref
 from ._build import CudaKernel
-from ._checks import (SLAB_MAX_COLUMNS, check_columns, check_operand,
-                      on_cpu)
+from ._checks import (RS_MAX_COLUMNS, SLAB_MAX_COLUMNS, check_columns,
+                      check_operand, on_cpu)
 
 KERNEL = CudaKernel(
     "netes_sparse_mixing", "netes_sparse_mixing_f32",
     [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_int] * 6
     + [ctypes.c_void_p])
 OCCUPANCY = "netes_sparse_mixing_occupancy"
+# The receiver ≠ sender instance (``netes_sparse_mixing_rs``, csrc/_rows.cuh)
+KERNEL_RS = CudaKernel(
+    "netes_sparse_mixing", "netes_sparse_mixing_rs_f32",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 SLAB = 32            # float32 columns of Y per slab: 128 bytes a sender
 
@@ -93,4 +102,45 @@ def netes_sparse_mixing(neighbor_idx: torch.Tensor,
                   eps.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                   float(sigma), n, k_max, p, pl.chunk_rows, pl.chunks,
                   pl.grid, torch.cuda.current_stream(theta.device).cuda_stream)
+    return out
+
+
+def netes_sparse_mixing_rs(neighbor_idx: torch.Tensor,
+                           neighbor_mask: torch.Tensor, w: torch.Tensor,
+                           x: torch.Tensor,
+                           theta: torch.Tensor) -> torch.Tensor:
+    """Eq. 3 of R receivers over S senders from a padded list, before the
+    α/(Nσ²) scale:
+
+        out_j = Σ_k m_jk·w_i·x_i − (Σ_k m_jk·w_i)·θ_j,   i = idx[j, k],
+
+    over the slots in order, each product rounded before its add (so a
+    row's bits depend on its own slots alone).
+
+    neighbor_idx (R, K) int32 with entries in [0, S); neighbor_mask (R, K)
+    float32 (0 on padding); w (S,) the senders' weights; x (S, P) their
+    payload; theta (R, P) the receivers' own θ; float32 and contiguous on
+    one device, at most ``rows.TILE``·65535 columns. Returns (R, P).
+    """
+    check_columns("x", x, RS_MAX_COLUMNS)
+    operands = (neighbor_idx, neighbor_mask, w, x, theta)
+    if on_cpu(operands):
+        return ref.sparse_mixing_rs_ref(*operands)
+    r, p = theta.shape
+    s = x.shape[0]
+    k_max = neighbor_idx.shape[1] if neighbor_idx.dim() == 2 else -1
+    check_operand("neighbor_idx", neighbor_idx, torch.int32, (r, k_max))
+    for name, t, shape in (("neighbor_mask", neighbor_mask, (r, k_max)),
+                           ("w", w, (s,)), ("x", x, (s, p)),
+                           ("theta", theta, (r, p))):
+        check_operand(name, t, torch.float32, shape)
+    out = torch.empty_like(theta)
+    if out.numel() == 0:
+        return out
+    if k_max == 0 or s == 0:
+        return out.zero_()
+    KERNEL_RS.launch(neighbor_idx.data_ptr(), neighbor_mask.data_ptr(),
+                     w.data_ptr(), x.data_ptr(), theta.data_ptr(),
+                     out.data_ptr(), r, s, k_max, p,
+                     torch.cuda.current_stream(theta.device).cuda_stream)
     return out

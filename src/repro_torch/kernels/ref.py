@@ -8,6 +8,12 @@ the topology's own plain contractions, ``weighted_neighbor_sum`` and
 
 The two wire-form functions widen the int8 codes one gathered row at a
 time, with the decode scale folded into the slot weight as the kernel does.
+
+The receiver ≠ sender forms (``*_rs_ref``: R receivers, S senders, the
+per-shard contraction of ``distributed.fleet_shard``) go through
+``slot_contract`` and ``dense_contract``, which sum slot by slot and source
+by source and round each product before it is added: a row's result then
+depends on its own slots alone, never on R, S or where the row sits.
 ``flash_attention_ref`` is naive softmax attention: it materialises every
 (query, key) score. ``moe_topk_ref`` is a softmax and a stable sort.
 ``rwkv6_wkv_ref`` is the WKV-6 recurrence and ``mamba_scan_ref`` the
@@ -71,6 +77,62 @@ def fused_neighbor_sum_ref(neighbor_idx, neighbor_mask, coeff, codes, scale,
     for k in range(idx.shape[1]):
         acc = acc + ws[:, k, None] * codes[idx[:, k]].to(torch.float32)
     return acc
+
+
+def slot_contract(idx, w, values):
+    """``(Σ_k w[j,k]·values[idx[j,k]], Σ_k w[j,k])`` in slot order, each
+    product rounded before its add. idx (R, K) int, w (R, K), values
+    (S, D) → ((R, D), (R,))."""
+    acc = torch.zeros((idx.shape[0], values.shape[1]), dtype=values.dtype,
+                      device=values.device)
+    ws = torch.zeros((idx.shape[0],), dtype=w.dtype, device=w.device)
+    idx = idx.long()
+    for c in range(idx.shape[1]):
+        wc = w[:, c]
+        acc = acc + wc[:, None] * values[idx[:, c]]
+        ws = ws + wc
+    return acc, ws
+
+
+def dense_contract(adjb, coeff, values):
+    """``(Σ_s adjb[:,s]·coeff[s]·values[s], Σ_s adjb[:,s]·coeff[s])`` in
+    source order, each weight and product rounded before its add. adjb
+    (R, S), coeff (S,), values (S, D) → ((R, D), (R,))."""
+    acc = torch.zeros((adjb.shape[0], values.shape[1]), dtype=values.dtype,
+                      device=values.device)
+    ws = torch.zeros((adjb.shape[0],), dtype=values.dtype,
+                     device=values.device)
+    for c in range(values.shape[0]):
+        wc = adjb[:, c] * coeff[c]
+        acc = acc + wc[:, None] * values[c][None, :]
+        ws = ws + wc
+    return acc, ws
+
+
+def netes_mixing_rs_ref(adj, w, x, theta):
+    """Eq. 3 of R receivers over S senders, dense: ``out_j = Σ_s a_js·w_s·
+    x_s − (Σ_s a_js·w_s)·θ_j``. adj (R, S), w (S,), x (S, P) the senders'
+    payload, theta (R, P) the receivers' own parameters."""
+    mixed, ws = dense_contract(adj, w, x)
+    return mixed - ws[:, None] * theta
+
+
+def sparse_mixing_rs_ref(neighbor_idx, neighbor_mask, w, x, theta):
+    """Eq. 3 of R receivers over S senders, from a padded list: ``out_j =
+    Σ_k m_jk·w_i·x_i − (Σ_k m_jk·w_i)·θ_j`` with i = idx[j, k] in [0, S).
+    neighbor_idx, neighbor_mask (R, K), w (S,), x (S, P), theta (R, P)."""
+    mixed, ws = slot_contract(neighbor_idx,
+                              neighbor_mask * w[neighbor_idx.long()], x)
+    return mixed - ws[:, None] * theta
+
+
+def fused_neighbor_sum_rs_ref(neighbor_idx, neighbor_mask, w, codes, scale,
+                              theta):
+    """``sparse_mixing_rs_ref`` with the senders' payload in wire form:
+    x = codes · scale decoded (codes (S, D) int8, scale (S, 1)), then the
+    same slots in the same order."""
+    return sparse_mixing_rs_ref(neighbor_idx, neighbor_mask, w,
+                                codes.to(torch.float32) * scale, theta)
 
 
 def broadcast_select_ref(codes, scale, do_broadcast, thetas):

@@ -17,6 +17,12 @@ communication graph, then training runs on the winner:
       [--search-channels 'lossless;quantize(bits=8)'] \
       [--search-checkpoint-dir DIR]
 
+Sharded over the ranks of a process group (DESIGN.md §13; one process a
+rank, NCCL on the GPUs, ``--device cpu`` gloo):
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train rl \
+      --agents 16384 --density 0.0005 --shards 4
+
 NetES over LM agents (each agent a replica of a registry architecture,
 trained on the synthetic corpus; ``train.loop.train_lm_netes``):
 
@@ -30,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 
 from ..configs import get_config
@@ -80,6 +87,11 @@ def main(argv=None) -> None:
                          "with wall time, kernel builds and host "
                          "transfers; inspect with 'python -m "
                          "repro_torch.obs summarize')")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="shard the agent axis over this many ranks (rl "
+                         "only; DESIGN.md §13): start one process a rank "
+                         "with 'torchrun --nproc-per-node <n>'; 1 runs "
+                         "without torchrun")
     ap.add_argument("--agents", type=int, default=32)
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
@@ -123,13 +135,19 @@ def main(argv=None) -> None:
 
     netes_cfg = NetESConfig(alpha=args.alpha, sigma=args.sigma,
                             p_broadcast=args.p_broadcast)
+    # under torchrun every rank runs this; rank 0 alone prints and writes
+    lead = int(os.environ.get("RANK", "0")) == 0
 
     def log(d):
         print(json.dumps(d), flush=True)
 
     search_payload = None
-    if args.kind == "lm" and (args.search or args.checkpoint_dir):
-        ap.error("--search and --checkpoint-dir are rl only")
+    if args.kind == "lm" and (args.search or args.checkpoint_dir
+                              or args.shards is not None):
+        ap.error("--search, --checkpoint-dir and --shards are rl only")
+    if args.search and args.shards is not None:
+        ap.error("--search runs on one device; train the winner with "
+                 "--shards in a second run")
     if args.search:
         if args.representation == "circulant":
             ap.error("--representation circulant is incompatible with "
@@ -183,7 +201,8 @@ def main(argv=None) -> None:
             representation=args.representation, channel=args.channel,
             schedule=args.schedule, checkpoint_dir=args.checkpoint_dir,
             probes=args.probes, probe_capacity=args.probe_capacity,
-            trace=args.trace, seed=args.seed, netes=netes_cfg)
+            trace=args.trace, seed=args.seed, netes=netes_cfg,
+            shards=args.shards)
 
     if args.kind == "lm":
         hist = train_lm_netes(get_config(args.arch), tc,
@@ -194,6 +213,8 @@ def main(argv=None) -> None:
               f"{hist['loss_mean'][-1]:.4f}")
     else:
         hist = train_rl_netes(args.task, tc, log=log, device=args.device)
+        if not lead:
+            return
         print(f"final eval: {hist['final_eval']}, max eval: "
               f"{hist['max_eval']} ({hist['wall_s']:.1f}s)")
     if "realized_msgs" in hist:

@@ -17,10 +17,10 @@ signals every step and drains once at the end (``obs.probes``); with
 ``TrainConfig.trace`` the run writes a JSONL trace of its chunks, steps,
 drains, evals and checkpoints (``obs.trace``). ``search_topology`` runs a
 topology-search tournament first (``search``, DESIGN.md §10), and
-``TrainConfig.from_search_result`` trains on its winner.
-
-Not ported yet (setting it raises ``NotImplementedError``): the ``shards``
-field (slice 7b, the sharded LM fleet) of the reference's ``TrainConfig``.
+``TrainConfig.from_search_result`` trains on its winner. With
+``TrainConfig.shards`` the RL run is sharded over the ranks of a process
+group (``distributed.fleet_shard``, DESIGN.md §13): each chunk of
+iterations is one ``netes.run(mesh=)``.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ from ..core.tree import flatten
 from ..core.topology_sched import (ScheduleSpec, TopologySchedule,
                                    compile_schedule)
 from ..data import batch_seed, make_batch
-from ..distributed import netes_dist
+from ..distributed import fleet_shard, netes_dist
 from ..envs import resolve_task
 from ..envs.rollout import evaluate_best
 from ..obs import (DEFAULT_CAPACITY, Probes, ProbeSpec, Trace,
@@ -52,9 +52,6 @@ from ..search import SearchConfig, run_search
 
 # Iterations whose device metrics accumulate before one host transfer.
 METRIC_DRAIN_CHUNK = 8
-
-# TrainConfig fields of the reference that later slices of the port carry.
-_NOT_YET_PORTED = ("shards",)
 
 
 @dataclasses.dataclass
@@ -96,15 +93,15 @@ class TrainConfig:
     probe_capacity: int = 0
     # Path of a JSONL run trace (obs/trace.py). None ⇒ no trace file.
     trace: Optional[str] = None
-    # A reference field this slice does not carry: setting it raises.
+    # Shard the agent axis over this many ranks of a process group
+    # (DESIGN.md §13; RL only): each chunk of iterations runs through
+    # distributed.fleet_shard, with halo / all-gather collectives between
+    # the ranks. Trajectories are identical for ANY shard count (1
+    # included), and differ from the unsharded steps only in the rounding
+    # of the contraction. None ⇒ netes_step on one device.
     shards: Optional[int] = None
 
     def __post_init__(self):
-        unported = [f for f in _NOT_YET_PORTED if getattr(self, f) is not None]
-        if unported:
-            raise NotImplementedError(
-                f"TrainConfig fields not ported yet: {', '.join(unported)} "
-                "(slice 7b, the sharded LM fleet)")
         if self.topology is None:
             self.topology = TopologySpec(
                 family=self.topology_family, n_agents=self.n_agents,
@@ -219,6 +216,11 @@ def train_rl_netes(task: str, tc: TrainConfig,
     ``drain`` (``what`` = ``metrics``, ``eval`` or ``probes``; one host
     transfer each).
 
+    With ``tc.shards`` the run joins the process group of that many ranks
+    (``fleet_shard.build_mesh``: under ``torchrun``, or a world of one)
+    and runs each chunk sharded; every rank holds the gathered state and
+    evaluates it, rank 0 alone writes the checkpoints and the trace.
+
     ``state`` replaces the initial population drawn from ``tc.seed`` (the
     tests start from the reference's θ⁽⁰⁾). ``step_draws(it)`` and
     ``eval_draws(it)`` replace the draws of iteration ``it`` (under a
@@ -227,6 +229,22 @@ def train_rl_netes(task: str, tc: TrainConfig,
     with ``tc.seed``, ``tc.seed + 999`` and the schedule's seed.
     """
     dev = resolve_device(device)
+    mesh = None
+    if tc.shards is not None:
+        if step_draws is not None:
+            raise ValueError("a sharded run draws its own steps")
+        mesh = fleet_shard.build_mesh(tc.shards, device=dev)
+        dev = mesh.device
+    try:
+        return _train_rl(task, tc, log, dev, mesh, state, step_draws,
+                         eval_draws)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _train_rl(task, tc, log, dev, mesh, state, step_draws, eval_draws):
+    lead = mesh is None or mesh.rank == 0
     reward_fn, dim, init_fn, env, policy = resolve_task(task)
     schedule = build_schedule(tc)
     if schedule is not None:
@@ -259,7 +277,8 @@ def train_rl_netes(task: str, tc: TrainConfig,
     if channel is not None:
         drained += ["msgs", "drop_frac", "trigger_frac"]
         history.update({k: [] for k in drained[2:]})
-    tr = Trace(tc.trace, name=f"rl:{task}", device=dev, task=task,
+    tr = Trace(tc.trace if lead else None, name=f"rl:{task}", device=dev,
+               task=task,
                n_agents=tc.n_agents, iters=tc.iters,
                probes=None if probes is None else probes.spec.label())
     t0 = time.time()
@@ -308,6 +327,23 @@ def train_rl_netes(task: str, tc: TrainConfig,
                                      schedule, draws, **kw), scheduled=True)
         pending.append(metrics)
 
+    def run_sharded(first: int, last: int) -> None:
+        """Iterations first .. last as one sharded run (a single step is a
+        run of 1); the probe ring mstate is updated in place."""
+        nonlocal state, sstate, cstate
+        kw = dict(channel=channel, chan_state=cstate, probes=probes,
+                  metrics_state=mstate, mesh=mesh)
+        k = last - first + 1
+        if schedule is None:
+            state, cstate, metrics = netes.step_parts(netes.run(
+                state, topo, reward_fn, tc.netes, k, **kw))
+        else:
+            state, sstate, cstate, metrics = netes.step_parts(
+                netes.run_scheduled(state, sstate, reward_fn, tc.netes,
+                                    schedule, k, **kw), scheduled=True)
+        pending.extend({key: v[i] for key, v in metrics.items()}
+                       for i in range(k))
+
     eval_its = sorted(i for i in eval_iterations(tc) if i >= start)
     try:
         it = start
@@ -317,9 +353,12 @@ def train_rl_netes(task: str, tc: TrainConfig,
                         - len(pending) - 1] + [e for e in eval_its
                                                if e >= it][:1])
             with tr.span("chunk", iters=stop - it + 1):
-                for i in range(it, stop + 1):
-                    with tr.span("step", iter=i):
-                        step(i)
+                if mesh is not None:
+                    run_sharded(it, stop)
+                else:
+                    for i in range(it, stop + 1):
+                        with tr.span("step", iter=i):
+                            step(i)
             it = stop + 1
             at_eval = stop in eval_its
             if at_eval:
@@ -341,11 +380,11 @@ def train_rl_netes(task: str, tc: TrainConfig,
                             ckpt_dir, stop,
                             {"netes": state, "eval_gen": eval_gen,
                              "sched": sstate, "chan": cstate, "obs": mstate},
-                            extra={"task": task})
+                            extra={"task": task}, mesh=mesh)
             if (len(pending) >= METRIC_DRAIN_CHUNK
                     or (at_eval and log is not None)):
                 drain()
-            if at_eval and log is not None:
+            if at_eval and log is not None and lead:
                 log({"iter": stop, "eval": history["eval"][-1],
                      "reward_mean": history["reward_mean"][-1]})
         drain()
@@ -439,6 +478,9 @@ def train_lm_netes(cfg: ModelConfig, tc: TrainConfig, seq_len: int = 128,
     The run starts from ``lm_population`` and takes iteration ``it``'s
     batch and draws from ``lm_step_inputs``.
     """
+    if tc.shards is not None:
+        raise ValueError("TrainConfig.shards is for RL runs only "
+                         "(train_rl_netes)")
     dev = resolve_device(device)
     n = tc.n_agents
     params = lm_population(cfg, tc, same_init, device=dev)

@@ -509,11 +509,6 @@ def test_train_lm_netes_runs_and_is_deterministic():
     assert h1["probes"]["cursor"] == 3
 
 
-def test_train_config_shards_raises_naming_slice_7b():
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        TrainConfig(shards=2)
-
-
 def test_launch_lm_exits_zero_with_finite_losses(tmp_path):
     out = tmp_path / "lm.json"
     env = dict(os.environ, PYTHONPATH=str(SRC))
