@@ -319,6 +319,28 @@ Phases, each printing one JSON line per case:
    moonshot-v1-16b-a3b-smoke (ER: the router kernel) and
    jamba-v0.1-52b-smoke (ER through channel (a): the scan kernel) on the
    card against the CPU from the same parameters and draws, within 2e-5.
+24. ``consensus`` — the consensus placement through ``launch/specs``:
+   ``classify`` of llama4-scout-17b-a16e's and jamba-v0.1-52b's
+   ``train_4k`` on a world-of-one mesh (consensus, P = 256), cut to P = 8
+   and 2 layers at full width (``reduced``), one 1 × 4096 microbatch a
+   member, ``build_step``'s step: (i) scout fully connected, (ii) ER p =
+   0.5, (iii) (ii) through ``quantize(bits=8)|dropout(p=0.1)``, 3 steps
+   each with β injected (no broadcast, broadcast, none), (iv) jamba on ER,
+   2 steps. Per case: launches a step (scout flash 32, router 32; jamba
+   scan 32, router 16; the select one a slab in (iii) only; the Eq. 3
+   kernels none), step ms (CUDA events), finite ± losses, the peak under
+   2θ + 10 GB beside θ, (iii)'s messages = broadcast·P; (ii)'s step 0,
+   the step itself, against float64 given rewards that ``member_rewards``
+   takes of the same θ (equal to the step's); θ after step 0 differing
+   between (i) and (ii); the last step of (iii) and (iv) under the sync
+   check, of (i) profiled (idle share, time by kind). Then the script's
+   total seconds (a ``total`` line).
+The kernel phases also run the consensus step's kernels at its shapes,
+each against its plain version and float64 as at the other shapes:
+flash at 1 × 4096, 40/8 heads of 128 under scout's chunk of 8192; the
+router at 4096 × 16, top-1 (scout) and top-2 (jamba); the scan at 1 ×
+4096 × 8192 × 16; the select on one row, a slab of 2²⁴ columns and a
+ragged last one of a leaf (``consensus_shapes`` in the kernels line).
 The kernel phases also run the four Eq. 3 kernels at the LM step's
 shapes, N = 8 by 16,777,216 columns (gemma3-4b's embedding slab) and by
 5,242,880 (a layer's ``wq``), and flash at 1 × 2048, 8/4 heads of 256,
@@ -351,8 +373,9 @@ scout and maverick) and ``llama4_cases``;
 the times at the LM step's shapes; ``launches_shard``: each ``shard`` and
 ``shard_scale`` run's launches of the row's R × S instance (the select's
 own); rows 1–3's ``rs`` and ``rs_cases``: the R × S instance's numbers
-from ``kernel_shard``), the
-``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+from ``kernel_shard``; ``launches_consensus``: a step of each
+``consensus`` case; ``consensus_shapes``: the kernel cases at the
+consensus step's shapes), the ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX.
 """
@@ -512,6 +535,16 @@ def _lm_row(row: dict) -> dict:
             "library_agrees", "library_err_over_S", "matmul_ms",
             "matmul_err_over_S", "bound_ms", "bound_by", "share_of_bound")
     return {k: row[k] for k in keep if k in row}
+
+
+def _consensus_shape(results: dict, name: str, row: dict) -> None:
+    """Files a kernel case at a shape of the consensus step under the
+    kernels line's ``consensus_shapes``."""
+    keep = ("max_abs_err", "max_err_f64", "gates_err_f64", "err_over_S_f64",
+            "rows_ids_differ", "ms", "ms_q1", "ms_q3", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "flag_clear", "flag_set")
+    results.setdefault("consensus_shapes", {}).setdefault(name, {})[
+        row["shape"]] = {k: row[k] for k in keep if k in row}
 
 
 def _operands(n: int, p: int, seed: int):
@@ -939,6 +972,62 @@ def wire_kernel_phase(results: dict, lm_results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+CONS_SELECT_LEAF = (1 << 24) + 4481   # a full slab of θ, then a ragged one
+
+
+def consensus_select_phase(results: dict) -> None:
+    """The broadcast select as the consensus step launches it: one row
+    (θ has no agent axis), a slab of ``SLAB_COLUMNS`` columns and a ragged
+    last one of a leaf, the codes sliced from one q8 message over the
+    whole leaf (one scale), flag clear and set: equal to the plain
+    version and to ``torch.where``; the full slab timed."""
+    import torch
+
+    from repro_torch.core import wire_format
+    from repro_torch.distributed.netes_dist import SLAB_COLUMNS
+    from repro_torch.kernels import netes_fused_mixing as nfm
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    leaf = torch.randn(CONS_SELECT_LEAF, device="cuda", generator=g)
+    cand = leaf + 0.1 * torch.randn(CONS_SELECT_LEAF, device="cuda",
+                                    generator=g)
+    msg = wire_format.encode(cand, 8, batched=False)
+    decoded = wire_format.decode(msg.codes, msg.scale)
+    row = {"phase": "kernel", "name": "fused_broadcast_select",
+           "shape": "consensus_slab", "leaf": CONS_SELECT_LEAF,
+           "slab_columns": SLAB_COLUMNS, "equal_to_plain": True}
+    for c0 in range(0, CONS_SELECT_LEAF, SLAB_COLUMNS):
+        c1 = min(c0 + SLAB_COLUMNS, CONS_SELECT_LEAF)
+        theta = leaf[None, c0:c1]
+        for flag in (False, True):
+            f = torch.tensor(flag, device="cuda")
+            sargs = (msg.codes[c0:c1], msg.scale, f, theta)
+            kernel = functools.partial(nfm.fused_broadcast_select, *sargs)
+            plain = functools.partial(ref.broadcast_select_ref, *sargs)
+            lib = functools.partial(torch.where, f, decoded[None, c0:c1],
+                                    theta)
+            out_k, out_p = kernel(), plain()
+            torch.cuda.synchronize()
+            check(torch.equal(out_k, out_p) and torch.equal(lib(), out_p),
+                  f"fused_broadcast_select/consensus (1, {c1 - c0}) "
+                  f"flag={flag}: differs from its plain version by "
+                  f"{(out_k - out_p).abs().max().item()}")
+            if c1 - c0 < SLAB_COLUMNS:
+                continue
+            moved = 4.0 * (c1 - c0) * (1 if flag else 2) + (c1 - c0) + 5
+            key = "flag_set" if flag else "flag_clear"
+            row[key] = {**time_stats(kernel, iters=SELECT_ITERS),
+                        "plain_ms": time_ms(plain, iters=SELECT_ITERS),
+                        "library_ms": time_ms(lib, iters=SELECT_ITERS),
+                        "bound_ms": 1e3 * moved / HBM_BYTES_PER_S,
+                        "bound_by": "bytes", "max_abs_err": 0.0}
+    emit(row)
+    _consensus_shape(results, "fused_broadcast_select", row)
+    del leaf, cand, msg, decoded
+    torch.cuda.empty_cache()
+
+
 def fused_fold_phase() -> None:
     """The fused neighbor sum's in-kernel weight fold, bit for bit. Sender
     i's codes are the unit row e_i (D = N), so out[j, i] is the one product
@@ -1128,6 +1217,11 @@ ATTN_CASES = (
     # 1216 tokens, causal over 4096 positions, 32/8 heads of 128
     ("llava_loss_4096", 1, 4096, 4096, 32, 8, 128, True, 0, 0,
      "flash_attention_llava_loss"),
+    # the consensus step's loss of llama4-scout-17b-a16e (train_4k): one
+    # 1 × 4096 microbatch through a chunked layer, 40/8 heads of 128, under
+    # its chunk of 8192
+    ("scout_train_4096_chunk8192", 1, 4096, 4096, 40, 8, 128, True, 0, 8192,
+     ""),
 )
 # The plain version materialises every (B, H, Sq, Sk) score: above this
 # many bytes of float32 scores (scout's 16,384² × 40 heads: 43 GB) it runs
@@ -1266,6 +1360,8 @@ def attention_kernel_phase(results: dict, lm_results: dict) -> None:
             results[main] = row
         if label.startswith("lm_"):
             lm_results.setdefault("flash_attention", {})[label] = _lm_row(row)
+        if "train_4096" in label:
+            _consensus_shape(results, "flash_attention", row)
         emit(row)
         del q, k, v, out_k, out_p, exact, qt, kt, vt, ok
         torch.cuda.empty_cache()
@@ -1320,6 +1416,10 @@ ROUTER_CASES = (  # (label, T, E, k, main)
     ("scout_prefill_16384", 16384, 16, 1, False),
     ("maverick_prefill_8192", 8192, 128, 1, False),
     ("maverick_decode_b8", 8, 128, 1, False),
+    # the consensus step's routers on a 1 × 4096 microbatch (train_4k):
+    # scout's top-1 (the generic instance) and jamba's top-2
+    ("scout_train_4096", 4096, 16, 1, False),
+    ("jamba_train_4096", 4096, 16, 2, False),
 )
 
 
@@ -1399,6 +1499,8 @@ def router_kernel_phase(results: dict) -> None:
         emit(row)
         if main:
             results["moe_topk"] = row
+        if "train_4096" in label:
+            _consensus_shape(results, "moe_topk", row)
         if label.startswith(("scout", "maverick")):
             results.setdefault("moe_topk_llama4", {})[label] = {
                 key: row[key] for key in (
@@ -1564,6 +1666,8 @@ SCAN_CASES = (  # (label, B, S, D, N, initial state?, decay drawn as, main)
     ("ragged_33x300x16", 1, 33, 300, 16, False, "uniform", False),
     ("ragged_b2_64x300x4", 2, 64, 300, 4, False, "uniform", False),
     ("one_step_8192x16", 1, 1, 8192, 16, False, "model", False),
+    # the consensus step's mamba layers on a 1 × 4096 microbatch
+    ("jamba_train_4096", 1, 4096, 8192, 16, False, "model", False),
 )
 SCAN_F64_SLICE = 2048     # channels per float64 reference pass (memory)
 
@@ -1672,6 +1776,8 @@ def scan_kernel_phase(results: dict) -> None:
         emit(row)
         if main:
             results["mamba_scan"] = row
+        if "train_4096" in label:
+            _consensus_shape(results, "mamba_scan", row)
         del decay, drive, z, kernel, plain, assoc
         torch.cuda.empty_cache()
 
@@ -4891,6 +4997,349 @@ def lm_netes_cpu_parity_phase() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 24: the consensus placement (one shared θ, the population
+# time-multiplexed: netes_dist.make_consensus_train_step)
+# ---------------------------------------------------------------------------
+
+# scout and jamba at full width and 2 layers (scout: both chunked
+# attention + MoE of 16 experts, top-1; jamba: mamba + MoE of 16, top-2,
+# then mamba + SwiGLU), P = 8 members (``classify`` gives 256 on a world of
+# one), one 1 × 4096 microbatch a member (train_4k's sequence):
+# (case, arch, family, density, channel, steps)
+CONS_SHAPE, CONS_P, CONS_LAYERS = "train_4k", 8, 2
+CONS_CASES = (
+    ("i", SCOUT_ARCH, "fully_connected", 1.0, None, 3),
+    ("ii", SCOUT_ARCH, "erdos_renyi", 0.5, None, 3),
+    ("iii", SCOUT_ARCH, "erdos_renyi", 0.5,
+     "quantize(bits=8)|dropout(p=0.1,seed=0)", 3),
+    ("iv", JAMBA_ARCH, "erdos_renyi", 0.5, None, 2))
+# β of each step: step 1 broadcasts (β < p_b), steps 0 and 2 do not, so
+# the degree weights act in steps 0 and 2
+CONS_BETAS = (1.0, 0.0, 1.0)
+CONS_PEAK_SLACK = 10e9      # the peak stays under 2θ + this
+CONS_WINDOW = 4096          # columns of each leaf compared across cases
+# the cases whose last step runs under the sync check, and whose last
+# step is profiled (a profiled scout step costs ≈ 25 s of the profiler's
+# own work on the host)
+CONS_NO_SYNC = ("iii", "iv")
+CONS_PROFILED = ("i",)
+CONS_F64 = "ii"             # the case whose step 0 is held against float64
+CONS_DEVICE = "cuda"
+
+
+def _consensus_pair(arch, family, dens, chan_text, mesh):
+    """``classify``'s pair on the world-of-one ``mesh`` (consensus, P =
+    256), cut to ``CONS_P`` members and ``CONS_LAYERS`` layers."""
+    import dataclasses
+
+    from repro_torch.comm.channel import ChannelSpec
+    from repro_torch.core.topology import TopologySpec
+    from repro_torch.launch import specs
+
+    pair = specs.classify(
+        arch, CONS_SHAPE, mesh,
+        topo_spec=TopologySpec(family=family, n_agents=CONS_P, p=dens,
+                               seed=0),
+        chan_spec=ChannelSpec.parse(chan_text) if chan_text else None)
+    check(pair.mode == "consensus" and pair.n_agents == 256,
+          f"consensus: classify({arch}, {CONS_SHAPE}) on a world of one "
+          f"gave {pair.mode}, P = {pair.n_agents}")
+    return dataclasses.replace(
+        pair, n_agents=CONS_P,
+        cfg=dataclasses.replace(pair.cfg, num_layers=CONS_LAYERS),
+        topo=dataclasses.replace(pair.topo, n_agents=CONS_P))
+
+
+def _consensus_inputs(cfg, seed: int = 0):
+    """θ⁽⁰⁾ (float32, from ``seed``) and the P microbatches of 1 × 4096."""
+    import torch
+
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.data import make_batch
+    from repro_torch.models import transformer
+
+    seq = INPUT_SHAPES[CONS_SHAPE]["seq_len"]
+    params = transformer.init_params(cfg, seed=seed, device=CONS_DEVICE)
+    gen = torch.Generator(device=CONS_DEVICE).manual_seed(seed + 1)
+    batch = make_batch(cfg, dict(global_batch=CONS_P, seq_len=seq), gen)
+    return params, {k: v.reshape((CONS_P, 1) + v.shape[1:])
+                    for k, v in batch.items()}
+
+
+def _consensus_draws(t: int, beta: float):
+    import torch
+
+    from repro_torch.distributed import netes_dist
+    return netes_dist.StepDraws(noise=netes_dist.NoiseStream(seed=11, step=t),
+                                beta=torch.full((), beta, device=CONS_DEVICE))
+
+
+def _consensus_f64_step(label, cfg, step, args, topo, ncfg, counters):
+    """Step 0 of a case, ``build_step``'s own step, timed by CUDA events,
+    its update held against float64. Before the step, the rewards of the
+    same θ, batch and ε are taken by ``member_rewards`` (its launches are
+    taken off the counters); the step's ``reward_mean`` and
+    ``reward_max`` must equal theirs bit for bit, so they are the step's
+    rewards. Given them and the members' perturbed parameters p_i = θ +
+    σε_i in float32 (where the rewards were taken), the last
+    ``LM_CHECK_COLS`` columns of every leaf of the step's θ' must lie
+    within TOL_REL·S + 2⁻²³·|θ'| of α/(Pσ)·Σ_i c_i·(p_i − θ)/σ − wd·θ in
+    float64 (c_i = w_ε,i·deg_i/P, deg the topology's: the step's own
+    choice of degrees is checked), S the sum of the terms' magnitudes; the
+    last term is two roundings of θ', since θ' is formed in the
+    reference's order, θ + α/(Pσ)·u, then − wd·θ. Returns (the step's
+    outputs, its ms, the check's numbers)."""
+    import torch
+
+    from repro_torch.core import es_utils
+    from repro_torch.core.tree import flatten, tree_map
+    from repro_torch.distributed import netes_dist
+
+    params, _, batch, draws = args[:4]
+    held = []
+    for i, leaf in enumerate(flatten(params)):
+        flat = leaf.view(-1)
+        p = flat.numel()
+        s = (p - 1) // netes_dist.SLAB_COLUMNS
+        c0 = s * netes_dist.SLAB_COLUMNS
+        w = min(LM_CHECK_COLS, p - c0)
+        eps = torch.empty(CONS_P, p - c0, device=CONS_DEVICE)
+        for m in range(CONS_P):
+            draws.noise(eps[m], m, i, s, c0)
+        th = flat[p - w:]
+        pert = eps[:, -w:].mul(ncfg.sigma).add(th)      # as perturb_params
+        held.append((th.double(), pert.double(), w))
+        del eps
+    before = {name: k.launches for name, k in counters.items()}
+    replica = tree_map(torch.empty_like, params)
+    r_pos, r_neg = netes_dist.member_rewards(cfg, params, batch,
+                                             draws.noise, ncfg.sigma,
+                                             replica)
+    del replica
+    raw = torch.cat([r_pos, r_neg])
+    torch.cuda.synchronize()
+    for name, k in counters.items():
+        k.launches = before[name]
+    res, ms = _timed_consensus_step(label, step, args, False)
+    metrics = res[1]
+    check(torch.equal(metrics["reward_mean"], raw.mean())
+          and torch.equal(metrics["reward_max"], raw.max()),
+          f"consensus f64 ({label}): the step's rewards are not those of "
+          f"member_rewards on the same θ, batch and ε")
+    degree = topo.deg.double() / CONS_P
+    shaped = es_utils.centered_rank(raw).double()
+    coeff = (shaped[:CONS_P] - shaped[CONS_P:]) * degree
+    scale = ncfg.alpha / (CONS_P * ncfg.sigma)
+    worst = used = 0.0
+    for leaf, (th, pert, w) in zip(flatten(res[0]), held, strict=True):
+        new = leaf.view(-1)[-w:].double()
+        terms = coeff[:, None] * (pert - th) / ncfg.sigma
+        d64 = scale * terms.sum(0) - ncfg.weight_decay * th
+        mag = scale * terms.abs().sum(0) + ncfg.weight_decay * th.abs()
+        bound = TOL_REL * mag + 2.0 ** -23 * new.abs()
+        err = ((new - th) - d64).abs()
+        check(bool((err <= bound).all()),
+              f"consensus f64 ({label}): an update is off by "
+              f"{(err / bound).max().item():.3g} of its bound")
+        worst = max(worst, (err / mag.clamp_min(1e-30)).max().item())
+        used = max(used, (err / bound).max().item())
+    return (res, ms,
+            {"update_max_err_over_S": worst, "tol_over_S": TOL_REL,
+             "update_max_err_over_bound": used,
+             "update_cols_per_leaf": LM_CHECK_COLS,
+             "rewards_equal_to_the_steps": True})
+
+
+def _timed_consensus_step(label, step, args, no_sync: bool):
+    """One step timed by CUDA events; with ``no_sync`` under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    if no_sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        res = step(*args)
+        end.record()
+    except RuntimeError as err:
+        raise RuntimeError(f"no_sync consensus ({label}): the step waits "
+                           f"for the card: {err}") from err
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end)
+
+
+def _window(params) -> list:
+    """The first ``CONS_WINDOW`` elements of every leaf, on the host."""
+    from repro_torch.core.tree import flatten
+    return [leaf.view(-1)[:CONS_WINDOW].cpu() for leaf in flatten(params)]
+
+
+def _consensus_case(label, arch, family, dens, chan_text, steps, mesh,
+                    ncfg, counters, after0: dict) -> dict:
+    """One case of ``consensus_phase`` from θ⁽⁰⁾; its tensors are freed on
+    return. Returns the launches a step."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.comm.channel import compile_channel
+    from repro_torch.configs import get_config
+    from repro_torch.core import topology_repr
+    from repro_torch.core.tree import flatten
+    from repro_torch.distributed import netes_dist
+    from repro_torch.launch import specs
+
+    t_case = time.perf_counter()
+    pair = _consensus_pair(arch, family, dens, chan_text, mesh)
+    cfg = pair.cfg
+    step, order = specs.build_step(pair, mesh, ncfg, device=CONS_DEVICE)
+    check(order == ("params", "adj", "batch", "draws")
+          + (("chan",) if chan_text else ()),
+          f"consensus ({label}): step arguments {order}")
+    f64 = None
+    params, batch = _consensus_inputs(cfg)
+    theta_bytes = sum(leaf.numel() * leaf.element_size()
+                      for leaf in flatten(params))
+    states = ([compile_channel(chan_text, CONS_P).init(params)]
+              if chan_text else [])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters.values():
+        k.launches = 0
+    t_steps = time.perf_counter()
+    metrics, ms, prof = [], [], None
+    for t in range(steps):
+        draws = _consensus_draws(t, CONS_BETAS[t])
+        args = (params, None, batch, draws, *states)
+        last = t == steps - 1
+        if t == 0 and label == CONS_F64:
+            res, t_ms, f64 = _consensus_f64_step(
+                label, cfg, step, args,
+                topology_repr.from_spec(pair.topo, device=CONS_DEVICE),
+                ncfg, counters)
+            ms.append(t_ms)
+        elif last and label in CONS_PROFILED:
+            box = []
+            prof = _profile(lambda: box.append(step(*args)))
+            res = box.pop()
+            ms.append(prof["wall_ms"])
+        else:
+            res, t_ms = _timed_consensus_step(
+                label, step, args, last and label in CONS_NO_SYNC)
+            ms.append(t_ms)
+        states = list(res[2:])
+        metrics.append({k: v.item() for k, v in res[1].items()})
+        if t == 0:
+            after0[label] = _window(params)
+    counts = {name: k.launches for name, k in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps_s = time.perf_counter() - t_steps
+    for t, m in enumerate(metrics):
+        check(math.isfinite(m["reward_mean"]) and math.isfinite(
+            m["reward_max"]), f"consensus ({label}): step {t}'s losses {m}")
+        check(m["broadcast"] == (CONS_BETAS[t] < ncfg.p_broadcast),
+              f"consensus ({label}): step {t} broadcast {m['broadcast']}")
+        if chan_text:
+            check(m["msgs"] == m["broadcast"] * CONS_P
+                  and m["trigger_frac"] == 1.0,
+                  f"consensus ({label}): step {t}'s msgs {m}")
+    if chan_text:
+        check(float(states[0].msgs) == sum(m["msgs"] for m in metrics),
+              f"consensus ({label}): the channel counted "
+              f"{float(states[0].msgs)} messages")
+    check(peak <= 2 * theta_bytes + CONS_PEAK_SLACK,
+          f"consensus ({label}): peak {peak / 1e9:.2f} GB over 2θ "
+          f"({2 * theta_bytes / 1e9:.2f} GB) + "
+          f"{CONS_PEAK_SLACK / 1e9:.0f} GB")
+    kinds = [(ls.mixer, ls.ffn) for ls in cfg.layer_specs()]
+    evals = steps * 2 * CONS_P
+    want = {"flash_attention": evals * sum(m.startswith("attn")
+                                           for m, _ in kinds),
+            "moe_topk": evals * sum(f == "moe" for _, f in kinds),
+            "mamba_scan": evals * sum(m == "mamba" for m, _ in kinds),
+            "fused_broadcast_select": steps * sum(
+                -(-leaf.numel() // netes_dist.SLAB_COLUMNS)
+                for leaf in flatten(params)) if chan_text else 0}
+    for name, n in counts.items():
+        check(n == want.get(name, 0),
+              f"consensus ({label}): {name} launched {n} times, "
+              f"{want.get(name, 0)} expected")
+    check(counts["moe_topk"] > 0 and counts["flash_attention"]
+          + counts["mamba_scan"] > 0,
+          f"consensus ({label}): the model kernels never launched: {counts}")
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    emit({"phase": "consensus", "case": label, "arch": arch,
+          "mode": pair.mode, "classify_n_agents": 256,
+          "reduced": {"num_layers": [CONS_LAYERS,
+                                     get_config(arch).num_layers],
+                      "n_pop": [CONS_P, 256], "steps": steps},
+          "microbatch": list(batch["tokens"].shape[1:]),
+          "family": family, "density": dens, "channel": chan_text,
+          "netes": dataclasses.asdict(ncfg),
+          "betas": list(CONS_BETAS[:steps]),
+          "theta_gb": theta_bytes / 1e9, "peak_memory_gb": peak / 1e9,
+          "peak_bound_gb": (2 * theta_bytes + CONS_PEAK_SLACK) / 1e9,
+          "step_ms": ms, "metrics": metrics, "launches": counts,
+          "launches_per_step": per_step,
+          "no_sync_step": label in CONS_NO_SYNC,
+          "profiled_last_step": prof, "f64_step0": f64,
+          "setup_s": t_steps - t_case, "steps_wall_s": steps_s,
+          "case_wall_s": time.perf_counter() - t_case})
+    return per_step
+
+
+def consensus_phase() -> dict:
+    """``launch.specs``' entry for the consensus placement, on the card:
+    ``classify`` of each arch's ``train_4k`` on a world-of-one mesh (mode
+    consensus, P = 256), cut to ``CONS_P`` members and ``CONS_LAYERS``
+    layers at full width, and ``build_step``'s step (``CONS_CASES``): (i)
+    scout fully connected (``topology.deg``), (ii) ER p = 0.5, (iii) (ii)
+    through ``quantize(bits=8)|dropout(p=0.1)`` (the broadcast through the
+    fused select), (iv) jamba on ER p = 0.5. β is injected (no, yes, no).
+    Each case from θ⁽⁰⁾ (``_consensus_case``): the counters zeroed just
+    before its steps and read just after (flash and the router for scout,
+    the scan and the router for jamba, the select in (iii) only, the Eq. 3
+    kernels never), the steps' ms (CUDA events), the ± losses finite, the
+    peak under 2θ + ``CONS_PEAK_SLACK``, (iii)'s ``msgs`` = broadcast·P;
+    the last step of ``CONS_NO_SYNC`` under the sync check, of
+    ``CONS_PROFILED`` profiled. θ after step 0 must differ between (i) and
+    (ii) (the degree weights acted); (ii)'s step 0 is held against float64
+    (``_consensus_f64_step``). Returns the
+    launches a step of each case."""
+    import torch
+
+    from repro_torch.core.netes import NetESConfig
+    from repro_torch.launch import mesh as launch_mesh
+
+    t_phase = time.perf_counter()
+    ncfg = NetESConfig(alpha=LM_ALPHA, sigma=LM_SIGMA,
+                       p_broadcast=LM_P_BROADCAST)
+    counters = _counters()
+    mesh = launch_mesh.make_host_mesh(1, device=CONS_DEVICE)
+    per_step, after0 = {}, {}
+    try:
+        for case in CONS_CASES:
+            per_step[case[0]] = _consensus_case(*case, mesh, ncfg, counters,
+                                                after0)
+            torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    moved = [not torch.equal(a, b) for a, b in zip(after0["i"], after0["ii"],
+                                                  strict=True)]
+    check(any(moved), "consensus: θ after step 0 is the same on FC and ER: "
+          "the degree weights did not act")
+    emit({"phase": "consensus_summary", "leaves_moved_by_degrees":
+          sum(moved), "leaves": len(moved),
+          "seconds": time.perf_counter() - t_phase})
+    return per_step
+
+
+# ---------------------------------------------------------------------------
 # the sharded fleet (distributed/fleet_shard.py): its kernels, its runs
 # ---------------------------------------------------------------------------
 
@@ -5365,6 +5814,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     emit({"phase": "card", "nvidia_smi": smi, "clocks": nvidia_smi(CLOCKS),
           "device": torch.cuda.get_device_name(0),
@@ -5388,6 +5838,7 @@ def main() -> int:
     results, launches, lm_results = {}, {}, {}
     kernel_phase(results, lm_results)
     wire_kernel_phase(results, lm_results)
+    consensus_select_phase(results)
     fused_fold_phase()
     attention_kernel_phase(results, lm_results)
     router_kernel_phase(results)
@@ -5449,6 +5900,7 @@ def main() -> int:
                                       LM_WHISPER_SEQ, LM_WHISPER_CASES,
                                       ("whisper-i", "whisper-ii")))
     lm_netes_cpu_parity_phase()
+    cons_launches = consensus_phase()
     rows = []
     for name in SOURCE_OF:
         r = results[name]
@@ -5470,7 +5922,12 @@ def main() -> int:
                      "lm_shapes": lm_results.get(name, {}),
                      "launches_shard": {
                          run: counts.get(RS_NAME.get(name, name), 0)
-                         for run, counts in shard_launches.items()}})
+                         for run, counts in shard_launches.items()},
+                     "launches_consensus": {case: counts.get(name, 0)
+                                            for case, counts in
+                                            cons_launches.items()},
+                     "consensus_shapes": results.get(
+                         "consensus_shapes", {}).get(name, {})})
         if name in RS_NAME:
             # the receiver ≠ sender instance at shard 0 of a 4-way plan
             # of N = 1000 (D = 4481), and its other shards and N = 16,384
@@ -5523,6 +5980,7 @@ def main() -> int:
                                    ("maverick", maverick_runs))
                 for run in runs}
             rows[-1]["llama4_cases"] = results["moe_topk_llama4"]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
 """NetES over LM agents: the port of ``repro.distributed.netes_dist``'s
-replica train step and its serve steps, on one device.
+replica and consensus train steps and its serve steps, on one device.
 
 ``make_replica_train_step`` is paper-faithful NetES over a population of
 N agents, each a whole replica of a registry model: the parameters are
@@ -45,6 +45,12 @@ update; ``"gather"`` makes a leaf's ε whole first, as the reference's
 gather mode moves ε with θ, and with a quantizing channel sends it through
 the channel's codec too. Without a channel the two are equal bit for bit.
 
+``make_consensus_train_step`` is the placement for archs whose
+per-agent replica does not fit (``launch.specs.CONSENSUS_ARCHS``): one
+shared θ, P members evaluated one after another (member i's ε is agent
+i's of the contract above), the topology entering through degree weights
+only (DESIGN.md §7.4); it holds θ, one replica and a few slabs.
+
 The steps keep everything on the device: no ``.item()``, no host sync.
 """
 from __future__ import annotations
@@ -54,6 +60,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..comm import channel as comm_channel
 from ..configs.base import ModelConfig
 from ..core import es_utils, topology_repr, wire_format
 from ..core.netes import NetESConfig
@@ -223,15 +230,23 @@ def agent_rewards(cfg: ModelConfig, params: Any,
     and then turned into 2θ_i − (θ_i + σε_i), the reference's θ − σε."""
     n = flatten(params)[0].shape[0]
     replica = tree_map(lambda leaf: torch.empty_like(leaf[0]), params)
-    r_pos, r_neg = [], []
-    for a in range(n):
-        theta = agent_params(params, a)
-        abatch = {k: v[a] for k, v in batch.items()}
-        perturb_params(theta, noise, a, sigma, out=replica)
-        r_pos.append(-_eval_loss(cfg, replica, abatch, microbatch))
-        tree_map(lambda p, t: p.mul_(-1.0).add_(t, alpha=2.0), replica, theta)
-        r_neg.append(-_eval_loss(cfg, replica, abatch, microbatch))
-    return torch.stack(r_pos), torch.stack(r_neg)
+    pairs = [_mirrored_rewards(cfg, agent_params(params, a),
+                               {k: v[a] for k, v in batch.items()}, noise, a,
+                               sigma, replica, microbatch) for a in range(n)]
+    return (torch.stack([p for p, _ in pairs]),
+            torch.stack([m for _, m in pairs]))
+
+
+def _mirrored_rewards(cfg: ModelConfig, theta: Any,
+                      batch: Dict[str, torch.Tensor], noise: NoiseFn,
+                      agent: int, sigma: float, replica: Any,
+                      microbatch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(R⁺, R⁻) of one agent: the negated losses of θ + σε and of
+    2θ − (θ + σε), the reference's θ − σε, both made in ``replica``."""
+    perturb_params(theta, noise, agent, sigma, out=replica)
+    r_pos = -_eval_loss(cfg, replica, batch, microbatch)
+    tree_map(lambda p, t: p.mul_(-1.0).add_(t, alpha=2.0), replica, theta)
+    return r_pos, -_eval_loss(cfg, replica, batch, microbatch)
 
 
 class _Mixer:
@@ -505,6 +520,184 @@ def make_replica_train_step(cfg: ModelConfig, ncfg: NetESConfig,
             out.append(cstate)
         if probes is not None:
             out.append(probes.record(given["metrics_state"], metrics, topo))
+        return tuple(out)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# consensus-mode NetES train step (time-multiplexed population)
+# ---------------------------------------------------------------------------
+
+def member_rewards(cfg: ModelConfig, params: Any,
+                   batch: Dict[str, torch.Tensor], noise: NoiseFn,
+                   sigma: float, replica: Any
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The consensus step's first phase: (R⁺, R⁻), each (P,), the negated
+    losses of θ + σε_i and 2θ − (θ + σε_i) on member i's microbatch
+    (``batch`` leaves (P, microbatch, S)), one shared θ (``params``, no
+    agent axis). Each perturbation is made in ``replica`` (a tree like
+    ``params``), so one perturbed copy is alive at a time."""
+    pairs = [_mirrored_rewards(cfg, params, {k: v[i] for k, v in
+                                             batch.items()}, noise, i, sigma,
+                               replica, 1)
+             for i in range(batch["tokens"].shape[0])]
+    return (torch.stack([p for p, _ in pairs]),
+            torch.stack([m for _, m in pairs]))
+
+
+def consensus_update(params: Any, replica: Any, r_pos: torch.Tensor,
+                     r_neg: torch.Tensor, draws: StepDraws,
+                     degree: torch.Tensor, ncfg: NetESConfig,
+                     channel=None) -> Dict[str, torch.Tensor]:
+    """The consensus step's second phase, written into ``params`` in
+    place, slab by slab (``replica``, free after the rewards, holds the
+    broadcast candidate):
+
+        θ' = θ + α/(Pσ)·Σ_i c_i·(θ + σε_i − θ)/σ − wd·θ,  c_i = w_ε,i·degree_i
+
+    with w_ε = s⁺ − s⁻ of the centered ranks of the 2P rewards, each
+    member's term accumulated in member order from its regenerated ε, in
+    the reference's expression order. The broadcast candidate, the best
+    of the 2P with its sign (θ + σε_b, or 2θ − (θ + σε_b)), is picked in
+    the same pass from the old θ by the device's argmax (no host read);
+    through a ``channel`` it is sent through the codec as one message a
+    leaf (a scale over the whole leaf), and θ' = where(β < p_b,
+    candidate, θ') per slab: the fused select when the channel quantizes
+    to the wire form. Returns the metrics."""
+    n = r_pos.shape[0]
+    sigma = ncfg.sigma
+    raw = torch.cat([r_pos, r_neg])
+    shaped = es_utils.centered_rank(raw)
+    coeff = (shaped[:n] - shaped[n:]) * degree
+    best_flat = torch.argmax(raw)
+    best = torch.remainder(best_flat, n)
+    best_pos = best_flat < n
+    do_bcast = draws.beta < ncfg.p_broadcast
+    scale = ncfg.alpha / (n * sigma)
+    wd = ncfg.weight_decay
+    fused = (channel is not None and channel.fused
+             and channel.wire_quantized)
+
+    for i, (leaf, cand_leaf) in enumerate(zip(flatten(params),
+                                              flatten(replica),
+                                              strict=True)):
+        theta_all, cand_all = leaf.view(-1), cand_leaf.view(-1)
+        slabs = _slabs(theta_all.numel())
+        for s, c0, c1 in slabs:
+            t = theta_all[c0:c1]
+            cand = cand_all[c0:c1]
+            u = torch.zeros_like(t)
+            e = torch.empty_like(t)
+            for m in range(n):
+                draws.noise(e, m, i, s, c0)
+                e.mul_(sigma).add_(t)                   # θ + σε_m
+                torch.where(best == m, e, cand, out=cand)
+                u.add_(e.sub_(t).mul_(coeff[m]).div_(sigma))
+            torch.where(best_pos, cand, t * 2.0 - cand, out=cand)
+            new = u.mul_(scale).add_(t).sub_(t * wd)
+            if channel is None:
+                new = torch.where(do_bcast, cand, new)
+            t.copy_(new)
+        if channel is None:
+            continue
+        # the broadcast as the channel delivers it: one message a leaf
+        if fused:
+            msg = channel.encode_wire(cand_all, batched=False)
+        else:
+            msg = channel.codec(cand_all, batched=False)
+        for s, c0, c1 in slabs:
+            t = theta_all[c0:c1]
+            if fused:
+                t.copy_(fused_broadcast_select(msg.codes[c0:c1], msg.scale,
+                                               do_bcast, t[None])[0])
+            else:
+                t.copy_(torch.where(do_bcast, msg[c0:c1], t))
+
+    return {"reward_mean": raw.mean(), "reward_max": raw.max(),
+            "loss_mean": -raw.mean(),
+            "broadcast": do_bcast.to(torch.float32)}
+
+
+def make_consensus_train_step(cfg: ModelConfig, ncfg: NetESConfig,
+                              n_pop: int,
+                              topology: Optional[Topology] = None,
+                              schedule=None, channel=None) -> Callable:
+    """Returns ``step(params, adj, batch, draws[, sched_state][,
+    chan_state]) -> (params, metrics[, sched_state'][, chan_state'])``,
+    the reference's order: NetES for archs whose per-agent replica does
+    not fit (DESIGN.md §2, §7.4).
+
+    ``params``: ONE shared tree (no agent axis), updated IN PLACE and
+    returned. ``batch`` leaves: (P, microbatch, S), member i evaluated on
+    microbatch i. ``draws``: a ``StepDraws`` (member i's ε is agent i's
+    of the noise contract; β; the dropout mask and the schedule's
+    uniform). The population is time-multiplexed: the members are
+    evaluated one after another in one replica buffer, and the update
+    regenerates each member's ε a slab at a time, so the step holds θ,
+    one replica and a few slabs.
+
+    The topology enters only through the degree weights, in this order:
+    with a ``channel`` whose dropout stage drops links, the live degrees
+    ``weighted_row_sum(topo, 1, edge_mask)``; else a ``schedule``'s
+    ``sched_state.topo.deg``; else ``topology.deg``; else ``adj``'s
+    column sums; each over P. With a ``channel`` the broadcast is the one
+    wire payload (it goes through the codec), the metrics gain ``msgs``
+    (broadcast·P) and ``trigger_frac`` (1), and the state counts the
+    messages. An ``event_triggered`` stage raises ``ValueError``: one
+    shared θ has no per-member transmitted payload to trigger against.
+    No host sync.
+    """
+    if channel is not None and channel.event_stage is not None:
+        raise ValueError(
+            f"channel stage {channel.event_stage.label()!r}: event_triggered "
+            "channels need per-agent transmitted payloads; consensus mode "
+            "time-multiplexes one shared θ (use replica mode or drop the "
+            "event stage)")
+
+    def step(params, adj, batch, draws: StepDraws, *states):
+        want = [s for s, on in (("sched_state", schedule),
+                                ("chan_state", channel)) if on is not None]
+        if len(states) != len(want):
+            raise TypeError(f"the step takes {want} after the draws, got "
+                            f"{len(states)} state arguments")
+        given = dict(zip(want, states))
+        sstate = given.get("sched_state")
+        cstate = given.get("chan_state")
+        replica = tree_map(torch.empty_like, params)
+        r_pos, r_neg = member_rewards(cfg, params, batch, draws.noise,
+                                      ncfg.sigma, replica)
+        edge_mask = None
+        if channel is not None and channel.dropout_stage is not None:
+            topo_c = (sstate.topo if sstate is not None else topology
+                      if topology is not None
+                      else topology_repr.as_topology(adj))
+            edge_mask = draws.edge_mask
+            if edge_mask is None:
+                edge_mask = comm_channel.dropout_mask(
+                    comm_channel.step_key(cstate.seed, cstate.draws), topo_c,
+                    channel.dropout_stage.p)
+            cstate = dataclasses.replace(cstate, draws=cstate.draws + 1)
+        if edge_mask is not None:
+            degree = topology_repr.weighted_row_sum(
+                topo_c, torch.ones_like(r_pos), edge_mask) / n_pop
+        elif sstate is not None:
+            degree = sstate.topo.deg / n_pop
+        elif topology is not None:
+            degree = topology.deg / n_pop
+        else:
+            degree = adj.sum(dim=0) / n_pop
+        metrics = consensus_update(params, replica, r_pos, r_neg, draws,
+                                   degree, ncfg, channel)
+        del replica
+        out = [params, metrics]
+        if schedule is not None:
+            out.append(schedule.advance(sstate, u=draws.schedule_u))
+        if channel is not None:
+            msgs = metrics["broadcast"] * n_pop
+            metrics["msgs"] = msgs
+            metrics["trigger_frac"] = torch.ones_like(msgs)
+            out.append(dataclasses.replace(cstate, msgs=cstate.msgs + msgs))
         return tuple(out)
 
     return step

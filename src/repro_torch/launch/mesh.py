@@ -1,5 +1,6 @@
-"""The process group of a sharded run (``--shards n``): the port's
-counterpart of ``make_host_mesh`` (``repro.launch.mesh``).
+"""Meshes: the process group of a sharded run (``--shards n``), the
+port's counterpart of ``make_host_mesh`` (``repro.launch.mesh``), and the
+reference's production mesh as a named shape (``make_production_mesh``).
 
 A torch process group runs one process a rank, so a sharded run is
 started by ``torchrun``, which sets ``RANK``, ``WORLD_SIZE`` and
@@ -11,13 +12,18 @@ A world of one needs no launcher: without ``torchrun`` and with n = 1 the
 group is made here from a file store. The backend is NCCL, each rank on
 ``cuda:LOCAL_RANK``; ``device="cpu"`` asks for gloo on the CPU. Nothing
 falls back from one to the other.
+
+Both kinds name their axes: ``axis_names`` and a ``shape`` mapping from
+each name to its size, as a ``jax.sharding.Mesh`` does, so that the
+sharding rules (``distributed.sharding``) take either. A process group is
+the 1-D agent axis: ``("data", "model")`` of sizes (world size, 1).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import tempfile
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -37,6 +43,14 @@ class Mesh:
     owns_group: bool = False
     _store_path: Optional[str] = None
 
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("data", "model")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.world_size, "model": 1}
+
     def barrier(self) -> None:
         if self.device.type == "cuda":
             dist.barrier(group=self.group, device_ids=[self.device.index])
@@ -51,6 +65,29 @@ class Mesh:
         if self._store_path is not None and os.path.exists(self._store_path):
             os.unlink(self._store_path)
         self._store_path = None
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedShape:
+    """A mesh's named shape alone, with no devices: what the sharding
+    rules and ``launch.specs.classify`` read of a mesh."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes, strict=True))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> NamedShape:
+    """The reference's production mesh (``repro.launch.mesh``) as a named
+    shape: 16 × 16 ``("data", "model")``, or 2 × 16 × 16 ``("pod",
+    "data", "model")`` with ``multi_pod``. It holds no devices: placement
+    modes and partition specs are computed for it, nothing runs on it."""
+    if multi_pod:
+        return NamedShape(("pod", "data", "model"), (2, 16, 16))
+    return NamedShape(("data", "model"), (16, 16))
 
 
 def torchrun_command(n: int) -> str:

@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from ..distributed.context import maybe_constrain
 from ..kernels.flash_attention import flash_attention
 from ..kernels.ref import flash_attention_ref
 from . import layers
@@ -110,12 +111,15 @@ def _qkv(params, spec: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
 
 def _checked_qkv(params, spec: AttnSpec, x, positions, kv_x, kv_positions):
     """``_qkv`` of a full sequence, each side's positions checked to be
-    the indices of its own sequence."""
+    the indices of its own sequence; k and v take the "kv_full" layout of
+    an active sharding context (every query block needs the whole key
+    range)."""
     _check_arange(positions, x.shape[1])
     if kv_x is not None:
         _check_arange(positions if kv_positions is None else kv_positions,
                       kv_x.shape[1])
-    return _qkv(params, spec, x, positions, kv_x, kv_positions)
+    q, k, v = _qkv(params, spec, x, positions, kv_x, kv_positions)
+    return q, maybe_constrain(k, "kv_full"), maybe_constrain(v, "kv_full")
 
 
 def attention_block(params, spec: AttnSpec, x: torch.Tensor,

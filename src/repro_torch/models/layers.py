@@ -17,6 +17,28 @@ import torch.nn.functional as F
 _SQRT2 = math.sqrt(2.0)
 
 
+class _ShapeOnlyGenerator(torch.Generator):
+    """A CPU generator that reports the meta device: an init given it makes
+    meta tensors of the init's shapes and dtypes and draws nothing (a meta
+    tensor's fill is a no-op; ``torch.Generator`` itself has no meta
+    device)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """The inits' generator on ``device`` seeded with ``seed``; on the meta
+    device a shape-only one (``launch.specs``' abstract trees)."""
+    if device.type == "meta":
+        gen = _ShapeOnlyGenerator()
+    else:
+        gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     """Truncated-normal fan-in init: ``scale`` × a standard normal cut to

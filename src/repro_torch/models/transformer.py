@@ -43,6 +43,7 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import LayerSpec, ModelConfig
+from ..distributed.context import maybe_constrain
 from ..kernels.moe_router import moe_topk
 from ..kernels.ref import moe_topk_ref
 from . import attention, layers, mamba, moe, rwkv6
@@ -169,9 +170,10 @@ def _encoder_spec(cfg: ModelConfig) -> LayerSpec:
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                 device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """Random weights with the reference's statistics, drawn on ``device``
-    from a generator seeded with ``seed``."""
+    from a generator seeded with ``seed``; on ``device="meta"`` the tree's
+    shapes and dtypes alone, with nothing drawn."""
     check_ported(cfg)
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = layers.generator(resolve_device(device), seed)
     params: Dict[str, Any] = {
         "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": _norm_init(cfg, cfg.d_model, dtype, gen.device),
@@ -212,6 +214,16 @@ def _ffn(p, cfg: ModelConfig, lspec: LayerSpec, h, topk=moe_topk,
     raise ValueError(lspec.ffn)
 
 
+def _full_ffn(p, cfg: ModelConfig, lspec: LayerSpec, h, **kw):
+    """``_ffn`` in a full-sequence layer of the loss, as the reference's
+    ``_layer_forward``: a dense FFN's input and output take the
+    "ffn_input" and "residual" layouts of an active sharding context."""
+    if lspec.ffn not in ("swiglu", "gelu"):
+        return _ffn(p, cfg, lspec, h, **kw)
+    f = _ffn(p, cfg, lspec, maybe_constrain(h, "ffn_input"), **kw)
+    return maybe_constrain(f, "residual")
+
+
 def _cross(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
            enc_out: torch.Tensor, kernel: bool) -> torch.Tensor:
     """A decoder layer's cross attention block (pre-norm, residual) over
@@ -239,7 +251,7 @@ def _layer_forward(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
     if enc_out is not None:
         x = _cross(p, cfg, x, positions, enc_out, kernel=False)
     h = _norm(cfg, p["norm2"], x)
-    return x + _ffn(p, cfg, lspec, h, topk=moe_topk_ref)
+    return x + _full_ffn(p, cfg, lspec, h, topk=moe_topk_ref)
 
 
 def _encode(params, cfg: ModelConfig, frames: torch.Tensor,
@@ -312,8 +324,10 @@ def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def _backbone(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     """Embed + all layers + final norm, plain. Returns x (B, S, D)."""
     x, positions, enc_out = embed_inputs(params, cfg, batch)
+    x = maybe_constrain(x, "residual")
     for p, ls in zip(params["layers"], cfg.layer_specs(), strict=True):
-        x = _layer_forward(p, cfg, ls, x, positions, enc_out)
+        x = maybe_constrain(_layer_forward(p, cfg, ls, x, positions,
+                                           enc_out), "residual")
     return _norm(cfg, params["final_norm"], x)
 
 
@@ -338,19 +352,20 @@ def _kernel_layer(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
                   causal: bool = True) -> torch.Tensor:
     """``_layer_forward`` through the kernels, as prefill runs it, with no
     decode cache: attention (self, the encoder's, cross) through the flash
-    kernel, the MoE router through its kernel; mamba and rwkv through
-    ``_prefill_layer`` from a zero state (their state is a few rows; the
-    discarded cache costs nothing like attention's KV)."""
+    kernel, the MoE router through its kernel; mamba and rwkv as
+    ``_prefill_layer`` mixes them, from a zero state (their state is a few
+    rows; the discarded cache costs nothing like attention's KV)."""
+    h = _norm(cfg, p["norm1"], x)
     if lspec.mixer in ("mamba", "rwkv"):
         cache = _layer_cache(cfg, lspec, x.shape[0], 0, x.dtype, x.device)
-        return _prefill_layer(p, cfg, lspec, x, cache, positions)[0]
-    h = _norm(cfg, p["norm1"], x)
-    x = x + attention.kernel_attention(p["attn"], attn_spec(cfg, lspec), h,
-                                       positions, causal=causal)
+        x = x + _prefill_mix(p, cfg, lspec, h, cache, positions)[0]
+    else:
+        x = x + attention.kernel_attention(p["attn"], attn_spec(cfg, lspec),
+                                           h, positions, causal=causal)
     if enc_out is not None:
         x = _cross(p, cfg, x, positions, enc_out, kernel=True)
     h = _norm(cfg, p["norm2"], x)
-    return x + _ffn(p, cfg, lspec, h)
+    return x + _full_ffn(p, cfg, lspec, h)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -374,8 +389,10 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         x = _backbone(params, cfg, batch)
     elif dtype == torch.float32:
         x, positions, enc_out = embed_inputs(params, cfg, batch, kernel=True)
+        x = maybe_constrain(x, "residual")
         for p, ls in zip(params["layers"], cfg.layer_specs(), strict=True):
-            x = _kernel_layer(p, cfg, ls, x, positions, enc_out)
+            x = maybe_constrain(_kernel_layer(p, cfg, ls, x, positions,
+                                              enc_out), "residual")
         x = _norm(cfg, params["final_norm"], x)
     else:
         raise TypeError(f"loss_fn: parameters of {dtype}; it takes float32 "
@@ -476,24 +493,29 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
     return unembed(params, cfg, x), cache
 
 
+def _prefill_mix(p, cfg: ModelConfig, ls: LayerSpec, h, c, positions):
+    """A layer's token mixer over the normed ``h`` through the kernels,
+    from the layer's cache ``c``. Returns (the mix, the filled cache)."""
+    if ls.mixer == "rwkv":
+        mix, state = rwkv6.rwkv6_prefill(p["rwkv"], rwkv_spec(cfg), h,
+                                         c["rwkv"])
+        return mix, {"rwkv": state}
+    if ls.mixer == "mamba":
+        mix, state = mamba.mamba_prefill(p["mamba"], mamba_spec(cfg), h,
+                                         c["mamba"])
+        return mix, {"mamba": state}
+    mix, kv = attention.prefill_attention(p["attn"], attn_spec(cfg, ls), h,
+                                          positions, c["kv"])
+    return mix, {"kv": kv}
+
+
 def _prefill_layer(p, cfg: ModelConfig, ls: LayerSpec, x, c, positions,
                    enc_out=None):
     """``_layer_forward`` through the kernels that also fills the layer's
     decode cache (attention's KV slots; mamba's SSM state and conv ring;
     rwkv's WKV state and token shifts)."""
-    h = _norm(cfg, p["norm1"], x)
-    if ls.mixer == "rwkv":
-        mix, state = rwkv6.rwkv6_prefill(p["rwkv"], rwkv_spec(cfg), h,
-                                         c["rwkv"])
-        cnew = {"rwkv": state}
-    elif ls.mixer == "mamba":
-        mix, state = mamba.mamba_prefill(p["mamba"], mamba_spec(cfg), h,
-                                         c["mamba"])
-        cnew = {"mamba": state}
-    else:
-        mix, kv = attention.prefill_attention(p["attn"], attn_spec(cfg, ls),
-                                              h, positions, c["kv"])
-        cnew = {"kv": kv}
+    mix, cnew = _prefill_mix(p, cfg, ls, _norm(cfg, p["norm1"], x), c,
+                             positions)
     x = x + mix
     if enc_out is not None:
         x = _cross(p, cfg, x, positions, enc_out, kernel=True)

@@ -13,7 +13,7 @@ in a process of its own (``tests/test_torch_lm.py``,
 ``tests/test_torch_mamba.py`` and ``tests/test_torch_gemma3.py`` start
 it), so no other test module ever sees the swap.
 
-Seven parts (PART): ``lm`` (the default) dumps the models, ``moe`` the MoE
+Ten parts (PART): ``lm`` (the default) dumps the models, ``moe`` the MoE
 layer's pieces, ``rwkv`` the rwkv6 pieces and the rwkv6-7b-smoke model (at
 2 layers, unrolled, and at 4, scanned as plan (0, 1, 4, 0)), ``mamba`` the
 mamba pieces and the jamba-v0.1-52b-smoke model (at 2 layers, unrolled,
@@ -31,8 +31,12 @@ and 128 with top-1, and the llama4 smoke models and 48-layer models of
 their patterns at tiny widths (see ``dump_llama4``), and ``frontends``
 cross and non-causal attention pieces, whisper-tiny-smoke with the
 frontend's frames and llava-next-mistral-7b-smoke with its patches (see
-``dump_frontends``). The ``netes`` part's archs include
-whisper-tiny-smoke, whose batches carry the reference's frames.
+``dump_frontends``), ``consensus`` the consensus step
+(``make_consensus_train_step``, see ``dump_consensus``) and ``sharding``
+the placement of ``repro.launch.specs`` on the production meshes (see
+``dump_sharding``; run with 512 forced host devices, written as JSON).
+The ``netes`` part's archs include whisper-tiny-smoke, whose batches
+carry the reference's frames.
 Everything is drawn from fixed seeds: the weights
 with the reference's own inits (mistral-nemo-12b-smoke at 2 layers,
 unrolled, and at 4 layers, scanned; moonshot-v1-16b-a3b-smoke at 2
@@ -41,6 +45,7 @@ dense head layer, then one MoE layer 5 times), the inputs with numpy.
 Keys are "/"-joined paths.
 """
 import dataclasses
+import json
 import sys
 
 import jax
@@ -137,6 +142,13 @@ def main(path, part="lm"):
         return
     if part == "frontends":
         np.savez(path, **dump_frontends(attention, transformer, ServeEngine))
+        return
+    if part == "consensus":
+        np.savez(path, **dump_consensus(transformer))
+        return
+    if part == "sharding":
+        with open(path, "w") as f:
+            json.dump(dump_sharding(), f)
         return
     smoke = get_config("mistral-nemo-12b-smoke")
     rng = np.random.default_rng(0)
@@ -721,6 +733,231 @@ def dump_frontends(attention, transformer, ServeEngine):
         out[f"llava/loss{s}"] = transformer.loss_fn(
             params, llava, batch, xent_chunk=LLAVA_XENT_CHUNK)
     return {key: np.asarray(a) for key, a in out.items()}
+
+
+# the consensus step (``make_consensus_train_step``): P = 4 members, one
+# 64-token sequence each, 3 steps; the archs (maverick-smoke on the
+# runtime adjacency only) and the variants: the runtime ``adj`` (ER p =
+# 0.5), the same graph as a sparse ``Topology``, a ``resample_er``
+# schedule redrawn at every step over that graph, and the Topology through
+# channel (a); the steps after which the parameters are dumped
+CONS_N, CONS_SEQ, CONS_STEPS = 4, 64, 3
+CONS_ARCHS = ("llama4-scout-17b-a16e-smoke", "jamba-v0.1-52b-smoke",
+              "gemma3-4b-smoke", "llama4-maverick-400b-a17b-smoke")
+CONS_ADJ_ONLY = ("llama4-maverick-400b-a17b-smoke",)
+CONS_SCHEDULE = "resample_er(period=1)"
+CONS_AFTER = {"adj": (1, 3), "topo": (3,), "sched": (3,), "chan": (1, 2, 3)}
+# θ⁽⁰⁾'s key is the first from 800 + 20·(the arch's index) whose step-0
+# rewards (the reference's) lie at least this far apart, so that float32
+# rounding cannot reorder them (a step's update moves the later steps'
+# rewards much further apart)
+CONS_STEP0_GAP = 1e-4
+
+
+def import_consensus():
+    saved = batching.primitive_batchers
+    batching.primitive_batchers = {optimization_barrier_p: None}
+    try:
+        from repro.comm import channel
+        from repro.core import topology, topology_repr, topology_sched
+        from repro.core.netes import NetESConfig
+        from repro.core.topology import TopologySpec
+        from repro.data import make_batch
+        from repro.distributed import netes_dist
+    finally:
+        batching.primitive_batchers = saved
+    return (channel, topology, topology_repr, topology_sched, NetESConfig,
+            TopologySpec, make_batch, netes_dist)
+
+
+def dump_consensus(transformer):
+    """Per arch, under ``<arch>/``: ``params`` (θ⁽⁰⁾, from ``init_key``,
+    see ``CONS_STEP0_GAP``), ``tokens<t>`` (P,
+    1, S), ``k_agents<t>`` (the members' key of step t: member i's ε is
+    ``perturb_params`` from ``fold_in(k_agents, i)``), ``beta<t>``,
+    ``leaf_keys`` (the parameter tree's leaves in its flatten order, the
+    order the noise contract numbers them), ``eps0/0/...`` (member 0's ε
+    of step 0, made by the reference's ``perturb_params`` at σ = 1 from
+    zeros); per variant ``<variant>/metrics<t>/<name>``, the channel's
+    dropout masks ``chan/edge_mask<t>``, the schedule's uniforms
+    ``sched/u<t>`` (the redraw of the advance after step t), and the
+    parameters after the steps of ``CONS_AFTER``, ``<variant>/after<k>/
+    ...``. The graph is ``adj`` (ER p = 0.5, seed 0, dense) or its sparse
+    ``Topology``; the step keys are the ``netes`` part's, for the
+    broadcast pattern ``NETES_BCAST``."""
+    (channel, topology, topology_repr, topology_sched, NetESConfig,
+     TopologySpec, make_batch, netes_dist) = import_consensus()
+    ncfg = NetESConfig(**NETES_CFG)
+    n = CONS_N
+    seed = next(s for s in range(100) if tuple(
+        bool(jax.random.uniform(jax.random.split(
+            jax.random.fold_in(jax.random.PRNGKey(s), t))[1])
+             < ncfg.p_broadcast) for t in range(CONS_STEPS)) == NETES_BCAST)
+    keys = [jax.random.fold_in(jax.random.PRNGKey(seed), t)
+            for t in range(CONS_STEPS)]
+    base = TopologySpec(family="erdos_renyi", n_agents=n, p=0.5, seed=0)
+    adj = np.asarray(base.build(), np.float32)
+    topo = topology_repr.from_dense(adj, "sparse")
+    out = {"adj": adj, "neighbor_idx": topo.neighbor_idx,
+           "neighbor_mask": topo.neighbor_mask}
+    for a, arch in enumerate(CONS_ARCHS):
+        cfg = get_config(arch)
+        batch_fn = jax.jit(lambda k, cfg=cfg: make_batch(
+            cfg, dict(seq_len=CONS_SEQ, global_batch=n), k))
+        batches = [jax.tree.map(
+            lambda x: x.reshape((n, 1) + x.shape[1:]),
+            batch_fn(jax.random.fold_in(jax.random.PRNGKey(900 + a), t)))
+            for t in range(CONS_STEPS)]
+        k0 = jax.random.split(keys[0])[0]
+
+        @jax.jit
+        def rewards(p0, i, cfg=cfg, b0=batches[0], k0=k0):
+            pert = netes_dist.perturb_params(p0, jax.random.fold_in(k0, i),
+                                             ncfg.sigma, 1.0)
+            mb = jax.tree.map(lambda x: x[i], b0)
+            neg = jax.tree.map(lambda t, q: 2.0 * t - q, p0, pert)
+            return jnp.stack([-transformer.loss_fn(pert, cfg, mb),
+                              -transformer.loss_fn(neg, cfg, mb)])
+
+        for init in range(800 + 20 * a, 820 + 20 * a):
+            p0 = transformer.init_params(jax.random.PRNGKey(init), cfg,
+                                         jnp.float32)
+            raw = np.sort(np.concatenate([np.asarray(rewards(p0, i))
+                                          for i in range(n)]))
+            if np.diff(raw).min() > CONS_STEP0_GAP:
+                break
+        else:
+            raise RuntimeError(f"{arch}: no θ⁽⁰⁾ with step 0's rewards "
+                               f"{CONS_STEP0_GAP} apart")
+        out[f"{arch}/init_key"] = np.int32(init)
+        out.update(flatten(p0, f"{arch}/params"))
+        paths = jax.tree_util.tree_flatten_with_path(p0)[0]
+        out[f"{arch}/leaf_keys"] = np.array([
+            "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path) for path, _ in paths])
+        zeros = jax.tree.map(jnp.zeros_like, p0)
+        for t, key in enumerate(keys):
+            out[f"{arch}/tokens{t}"] = batches[t]["tokens"]
+            k_agents, k_beta = jax.random.split(key)
+            out[f"{arch}/k_agents{t}"] = k_agents
+            out[f"{arch}/beta{t}"] = jax.random.uniform(k_beta)
+            if t == 0:
+                out.update(flatten(netes_dist.perturb_params(
+                    zeros, jax.random.fold_in(k_agents, 0), 1.0, 1.0),
+                    f"{arch}/eps0/0"))
+        variants = ("adj",) if arch in CONS_ADJ_ONLY else tuple(CONS_AFTER)
+        for variant in variants:
+            sched = chan = None
+            if variant == "sched":
+                sched = topology_sched.compile_schedule(
+                    topology_sched.ScheduleSpec.parse(CONS_SCHEDULE), base)
+            if variant == "chan":
+                chan = channel.compile_channel(NETES_CHANNEL, n)
+            step = jax.jit(netes_dist.make_consensus_train_step(
+                cfg, ncfg, n, topology=topo if variant in ("topo", "chan")
+                else None, schedule=sched, channel=chan))
+            p = p0
+            sstate = sched.init() if sched is not None else None
+            cstate = chan.init(p) if chan is not None else None
+            pre = f"{arch}/{variant}"
+            for t, key in enumerate(keys):
+                if variant == "sched":
+                    out[f"{pre}/u{t}"] = jax.random.uniform(
+                        jax.random.split(sstate.key)[1], (n, n))
+                    p, metrics, sstate = step(p, None, batches[t], key,
+                                              sstate)
+                elif variant == "chan":
+                    _, sub = jax.random.split(cstate.key)
+                    out[f"{pre}/edge_mask{t}"] = channel.dropout_mask(
+                        sub, topo, chan.dropout_stage.p)
+                    p, metrics, cstate = step(p, None, batches[t], key,
+                                              cstate)
+                else:
+                    p, metrics = step(p, jnp.asarray(adj), batches[t], key)
+                out.update(flatten(metrics, f"{pre}/metrics{t}"))
+                if variant == "chan":
+                    out[f"{pre}/chan_msgs{t}"] = cstate.msgs
+                if t + 1 in CONS_AFTER[variant]:
+                    out.update(flatten(p, f"{pre}/after{t + 1}"))
+    return {key: np.asarray(v) for key, v in out.items()}
+
+
+def _spec_json(spec):
+    return [list(e) if isinstance(e, tuple) else e for e in tuple(spec)]
+
+
+def _specs_json(tree):
+    from jax.sharding import PartitionSpec
+    leaves = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, PartitionSpec))[0]
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path): _spec_json(s) for path, s in leaves}
+
+
+def _shapes_json(tree):
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path): [list(x.shape), str(x.dtype)]
+            for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+# the cache specs' batch sizes (B = 1: the sequence over every axis)
+SHARD_CACHE_BATCHES = (1, 128)
+SHARD_CACHE_LEN = 32768
+
+
+def dump_sharding():
+    """The reference's placement on its two production meshes (16 × 16
+    and 2 × 16 × 16; the process runs with 512 forced host devices), by
+    mesh name: ``params`` (arch → mode → key → spec; replica over the
+    agent-stacked abstract tree), ``cache`` (arch → B → key → spec),
+    ``roles`` (arch → mode → kind → role → spec), ``classify`` ("arch
+    shape" → [mode, kind, n_agents]) and ``inputs`` ("arch shape" →
+    ``args`` key → [shape, dtype] and ``specs`` key → spec), for every
+    pair of ``shape_pairs()``. A spec is a list of None, an axis name, or
+    a list of names."""
+    saved = batching.primitive_batchers
+    batching.primitive_batchers = {optimization_barrier_p: None}
+    try:
+        from repro.configs import ASSIGNED_ARCHS, shape_pairs
+        from repro.distributed import sharding
+        from repro.launch import specs
+        from repro.launch.mesh import make_production_mesh
+    finally:
+        batching.primitive_batchers = saved
+    out = {}
+    for name, mesh in (("single", make_production_mesh()),
+                       ("multi", make_production_mesh(multi_pod=True))):
+        res = {"params": {}, "cache": {}, "roles": {}, "classify": {},
+               "inputs": {}}
+        for arch in ASSIGNED_ARCHS:
+            cfg = get_config(arch)
+            abstract = specs.abstract_params(cfg)
+            res["params"][arch] = {
+                mode: _specs_json(sharding.param_pspecs(
+                    cfg, specs.stack_abstract(abstract, sharding.n_agents(
+                        mesh)) if mode == "replica" else abstract, mode,
+                    mesh))
+                for mode in ("replica", "consensus", "serve")}
+            res["cache"][arch] = {
+                str(b): _specs_json(sharding.cache_pspecs(
+                    cfg, specs.abstract_cache(cfg, b, SHARD_CACHE_LEN), mesh,
+                    b)) for b in SHARD_CACHE_BATCHES}
+            res["roles"][arch] = {
+                mode: {kind: {r: _spec_json(s) for r, s in
+                              sharding.activation_roles(cfg, mode, mesh,
+                                                        kind).items()}
+                       for kind in ("train", "prefill", "decode")}
+                for mode in ("replica", "consensus", "serve")}
+        for arch, shape in shape_pairs():
+            pair = specs.classify(arch, shape, mesh)
+            res["classify"][f"{arch} {shape}"] = [pair.mode, pair.kind,
+                                                  pair.n_agents]
+            info = specs.input_specs(arch, shape, mesh)
+            res["inputs"][f"{arch} {shape}"] = {
+                "args": _shapes_json(info["args"]),
+                "specs": _specs_json(info["specs"])}
+        out[name] = res
+    return out
 
 
 if __name__ == "__main__":

@@ -448,7 +448,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.distributed.netes_dist",
             "repro_torch.distributed.fleet_shard",
             "repro_torch.distributed.permute_mixing",
-            "repro_torch.launch.mesh",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.context",
+            "repro_torch.launch.mesh", "repro_torch.launch.specs",
             "repro_torch.models.frontends", "repro_torch.optim",
             "repro_torch.optim.adam", "repro_torch.optim.sgd",
             "repro_torch.configs.whisper_tiny",
