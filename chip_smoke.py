@@ -333,8 +333,22 @@ Phases, each printing one JSON line per case:
    the step itself, against float64 given rewards that ``member_rewards``
    takes of the same θ (equal to the step's); θ after step 0 differing
    between (i) and (ii); the last step of (iii) and (iv) under the sync
-   check, of (i) profiled (idle share, time by kind). Then the script's
-   total seconds (a ``total`` line).
+   check, of (i) profiled (idle share, time by kind).
+25. ``tooling`` — the dry run's accounting against the card (PR 30): for
+   scout and jamba at phase 24's cut (ER p = 0.5), ``launch/specs.lower``
+   of the pair traced on fake CUDA tensors under a ``launch/op_costs``
+   recorder (the members folded), then one real step under a recorder
+   (the kernels reporting their dot FLOPs) and one more timed by CUDA
+   events: the two ``dot_flops`` must be equal, the predicted peak
+   (arguments + the fake run's live-storage peak) within 15% of
+   ``torch.cuda.max_memory_allocated`` over the step, and the roofline's
+   bound at the H100's constants (``launch/analysis.py``) at most the
+   measured step (a ``tooling_case`` line each). Then every one-device
+   entry point of the contract linter (``repro_torch.analysis``) built on
+   the card and called under ``torch.cuda.set_sync_debug_mode("error")``,
+   its returned state as stable as the linter holds it; one ``tooling``
+   line (the launches of the phase: ``launches_tooling`` in the kernels
+   line). Then the script's total seconds (a ``total`` line).
 The kernel phases also run the consensus step's kernels at its shapes,
 each against its plain version and float64 as at the other shapes:
 flash at 1 × 4096, 40/8 heads of 128 under scout's chunk of 8192; the
@@ -374,7 +388,8 @@ the times at the LM step's shapes; ``launches_shard``: each ``shard`` and
 ``shard_scale`` run's launches of the row's R × S instance (the select's
 own); rows 1–3's ``rs`` and ``rs_cases``: the R × S instance's numbers
 from ``kernel_shard``; ``launches_consensus``: a step of each
-``consensus`` case; ``consensus_shapes``: the kernel cases at the
+``consensus`` case; ``launches_tooling`` (``_rs``): the ``tooling``
+phase's; ``consensus_shapes``: the kernel cases at the
 consensus step's shapes), the ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -1857,8 +1872,9 @@ def main_phase(launches: dict) -> None:
         resets = reward_fn.draw(state.generator, 2 * MAIN_N)
         rollout_ms = 1e3 * _host_time(
             functools.partial(reward_fn, cand, resets), 3)
-        eps = torch.randn_like(state.thetas)
-        shaped = torch.rand(MAIN_N, device="cuda") - 0.5
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        eps = torch.randn(state.thetas.shape, generator=gen, device="cuda")
+        shaped = torch.rand(MAIN_N, generator=gen, device="cuda") - 0.5
         mixing_ms = time_ms(
             functools.partial(netes.mixing_update, topo, state.thetas, eps,
                               shaped, cfg))
@@ -1939,12 +1955,13 @@ def channel_phase(launches: dict) -> None:
         resets = reward_fn.draw(state.generator, 2 * MAIN_N)
         rollout_ms = 1e3 * _host_time(
             functools.partial(reward_fn, cand, resets), 3)
-        eps = torch.randn_like(state.thetas)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        eps = torch.randn(state.thetas.shape, generator=gen, device="cuda")
         payload = state.thetas + cfg.sigma * eps
         apply = ch.apply_wire if ch.wire_fused(topo) else ch.apply
         apply_ms = time_ms(functools.partial(apply, cstate, topo, payload))
         wire, em, _, _ = apply(cstate, topo, payload)
-        shaped = torch.rand(MAIN_N, device="cuda") - 0.5
+        shaped = torch.rand(MAIN_N, generator=gen, device="cuda") - 0.5
         mixing_ms = time_ms(functools.partial(
             netes.mixing_update, topo, state.thetas, eps, shaped, cfg,
             payload=wire, edge_mask=em))
@@ -4788,7 +4805,7 @@ def _lm_f64_check(cfg, tc, topo, seq) -> dict:
             LM_CHECK_COLS, "tol_over_S": TOL_REL}
 
 
-def _no_sync_lm_step(label, step, args) -> None:
+def _no_sync_lm_call(label, step, args) -> None:
     """One replica step under ``torch.cuda.set_sync_debug_mode("error")``."""
     import torch
     torch.cuda.synchronize()
@@ -4880,7 +4897,7 @@ def lm_netes_phase(cfg, seq: int, cases, no_sync_cases) -> dict:
         no_sync = label in no_sync_cases
         if no_sync:
             batch, draws = _lm_inputs(cfg, tc, LM_ITERS + 1, seq)
-            _no_sync_lm_step(label, step,
+            _no_sync_lm_call(label, step,
                              (params, None, batch, draws, *states))
         emit({"phase": "lm_netes", "case": label, "arch": cfg.name,
               "num_layers": cfg.num_layers,
@@ -5074,7 +5091,7 @@ def _consensus_draws(t: int, beta: float):
                                 beta=torch.full((), beta, device=CONS_DEVICE))
 
 
-def _consensus_f64_step(label, cfg, step, args, topo, ncfg, counters):
+def _consensus_f64_check(label, cfg, step, args, topo, ncfg, counters):
     """Step 0 of a case, ``build_step``'s own step, timed by CUDA events,
     its update held against float64. Before the step, the rewards of the
     same θ, batch and ε are taken by ``member_rewards`` (its launches are
@@ -5120,7 +5137,7 @@ def _consensus_f64_step(label, cfg, step, args, topo, ncfg, counters):
     torch.cuda.synchronize()
     for name, k in counters.items():
         k.launches = before[name]
-    res, ms = _timed_consensus_step(label, step, args, False)
+    res, ms = _timed_consensus_call(label, step, args, False)
     metrics = res[1]
     check(torch.equal(metrics["reward_mean"], raw.mean())
           and torch.equal(metrics["reward_max"], raw.max()),
@@ -5150,7 +5167,7 @@ def _consensus_f64_step(label, cfg, step, args, topo, ncfg, counters):
              "rewards_equal_to_the_steps": True})
 
 
-def _timed_consensus_step(label, step, args, no_sync: bool):
+def _timed_consensus_call(label, step, args, no_sync: bool):
     """One step timed by CUDA events; with ``no_sync`` under
     ``torch.cuda.set_sync_debug_mode("error")``."""
     import torch
@@ -5218,7 +5235,7 @@ def _consensus_case(label, arch, family, dens, chan_text, steps, mesh,
         args = (params, None, batch, draws, *states)
         last = t == steps - 1
         if t == 0 and label == CONS_F64:
-            res, t_ms, f64 = _consensus_f64_step(
+            res, t_ms, f64 = _consensus_f64_check(
                 label, cfg, step, args,
                 topology_repr.from_spec(pair.topo, device=CONS_DEVICE),
                 ncfg, counters)
@@ -5229,7 +5246,7 @@ def _consensus_case(label, arch, family, dens, chan_text, steps, mesh,
             res = box.pop()
             ms.append(prof["wall_ms"])
         else:
-            res, t_ms = _timed_consensus_step(
+            res, t_ms = _timed_consensus_call(
                 label, step, args, last and label in CONS_NO_SYNC)
             ms.append(t_ms)
         states = list(res[2:])
@@ -5309,7 +5326,7 @@ def consensus_phase() -> dict:
     the last step of ``CONS_NO_SYNC`` under the sync check, of
     ``CONS_PROFILED`` profiled. θ after step 0 must differ between (i) and
     (ii) (the degree weights acted); (ii)'s step 0 is held against float64
-    (``_consensus_f64_step``). Returns the
+    (``_consensus_f64_check``). Returns the
     launches a step of each case."""
     import torch
 
@@ -5337,6 +5354,201 @@ def consensus_phase() -> dict:
           sum(moved), "leaves": len(moved),
           "seconds": time.perf_counter() - t_phase})
     return per_step
+
+
+# ---------------------------------------------------------------------------
+# tooling (launch/op_costs.py, launch/specs.lower, launch/analysis.py,
+# analysis/): the dry run's accounting held against the card on the
+# consensus step, and the contract linter's entry points run on the card
+# ---------------------------------------------------------------------------
+
+TOOL_CASES = (("scout", SCOUT_ARCH), ("jamba", JAMBA_ARCH))
+TOOL_PEAK_BAND = 0.15       # the predicted peak within ±15% of the measured
+
+
+def _tooling_pair(arch):
+    """Phase ``consensus``'s cut of ``arch``'s pair (ER p = 0.5, P =
+    ``CONS_P``, ``CONS_LAYERS`` layers, full width) on a world of one, and
+    its input shape: one 1 × 4096 microbatch a member."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch.mesh import NamedShape
+
+    one = NamedShape(("data", "model"), (1, 1))
+    pair = _consensus_pair(arch, "erdos_renyi", 0.5, None, one)
+    shape = dict(seq_len=INPUT_SHAPES[CONS_SHAPE]["seq_len"],
+                 global_batch=CONS_P, kind="train")
+    return pair, one, shape
+
+
+def _tooling_consensus(label, arch, ncfg, counters, smi) -> tuple:
+    """``specs.lower(...).trace()`` of the cut pair on fake CUDA tensors
+    (the members folded: one traced, counted P times), then one real step
+    on the card under an ``op_costs`` recorder, the kernels reporting, and
+    one more timed by CUDA events with no recorder. Checks: the two
+    ``dot_flops`` equal; the predicted peak (arguments + the fake run's
+    live-storage peak) within ``TOOL_PEAK_BAND`` of
+    ``torch.cuda.max_memory_allocated`` over the step; the roofline's
+    bound at the H100's constants at most the measured step. Returns (the
+    case's record, the launches of its recorded step)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import analysis, op_costs, specs
+
+    t_case = time.perf_counter()
+    pair, one, shape = _tooling_pair(arch)
+    lowered = specs.lower(pair, one, shape=shape, ncfg=ncfg,
+                          device=CONS_DEVICE)
+    t0 = time.perf_counter()
+    fake = lowered.trace(fold=True)
+    trace_s = time.perf_counter() - t0
+    fake_costs = fake.costs()
+    predicted = analysis.memory_analysis_dict(lowered.argument_bytes(),
+                                              fake)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params, batch = _consensus_inputs(pair.cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters.values():
+        k.launches = 0
+    with op_costs.OpCosts(keep_ops=False) as real:
+        lowered.fn(params, None, batch, _consensus_draws(0, 1.0))
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in counters.items() if k.launches}
+    measured = torch.cuda.max_memory_allocated() - base
+    real_costs = real.costs()
+    _, step_ms = _timed_consensus_call(
+        f"tooling {label}", lowered.fn,
+        (params, None, batch, _consensus_draws(1, 1.0)), False)
+    del params, batch
+    torch.cuda.empty_cache()
+    hbm = (fake_costs["dot_bytes"] + fake_costs["kernel_bytes"]
+           + fake_costs["collective_bytes"])
+    terms = analysis.roofline_terms(fake_costs["dot_flops"], hbm,
+                                    fake_costs["collective_bytes"])
+    bound_ms = terms["step_time_lower_bound_s"] * 1e3
+    flops_equal = fake_costs["dot_flops"] == real_costs["dot_flops"]
+    check(flops_equal,
+          f"tooling ({label}): dot FLOPs of the fake trace "
+          f"{fake_costs['dot_flops']:.6e} (kernels "
+          f"{fake_costs['kernel_flops']:.6e}) and of the card's step "
+          f"{real_costs['dot_flops']:.6e} (kernels "
+          f"{real_costs['kernel_flops']:.6e}) differ")
+    off = abs(predicted["peak_bytes"] - measured) / measured
+    check(off <= TOOL_PEAK_BAND,
+          f"tooling ({label}): predicted peak "
+          f"{predicted['peak_bytes'] / 1e9:.3f} GB is {off:.1%} off the "
+          f"measured {measured / 1e9:.3f} GB")
+    check(bound_ms <= step_ms,
+          f"tooling ({label}): the roofline bound {bound_ms:.3f} ms is "
+          f"above the measured step, {step_ms:.3f} ms")
+    check(launches.get("moe_topk", 0) > 0,
+          f"tooling ({label}): the router never launched: {launches}")
+    return ({"case": label, "arch": arch, "card": smi,
+             "reduced": {"num_layers": [CONS_LAYERS,
+                                        get_config(arch).num_layers],
+                         "n_pop": [CONS_P, 256]},
+             "trace_s": trace_s,
+             "dot_flops_fake": fake_costs["dot_flops"],
+             "dot_flops_card": real_costs["dot_flops"],
+             "kernel_flops": real_costs["kernel_flops"],
+             "flops_equal": flops_equal,
+             "kernels_reported": dict(real.kernels),
+             "peak_predicted_gb": predicted["peak_bytes"] / 1e9,
+             "argument_gb": predicted["argument_bytes"] / 1e9,
+             "temp_predicted_gb": predicted["temp_bytes"] / 1e9,
+             "peak_measured_gb": measured / 1e9,
+             "peak_off": off, "roofline": terms, "bound_ms": bound_ms,
+             "step_ms": step_ms, "bound_over_step": bound_ms / step_ms,
+             "launches": launches,
+             "case_wall_s": time.perf_counter() - t_case}, launches)
+
+
+def _tooling_contracts(counters) -> tuple:
+    """Every entry point of the contract linter that needs one device,
+    built on the card (``build(device)``) and called twice: once to load
+    its kernels and place its operands, then under
+    ``torch.cuda.set_sync_debug_mode("error")``; the state it returns must
+    be as stable as the contract layer holds it on fake tensors. Returns
+    (entry points run, findings, launches)."""
+    import torch
+
+    from repro_torch.analysis import contracts
+    from repro_torch.analysis.registry import iter_entry_points
+
+    dev = torch.device(CONS_DEVICE, 0)
+    run, findings = [], []
+    for k in counters.values():
+        k.launches = 0
+    for ep in iter_entry_points():
+        if ep.min_devices > 1:
+            continue
+        fn, args, kwargs = ep.build(dev)
+        fn(*args, **kwargs)
+        before = {name: contracts.snapshot(args[i])
+                  for name, i, _ in ep.carry}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(*args, **kwargs)
+        except RuntimeError as err:
+            findings.append(f"{ep.name}: the call waits for the card: {err}")
+            continue
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        pairs = {name: (before[name], contracts.snapshot(out[j]))
+                 for name, _, j in ep.carry}
+        findings += [f"{ep.name}: {m}" for m in contracts.check_stable_carry(
+            pairs, dict(ep.carry_exempt))]
+        run.append(ep.name)
+    launches = {n: k.launches for n, k in counters.items() if k.launches}
+    return run, findings, launches
+
+
+def tooling_phase() -> dict:
+    """(a) the dry run's accounting against the card on the consensus
+    step of scout and jamba (``_tooling_consensus``); (b) the one-device
+    entry points of the contract linter run on the card
+    (``_tooling_contracts``); (c) one ``tooling`` line. Returns the
+    launches of the phase by kernel."""
+    import torch
+
+    from repro_torch.core.netes import NetESConfig
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    ncfg = NetESConfig(alpha=LM_ALPHA, sigma=LM_SIGMA,
+                       p_broadcast=LM_P_BROADCAST)
+    counters = _counters()
+    cases, launches = [], {}
+    for label, arch in TOOL_CASES:
+        case, counts = _tooling_consensus(label, arch, ncfg, counters, smi)
+        emit({"phase": "tooling_case", **case})
+        cases.append(case)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        torch.cuda.empty_cache()
+    run, findings, counts = _tooling_contracts(counters)
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    check(not findings, f"tooling: contract findings on the card: "
+          f"{findings}")
+    emit({"phase": "tooling", "card": smi,
+          "pairs": [c["case"] for c in cases],
+          "flops_equal": all(c["flops_equal"] for c in cases),
+          "peak_predicted_gb": {c["case"]: c["peak_predicted_gb"]
+                                for c in cases},
+          "peak_measured_gb": {c["case"]: c["peak_measured_gb"]
+                               for c in cases},
+          "bound_ms": {c["case"]: c["bound_ms"] for c in cases},
+          "step_ms": {c["case"]: c["step_ms"] for c in cases},
+          "entry_points_run": run, "entry_points": len(run),
+          "findings": len(findings), "launches": launches,
+          "cases": cases, "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5901,6 +6113,7 @@ def main() -> int:
                                       ("whisper-i", "whisper-ii")))
     lm_netes_cpu_parity_phase()
     cons_launches = consensus_phase()
+    tool_launches = tooling_phase()
     rows = []
     for name in SOURCE_OF:
         r = results[name]
@@ -5926,6 +6139,9 @@ def main() -> int:
                      "launches_consensus": {case: counts.get(name, 0)
                                             for case, counts in
                                             cons_launches.items()},
+                     "launches_tooling": tool_launches.get(name, 0),
+                     "launches_tooling_rs": tool_launches.get(
+                         RS_NAME.get(name, ""), 0),
                      "consensus_shapes": results.get(
                          "consensus_shapes", {}).get(name, {})})
         if name in RS_NAME:

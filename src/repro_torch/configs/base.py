@@ -172,6 +172,17 @@ class ModelConfig:
             n += enc + cross
         return n
 
+    def active_params_per_token(self) -> int:
+        """Active (per-token) params — for MoE the top-k slice of experts."""
+        if not self.is_moe:
+            return self.count_params()
+        n = self.count_params()
+        for spec in self.layer_specs():
+            if spec.ffn == "moe":
+                n -= 3 * self.num_experts * self.d_ff * self.d_model
+                n += 3 * self.experts_per_token * self.d_ff * self.d_model
+        return n
+
 
 def register(cfg: ModelConfig) -> ModelConfig:
     if cfg.name in _REGISTRY:

@@ -433,3 +433,60 @@ def run_scheduled(state: NetESState, sched_state, reward_fn,
     if probes is None:
         return state, sched_state, chan_state, _stack(history)
     return state, sched_state, chan_state, metrics_state, _stack(history)
+
+
+# ---------------------------------------------------------------------------
+# contract-linter registry hook (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def analysis_entry_points():
+    """Contract-linter entry points: the run drivers this module owns, at
+    toy size (N = 8, D = 16), three iterations each. ``build(device)``
+    makes fresh operands on ``device`` each call."""
+    from ..analysis.registry import (EntryPoint, SphereReward, place,
+                                     toy_state, toy_topology)
+
+    # a scheduled step is not captured (ROADMAP §3): its iteration counter
+    # is a host int on purpose
+    host_t = (("t", "the schedule's iteration counter lives on the host: "
+                    "a scheduled step is not captured"),)
+
+    def build_run(device):
+        cfg = NetESConfig()
+        return (lambda s, a: run(s, a, SphereReward(), cfg, 3),
+                (toy_state(device), toy_topology(device)), {})
+
+    def build_run_q8(device):
+        from ..comm.channel import compile_channel
+        cfg = NetESConfig()
+        chan = compile_channel("quantize(bits=8)", 8)
+        state = toy_state(device)
+        return (lambda s, a, c: run(s, a, SphereReward(), cfg, 3, chan, c),
+                (state, toy_topology(device), chan.init(state.thetas)), {})
+
+    def build_run_scheduled(device):
+        schedule = toy_schedule()
+        cfg = NetESConfig()
+        return (lambda s, t: run_scheduled(s, t, SphereReward(), cfg,
+                                           schedule, 3),
+                (toy_state(device),
+                 place(schedule.init(device="cpu"), device)), {})
+
+    return (
+        EntryPoint(name="netes.run", build=build_run,
+                   carry=(("state", 0, 0),)),
+        EntryPoint(name="netes.run.q8", build=build_run_q8,
+                   carry=(("state", 0, 0), ("chan", 2, 1))),
+        EntryPoint(name="netes.run_scheduled", build=build_run_scheduled,
+                   carry=(("state", 0, 0), ("sched", 1, 1)),
+                   carry_exempt=host_t),
+    )
+
+
+def toy_schedule():
+    """The linter's schedule: ER (N = 8, p = 0.5) redrawn every 2
+    iterations."""
+    from .topology import TopologySpec
+    from .topology_sched import ScheduleSpec, compile_schedule
+    base = TopologySpec(family="erdos_renyi", n_agents=8, p=0.5, seed=0)
+    return compile_schedule(ScheduleSpec(kind="resample_er", period=2), base)

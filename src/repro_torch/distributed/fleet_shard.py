@@ -635,10 +635,12 @@ class ShardedNetES:
             bcast_msgs = do_b.to(torch.float32) * n
             if info is None:    # stateless codec modes: every live edge
                 mix_msgs = torch.full((), self._static_msgs,
-                                      device=th.device)
+                                      dtype=torch.float32, device=th.device)
                 cs = dataclasses.replace(cs, msgs=cs.msgs + mix_msgs)
-                metrics["trigger_frac"] = torch.ones((), device=th.device)
-                metrics["drop_frac"] = torch.zeros((), device=th.device)
+                metrics["trigger_frac"] = torch.ones(
+                    (), dtype=torch.float32, device=th.device)
+                metrics["drop_frac"] = torch.zeros(
+                    (), dtype=torch.float32, device=th.device)
             else:               # the channel's apply counted its messages
                 mix_msgs = info["msgs"]
                 metrics["trigger_frac"] = info["trigger_frac"]
@@ -773,7 +775,7 @@ def run_sharded(state: NetESState, adj, reward_fn: Callable,
     engine), with ``core.netes.run``'s return. ``adj`` should be a stable
     ``Topology`` or ``FullyConnected`` instance."""
     topo = adj if isinstance(adj, (Topology, FullyConnected)) \
-        else topology_repr.as_topology(adj)
+        else topology_repr.as_topology(adj, device=state.thetas.device)
     eng = _get_engine(topo, reward_fn, cfg, mesh, channel, None,
                       probes=probes)
     out = eng.run(state, num_iters, chan_state=chan_state,
@@ -793,3 +795,82 @@ def run_sharded_scheduled(state: NetESState, sched_state,
     out = eng.run(state, num_iters, chan_state=chan_state,
                   sched_state=sched_state, metrics_state=metrics_state)
     return _as_core_return(out, channel, probes, scheduled=True)
+
+
+# ---------------------------------------------------------------------------
+# contract-linter registry hook (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+# Product ratchets, counted on the toy shapes below (a seam's products are
+# each rounded before their add, the shard-invariance contract above;
+# raising a count is always fine, dropping below it means a product was
+# fused or dropped). The reference counts optimization barriers (10 on a
+# step, 6 on the slot loop, 4 on the dense loop's 4-unrolled body); the
+# port counts the rank ≥ 2 products themselves:
+#   * slot_contract at (R, K) = (4, 6): one (R, D) product a slot, 6;
+#   * dense_contract at (R, S) = (4, 8): one (R, D) product a source, 8;
+#   * the engine's run (2 iterations at N = 8, D = 16): its contraction
+#     runs in the R × S kernel (shape-only on fake tensors), so the count
+#     is the step's own rank ≥ 2 products (σ·ε, the update, the broadcast
+#     select, the spread metrics), 13 an iteration.
+STEP_MIN_PRODUCTS = 26
+
+
+def analysis_entry_points():
+    """Contract-linter entry points: the sharded engine's run (solo, and
+    over a process group of two ranks, product-ratcheted) and the two
+    seam leaf contractions under the fused-seam contract: every product
+    in them must round before its add."""
+    from ..analysis.registry import EntryPoint, SphereReward, toy_state
+
+    def _engine_run(mesh, device, n=8):
+        # the engine's comm plan is made on the host, from a real graph
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+        from ..core import topology
+        with unset_fake_temporarily():
+            topo = topology_repr.as_topology(
+                topology.erdos_renyi(n, p=0.5, seed=0), device="cpu")
+            eng = ShardedNetES(topo, SphereReward(), NetESConfig(),
+                               mesh=mesh)
+        return (lambda st: eng.run(st, 2), (toy_state(device, n),), {})
+
+    def build_solo_step(device):
+        return _engine_run(None, device)
+
+    def build_sharded_step(device):
+        mesh = Mesh(group=dist.group.WORLD, rank=dist.get_rank(),
+                    world_size=dist.get_world_size(),
+                    device=torch.device(device))
+        return _engine_run(mesh, device)
+
+    def build_slot_contract(device):
+        return (_slot_contract,
+                (torch.zeros((4, 6), dtype=torch.int32, device=device),
+                 torch.ones((4, 6), dtype=torch.float32, device=device),
+                 torch.ones((8, 16), dtype=torch.float32, device=device)),
+                {})
+
+    def build_dense_contract(device):
+        return (_dense_contract,
+                (torch.ones((4, 8), dtype=torch.float32, device=device),
+                 torch.ones((8,), dtype=torch.float32, device=device),
+                 torch.ones((8, 16), dtype=torch.float32, device=device)),
+                {})
+
+    seam = ("no-host-sync", "fused-seam-product")
+    return (
+        EntryPoint(name="fleet_shard.solo_step", build=build_solo_step,
+                   carry=(("state", 0, 0),),
+                   min_products=STEP_MIN_PRODUCTS),
+        EntryPoint(name="fleet_shard.sharded_step",
+                   build=build_sharded_step, min_devices=2,
+                   carry=(("state", 0, 0),),
+                   min_products=STEP_MIN_PRODUCTS),
+        EntryPoint(name="fleet_shard.slot_contract",
+                   build=build_slot_contract, contracts=seam,
+                   min_products=6),
+        EntryPoint(name="fleet_shard.dense_contract",
+                   build=build_dense_contract, contracts=seam,
+                   min_products=8),
+    )

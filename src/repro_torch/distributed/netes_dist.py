@@ -70,6 +70,7 @@ from ..kernels.netes_fused_mixing import (fused_broadcast_select,
                                           fused_neighbor_sum)
 from ..kernels.netes_mixing import netes_mixing
 from ..kernels.netes_sparse_mixing import netes_sparse_mixing
+from ..launch import op_costs
 from ..models import transformer
 
 # Columns of a leaf's (N, P) view mixed at once: at N = 8 an (N, W)
@@ -113,6 +114,110 @@ def init_population(cfg: ModelConfig, n_agents: int, seed: int = 0, *,
             p = agent(i)
         tree_map(lambda dst, src: dst[i].copy_(src), pop, p)
     return pop
+
+
+# ---------------------------------------------------------------------------
+# on a DeviceMesh (DTensor arguments: launch.specs.lower_pair's traces)
+# ---------------------------------------------------------------------------
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This device's piece: a DTensor's local shard (writing it writes the
+    DTensor), a plain tensor itself."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """The whole value on this device: a DTensor gathered (and reduced)
+    to every device, a plain tensor itself."""
+    return t.full_tensor() if _is_dtensor(t) else t
+
+
+def _data_layout(mesh, dim: int) -> list:
+    from torch.distributed.tensor import Replicate, Shard
+
+    from .sharding import MODEL_AXIS
+    return [Replicate() if name == MODEL_AXIS else Shard(dim)
+            for name in mesh.mesh_dim_names]
+
+
+def _agent_rows(leaf: torch.Tensor, n: int):
+    """A population leaf (N, ...) as an (N, P) tensor of this device's
+    columns with every agent's row, and the function that writes an
+    updated one back. On a mesh the agent axis is gathered over the data
+    axes (Eq. 3 mixes every sender into every receiver), the feature dims
+    keep their shards, and the write-back keeps this device's rows."""
+    if not _is_dtensor(leaf):
+        return leaf.view(n, -1), lambda flat: None
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    from .sharding import MODEL_AXIS
+    mesh = leaf.device_mesh
+    rows = [p if name == MODEL_AXIS else Replicate()
+            for p, name in zip(leaf.placements, mesh.mesh_dim_names,
+                               strict=True)]
+    gathered = leaf.redistribute(mesh, rows).to_local()
+    with _disable_current_modes():       # shape arithmetic, no tensor data
+        shape, offset = compute_local_shape_and_global_offset(
+            leaf.shape, mesh, leaf.placements)
+    r0, mine = offset[0], shape[0]
+
+    def write_back(flat):
+        _local(leaf).copy_(flat.view(gathered.shape)[r0:r0 + mine])
+
+    return gathered.view(n, -1), write_back
+
+
+def _agent_rewards_on_mesh(cfg: ModelConfig, params: Any,
+                           batch: Dict[str, torch.Tensor], noise: NoiseFn,
+                           sigma: float, microbatch: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``agent_rewards`` with the agent axis over the data axes of a
+    DeviceMesh: every device evaluates its own agents one after another,
+    each agent's parameters and batch DTensors over the "model" sub-mesh
+    (its shards of the feature dims); the rewards are gathered to every
+    device."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from .sharding import MODEL_AXIS
+    mesh = flatten(params)[0].device_mesh
+    sub = mesh[MODEL_AXIS]
+    m = mesh.mesh_dim_names.index(MODEL_AXIS)
+
+    def agent_view(leaf, a):
+        pl = leaf.placements[m]
+        pl = Shard(pl.dim - 1) if isinstance(pl, Shard) else Replicate()
+        full = tuple(leaf.shape[1:])
+        strides = [1] * len(full)
+        for d in range(len(full) - 2, -1, -1):
+            strides[d] = strides[d + 1] * full[d + 1]
+        return DTensor.from_local(leaf.to_local()[a], sub, [pl],
+                                  run_check=False, shape=full,
+                                  stride=tuple(strides))
+
+    n_loc = flatten(params)[0].to_local().shape[0]
+    replica = tree_map(lambda leaf: torch.empty_like(agent_view(leaf, 0)),
+                       params)
+    pairs = op_costs.repeat_map(
+        lambda a: _mirrored_rewards(
+            cfg, tree_map(lambda leaf: agent_view(leaf, a), params),
+            {k: agent_view(v, a) for k, v in batch.items()}, noise, a,
+            sigma, replica, microbatch), n_loc)
+    layout = _data_layout(mesh, 0)
+
+    def gather(rs):
+        mine = torch.stack([_whole(r) for r in rs])
+        return DTensor.from_local(mine, mesh, layout,
+                                  run_check=False).full_tensor()
+
+    return gather([p for p, _ in pairs]), gather([q for _, q in pairs])
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +300,7 @@ def perturb_params(params: Any, noise: NoiseFn, agent: int, sigma: float,
         out = tree_map(torch.empty_like, params)
     for i, (dst, src) in enumerate(zip(flatten(out), flatten(params),
                                        strict=True)):
-        d, t = dst.view(-1), src.reshape(-1)
+        d, t = _local(dst).view(-1), _local(src).reshape(-1)
         for s, c0, c1 in _slabs(d.numel()):
             e = d[c0:c1]
             noise(e, agent, i, s, c0)
@@ -228,11 +333,15 @@ def agent_rewards(cfg: ModelConfig, params: Any,
     θ_i + σε_i and θ_i − σε_i on agent i's batch (``batch`` leaves (N,
     per_agent, S)). One perturbed replica is made, filled with θ_i + σε_i
     and then turned into 2θ_i − (θ_i + σε_i), the reference's θ − σε."""
+    if _is_dtensor(flatten(params)[0]):
+        return _agent_rewards_on_mesh(cfg, params, batch, noise, sigma,
+                                      microbatch)
     n = flatten(params)[0].shape[0]
     replica = tree_map(lambda leaf: torch.empty_like(leaf[0]), params)
-    pairs = [_mirrored_rewards(cfg, agent_params(params, a),
-                               {k: v[a] for k, v in batch.items()}, noise, a,
-                               sigma, replica, microbatch) for a in range(n)]
+    pairs = op_costs.repeat_map(
+        lambda a: _mirrored_rewards(cfg, agent_params(params, a),
+                                    {k: v[a] for k, v in batch.items()},
+                                    noise, a, sigma, replica, microbatch), n)
     return (torch.stack([p for p, _ in pairs]),
             torch.stack([m for _, m in pairs]))
 
@@ -341,6 +450,7 @@ def replica_update(params: Any, r_pos: torch.Tensor, r_neg: torch.Tensor,
     columns of the variance over agents)."""
     n = r_pos.shape[0]
     sigma = ncfg.sigma
+    draws = dataclasses.replace(draws, beta=_whole(draws.beta))
     raw = torch.cat([r_pos, r_neg])
     shaped = es_utils.centered_rank(raw)
     s_pos, s_neg = shaped[:n], shaped[n:]
@@ -371,14 +481,14 @@ def replica_update(params: Any, r_pos: torch.Tensor, r_neg: torch.Tensor,
                                 device=r_pos.device)
 
     for i, leaf in enumerate(leaves):
-        flat = leaf.view(n, -1)
+        flat, write_back = _agent_rows(leaf, n)
         p = flat.shape[1]
         slabs = _slabs(p)
         eps_leaf = eps_wire = None
         if mixing == "gather":
             eps_leaf = torch.empty_like(flat)
             for s, c0, c1 in slabs:
-                for a in range(n):
+                for a in op_costs.passes(n):
                     draws.noise(eps_leaf[a, c0:c1], a, i, s, c0)
             if wire is not None:
                 eps_wire = (channel.encode_wire(eps_leaf, batched=True)
@@ -392,7 +502,7 @@ def replica_update(params: Any, r_pos: torch.Tensor, r_neg: torch.Tensor,
             theta = flat[:, c0:c1].contiguous()
             if eps_leaf is None:
                 eps = torch.empty_like(theta)
-                for a in range(n):
+                for a in op_costs.passes(n):
                     draws.noise(eps[a], a, i, s, c0)
             else:
                 eps = eps_leaf[:, c0:c1].contiguous()
@@ -415,6 +525,7 @@ def replica_update(params: Any, r_pos: torch.Tensor, r_neg: torch.Tensor,
                 uvar = uvar + update.var(dim=0, correction=0).sum()
             flat[:, c0:c1] = new
         if channel is None:
+            write_back(flat)
             continue
         # the broadcast, as received over the lossy wire
         if channel.fused and channel.wire_quantized:
@@ -431,6 +542,7 @@ def replica_update(params: Any, r_pos: torch.Tensor, r_neg: torch.Tensor,
             if probe_consensus:
                 spread = spread + new.var(dim=0, correction=0).sum()
             flat[:, c0:c1] = new
+        write_back(flat)
 
     metrics = {
         "reward_mean": raw.mean(),
@@ -506,7 +618,8 @@ def make_replica_train_step(cfg: ModelConfig, ncfg: NetESConfig,
         elif topology is not None:
             topo = topology
         else:
-            topo = topology_repr.as_topology(adj)
+            adj = _whole(adj)
+            topo = topology_repr.as_topology(adj, device=adj.device)
         r_pos, r_neg = agent_rewards(cfg, params, batch, draws.noise,
                                      ncfg.sigma, microbatch=microbatch)
         metrics, cstate = replica_update(
@@ -538,12 +651,13 @@ def member_rewards(cfg: ModelConfig, params: Any,
     (``batch`` leaves (P, microbatch, S)), one shared θ (``params``, no
     agent axis). Each perturbation is made in ``replica`` (a tree like
     ``params``), so one perturbed copy is alive at a time."""
-    pairs = [_mirrored_rewards(cfg, params, {k: v[i] for k, v in
-                                             batch.items()}, noise, i, sigma,
-                               replica, 1)
-             for i in range(batch["tokens"].shape[0])]
-    return (torch.stack([p for p, _ in pairs]),
-            torch.stack([m for _, m in pairs]))
+    pairs = op_costs.repeat_map(
+        lambda i: _mirrored_rewards(cfg, params, {k: v[i] for k, v in
+                                                  batch.items()}, noise, i,
+                                    sigma, replica, 1),
+        batch["tokens"].shape[0])
+    return (_whole(torch.stack([p for p, _ in pairs])),
+            _whole(torch.stack([m for _, m in pairs])))
 
 
 def consensus_update(params: Any, replica: Any, r_pos: torch.Tensor,
@@ -567,13 +681,14 @@ def consensus_update(params: Any, replica: Any, r_pos: torch.Tensor,
     to the wire form. Returns the metrics."""
     n = r_pos.shape[0]
     sigma = ncfg.sigma
+    degree = _whole(degree)
     raw = torch.cat([r_pos, r_neg])
     shaped = es_utils.centered_rank(raw)
     coeff = (shaped[:n] - shaped[n:]) * degree
     best_flat = torch.argmax(raw)
     best = torch.remainder(best_flat, n)
     best_pos = best_flat < n
-    do_bcast = draws.beta < ncfg.p_broadcast
+    do_bcast = _whole(draws.beta) < ncfg.p_broadcast
     scale = ncfg.alpha / (n * sigma)
     wd = ncfg.weight_decay
     fused = (channel is not None and channel.fused
@@ -582,14 +697,16 @@ def consensus_update(params: Any, replica: Any, r_pos: torch.Tensor,
     for i, (leaf, cand_leaf) in enumerate(zip(flatten(params),
                                               flatten(replica),
                                               strict=True)):
-        theta_all, cand_all = leaf.view(-1), cand_leaf.view(-1)
+        # on a mesh each device updates its own shard
+        theta_all = _local(leaf).view(-1)
+        cand_all = _local(cand_leaf).view(-1)
         slabs = _slabs(theta_all.numel())
         for s, c0, c1 in slabs:
             t = theta_all[c0:c1]
             cand = cand_all[c0:c1]
             u = torch.zeros_like(t)
             e = torch.empty_like(t)
-            for m in range(n):
+            for m in op_costs.passes(n):
                 draws.noise(e, m, i, s, c0)
                 e.mul_(sigma).add_(t)                   # θ + σε_m
                 torch.where(best == m, e, cand, out=cand)
@@ -664,6 +781,7 @@ def make_consensus_train_step(cfg: ModelConfig, ncfg: NetESConfig,
         given = dict(zip(want, states))
         sstate = given.get("sched_state")
         cstate = given.get("chan_state")
+        adj = None if adj is None else _whole(adj)
         replica = tree_map(torch.empty_like, params)
         r_pos, r_neg = member_rewards(cfg, params, batch, draws.noise,
                                       ncfg.sigma, replica)
@@ -671,7 +789,7 @@ def make_consensus_train_step(cfg: ModelConfig, ncfg: NetESConfig,
         if channel is not None and channel.dropout_stage is not None:
             topo_c = (sstate.topo if sstate is not None else topology
                       if topology is not None
-                      else topology_repr.as_topology(adj))
+                      else topology_repr.as_topology(adj, device=adj.device))
             edge_mask = draws.edge_mask
             if edge_mask is None:
                 edge_mask = comm_channel.dropout_mask(
@@ -721,3 +839,61 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
         return transformer.decode_step(params, cfg, token, cache, pos)
 
     return decode
+
+
+# ---------------------------------------------------------------------------
+# contract-linter registry hook (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def analysis_entry_points():
+    """Contract-linter entry points: both train steps over a nano
+    transformer (1 layer, d_model 64, 2 heads of 64) at N = 4 — big
+    enough that the run holds the real perturb/evaluate/mix structure,
+    small enough to run in well under a second on fake tensors."""
+    import dataclasses as dc
+
+    from ..analysis.registry import EntryPoint, generator, place
+    from ..configs import get_config
+    from ..core import topology
+
+    def _nano_cfg():
+        # the reference's nano LM, but heads of 64: the narrowest the
+        # flash kernel is built for (the entry points also run on the card)
+        return dc.replace(
+            get_config("mistral-nemo-12b-smoke"), name="analysis-nano",
+            num_layers=1, d_model=64, num_heads=2, num_kv_heads=2,
+            head_dim=64, d_ff=128, vocab_size=128)
+
+    def _operands(device, n=4, seq=64):
+        cfg = _nano_cfg()
+        gen = torch.Generator().manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (n, 1, seq),
+                               generator=gen, dtype=torch.int32)
+        batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=-1)}
+        adj = torch.as_tensor(topology.erdos_renyi(n, p=0.5, seed=0),
+                              dtype=torch.float32)
+        g = generator(device)
+        draws = StepDraws(noise=NoiseStream(0, 0, device=g.device),
+                          beta=torch.rand((), generator=g, device=g.device))
+        ncfg = NetESConfig(alpha=1e-3, sigma=0.01)
+        return (cfg, ncfg, place(adj, device), place(batch, device),
+                dc.replace(draws, beta=draws.beta.to(device)))
+
+    def build_replica(device, n=4):
+        cfg, ncfg, adj, batch, draws = _operands(device, n)
+        step = make_replica_train_step(cfg, ncfg, n, microbatch=1)
+        params = place(init_population(cfg, n, device="cpu"), device)
+        return step, (params, adj, batch, draws), {}
+
+    def build_consensus(device, n=4):
+        cfg, ncfg, adj, batch, draws = _operands(device, n)
+        step = make_consensus_train_step(cfg, ncfg, n)
+        params = place(transformer.init_params(cfg, device="cpu"), device)
+        return step, (params, adj, batch, draws), {}
+
+    return (
+        EntryPoint(name="netes_dist.replica_step", build=build_replica,
+                   carry=(("params", 0, 0),)),
+        EntryPoint(name="netes_dist.consensus_step", build=build_consensus,
+                   carry=(("params", 0, 0),)),
+    )

@@ -160,3 +160,44 @@ def make_rotating_permute_mixing(mesh, offsets: Sequence[int], stride: int,
                       theta, encode)
 
     return mix
+
+
+# ---------------------------------------------------------------------------
+# contract-linter registry hook (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def analysis_entry_points():
+    """Contract-linter entry points for the permute mixers, one agent a
+    rank. The rotating mixer picks its hop chain by a host phase; the
+    rank-collective-parity contract runs it on a group of 5 ranks (cycle
+    > 1) and holds every rank to the same hops."""
+    import torch.distributed as dist
+
+    from ..analysis.registry import EntryPoint
+    from ..launch.mesh import Mesh
+
+    def _mesh(device):
+        return Mesh(group=dist.group.WORLD, rank=dist.get_rank(),
+                    world_size=dist.get_world_size(),
+                    device=torch.device(device))
+
+    def _mix_args(n, device, d=16):
+        return (torch.ones((n, n), dtype=torch.float32, device=device),
+                torch.ones((1, d), dtype=torch.float32, device=device))
+
+    def build_static_chain(device):
+        mesh = _mesh(device)
+        return (make_permute_mixing(mesh, (1,)),
+                _mix_args(mesh.world_size, device), {})
+
+    def build_rotating_switch(device):
+        mesh = _mesh(device)
+        return (make_rotating_permute_mixing(mesh, (1, 2), stride=1),
+                _mix_args(mesh.world_size, device) + (0,), {})
+
+    return (
+        EntryPoint(name="permute_mixing.static_chain",
+                   build=build_static_chain, min_devices=2),
+        EntryPoint(name="permute_mixing.rotating_switch",
+                   build=build_rotating_switch, min_devices=5),
+    )

@@ -1,9 +1,11 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and cost reports shared by the kernel wrappers."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+
+from ..obs import cuda_watch
 
 
 def on_cpu(tensors: Sequence[torch.Tensor]) -> bool:
@@ -53,3 +55,42 @@ def check_columns(name: str, t: torch.Tensor, limit: int) -> None:
         raise ValueError(
             f"{name}: {cols} columns, more than the {limit} the kernel's "
             "32-bit column index addresses; mix it in column slabs")
+
+
+def shape_only(tensors: Sequence[Optional[torch.Tensor]]) -> bool:
+    """True if an operand is a ``FakeTensor`` or lies on the meta device:
+    the wrapper then returns empty results of the shapes its kernel
+    gives, reports the kernel's costs and launches nothing (a dry run's
+    trace, ``launch.op_costs``). A real tensor, on the CPU or the card,
+    never takes this path."""
+    from torch._subclasses.fake_tensor import is_fake
+    tensors = [t for t in tensors if t is not None]
+    if not any(t.device.type == "meta" or is_fake(t) for t in tensors):
+        return False
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands on several devices: "
+                         f"{sorted(map(str, devices))}")
+    return True
+
+
+def report(name: str, flops: float,
+           tensors: Sequence[Optional[torch.Tensor]]) -> None:
+    """One kernel call's costs to ``obs.cuda_watch``: ``flops`` the dot
+    FLOPs its plain version does, and the bytes of ``tensors`` (its
+    operands read once and its results written once)."""
+    cuda_watch.report_kernel(name, flops, sum(
+        t.numel() * t.element_size() for t in tensors if t is not None))
+
+
+def has_dtensor(tensors: Sequence[Optional[torch.Tensor]]) -> bool:
+    """True if an operand is a DTensor (a dry run over a mesh): the
+    wrapper then runs on each device's shards
+    (``distributed.context.on_shards``), where it sees plain tensors."""
+    return any(type(t).__name__ == "DTensor" for t in tensors
+               if t is not None)
+
+
+def on_shards(fn, args, dims, out_dims):
+    from ..distributed.context import on_shards as run
+    return run(fn, args, dims, out_dims)

@@ -9,8 +9,10 @@ flash_attention``, with its signature and layout. On CUDA tensors it
 launches the hand-written sm_90a kernel (a block per query tile of the G
 heads of one KV head, see the source's note; its grid is :func:`plan`'s),
 an instance per head width of ``HEAD_DIMS``;
-on CPU tensors it runs the plain version ``ref.flash_attention_ref``.
-There is no other path. Float32 only.
+on CPU tensors it runs the plain version ``ref.flash_attention_ref``; on
+fake and meta tensors (a dry run's trace) it returns an empty result and
+reports its costs (:func:`flops`), launching nothing. There is no other
+path. Float32 only.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import torch
 
 from . import ref
 from ._build import CudaKernel
-from ._checks import check_operand, on_cpu
+from ._checks import (check_operand, has_dtensor, on_cpu, on_shards, report,
+                      shape_only)
 
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention_f32",
@@ -91,12 +94,26 @@ def launch_plan(b: int, sq: int, h: int, hkv: int, hd: int
     return pl, resident.value
 
 
+def flops(b: int, sq: int, sk: int, h: int, hd: int) -> float:
+    """The dot FLOPs of the plain version: the dense Sq × Sk scores and
+    their product with v, whatever the mask skips (as the reference's
+    jnp attention computes them)."""
+    return 4.0 * b * h * sq * sk * hd
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, chunk: int = 0,
                     scale=None) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Sk, Hkv, hd), H a multiple of Hkv; all
     float32 on one device. Returns (B, Sq, H, hd) float32. Query position
-    i and key position j are the indices i and j."""
+    i and key position j are the indices i and j. DTensor operands run on
+    each device's batch rows and heads."""
+    if has_dtensor((q, k, v)):
+        return on_shards(
+            lambda q, k, v: flash_attention(q, k, v, causal=causal,
+                                            window=window, chunk=chunk,
+                                            scale=scale),
+            (q, k, v), ((0, 2),) * 3, (0, 2))
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: dtype {t.dtype}; flash_attention "
@@ -114,19 +131,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sk == 0:
         raise ValueError("attention over no keys")
     scale = scale or hd ** -0.5
-    if on_cpu((q, k, v)):
+    fake = shape_only((q, k, v))
+    if not fake and on_cpu((q, k, v)):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        chunk=chunk, scale=scale)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd}: the kernel is built for {HEAD_DIMS}")
     check_operand("q", q, torch.float32, (b, sq, h, hd))
     check_operand("k", k, torch.float32, (b, sk, hkv, hd))
     check_operand("v", v, torch.float32, (b, sk, hkv, hd))
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: not 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
+        return out
+    if not fake:
+        if hd not in HEAD_DIMS:
+            raise ValueError(f"head_dim {hd}: the kernel is built for "
+                             f"{HEAD_DIMS}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: not 16-byte aligned")
+    report("flash_attention", flops(b, sq, sk, h, hd), (q, k, v, out))
+    if fake:
         return out
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, sq, sk, h, hkv, hd, int(bool(causal)), int(window),

@@ -9,7 +9,9 @@ On CUDA tensors it launches the hand-written sm_90a kernel (an instance
 templated on (E, k) for moonshot's and jamba's routers, 64 / 6 and
 16 / 2, and a generic one, which llama4's 16 / 1 and 128 / 1 take; see the
 source's note); on CPU tensors it runs the plain
-version ``ref.moe_topk_ref``. There is no other path. Float32 only,
+version ``ref.moe_topk_ref``. On fake and meta tensors (a dry run's trace) it
+returns empty results of the kernel's shapes and reports its costs
+(``_checks.report``), launching nothing. There is no other path. Float32 only,
 E ≤ 128 and k ≤ 8 (the reference's tests use E ∈ {8, 16, 64, 128},
 k ∈ {1, 2, 6, 8}).
 """
@@ -21,7 +23,8 @@ import torch
 
 from . import ref
 from ._build import CudaKernel
-from ._checks import check_operand, on_cpu
+from ._checks import (check_operand, has_dtensor, on_cpu, on_shards, report,
+                      shape_only)
 
 KERNEL = CudaKernel("moe_router", "moe_topk_f32",
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -48,7 +51,11 @@ def launch_info(t: int, e: int, k: int, device_index: int) -> dict:
 
 
 def moe_topk(logits: torch.Tensor, k: int):
-    """logits (T, E) float32 → (gates (T, k) float32, ids (T, k) int32)."""
+    """logits (T, E) float32 → (gates (T, k) float32, ids (T, k) int32).
+    A DTensor's tokens run on the devices that hold them."""
+    if has_dtensor((logits,)):
+        return on_shards(lambda x: moe_topk(x, k), (logits,), ((0, 0),),
+                         [(0, 0), (0, 0)])
     if logits.dtype != torch.float32:
         raise TypeError(f"logits: dtype {logits.dtype}; moe_topk takes "
                         "float32 only")
@@ -59,12 +66,17 @@ def moe_topk(logits: torch.Tensor, k: int):
     if not (1 <= e <= MAX_EXPERTS and 1 <= k <= min(e, MAX_K)):
         raise ValueError(f"E = {e}, k = {k}: the kernel takes E ≤ "
                          f"{MAX_EXPERTS} and 1 ≤ k ≤ min(E, {MAX_K})")
-    if on_cpu((logits,)):
+    fake = shape_only((logits,))
+    if not fake and on_cpu((logits,)):
         return ref.moe_topk_ref(logits, k)
     check_operand("logits", logits, torch.float32, (t, e))
     gates = torch.empty((t, k), dtype=torch.float32, device=logits.device)
     ids = torch.empty((t, k), dtype=torch.int32, device=logits.device)
     if t == 0:
+        return gates, ids
+    # the plain version is a softmax and a sort: no dot FLOPs
+    report("moe_topk", 0.0, (logits, gates, ids))
+    if fake:
         return gates, ids
     KERNEL.launch(logits.data_ptr(), gates.data_ptr(), ids.data_ptr(), t, e,
                   k, torch.cuda.current_stream(logits.device).cuda_stream)

@@ -9,11 +9,14 @@ fused broadcast select (DESIGN.md §12): the wrappers of
 Replace the TPU kernels ``repro/kernels/netes_fused_mixing.py::
 fused_neighbor_sum`` and ``::fused_broadcast_select``. The neighbor-sum
 kernel folds the slot weights ``ws`` itself, in the reference's order
-(bit for bit ``ref.folded_weights``), compacts the live slots into lists,
-and gathers the codes from a slab of 64 columns held in shared memory as
-bf16: one launch per call. On CUDA tensors each wrapper launches its
-hand-written sm_90a kernel (see the source's note); on CPU tensors it
-runs the plain version in ``kernels/ref.py``. There is no other path.
+(bit for bit ``ref.folded_weights``), compacts the live slots into
+lists, and gathers the codes from a slab of 64 columns held in shared
+memory as bf16: one launch per call. On CUDA tensors each wrapper
+launches its hand-written sm_90a kernel (see the source's note); on CPU
+tensors it runs the plain version in ``kernels/ref.py``. On fake and
+meta tensors (a dry run's trace) it returns empty results of the
+kernel's shapes and reports its costs (``_checks.report``), launching
+nothing. There is no other path.
 
 ``fused_neighbor_sum_rs`` is the receiver ≠ sender instance of the
 sharded fleet (``distributed.fleet_shard``): R receivers over S senders'
@@ -35,7 +38,7 @@ import torch
 from . import _slab, ref
 from ._build import CudaKernel
 from ._checks import (RS_MAX_COLUMNS, SLAB_MAX_COLUMNS, check_columns,
-                      check_operand, on_cpu)
+                      check_operand, on_cpu, report, shape_only)
 
 NEIGHBOR_SUM = CudaKernel(
     "netes_fused_mixing", "fused_neighbor_sum_f32",
@@ -92,7 +95,8 @@ def fused_neighbor_sum(neighbor_idx: torch.Tensor,
     operands = [neighbor_idx, neighbor_mask, coeff, codes, scale]
     if edge_mask is not None:
         operands.append(edge_mask)
-    if on_cpu(operands):
+    fake = shape_only(operands)
+    if not fake and on_cpu(operands):
         return ref.fused_neighbor_sum_ref(neighbor_idx, neighbor_mask, coeff,
                                           codes, scale, edge_mask)
     n, d = codes.shape
@@ -109,6 +113,10 @@ def fused_neighbor_sum(neighbor_idx: torch.Tensor,
         return out
     if k_max == 0:
         return out.zero_()
+    # the plain version gathers and accumulates: no dot FLOPs
+    report("fused_neighbor_sum", 0.0, operands + [out])
+    if fake:
+        return out
     pl = launch_plan(n, d, codes.device)
     # phase 1's slot lists (int32 pairs) and their lengths
     lists = torch.empty(2 * pl.list_entries(k_max) + n * pl.chunks,
@@ -139,7 +147,8 @@ def fused_neighbor_sum_rs(neighbor_idx: torch.Tensor,
     """
     check_columns("codes", codes, RS_MAX_COLUMNS)
     operands = (neighbor_idx, neighbor_mask, w, codes, scale, theta)
-    if on_cpu(operands):
+    fake = shape_only(operands)
+    if not fake and on_cpu(operands):
         return ref.fused_neighbor_sum_rs_ref(*operands)
     r, d = theta.shape
     s = codes.shape[0]
@@ -155,6 +164,9 @@ def fused_neighbor_sum_rs(neighbor_idx: torch.Tensor,
         return out
     if k_max == 0 or s == 0:
         return out.zero_()
+    report("fused_neighbor_sum_rs", 0.0, operands + (out,))
+    if fake:
+        return out
     NEIGHBOR_SUM_RS.launch(neighbor_idx.data_ptr(), neighbor_mask.data_ptr(),
                            w.data_ptr(), codes.data_ptr(), scale.data_ptr(),
                            theta.data_ptr(), out.data_ptr(), r, s, k_max, d,
@@ -175,7 +187,8 @@ def fused_broadcast_select(codes: torch.Tensor, scale: torch.Tensor,
     """
     check_columns("thetas", thetas, SELECT_MAX_COLUMNS)
     operands = (codes, scale, do_broadcast, thetas)
-    if on_cpu(operands):
+    fake = shape_only(operands)
+    if not fake and on_cpu(operands):
         return ref.broadcast_select_ref(codes, scale, do_broadcast, thetas)
     n, d = thetas.shape
     check_operand("codes", codes, torch.int8, (d,))
@@ -185,8 +198,54 @@ def fused_broadcast_select(codes: torch.Tensor, scale: torch.Tensor,
     out = torch.empty_like(thetas)
     if out.numel() == 0:
         return out
+    report("fused_broadcast_select", 0.0, operands + (out,))
+    if fake:
+        return out
     BROADCAST_SELECT.launch(codes.data_ptr(), scale.data_ptr(),
                             do_broadcast.data_ptr(), thetas.data_ptr(),
                             out.data_ptr(), n, d,
                             torch.cuda.current_stream(thetas.device).cuda_stream)
     return out
+
+
+# ---------------------------------------------------------------------------
+# contract-linter registry hook (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def analysis_entry_points():
+    """Contract-linter entry points for both fused wire kernels (on the
+    card's fake tensors their shape-only paths) and the neighbor sum's
+    plain version (the reference's ``.xla`` backend). Not under the
+    fused-seam contract: every slot's product is rounded by the plain
+    version and by the kernel alike (``ref.fused_neighbor_sum_ref``)."""
+    from ..analysis.registry import EntryPoint
+
+    def _wire_args(device, n=8, k=4, d=16):
+        return (torch.zeros((n, k), dtype=torch.int32, device=device),
+                torch.ones((n, k), dtype=torch.float32, device=device),
+                torch.ones((n,), dtype=torch.float32, device=device),
+                torch.zeros((n, d), dtype=torch.int8, device=device),
+                torch.ones((n, 1), dtype=torch.float32, device=device))
+
+    def build_neighbor_sum(device):
+        return fused_neighbor_sum, _wire_args(device), {}
+
+    def build_neighbor_sum_plain(device):
+        return ref.fused_neighbor_sum_ref, _wire_args(device), {}
+
+    def build_broadcast_select(device, d=16, n=8):
+        return (fused_broadcast_select,
+                (torch.zeros((d,), dtype=torch.int8, device=device),
+                 torch.ones((1,), dtype=torch.float32, device=device),
+                 torch.ones((), dtype=torch.bool, device=device),
+                 torch.ones((n, d), dtype=torch.float32, device=device)),
+                {})
+
+    return (
+        EntryPoint(name="kernels.fused_neighbor_sum",
+                   build=build_neighbor_sum),
+        EntryPoint(name="kernels.fused_neighbor_sum.plain",
+                   build=build_neighbor_sum_plain),
+        EntryPoint(name="kernels.fused_broadcast_select",
+                   build=build_broadcast_select),
+    )

@@ -7,7 +7,9 @@ CUDA tensors it launches the hand-written sm_90a kernel (a pre-pass that
 weights and transposes the adjacency, a pipelined f32 GEMM over the stacked
 source axis, and a fixed-order sum of the split tiles; see the source's
 note); on CPU tensors it runs the plain version ``ref.netes_mixing_ref``.
-There is no other path.
+On fake and meta tensors (a dry run's trace) it
+returns empty results of the kernel's shapes and reports its costs
+(``_checks.report``), launching nothing. There is no other path.
 
 ``netes_mixing_rs`` is the receiver ≠ sender instance of the sharded
 fleet (``distributed.fleet_shard``): R receivers, S senders of a payload,
@@ -29,7 +31,8 @@ import torch
 
 from . import ref
 from ._build import CudaKernel
-from ._checks import check_columns, check_operand, on_cpu
+from ._checks import (check_columns, check_operand, on_cpu, report,
+                      shape_only)
 
 KERNEL = CudaKernel(
     "netes_mixing", "netes_mixing_f32",
@@ -147,6 +150,12 @@ def launch_plan(n: int, p: int, device) -> Plan:
     return plan(n, p, sms, resident)
 
 
+def flops(n: int, p: int) -> float:
+    """The dot FLOPs of the plain version: two (N, N) × (N, P) products
+    and one (N, N) × (N,)."""
+    return 4.0 * n * n * p + 2.0 * n * n
+
+
 def netes_mixing(adj: torch.Tensor, w_theta: torch.Tensor,
                  w_eps: torch.Tensor, theta: torch.Tensor, eps: torch.Tensor,
                  *, sigma: float) -> torch.Tensor:
@@ -158,7 +167,8 @@ def netes_mixing(adj: torch.Tensor, w_theta: torch.Tensor,
     """
     check_columns("theta", theta, MAX_COLUMNS)
     operands = (adj, w_theta, w_eps, theta, eps)
-    if on_cpu(operands):
+    fake = shape_only(operands)
+    if not fake and on_cpu(operands):
         return ref.netes_mixing_ref(*operands, sigma=sigma)
     n, p = theta.shape
     for name, t, shape in (("adj", adj, (n, n)), ("w_theta", w_theta, (n,)),
@@ -167,6 +177,9 @@ def netes_mixing(adj: torch.Tensor, w_theta: torch.Tensor,
         check_operand(name, t, torch.float32, shape)
     out = torch.empty_like(theta)
     if out.numel() == 0:
+        return out
+    report("netes_mixing", flops(n, p), operands + (out,))
+    if fake:
         return out
     pl = launch_plan(n, p, theta.device)
     scratch = torch.empty(pl.scratch_floats, dtype=torch.float32,
@@ -195,7 +208,8 @@ def netes_mixing_rs(adj: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     """
     check_columns("x", x, MAX_COLUMNS)
     operands = (adj, w, x, theta)
-    if on_cpu(operands):
+    fake = shape_only(operands)
+    if not fake and on_cpu(operands):
         return ref.netes_mixing_rs_ref(*operands)
     r, p = theta.shape
     s = x.shape[0]
@@ -210,6 +224,10 @@ def netes_mixing_rs(adj: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
         return out
     if s == 0:
         return out.zero_()
+    # the plain version sums source by source, elementwise: no dot FLOPs
+    report("netes_mixing_rs", 0.0, operands + (out,))
+    if fake:
+        return out
     KERNEL_RS.launch(adj.data_ptr(), w.data_ptr(), x.data_ptr(),
                      theta.data_ptr(), out.data_ptr(), r, s, p,
                      torch.cuda.current_stream(theta.device).cuda_stream)

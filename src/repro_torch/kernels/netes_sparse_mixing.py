@@ -9,7 +9,9 @@ tensors it launches the hand-written sm_90a kernel (the factored sum
 Σ_k m_jk·Y[i_jk] − wsum_j·θ_j, Y = R̃θ·θ + σR̃ε·ε: the live slots compacted
 into lists, then gathered from a slab of 32 columns of Y held in shared
 memory; see the source's note); on CPU tensors it runs the plain version
-``ref.sparse_mixing_ref``. There is no other path.
+``ref.sparse_mixing_ref``. On fake and meta tensors (a dry run's trace) it
+returns empty results of the kernel's shapes and reports its costs
+(``_checks.report``), launching nothing. There is no other path.
 
 ``netes_sparse_mixing_rs`` is the receiver ≠ sender instance of the
 sharded fleet (``distributed.fleet_shard``): R receivers, S senders of a
@@ -30,7 +32,7 @@ import torch
 from . import _slab, ref
 from ._build import CudaKernel
 from ._checks import (RS_MAX_COLUMNS, SLAB_MAX_COLUMNS, check_columns,
-                      check_operand, on_cpu)
+                      check_operand, on_cpu, report, shape_only)
 
 KERNEL = CudaKernel(
     "netes_sparse_mixing", "netes_sparse_mixing_f32",
@@ -78,7 +80,8 @@ def netes_sparse_mixing(neighbor_idx: torch.Tensor,
     """
     check_columns("theta", theta, SLAB_MAX_COLUMNS)
     operands = (neighbor_idx, neighbor_mask, w_theta, w_eps, theta, eps)
-    if on_cpu(operands):
+    fake = shape_only(operands)
+    if not fake and on_cpu(operands):
         return ref.sparse_mixing_ref(*operands, sigma=sigma)
     n, p = theta.shape
     k_max = neighbor_idx.shape[1] if neighbor_idx.dim() == 2 else -1
@@ -92,6 +95,10 @@ def netes_sparse_mixing(neighbor_idx: torch.Tensor,
         return out
     if k_max == 0:
         return out.zero_()
+    # the plain version gathers and accumulates slot by slot: no dot FLOPs
+    report("netes_sparse_mixing", 0.0, operands + (out,))
+    if fake:
+        return out
     pl = launch_plan(n, p, theta.device)
     # phase 1's slot lists (int32 pairs), their lengths, and wsum per
     # (receiver, chunk)
@@ -124,7 +131,8 @@ def netes_sparse_mixing_rs(neighbor_idx: torch.Tensor,
     """
     check_columns("x", x, RS_MAX_COLUMNS)
     operands = (neighbor_idx, neighbor_mask, w, x, theta)
-    if on_cpu(operands):
+    fake = shape_only(operands)
+    if not fake and on_cpu(operands):
         return ref.sparse_mixing_rs_ref(*operands)
     r, p = theta.shape
     s = x.shape[0]
@@ -139,6 +147,9 @@ def netes_sparse_mixing_rs(neighbor_idx: torch.Tensor,
         return out
     if k_max == 0 or s == 0:
         return out.zero_()
+    report("netes_sparse_mixing_rs", 0.0, operands + (out,))
+    if fake:
+        return out
     KERNEL_RS.launch(neighbor_idx.data_ptr(), neighbor_mask.data_ptr(),
                      w.data_ptr(), x.data_ptr(), theta.data_ptr(),
                      out.data_ptr(), r, s, k_max, p,

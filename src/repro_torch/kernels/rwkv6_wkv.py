@@ -6,13 +6,15 @@
 
 Replaces the TPU kernel ``repro/kernels/rwkv6_wkv.py::rwkv6_wkv``, with
 its signature and layout, and takes an initial state ``s0`` besides (the
-TPU kernel starts from zero): prefill continues a cache, and a decode step
-is the recurrence at S = 1. On CUDA tensors it launches the hand-written
-sm_90a kernel (a block per (b, h, column group), see the source's note;
-its launch is :func:`plan`'s); on CPU tensors it runs the plain version
-``ref.rwkv6_wkv_ref``. There is no other path. Float32 only, head width
-n ≤ 64 (64 for every registry config; the reference's tests use 8, 16 and
-32).
+TPU kernel starts from zero): prefill continues a cache, and a decode
+step is the recurrence at S = 1. On CUDA tensors it launches the
+hand-written sm_90a kernel (a block per (b, h, column group), see the
+source's note; its launch is :func:`plan`'s); on CPU tensors it runs the
+plain version ``ref.rwkv6_wkv_ref``. On fake and meta tensors (a dry
+run's trace) it returns empty results of the kernel's shapes and reports
+its costs (``_checks.report``), launching nothing. There is no other
+path. Float32 only, head width n ≤ 64 (64 for every registry config; the
+reference's tests use 8, 16 and 32).
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import torch.nn.functional as F
 
 from . import ref
 from ._build import CudaKernel
-from ._checks import check_operand, on_cpu
+from ._checks import (check_operand, has_dtensor, on_cpu, on_shards, report,
+                      shape_only)
 
 KERNEL = CudaKernel("rwkv6_wkv", "rwkv6_wkv_f32",
                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
@@ -143,12 +146,23 @@ def pad_heads(r, k, v, w, u, s0, pad: int):
             + [None if s0 is None else widen(s0, 2)])
 
 
+def flops(b: int, s: int, h: int, n: int) -> float:
+    """The dot FLOPs of the plain version: each step's (1, n) × (n, n)
+    read-out of the state, for every (b, h)."""
+    return 2.0 * b * s * h * n * n
+
+
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               s0: Optional[torch.Tensor] = None):
     """r, k, v, w (B, S, H, n) float32, w the decay in (0, 1); u (H, n)
     float32; s0 (B, H, n, n) float32 or None (a zero state). Returns
-    (out (B, S, H, n) float32, final state (B, H, n, n) float32)."""
+    (out (B, S, H, n) float32, final state (B, H, n, n) float32). DTensor
+    operands run on each device's batch rows and heads."""
+    if has_dtensor((r, k, v, w, u, s0)):
+        return on_shards(rwkv6_wkv, (r, k, v, w, u, s0),
+                         ((0, 2),) * 4 + ((None, 0), (0, 1)),
+                         [(0, 2), (0, 1)])
     if r.dim() != 4:
         raise ValueError(f"r: shape {tuple(r.shape)}, expected (B, S, H, n)")
     b, s, h, n = r.shape
@@ -162,12 +176,28 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         operands.append(("s0", s0, (b, h, n, n)))
     for name, t, shape in operands:
         check_operand(name, t, torch.float32, shape)
-    if on_cpu([t for _, t, _ in operands]):
+    fake = shape_only([t for _, t, _ in operands])
+    if not fake and on_cpu([t for _, t, _ in operands]):
         return ref.rwkv6_wkv_ref(r, k, v, w, u, s0)
+    if fake:
+        out = torch.empty_like(r)
+        s_fin = torch.empty((b, h, n, n), dtype=torch.float32,
+                            device=r.device)
+    else:
+        out, s_fin = _launch(r, k, v, w, u, s0)
+    if b * h:
+        report("rwkv6_wkv", flops(b, s, h, n),
+               (r, k, v, w, u, s0, out, s_fin))
+    return out, s_fin
+
+
+def _launch(r, k, v, w, u, s0):
+    """The kernel at the instance's head width, from 16-byte addresses
+    (the operands padded when they are not)."""
+    b, s, h, n = r.shape
     if n != padded(n) or any(t.data_ptr() % 16 for t in (r, k, v, w, u)) or (
             s0 is not None and s0.data_ptr() % 16):
-        # the kernel takes an instance's width, from 16-byte addresses
-        out, s_fin = rwkv6_wkv(*pad_heads(r, k, v, w, u, s0, padded(n) - n))
+        out, s_fin = _launch(*pad_heads(r, k, v, w, u, s0, padded(n) - n))
         return out[..., :n].contiguous(), s_fin[..., :n, :n].contiguous()
     out = torch.empty_like(r)
     s_fin = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)

@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from ..distributed.context import maybe_constrain
+from ..distributed.context import maybe_constrain, write_slots
 from ..kernels.flash_attention import flash_attention
 from ..kernels.ref import flash_attention_ref
 from . import layers
@@ -76,16 +76,24 @@ def _masks(spec: AttnSpec) -> dict:
             "chunk": spec.window if spec.kind == "chunked" else 0}
 
 
+def _readable(t: torch.Tensor) -> bool:
+    """A real CPU tensor: one whose values can be read without waiting
+    for a card (a fake tensor of a dry run has none)."""
+    from torch._subclasses.fake_tensor import is_fake
+    return t.device.type == "cpu" and not is_fake(t)
+
+
 def _check_arange(positions: torch.Tensor, s: int) -> None:
     """The attention's query and key positions are the indices 0 .. S−1.
-    The shape is checked on every device; the values only on the CPU,
-    since reading a card's tensor waits for the card. On the card the
+    The shape is checked on every device; the values only on the CPU
+    (and not on a dry run's fake tensors, which have none), since reading
+    a card's tensor waits for the card. On the card the
     positions come from ``transformer.embed_inputs``'s ``torch.arange``,
     so prefill runs with no sync to the host and can be captured."""
     if tuple(positions.shape) != (s,):
         raise ValueError(f"full-sequence positions must be arange(S): shape "
                          f"{tuple(positions.shape)}, S = {s}")
-    if positions.device.type == "cpu" and not torch.equal(
+    if _readable(positions) and not torch.equal(
             positions, torch.arange(s, dtype=positions.dtype)):
         raise ValueError("full-sequence positions must be arange(S)")
 
@@ -221,9 +229,8 @@ def decode_attention(params, spec: AttnSpec, x: torch.Tensor, cache: dict,
     q, k_new, v_new = _qkv(params, spec, x, pos[:, None])
 
     slot = pos % length                                   # (B,)
-    rows = torch.arange(b, device=x.device)
-    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+    write_slots(cache["k"], slot, k_new[:, 0].to(cache["k"].dtype))
+    write_slots(cache["v"], slot, v_new[:, 0].to(cache["v"].dtype))
     k, v = cache["k"], cache["v"]
 
     # absolute position of every cache slot given current pos: slot s holds

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba_scan import mamba_scan
+from ..launch import op_costs
 from . import layers
 
 
@@ -171,7 +172,9 @@ def mamba_block(params, spec: MambaSpec, x: torch.Tensor,
         h_prev = torch.zeros((b, spec.d_inner, spec.d_state), dtype=acc,
                              device=x.device)
         ys = []
-        for start in range(0, s, chunk):
+        # one chunk traced under a folding ``launch.op_costs`` recorder
+        for i in op_costs.passes(s // chunk):
+            start = i * chunk
             decay, drive, c = _selective_terms(
                 params, spec, xc[:, start:start + chunk])
             cumdec, hloc = associative_scan(decay, drive)
@@ -181,7 +184,7 @@ def mamba_block(params, spec: MambaSpec, x: torch.Tensor,
             ys.append(_contract_c(h, c))
             h_prev = h[:, -1].clone()
             del h
-        y = torch.cat(ys, dim=1)
+        y = torch.cat(ys * (s // chunk // len(ys)), dim=1)
     return _output(params, x, y, xc, z)
 
 

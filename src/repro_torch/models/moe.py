@@ -25,6 +25,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from ..distributed.context import on_shards
 from ..kernels.moe_router import moe_topk
 from ..kernels.ref import moe_topk_ref
 from . import layers
@@ -115,26 +116,53 @@ def moe_block(params, spec: MoESpec, x: torch.Tensor,
     n_groups = b * s // group
     cap = group_capacity(spec, group)
     xg = x.reshape(n_groups, group, d)
-    gates, ids = topk(_router_logits(params, xg.reshape(-1, d)), k)
-    idx, dst = _dispatch_indices(ids.reshape(n_groups, group, k), k, e, cap)
-
-    xp = torch.cat([xg, xg.new_zeros(n_groups, 1, d)], dim=1)  # pad row
-    rows = torch.arange(n_groups, device=x.device)[:, None]
-    xe = xp[rows, idx.reshape(n_groups, e * cap)]               # (G, E·C, D)
+    # the routing, the dispatch and the combine are each group's own: on
+    # a mesh every device runs them on its groups (context.on_shards), the
+    # router on its tokens of them
+    gates, ids = on_shards(lambda lg: _route(lg, topk, k),
+                           (_router_logits(params, xg),), ((0, 1),),
+                           [(0, 1), (0, 1)])
+    idx, dst = on_shards(lambda i: _dispatch_indices(i, k, e, cap),
+                         (ids,), (0,), [0, 0])
+    xe = on_shards(_gather_slots, (xg, idx), (0, 0), 0)    # (G, E·C, D)
     xe = xe.reshape(n_groups, e, cap, d).transpose(0, 1).reshape(
         e, n_groups * cap, d)
     h = torch.bmm(xe, params["w_gate"])
     u = torch.bmm(xe, params["w_up"])
     y = torch.bmm(F.silu(h) * u, params["w_down"])            # (E, G·C, D)
-
-    # combine: gather each (token, choice)'s slot, weight it by its gate
     y = y.reshape(e, n_groups, cap, d).transpose(0, 1).reshape(
         n_groups, e * cap, d)
-    y = torch.cat([y, y.new_zeros(n_groups, 1, d)], dim=1)     # drop slot
-    picked = y[rows[:, :, None], dst]                           # (G, g, k, D)
-    gw = gates.reshape(n_groups, group, k, 1).to(y.dtype)
-    out = (picked * gw).sum(dim=2)
+    out = on_shards(_combine, (y, dst, gates), (0, 0, 0), 0)
     return out.reshape(b, s, d).to(x.dtype)
+
+
+def _route(logits: torch.Tensor, topk: Callable, k: int):
+    """The router's top-k of (G, g, E) logits: (gates, ids), each (G, g,
+    k)."""
+    gates, ids = topk(logits.reshape(-1, logits.shape[-1]), k)
+    return (gates.reshape(logits.shape[:2] + (k,)),
+            ids.reshape(logits.shape[:2] + (k,)))
+
+
+def _gather_slots(xg: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Each group's tokens in its expert slots: (G, g, D), idx (G, E, C)
+    → (G, E·C, D), an empty slot (index g) a row of zeros."""
+    n_groups, _, d = xg.shape
+    xp = torch.cat([xg, xg.new_zeros(n_groups, 1, d)], dim=1)  # pad row
+    rows = torch.arange(n_groups, device=xg.device)[:, None]
+    return xp[rows, idx.reshape(n_groups, -1)]
+
+
+def _combine(y: torch.Tensor, dst: torch.Tensor,
+             gates: torch.Tensor) -> torch.Tensor:
+    """Each (token, choice)'s slot of the experts' output y (G, E·C, D),
+    weighted by its gate (G, g, k) and summed over the choices: (G, g,
+    D); a dropped choice (slot E·C) adds 0."""
+    n_groups, _, d = y.shape
+    y = torch.cat([y, y.new_zeros(n_groups, 1, d)], dim=1)     # drop slot
+    rows = torch.arange(n_groups, device=y.device)[:, None, None]
+    picked = y[rows, dst]                                       # (G, g, k, D)
+    return (picked * gates[..., None].to(y.dtype)).sum(dim=2)
 
 
 def load_balance_loss(params, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:

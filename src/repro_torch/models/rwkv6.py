@@ -35,8 +35,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.context import on_shards
 from ..kernels.ref import rwkv6_wkv_ref
 from ..kernels.rwkv6_wkv import rwkv6_wkv
+from ..launch import op_costs
 from . import layers
 
 
@@ -135,7 +137,9 @@ def wkv6_chunked(r, k, v, w, u, s0=None, chunk: int = 128):
                      diagonal=-1)
     state = s0.to(acc)
     outs = []
-    for c in range(nc):
+    # the chunks are the same ops at the same shapes: under a folding
+    # ``launch.op_costs`` recorder one is traced and counted nc times
+    for c in op_costs.passes(nc):
         rt, kt, vt, wt = rc[:, c], kc[:, c], vc[:, c], wc[:, c]  # (B,C,H,n)
         logw = torch.log(torch.clamp(wt, min=1e-38))
         cum = torch.cumsum(logw, dim=1)                # Π_{τ≤t} w_τ (log)
@@ -156,7 +160,7 @@ def wkv6_chunked(r, k, v, w, u, s0=None, chunk: int = 128):
         k_dec = kt * torch.exp(cum[:, -1:] - cum)
         kv = torch.einsum("bchn,bchm->bhnm", k_dec, vt)
         state = dec_all[..., None] * state + kv
-    return torch.cat(outs, dim=1), state
+    return torch.cat(outs * (nc // len(outs)), dim=1), state
 
 
 def _rkvgw(params, spec: RWKV6Spec, x: torch.Tensor, x_prev: torch.Tensor):
@@ -192,7 +196,12 @@ def rwkv6_block(params, spec: RWKV6Spec, x: torch.Tensor,
     """Time-mix block, full sequence (the full forward), through the plain
     ``wkv6_chunked``. x: (B, S, D) → (B, S, D)."""
     r, k, v, w, g = _rkvgw(params, spec, x, _time_shift(x))
-    out, _ = wkv6_chunked(r, k, v, w, params["bonus_u"], chunk=chunk)
+    # the recurrence is each (batch row, head)'s own: on a mesh every
+    # device runs it on its rows and heads (context.on_shards)
+    out, _ = on_shards(
+        lambda r, k, v, w, u: wkv6_chunked(r, k, v, w, u, chunk=chunk),
+        (r, k, v, w, params["bonus_u"]), ((0, 2),) * 4 + ((None, 0),),
+        [(0, 2), (0, 1)])
     return _out(params, out, g, x)
 
 

@@ -46,6 +46,7 @@ from ..configs.base import LayerSpec, ModelConfig
 from ..distributed.context import maybe_constrain
 from ..kernels.moe_router import moe_topk
 from ..kernels.ref import moe_topk_ref
+from ..launch import op_costs
 from . import attention, layers, mamba, moe, rwkv6
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -117,6 +118,25 @@ def stack_plan(cfg: ModelConfig):
                     best = (head, period, n_rep, tail)
                 break                               # smallest period found
     return best
+
+
+def layer_indices(cfg: ModelConfig):
+    """The indices of the layers a pass runs, in order: all of them; under
+    a folding ``launch.op_costs`` recorder the reference's stacking
+    (``stack_plan``): the head, ONE pass of the repeated period counted
+    ``n_rep`` times, and the tail (the periods are the same ops at the
+    same shapes, as ``hlo_parse`` counts a scanned body by its trip
+    count)."""
+    length = cfg.num_layers
+    rec = op_costs.active()
+    if rec is None or not rec.fold:
+        yield from range(length)
+        return
+    head, period, n_rep, tail = stack_plan(cfg)
+    yield from range(head)
+    with rec.repeat(n_rep):
+        yield from range(head, head + period)
+    yield from range(head + period * n_rep, length)
 
 
 def _norm(cfg: ModelConfig, p, x):
@@ -325,9 +345,11 @@ def _backbone(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     """Embed + all layers + final norm, plain. Returns x (B, S, D)."""
     x, positions, enc_out = embed_inputs(params, cfg, batch)
     x = maybe_constrain(x, "residual")
-    for p, ls in zip(params["layers"], cfg.layer_specs(), strict=True):
-        x = maybe_constrain(_layer_forward(p, cfg, ls, x, positions,
-                                           enc_out), "residual")
+    specs = cfg.layer_specs()
+    for i in layer_indices(cfg):
+        x = maybe_constrain(_layer_forward(params["layers"][i], cfg,
+                                           specs[i], x, positions, enc_out),
+                            "residual")
     return _norm(cfg, params["final_norm"], x)
 
 
@@ -390,8 +412,10 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     elif dtype == torch.float32:
         x, positions, enc_out = embed_inputs(params, cfg, batch, kernel=True)
         x = maybe_constrain(x, "residual")
-        for p, ls in zip(params["layers"], cfg.layer_specs(), strict=True):
-            x = maybe_constrain(_kernel_layer(p, cfg, ls, x, positions,
+        specs = cfg.layer_specs()
+        for i in layer_indices(cfg):
+            x = maybe_constrain(_kernel_layer(params["layers"][i], cfg,
+                                              specs[i], x, positions,
                                               enc_out), "residual")
         x = _norm(cfg, params["final_norm"], x)
     else:
@@ -484,9 +508,10 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
     if cfg.learned_pos:
         x = x + params["pos_embed"][pos][:, None]
     enc_out = cache.get("enc_out")
-    for i, (p, ls) in enumerate(zip(params["layers"], cfg.layer_specs(),
-                                    strict=True)):
-        x, cache["layers"][i] = _decode_layer(p, cfg, ls, x,
+    specs = cfg.layer_specs()
+    for i in layer_indices(cfg):
+        x, cache["layers"][i] = _decode_layer(params["layers"][i], cfg,
+                                              specs[i], x,
                                               cache["layers"][i], pos,
                                               enc_out)
     x = _norm(cfg, params["final_norm"], x)

@@ -32,6 +32,7 @@ import torch
 _lock = threading.Lock()
 _build_callbacks: List[Callable[[str], None]] = []
 _transfer_callbacks: List[Callable[[], None]] = []
+_kernel_callbacks: List[Callable[[str, float, float], None]] = []
 
 
 def _add(callbacks: list, cb) -> None:
@@ -48,6 +49,28 @@ def report_build(what: str) -> None:
     """One kernel library built or loaded (``kernels/_build.py``)."""
     for cb in list(_build_callbacks):
         cb(what)
+
+
+def report_kernel(name: str, flops: float, nbytes: float) -> None:
+    """One kernel call's work, from its wrapper: the dot FLOPs its plain
+    version does and the bytes it must move. Made where the wrapper
+    launches its kernel and on its shape-only path (fake and meta
+    tensors), which launches nothing; ``launch.op_costs`` listens, since
+    a ctypes launch passes no dispatcher."""
+    for cb in list(_kernel_callbacks):
+        cb(name, float(flops), float(nbytes))
+
+
+@contextlib.contextmanager
+def on_kernel_report(cb: Callable[[str, float, float], None]
+                     ) -> Iterator[None]:
+    """``cb(name, flops, nbytes)`` is called for every kernel report made
+    while the context is active."""
+    _add(_kernel_callbacks, cb)
+    try:
+        yield
+    finally:
+        _remove(_kernel_callbacks, cb)
 
 
 Payload = Union[torch.Tensor, Sequence[torch.Tensor]]

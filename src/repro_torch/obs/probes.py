@@ -222,3 +222,61 @@ def compile_probes(spec: Optional[Union[ProbeSpec, str]],
         if dim is not None:
             msg_bytes = float(channel.payload_bytes(dim))
     return Probes(spec=spec, capacity=int(capacity), msg_bytes=msg_bytes)
+
+
+def analysis_entry_points():
+    """Contract-linter entry points: the PROBED run drivers at toy size.
+    The unprobed programs are linted by their owning module
+    (``core.netes``); these run the same steps with the probe ring
+    recorded into, so the linter holds the ring to the same contracts: no
+    host sync in the instrumented step, and a ring (and cursor) that keeps
+    its dtype, shape and device."""
+    from ..analysis.registry import (EntryPoint, SphereReward, place,
+                                     toy_state, toy_topology)
+    from ..core import netes
+
+    def build_run_probed(device):
+        cfg = netes.NetESConfig()
+        probes = compile_probes("fitness|consensus", capacity=16)
+        return (lambda s, a, ms: netes.run(
+                    s, a, SphereReward(), cfg, 3, probes=probes,
+                    metrics_state=ms),
+                (toy_state(device), toy_topology(device),
+                 probes.init(device)), {})
+
+    def build_run_q8_probed(device):
+        from ..comm.channel import compile_channel
+        cfg = netes.NetESConfig()
+        chan = compile_channel("quantize(bits=8)", 8)
+        probes = compile_probes("all", capacity=16, channel=chan, dim=16)
+        state = toy_state(device)
+        return (lambda s, a, c, ms: netes.run(
+                    s, a, SphereReward(), cfg, 3, chan, c, probes=probes,
+                    metrics_state=ms),
+                (state, toy_topology(device), chan.init(state.thetas),
+                 probes.init(device)), {})
+
+    def build_run_scheduled_probed(device):
+        cfg = netes.NetESConfig()
+        schedule = netes.toy_schedule()
+        probes = compile_probes("fitness|graph", capacity=16)
+        return (lambda s, t, ms: netes.run_scheduled(
+                    s, t, SphereReward(), cfg, schedule, 3, probes=probes,
+                    metrics_state=ms),
+                (toy_state(device),
+                 place(schedule.init(device="cpu"), device),
+                 probes.init(device)), {})
+
+    host_t = (("t", "the schedule's iteration counter lives on the host: "
+                    "a scheduled step is not captured"),)
+    return (
+        EntryPoint(name="obs.netes.run.probed", build=build_run_probed,
+                   carry=(("state", 0, 0), ("ring", 2, 2))),
+        EntryPoint(name="obs.netes.run.q8.probed",
+                   build=build_run_q8_probed,
+                   carry=(("state", 0, 0), ("chan", 2, 1), ("ring", 3, 2))),
+        EntryPoint(name="obs.netes.run_scheduled.probed",
+                   build=build_run_scheduled_probed,
+                   carry=(("state", 0, 0), ("sched", 1, 1), ("ring", 2, 3)),
+                   carry_exempt=host_t),
+    )

@@ -13,7 +13,7 @@ in a process of its own (``tests/test_torch_lm.py``,
 ``tests/test_torch_mamba.py`` and ``tests/test_torch_gemma3.py`` start
 it), so no other test module ever sees the swap.
 
-Ten parts (PART): ``lm`` (the default) dumps the models, ``moe`` the MoE
+Eleven parts (PART): ``lm`` (the default) dumps the models, ``moe`` the MoE
 layer's pieces, ``rwkv`` the rwkv6 pieces and the rwkv6-7b-smoke model (at
 2 layers, unrolled, and at 4, scanned as plan (0, 1, 4, 0)), ``mamba`` the
 mamba pieces and the jamba-v0.1-52b-smoke model (at 2 layers, unrolled,
@@ -34,7 +34,9 @@ frontend's frames and llava-next-mistral-7b-smoke with its patches (see
 ``dump_frontends``), ``consensus`` the consensus step
 (``make_consensus_train_step``, see ``dump_consensus``) and ``sharding``
 the placement of ``repro.launch.specs`` on the production meshes (see
-``dump_sharding``; run with 512 forced host devices, written as JSON).
+``dump_sharding``; run with 512 forced host devices, written as JSON)
+and ``dryrun`` the reference's ``hlo_costs`` of four smoke pairs on a
+mesh of one (see ``dump_dryrun``, written as JSON).
 The ``netes`` part's archs include whisper-tiny-smoke, whose batches
 carry the reference's frames.
 Everything is drawn from fixed seeds: the weights
@@ -149,6 +151,10 @@ def main(path, part="lm"):
     if part == "sharding":
         with open(path, "w") as f:
             json.dump(dump_sharding(), f)
+        return
+    if part == "dryrun":
+        with open(path, "w") as f:
+            json.dump(dump_dryrun(), f)
         return
     smoke = get_config("mistral-nemo-12b-smoke")
     rng = np.random.default_rng(0)
@@ -958,6 +964,54 @@ def dump_sharding():
                 "specs": _specs_json(info["specs"])}
         out[name] = res
     return out
+
+
+# the dry run's smoke pairs on a mesh of one: (arch, shape, consensus),
+# at the smoke shapes below (``INPUT_SHAPES`` gains them for the run)
+DRYRUN_SHAPES = {
+    "train_smoke": dict(seq_len=64, global_batch=2, kind="train"),
+    "prefill_smoke": dict(seq_len=64, global_batch=2, kind="prefill"),
+    "decode_smoke": dict(seq_len=64, global_batch=2, kind="decode"),
+}
+DRYRUN_CASES = (
+    ("mistral-nemo-12b-smoke", "train_smoke", False),
+    ("mistral-nemo-12b-smoke", "prefill_smoke", False),
+    ("mistral-nemo-12b-smoke", "decode_smoke", False),
+    ("llama4-scout-17b-a16e-smoke", "train_smoke", True),
+)
+
+
+def dump_dryrun():
+    """``hlo_parse.hlo_costs`` of the reference's compiled step for each
+    of ``DRYRUN_CASES`` on a mesh of one device ("data", "model" of size
+    1), the smoke shapes added to ``INPUT_SHAPES`` and, for a consensus
+    case, the arch to ``CONSENSUS_ARCHS``: ``{"shapes": ..., "cases":
+    [{"arch", "shape", "consensus", "mode", "hlo_costs"}]}``."""
+    saved = batching.primitive_batchers
+    batching.primitive_batchers = {optimization_barrier_p: None}
+    try:
+        from repro.configs import INPUT_SHAPES
+        from repro.launch import hlo_parse, specs
+    finally:
+        batching.primitive_batchers = saved
+    from jax.sharding import Mesh
+    INPUT_SHAPES.update(DRYRUN_SHAPES)
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                ("data", "model"))
+    cases = []
+    for arch, shape, consensus in DRYRUN_CASES:
+        saved_archs = specs.CONSENSUS_ARCHS
+        if consensus:
+            specs.CONSENSUS_ARCHS = saved_archs + (arch,)
+        try:
+            lowered, pair = specs.lower_pair(arch, shape, mesh)
+            costs = hlo_parse.hlo_costs(lowered.compile().as_text())
+        finally:
+            specs.CONSENSUS_ARCHS = saved_archs
+        cases.append({"arch": arch, "shape": shape, "consensus": consensus,
+                      "mode": pair.mode, "n_agents": pair.n_agents,
+                      "hlo_costs": {k: float(v) for k, v in costs.items()}})
+    return {"shapes": DRYRUN_SHAPES, "cases": cases}
 
 
 if __name__ == "__main__":

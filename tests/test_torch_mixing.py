@@ -141,11 +141,18 @@ def test_weighted_sums_match_reference(n):
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     """A wrapper never moves data and only runs the plain version for CPU
-    tensors; operands on a device that is neither raise. The operand
-    checks of the CUDA path raise on dtype, shape and layout."""
+    tensors; operands on a device that is neither raise, but meta
+    tensors, which take the shape-only path (an empty result, nothing
+    launched). The operand checks of the CUDA path raise on dtype, shape
+    and layout."""
     meta = torch.empty(4, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        netes_mixing(meta, meta[0], meta[0], meta, meta, sigma=SIGMA)
+        _checks.on_cpu([meta])
+    out = netes_mixing(meta, meta[0], meta[0], meta, meta, sigma=SIGMA)
+    assert out.device.type == "meta" and out.shape == (4, 4)
+    with pytest.raises(ValueError, match="several devices"):
+        netes_mixing(meta, meta[0], meta[0], torch.empty(4, 4), meta,
+                     sigma=SIGMA)
     with pytest.raises(ValueError, match="several devices"):
         _checks.on_cpu([torch.empty(2), meta])
     x = torch.zeros(4, 6)

@@ -454,7 +454,14 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.models.frontends", "repro_torch.optim",
             "repro_torch.optim.adam", "repro_torch.optim.sgd",
             "repro_torch.configs.whisper_tiny",
-            "repro_torch.configs.llava_next_mistral_7b"} <= set(mods)
+            "repro_torch.configs.llava_next_mistral_7b",
+            "repro_torch.launch.op_costs", "repro_torch.launch.analysis",
+            "repro_torch.launch.dryrun", "repro_torch.analysis",
+            "repro_torch.analysis.__main__", "repro_torch.analysis.cli",
+            "repro_torch.analysis.ast_rules",
+            "repro_torch.analysis.contracts",
+            "repro_torch.analysis.findings",
+            "repro_torch.analysis.registry"} <= set(mods)
 
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)"
                          r"(\.|\s+import\b))", re.MULTILINE)
