@@ -30,8 +30,10 @@ Phases, each printing one JSON line per case:
    printed: ≈ 0.5 when the kernel skips the key tiles outside the chunk),
    at whisper-tiny's encoder (1 × 1500, non-causal, 6/6 heads of 64: a
    ragged last key tile) and run (b)'s cross attention (8 × 432 queries
-   over 1500 keys, non-causal), and at llava's loss (1 × 4096, causal,
-   32/8 × 128); each flash row names the backend
+   over 1500 keys, non-causal), at llava's loss (1 × 4096, causal,
+   32/8 × 128), and its head_dim-32 instance (whisper-tiny-smoke's 4/4
+   heads of 32) at 1 × 1500 non-causal and 8 × 64 causal, held also to
+   the plain version within 2e-5; each flash row names the backend
    ``scaled_dot_product_attention`` chose for its yardstick. The sparse
    Eq. 3 kernel runs on ER p = 0.1 at N = 1000 and at the paper's N = 3000 (two sender chunks),
    at a ragged shape and at N = 5000, p = 0.02 (four chunks); the fused
@@ -181,6 +183,10 @@ Phases, each printing one JSON line per case:
 6. ``parity``  — one NetES step at N = 64 on the GPU and on the CPU from the
    same parameters and draws must agree, without and with a channel (whose
    dropout masks, drawn on each device, must be equal).
+6b. ``es_step`` — standard ES (``core.netes.es_step``, the paper's
+   baseline) on pendulum at N = 1000, 3 iterations from one θ, ε and the
+   reset states from one generator: finite rewards, θ moved, each step's
+   ms; the last step under ``set_sync_debug_mode("error")``.
 7. ``serve_parity`` — mistral-nemo-12b at full width and 2 layers, B = 2,
    a 256-token prompt, 8 new tokens: the prefill and decode logits of the
    kernel path against the port's plain full ``forward`` in float64 on
@@ -194,6 +200,14 @@ Phases, each printing one JSON line per case:
    zeroed just before each ``generate`` and read just after: 40 flash
    launches each. Then the same steps timed with CUDA events (prefill,
    each decode step) and profiled with ``torch.profiler``.
+9b. ``forward_long`` — the full forward (``netes_dist.make_prefill_step``,
+   whose attention is ``blockwise_attention``: query blocks of 512, key
+   blocks of 1024, never the whole (S, S) scores) of mistral-nemo-12b at
+   full width and 4 layers, float32, 1 × 32,768 (the reference's
+   prefill_32k): ms (CUDA events and the host clock), peak memory, a
+   profiled run's device idle share; no flash launch in it; the logits of
+   the last 512 positions against the flash-kernel path's layers (4
+   launches) within 1e-4·max|logit|.
 10. ``moe_parity`` — moonshot-v1-16b-a3b at full width and 2 layers (the
    dense layer 0, then one MoE layer of 64 experts, top-6), B = 2,
    512-token prompts (one group of 512 per row, capacity 60: choices
@@ -274,14 +288,15 @@ Phases, each printing one JSON line per case:
 21e. ``whisper_parity`` — whisper-tiny at full width and depth (4
    encoder and 4 decoder layers), B = 2, 1500 stub frames, 64-token
    prompts, 8 new tokens: the kernel path's prefill and decode logits
-   against the float64 ``forward``, within 1e-4·max|logit|, and the
-   encoder's output against its float64; 12 flash launches a prefill (4
-   encoder, 4 self, 4 cross); one prefill under the sync check.
-21f. ``serve_cpu_parity`` of whisper-tiny-smoke at 2 heads of 64 (its 4
-   heads of 32 are below the flash kernel's narrowest instance), with
-   frames; ``serve`` of whisper-tiny at full depth (0.155 GB) with 1500
-   stub frames: (a) B = 1 and (b) B = 8 with a 4-token prompt, (c) B = 1
-   with a 432-token one (448 positions with the new tokens, the model
+   against the float64 ``forward`` (blockwise attention: 1500 frames pad
+   the last key block of 1024, whose 548 padded keys must add nothing),
+   within 1e-4·max|logit|, and the encoder's output against its float64;
+   12 flash launches a prefill (4 encoder, 4 self, 4 cross); one prefill
+   under the sync check.
+21f. ``serve_cpu_parity`` of whisper-tiny-smoke at its own 4 heads of 32
+   (the flash kernel's head_dim-32 instance), with frames; ``serve`` of
+   whisper-tiny at full depth (0.155 GB) with 1500 stub frames: (a) B =
+   1 and (b) B = 8 with a 4-token prompt, (c) B = 1 with a 432-token one (448 positions with the new tokens, the model
    card's context): 12 flash launches per ``generate``, all global.
 21g. ``llava_parity`` — llava-next-mistral-7b at full width and 2
    layers: serving (B = 2, 256-token prompts, the patches given to
@@ -380,8 +395,11 @@ captured step; ``launches_search``: each tournament's; the flash row's
 ``launches_llama4_scout`` (runs (a) and (c), by mask) and
 ``launches_llama4_maverick``, and its ``llama4_global`` and
 ``llama4_chunk`` times, ``launches_whisper_tiny`` (each run, by mask),
-``launches_llava`` and the ``whisper_encoder``, ``whisper_cross`` and
-``llava_loss`` times; the router row's ``launches_llama4`` (each run of
+``launches_llava``, ``launches_whisper_tiny_smoke_hd32`` (the
+head_dim-32 instance in the smoke's GPU serving),
+``launches_forward_long_kernel_path``, and the ``whisper_encoder``,
+``whisper_cross``, ``llava_loss``, ``hd32_noncausal`` and ``hd32_causal``
+times; the router row's ``launches_llama4`` (each run of
 scout and maverick) and ``llama4_cases``;
 ``launches_lm_netes``: a step of each ``lm_netes`` case; ``lm_shapes``:
 the times at the LM step's shapes; ``launches_shard``: each ``shard`` and
@@ -1237,6 +1255,13 @@ ATTN_CASES = (
     # its chunk of 8192
     ("scout_train_4096_chunk8192", 1, 4096, 4096, 40, 8, 128, True, 0, 8192,
      ""),
+    # the head_dim-32 instance (whisper-tiny-smoke's 4 heads of 32):
+    # non-causal over 1500 keys (a ragged last key tile) and causal at B =
+    # 8 × 64; held to the plain version within TOL_ATTN too
+    ("hd32_noncausal_1500", 1, 1500, 1500, 4, 4, 32, False, 0, 0,
+     "flash_attention_hd32_noncausal"),
+    ("hd32_causal_b8_64", 8, 64, 64, 4, 4, 32, True, 0, 0,
+     "flash_attention_hd32_causal"),
 )
 # The plain version materialises every (B, H, Sq, Sk) score: above this
 # many bytes of float32 scores (scout's 16,384² × 40 heads: 43 GB) it runs
@@ -1322,6 +1347,10 @@ def attention_kernel_phase(results: dict, lm_results: dict) -> None:
               f"above {TOL_ATTN}")
         check(err_p <= TOL_ATTN, f"flash_attention/{label} plain: |err| "
               f"{err_p} above {TOL_ATTN}")
+        if hd == 32:
+            err_kp = (out_k - out_p).abs().max().item()
+            check(err_kp <= TOL_ATTN, f"flash_attention/{label}: |kernel − "
+                  f"plain| {err_kp} above {TOL_ATTN}")
 
         # the library yardstick: one scaled_dot_product_attention call on
         # (B, H, S, hd) operands with the KV heads repeated, made outside
@@ -3399,10 +3428,10 @@ def _served(extra: dict) -> dict:
     return {k: v for k, v in extra.items() if k != "patch_embeds"}
 
 
-def serve_cpu_parity_phase(arch: str, prompt: int = 24, cfg=None) -> None:
-    """``arch``'s smoke model's (or ``cfg``'s) greedy serving on the GPU
-    and on the CPU from the same weights and frontend inputs: tokens
-    equal, logits within TOL_SMOKE."""
+def serve_cpu_parity_phase(arch: str, prompt: int = 24) -> int:
+    """``arch``'s smoke model's greedy serving on the GPU and on the CPU
+    from the same weights and frontend inputs: tokens equal, logits within
+    TOL_SMOKE. Returns the flash launches of the GPU's run."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3412,7 +3441,7 @@ def serve_cpu_parity_phase(arch: str, prompt: int = 24, cfg=None) -> None:
     from repro_torch.kernels import rwkv6_wkv as rw
     from repro_torch.models import transformer
 
-    cfg = cfg or get_config(arch + "-smoke")
+    cfg = get_config(arch + "-smoke")
     n_attn, n_moe, n_rwkv, n_mamba = _layer_counts(cfg)
     n_flash = sum(_flash_masks(cfg).values())
     cpu = transformer.init_params(cfg, seed=0, device="cpu")
@@ -3444,7 +3473,8 @@ def serve_cpu_parity_phase(arch: str, prompt: int = 24, cfg=None) -> None:
           "tokens_equal": True, "moe_layers": n_moe, "rwkv_layers": n_rwkv,
           "mamba_layers": n_mamba,
           "max_abs_err": (got - want).abs().max().item(),
-          "tol": TOL_SMOKE})
+          "tol": TOL_SMOKE, "flash_launches": n_flash})
+    return n_flash
 
 
 # ---------------------------------------------------------------------------
@@ -4432,25 +4462,12 @@ LLAVA_ARCH = "llava-next-mistral-7b"
 # the 16 new tokens fills the model card's native 448-token context
 WHISPER_SERVE_RUNS = (("a", 1, 4), ("b", 8, 4), ("c", 1, 432))
 WHISPER_PARITY_PROMPT = 64
-# the smoke's GPU-against-CPU parity at 2 heads of 64: the smoke's 4 heads
-# of 32 are narrower than the flash kernel's narrowest instance
-# (kernels/flash_attention.HEAD_DIMS)
-WHISPER_SMOKE_CUTS = dict(num_heads=2, num_kv_heads=2, head_dim=64)
 LLAVA_PARITY_LAYERS = 2
 # llava's vision batch: 2880 patches and 1216 tokens in 4096 positions
 # (the reference's train_4k); 1216 is no multiple of the 512-token xent
 # chunk, so the loss unembeds the text in one chunk (156 MB of logits)
 LLAVA_LOSS_SEQ = 4096
 LLAVA_LOSS_ITERS = 3
-
-
-def whisper_smoke_on_card():
-    """whisper-tiny-smoke at 2 heads of 64 (``WHISPER_SMOKE_CUTS``)."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(WHISPER_ARCH + "-smoke"),
-                               **WHISPER_SMOKE_CUTS)
 
 
 def whisper_parity_phase() -> None:
@@ -5983,6 +6000,152 @@ def shard_scale_phase(launches_shard: dict) -> None:
           "er_over_fc": er / fc})
 
 
+# ---------------------------------------------------------------------------
+# forward_long: the full forward's blockwise attention at 1 × 32,768
+# ---------------------------------------------------------------------------
+
+# mistral-nemo-12b at full width (5120, 32/8 heads of 128) over the
+# reference's prefill_32k length. Memory would hold ≈ 40 layers (1.09 GB of
+# float32 weights a layer beside the 2.68 GB embedding, 17.2 GB of logits,
+# ≈ 10 GB of one layer's transients: a key block's (32, 32,768, 1024)
+# float32 scores are 4.3 GB, where whole scores would be 137 GB); the
+# phase's time is what bounds it, ≈ 1 s a layer for the plain forward, so
+# 4 layers (7.0 GB of weights)
+LONG_LAYERS, LONG_SEQ, LONG_TAIL = 4, 32768, 512
+
+
+def forward_long_phase() -> dict:
+    """``netes_dist.make_prefill_step`` (the full forward, whose attention
+    is ``blockwise_attention``) of mistral-nemo-12b at full width and
+    ``LONG_LAYERS`` layers, float32, B = 1 × 32,768: its ms (host clock
+    after a sync, and CUDA events), peak memory, a profiled run's device
+    idle share; the logits of the last ``LONG_TAIL`` positions against the
+    flash-kernel path's layers (``loss_fn``'s ``_kernel_layer``) within
+    1e-4·max|logit|. Returns the kernel path's flash launches."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import netes_dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=LONG_LAYERS)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LONG_SEQ), generator=g,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    prefill = netes_dist.make_prefill_step(cfg)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fa.KERNEL.launches = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        logits = prefill(params, batch)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    check(fa.KERNEL.launches == 0, "forward_long: the full forward launched "
+          f"the flash kernel {fa.KERNEL.launches} times")
+    peak = torch.cuda.max_memory_allocated()
+    tail = logits[:, -LONG_TAIL:].clone()
+    check(tuple(logits.shape) == (1, LONG_SEQ, cfg.vocab_size)
+          and torch.isfinite(tail).all().item(),
+          "forward_long: logits of the wrong shape or not finite")
+    del logits
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        prof = _profile(lambda: prefill(params, batch))
+        fa.KERNEL.launches = 0
+        x, positions, enc_out = transformer.embed_inputs(params, cfg, batch,
+                                                         kernel=True)
+        for i, ls in enumerate(cfg.layer_specs()):
+            x = transformer._kernel_layer(params["layers"][i], cfg, ls, x,
+                                          positions, enc_out)
+        x = transformer._norm(cfg, params["final_norm"], x[:, -LONG_TAIL:])
+        kernel_tail = transformer.unembed(params, cfg, x)
+        launches = fa.KERNEL.launches
+    check(launches == LONG_LAYERS, f"forward_long: {launches} flash launches "
+          f"on the kernel path of {LONG_LAYERS} layers")
+    scale = max(1.0, tail.abs().max().item())
+    err = (kernel_tail - tail).abs().max().item()
+    check(err <= TOL_LOGITS * scale, f"forward_long: the last {LONG_TAIL} "
+          f"positions' logits differ from the kernel path's by {err} "
+          f"(tolerance {TOL_LOGITS * scale})")
+    emit({"phase": "forward_long", "arch": ARCH, "num_layers": LONG_LAYERS,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "head_dim": cfg.head_dim, "batch": 1, "seq": LONG_SEQ,
+          "dtype": "float32", "step": "netes_dist.make_prefill_step",
+          "attention": "blockwise_attention (query blocks of 512, key "
+                       "blocks of 1024)",
+          "weight_gb": 4 * cfg.count_params() / 1e9,
+          "ms": start.elapsed_time(end),
+          "host_ms": host_ms, "peak_gb": peak / 1e9,
+          "peak_over_weights_gb": (peak - base) / 1e9,
+          "whole_scores_gb_a_layer": 4 * cfg.num_heads * LONG_SEQ ** 2 / 1e9,
+          "profile": prof, "tail": LONG_TAIL, "max_abs_logit": scale,
+          "max_abs_err_vs_kernel_path": err, "tol": TOL_LOGITS * scale,
+          "kernel_path_flash_launches": launches})
+    del params, tail, kernel_tail, x, tokens, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches}
+
+
+# ---------------------------------------------------------------------------
+# es_step: standard ES (the paper's baseline) on pendulum at N = 1000
+# ---------------------------------------------------------------------------
+
+ES_ITERS = 3
+
+
+def es_step_phase() -> None:
+    """``core.netes.es_step`` on pendulum, N = 1000 (the paper's policy, D =
+    4481), ``ES_ITERS`` iterations from one θ on the card, ε and the reset
+    states from one generator: finite rewards, θ moved, each step's ms by
+    CUDA events; the last step under ``set_sync_debug_mode("error")``."""
+    import math
+
+    import torch
+
+    from repro_torch.core import netes
+    from repro_torch.envs import resolve_task
+
+    reward_fn, dim, init_fn = resolve_task("pendulum")[:3]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    theta0 = init_fn(gen, 1)[0].to("cuda")
+    cfg = netes.NetESConfig()
+    theta, rows = theta0, []
+    for it in range(ES_ITERS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        if it == ES_ITERS - 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            theta, metrics = netes.es_step(theta, reward_fn, cfg, MAIN_N,
+                                           generator=gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        end.record()
+        torch.cuda.synchronize()
+        rows.append({"ms": start.elapsed_time(end),
+                     **{k: v.item() for k, v in metrics.items()}})
+    check(all(math.isfinite(r["reward_mean"]) and math.isfinite(
+        r["reward_max"]) for r in rows), f"es_step: rewards {rows}")
+    check(torch.isfinite(theta).all().item()
+          and not torch.equal(theta, theta0), "es_step: θ not finite or "
+          "not moved")
+    emit({"phase": "es_step", "task": "pendulum", "n_agents": MAIN_N,
+          "dim": dim, "iters": ES_ITERS, "steps": rows,
+          "no_sync_step": ES_ITERS - 1})
+
+
 # the libraries of the redesigned kernels, whose ptxas lines must show no
 # spill
 REDESIGNED = ("netes_mixing", "flash_attention", "netes_sparse_mixing",
@@ -6069,12 +6232,14 @@ def main() -> int:
     search_launches = {}
     search_phase(search_launches)
     parity_phase()
+    es_step_phase()
     shard_launches = {}
     shard_phase(shard_launches)
     shard_scale_phase(shard_launches)
     serve_parity_phase()
     serve_cpu_parity_phase(ARCH)
     launches["flash_attention"] = serve_phase(ARCH)["flash_attention"]
+    long_launches = forward_long_phase()
     moe_parity_phase()
     serve_cpu_parity_phase(MOE_ARCH)
     launches["moe_topk"] = serve_phase(MOE_ARCH,
@@ -6099,7 +6264,7 @@ def main() -> int:
                 with_params=maverick_moe_check,
                 peak_bound=torch.cuda.mem_get_info()[1] - MAVERICK_HEADROOM)
     whisper_parity_phase()
-    serve_cpu_parity_phase(WHISPER_ARCH, cfg=whisper_smoke_on_card())
+    whisper_smoke_flash = serve_cpu_parity_phase(WHISPER_ARCH)
     whisper_runs, llava_runs = {}, {}
     serve_phase(WHISPER_ARCH, runs=WHISPER_SERVE_RUNS, by_run=whisper_runs)
     llava_parity_phase()
@@ -6176,7 +6341,15 @@ def main() -> int:
             rows[-1]["launches_llava"] = {
                 run: r["launches"]["flash_attention"]
                 for run, r in llava_runs.items()}
-            for key in ("flash_attention_hd256",
+            # the head_dim-32 instance: whisper-tiny-smoke's greedy serving
+            # at its own 4 heads of 32 (its prefill; decode calls no
+            # kernel); and forward_long's kernel path (head_dim 128)
+            rows[-1]["launches_whisper_tiny_smoke_hd32"] = whisper_smoke_flash
+            rows[-1]["launches_forward_long_kernel_path"] = long_launches[
+                "flash_attention"]
+            for key in ("flash_attention_hd32_noncausal",
+                        "flash_attention_hd32_causal",
+                        "flash_attention_hd256",
                         "flash_attention_hd256_local",
                         "flash_attention_llama4_global",
                         "flash_attention_llama4_chunk",

@@ -40,6 +40,9 @@ the mesh's process group steps its slab of agents, with the same draws
 (every rank draws the whole step from its copy of the generator), and the
 run returns the gathered state.
 
+``es_step`` is standard ES on one shared θ (paper Eq. 1), the paper's
+baseline, with ε from an explicit generator or injected.
+
 Every step function returns ``(state, chan_state, metrics)``, the
 scheduled ones ``(state, sched_state, chan_state, metrics)``; without a
 channel ``chan_state`` is None. With ``probes`` (``obs.probes``, DESIGN.md
@@ -433,6 +436,51 @@ def run_scheduled(state: NetESState, sched_state, reward_fn,
     if probes is None:
         return state, sched_state, chan_state, _stack(history)
     return state, sched_state, chan_state, metrics_state, _stack(history)
+
+
+# ---------------------------------------------------------------------------
+# standard ES (paper Eq. 1): the fully connected, shared-θ baseline
+# ---------------------------------------------------------------------------
+
+def es_step(theta: torch.Tensor, reward_fn, cfg: NetESConfig, n_agents: int,
+            *, generator: Optional[torch.Generator] = None,
+            eps: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One standard-ES iteration on a single global θ (D,): the paper's
+    baseline (the reference's ``core.netes.es_step``).
+
+    ε (``n_agents``, D) comes from ``generator``, or is given: ``eps=`` is
+    the seam where a test injects the reference's draw. The reward
+    function's evals for ``n_agents`` come from ``generator`` after ε
+    (none without one). With antithetic sampling θ ± σε are rewarded in
+    one batch of 2N on the same N evals, shaped together, and the halves'
+    shaped difference weighs ε; the metrics cover both halves. ``grad =
+    Σ shaped·ε / (Nσ)``, ``θ ← θ + α·grad − wd·θ``. Returns ``(θ',
+    {"reward_mean", "reward_max"})``, 0-d tensors on θ's device; no host
+    sync."""
+    if eps is None:
+        if generator is None:
+            raise ValueError("es_step: pass a generator or eps")
+        eps = torch.randn((n_agents,) + tuple(theta.shape),
+                          generator=generator, device=theta.device,
+                          dtype=theta.dtype)
+    evals = None if generator is None else reward_fn.draw(generator,
+                                                          n_agents)
+    if cfg.antithetic:
+        both = torch.cat([theta[None] + cfg.sigma * eps,
+                          theta[None] - cfg.sigma * eps])
+        rewards = reward_fn(both, None if evals is None
+                            else torch.cat([evals, evals]))
+        shaped_all = shape_fitness(rewards, cfg.fitness_shaping)
+        shaped = shaped_all[:n_agents] - shaped_all[n_agents:]
+    else:
+        rewards = reward_fn(theta[None] + cfg.sigma * eps, evals)
+        shaped = shape_fitness(rewards, cfg.fitness_shaping)
+    grad = (shaped[:, None] * eps).sum(dim=0) / (n_agents * cfg.sigma)
+    update = es_utils.apply_weight_decay(theta, cfg.alpha * grad,
+                                         cfg.weight_decay)
+    metrics = {"reward_mean": rewards.mean(), "reward_max": rewards.max()}
+    return theta + update, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -85,6 +85,15 @@
 // mask 15.1 ms), 185 registers, no spill (NVIDIA H100 80GB HBM3, 700 W;
 // PERF.md §6, row 5).
 //
+// head_dim 32 (whisper-tiny-smoke, 4 heads of 32; the contract linter's
+// nano LM, 2 heads of 32): the hd ≤ 128 tiling (BR = 128 rows, BKN = 64
+// keys) with its own map of O's columns, since 16 threads of 4 columns
+// would cover 64: a thread owns the columns 2·tx + {0, 1} (`Tile<32>::CW`),
+// read from V and written out as float2. Qᵀ 16 KB, K and V
+// double-buffered 2 × 2 × 8 KB, Pᵀ 33 KB: 82 KB in all, so two blocks fit
+// on an SM (`__launch_bounds__` asks the register budget of two). Every
+// other part of the code is the hd ≤ 128 instances'.
+//
 // C interface (bound with ctypes): `flash_attention_f32` returns
 // cudaGetLastError() after the launch; `flash_attention_query` reports the
 // grid size and the resident blocks per SM at a shape. Launches on the
@@ -100,13 +109,18 @@ constexpr float NEG_INF = -1e30f;
 
 // The tiling of the instance for HD: BR (position, head) rows per block,
 // BKN keys per tile. A thread of the 16 × 16 grid owns RT = BR / 16 rows
-// and KT = BKN / 16 keys of S, and RT rows of O.
+// and KT = BKN / 16 keys of S, and RT rows of O, in which it holds the
+// columns 64·c + CW·tx + e (c < NCH, e < CW): 4 a 64-column chunk, or 2 of
+// the 32 at HD 32.
 template <int HD>
 struct Tile {
   static constexpr int BR = HD <= 128 ? 128 : 64;
   static constexpr int BKN = HD <= 128 ? 64 : 32;
   static constexpr int RT = BR / 16;
   static constexpr int KT = BKN / 16;
+  static constexpr int CW = HD >= 64 ? 4 : 2;
+  static constexpr int NCH = HD >= 64 ? HD / 64 : 1;
+  static constexpr int MIN_BLOCKS = HD == 32 ? 2 : 1;   // resident per SM
 };
 
 // Shared memory: Qᵀ, two K and two V tiles, Pᵀ and the rows' key ranges.
@@ -174,9 +188,9 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 // (only if MASKED, a tile that crosses a row's key range or Sk), new row
 // maxima, P = 2^(s − m) in place of s, l, and O rescaled. Row i of the
 // thread is 64·(i / 4) + 4·ty + i % 4, key j is k0 + tx + 16·j.
-template <bool MASKED, int RT, int KT, int NCH>
+template <bool MASKED, int RT, int KT, int NCH, int CW>
 __device__ __forceinline__ void online_softmax(float (&s)[RT][KT], float (&m)[RT],
-                                               float (&l)[RT], float (&o)[RT][NCH][4],
+                                               float (&l)[RT], float (&o)[RT][NCH][CW],
                                                const int* row_lo, const int* row_hi,
                                                int k0, int sk, int ty, int tx) {
   if (MASKED) {
@@ -215,7 +229,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[RT][KT], float (&m)[RT
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[i][c][e] *= corr;
+      for (int e = 0; e < CW; ++e) o[i][c][e] *= corr;
   }
 }
 
@@ -236,7 +250,7 @@ __device__ __forceinline__ void load_keys(float* dst, const float* __restrict__ 
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, Tile<HD>::MIN_BLOCKS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
@@ -246,7 +260,8 @@ flash_attention_kernel(const float* __restrict__ q,
   using L = Layout<HD>;
   constexpr int BR = Tile<HD>::BR, BKN = Tile<HD>::BKN;
   constexpr int RT = Tile<HD>::RT, KT = Tile<HD>::KT;
-  constexpr int NCH = HD / 64;       // 64-column chunks of the output
+  constexpr int NCH = Tile<HD>::NCH;  // 64-column chunks of the output
+  constexpr int CW = Tile<HD>::CW;    // a thread's columns of a chunk
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
   float* ks0 = qs + L::Q;            // K tiles: ks0 + (t & 1)·L::K
@@ -308,7 +323,7 @@ flash_attention_kernel(const float* __restrict__ q,
     qs[(4 * c + 3) * BR + r] = val.w * qscale;
   }
 
-  float m[RT], l[RT], o[RT][NCH][4];
+  float m[RT], l[RT], o[RT][NCH][CW];
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
     m[i] = NEG_INF;
@@ -316,7 +331,7 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[i][c][e] = 0.f;
+      for (int e = 0; e < CW; ++e) o[i][c][e] = 0.f;
   }
 
   const int sw = tx & 7;   // the swizzle of this thread's keys tx + 16j
@@ -399,13 +414,22 @@ flash_attention_kernel(const float* __restrict__ q,
       }
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(vs + kk * HD + 64 * c + 4 * tx);
+        if constexpr (CW == 4) {
+          const float4 vv = *reinterpret_cast<const float4*>(vs + kk * HD + 64 * c + 4 * tx);
 #pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          o[i][c][0] = fmaf(pv[i], vv.x, o[i][c][0]);
-          o[i][c][1] = fmaf(pv[i], vv.y, o[i][c][1]);
-          o[i][c][2] = fmaf(pv[i], vv.z, o[i][c][2]);
-          o[i][c][3] = fmaf(pv[i], vv.w, o[i][c][3]);
+          for (int i = 0; i < RT; ++i) {
+            o[i][c][0] = fmaf(pv[i], vv.x, o[i][c][0]);
+            o[i][c][1] = fmaf(pv[i], vv.y, o[i][c][1]);
+            o[i][c][2] = fmaf(pv[i], vv.z, o[i][c][2]);
+            o[i][c][3] = fmaf(pv[i], vv.w, o[i][c][3]);
+          }
+        } else {   // HD 32: the columns 2·tx, 2·tx + 1
+          const float2 vv = *reinterpret_cast<const float2*>(vs + kk * HD + 2 * tx);
+#pragma unroll
+          for (int i = 0; i < RT; ++i) {
+            o[i][c][0] = fmaf(pv[i], vv.x, o[i][c][0]);
+            o[i][c][1] = fmaf(pv[i], vv.y, o[i][c][1]);
+          }
         }
       }
     }
@@ -425,9 +449,14 @@ flash_attention_kernel(const float* __restrict__ q,
     float* orow = out + (((size_t)b * sq + pos) * h + head) * HD;
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
-      *reinterpret_cast<float4*>(orow + 64 * c + 4 * tx) = make_float4(
-          o[i][c][0] / denom, o[i][c][1] / denom, o[i][c][2] / denom,
-          o[i][c][3] / denom);
+      if constexpr (CW == 4) {
+        *reinterpret_cast<float4*>(orow + 64 * c + 4 * tx) = make_float4(
+            o[i][c][0] / denom, o[i][c][1] / denom, o[i][c][2] / denom,
+            o[i][c][3] / denom);
+      } else {
+        *reinterpret_cast<float2*>(orow + 2 * tx) =
+            make_float2(o[i][c][0] / denom, o[i][c][1] / denom);
+      }
     }
   }
 }
@@ -469,7 +498,7 @@ int query(int b, int sq, int h, int hkv, int* grid_blocks, int* resident) {
 
 }  // namespace
 
-// hd must be 64, 128 or 256 (anything else returns cudaErrorInvalidValue),
+// hd must be 32, 64, 128 or 256 (anything else returns cudaErrorInvalidValue),
 // and `tiles` the wrapper's count of query tiles per (batch, KV head),
 // checked against this source's; the wrapper checks shapes, layout and
 // alignment before the call.
@@ -495,6 +524,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   if (hd == 64)
     return launch<64>(qf, kf, vf, of, b, sq, sk, h, hkv, causal, window,
                       chunk, qscale, tiles, st);
+  if (hd == 32)
+    return launch<32>(qf, kf, vf, of, b, sq, sk, h, hkv, causal, window,
+                      chunk, qscale, tiles, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -504,5 +536,6 @@ extern "C" int flash_attention_query(int b, int sq, int h, int hkv, int hd,
   if (hd == 256) return query<256>(b, sq, h, hkv, grid_blocks, resident_per_sm);
   if (hd == 128) return query<128>(b, sq, h, hkv, grid_blocks, resident_per_sm);
   if (hd == 64) return query<64>(b, sq, h, hkv, grid_blocks, resident_per_sm);
+  if (hd == 32) return query<32>(b, sq, h, hkv, grid_blocks, resident_per_sm);
   return static_cast<int>(cudaErrorInvalidValue);
 }

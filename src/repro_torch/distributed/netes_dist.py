@@ -846,10 +846,11 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
 # ---------------------------------------------------------------------------
 
 def analysis_entry_points():
-    """Contract-linter entry points: both train steps over a nano
-    transformer (1 layer, d_model 64, 2 heads of 64) at N = 4 — big
-    enough that the run holds the real perturb/evaluate/mix structure,
-    small enough to run in well under a second on fake tensors."""
+    """Contract-linter entry points: both train steps over the
+    reference's nano transformer (1 layer, d_model 64, 2 heads of 32) at
+    N = 4 — big enough that the run holds the real perturb/evaluate/mix
+    structure, small enough to run in well under a second on fake
+    tensors."""
     import dataclasses as dc
 
     from ..analysis.registry import EntryPoint, generator, place
@@ -857,12 +858,10 @@ def analysis_entry_points():
     from ..core import topology
 
     def _nano_cfg():
-        # the reference's nano LM, but heads of 64: the narrowest the
-        # flash kernel is built for (the entry points also run on the card)
         return dc.replace(
             get_config("mistral-nemo-12b-smoke"), name="analysis-nano",
             num_layers=1, d_model=64, num_heads=2, num_kv_heads=2,
-            head_dim=64, d_ff=128, vocab_size=128)
+            head_dim=32, d_ff=128, vocab_size=128)
 
     def _operands(device, n=4, seq=64):
         cfg = _nano_cfg()

@@ -33,7 +33,7 @@ KERNEL = CudaKernel(
                                                   ctypes.c_int,
                                                   ctypes.c_void_p])
 
-HEAD_DIMS = (64, 128, 256)   # the head widths the kernel is built for
+HEAD_DIMS = (32, 64, 128, 256)   # the head widths the kernel is built for
 
 
 def rows_per_block(hd: int) -> int:

@@ -20,7 +20,9 @@ Emits one JSON per pair, with the reference's keys where they mean the
 same: ``mode``, ``memory`` (per device, ``launch.analysis``),
 ``op_costs`` (the reference's ``hlo_costs``), ``roofline`` (at the H100's
 constants), ``model_flops_per_device``, ``useful_flops_ratio``, and
-``trace_s`` (the reference's ``lower_s`` and ``compile_s``); ``fits`` is
+``trace_s`` (the reference's ``lower_s`` and ``compile_s``),
+``peak_by_op`` (the temporaries alive at the peak, by the op that made
+each); ``fits`` is
 peak per device ≤ the card's memory, and ``argument_bytes_bf16`` the
 arguments at the reference's bfloat16 width.
 """
@@ -105,6 +107,9 @@ def pair_report(lowered, rec, trace_s: float) -> dict:
         "fits": mem["peak_bytes"] <= analysis.HBM_BYTES,
         "op_costs": costs,
         "kernels": dict(rec.kernels),
+        # the temporaries alive at the peak, by the op that made each
+        "peak_by_op": dict(sorted(rec.peak_by_op.items(),
+                                  key=lambda kv: -kv[1])),
         "roofline": terms,
         "model_flops_per_device": mflops,
         "useful_flops_ratio": (mflops / flops) if flops else None,

@@ -47,6 +47,8 @@ passes are the same ops at the same shapes.
 counted until the storage dies (``memory()``): the most alive at once,
 and what is alive now; ``exit_memory`` is the same taken as the recorder's
 scope closed, while the caller still held the step's results.
+``peak_by_op`` splits the most alive at once by the op that made each
+storage.
 """
 from __future__ import annotations
 
@@ -233,6 +235,8 @@ class OpCosts(TorchDispatchMode):
         self.kernels: Dict[str, float] = {}
         self._mult = 1.0
         self._live: Dict[int, tuple] = {}
+        self._live_by_op: Dict[str, int] = {}
+        self.peak_by_op: Dict[str, int] = {}
         self.exit_memory: Dict[str, float] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -333,9 +337,9 @@ class OpCosts(TorchDispatchMode):
         # ``out=``) allocated nothing
         held = {_storage_id(t) for t in ins}
         for t in outs:
-            self._track(t, held)
+            self._track(t, held, rec.name)
 
-    def _track(self, t: torch.Tensor, held: set) -> None:
+    def _track(self, t: torch.Tensor, held: set, op: str) -> None:
         sid = _storage_id(t)
         if sid is None or sid in held or sid in self._live:
             return
@@ -343,14 +347,20 @@ class OpCosts(TorchDispatchMode):
         ref = StorageWeakRef(st)
         self._sweep()
         size = st.nbytes()
-        self._live[sid] = (ref, size)
+        self._live[sid] = (ref, size, op)
+        self._live_by_op[op] = self._live_by_op.get(op, 0) + size
         self.live_bytes += size
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes = self.live_bytes
+            self.peak_by_op = {k: b for k, b in self._live_by_op.items()
+                               if b}
 
     def _sweep(self) -> None:
-        dead = [k for k, (ref, _) in self._live.items() if ref.expired()]
+        dead = [k for k, (ref, _, _) in self._live.items() if ref.expired()]
         for k in dead:
-            self.live_bytes -= self._live.pop(k)[1]
+            _, size, op = self._live.pop(k)
+            self.live_bytes -= size
+            self._live_by_op[op] -= size
 
     # -- results -----------------------------------------------------------
     def costs(self) -> Dict[str, float]:

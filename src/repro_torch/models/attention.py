@@ -4,12 +4,22 @@ full / sliding-window / chunked-local patterns; full-sequence attention,
 prefill that also fills the decode cache, and single-token decode.
 
 Prefill's attention, and the training loss's (``kernel_attention``), runs
-through the hand-written flash kernel (``kernels.flash_attention``) in
-place of the reference's ``blockwise_attention``. ``attention_block`` (the
-full forward's attention) is the kernel's plain version, naive softmax
-attention in the input's dtype, so that the full forward also runs in
-float64 as a reference on the card. Decode is plain PyTorch, as in the
-reference, where no Pallas kernel lies on it.
+through the hand-written flash kernel (``kernels.flash_attention``).
+``attention_block`` (the full forward's attention) is the reference's
+``blockwise_attention`` in plain PyTorch: query blocks of 512 ride as a
+batch dimension and a loop walks the keys in blocks of 1024 with an
+online softmax, so no (Sq, Sk) score tensor is ever whole. It computes in
+the input's dtype's accumulation type (float64 for float64), so that the
+full forward also runs in float64 as a reference on the card. Decode is
+plain PyTorch, as in the reference, where no Pallas kernel lies on it.
+
+A padded key (the blockwise form pads the keys to a multiple of the key
+block) adds nothing in every pattern, as in the flash kernel and its
+plain version ``kernels.ref.flash_attention_ref``. The reference's
+``blockwise_attention`` masks padded keys only under the causal and
+chunked masks, so its non-causal attention over Sk keys, Sk not a
+multiple of the key block, counts Sk_padded − Sk zero keys in the
+softmax (ROADMAP, the reference's fault i); the port does not.
 
 Both full-sequence forms take ``kv_x``: the keys and values are then
 projected from ``kv_x`` (at ``kv_positions``) instead of ``x``, which is
@@ -33,7 +43,7 @@ import torch
 
 from ..distributed.context import maybe_constrain, write_slots
 from ..kernels.flash_attention import flash_attention
-from ..kernels.ref import flash_attention_ref
+from ..launch import op_costs
 from . import layers
 
 NEG_INF = -1e30
@@ -130,17 +140,115 @@ def _checked_qkv(params, spec: AttnSpec, x, positions, kv_x, kv_positions):
     return q, maybe_constrain(k, "kv_full"), maybe_constrain(v, "kv_full")
 
 
+def _allowed(spec: AttnSpec, q_pos: torch.Tensor, k_pos: torch.Tensor,
+             causal: bool) -> torch.Tensor:
+    """(Sq, Sk) bool: the keys each query may attend to under the pattern
+    (the reference's ``_mask_bias``, as a mask)."""
+    diff = q_pos[:, None] - k_pos[None, :]
+    ok = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    if causal:
+        ok &= diff >= 0
+    if spec.kind == "sliding":
+        ok &= diff < spec.window
+    elif spec.kind == "chunked":
+        ok &= (q_pos[:, None] // spec.window) == (k_pos[None, :] // spec.window)
+    return ok
+
+
+def _pad_seq(x: torch.Tensor, n: int, value=0) -> torch.Tensor:
+    """``x`` padded by ``n`` entries of ``value`` along dim 1 (dim 0 for a
+    1-d tensor)."""
+    if n == 0:
+        return x
+    dim = 0 if x.dim() == 1 else 1
+    shape = list(x.shape)
+    shape[dim] = n
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                    device=x.device)], dim=dim)
+
+
+def blockwise_attention(spec: AttnSpec, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, q_positions: torch.Tensor,
+                        k_positions: torch.Tensor, causal: bool = True,
+                        q_block: int = 512, k_block: int = 1024
+                        ) -> torch.Tensor:
+    """Memory-efficient attention (the reference's ``blockwise_attention``):
+    all query blocks ride as one batch dimension, a loop walks the KV
+    blocks with an online softmax. Never materialises (Sq, Sk): one pass
+    holds (B, H, Sq, k_block) scores.
+
+    q (B, Sq, H, hd); k, v (B, Sk, Hkv, hd); positions (Sq,) and (Sk,).
+    Returns (B, Sq, H, hd) in q's dtype, accumulated in
+    ``layers.acc_dtype(q.dtype)``. A key padded onto the last block adds
+    nothing to the running max, sum or accumulator in any pattern; a query
+    with no valid key gets the mean of v over the Sk keys, as
+    ``kernels.ref.flash_attention_ref``."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    # shard-friendliness: the q-block reshape splits S into (n_blocks,
+    # block); with fewer blocks than the model axis (16) an S-sharded q
+    # would be gathered. Keep ≥ 16 query blocks for long sequences.
+    if sq >= 16 * 128:
+        q_block = min(q_block, sq // 16)
+    q_block = min(q_block, sq)
+    k_block = min(k_block, sk)
+    nq, nk = -(-sq // q_block), -(-sk // k_block)
+    sq_p, sk_p = nq * q_block, nk * k_block
+    acc_t = layers.acc_dtype(q.dtype)
+
+    qpos = _pad_seq(q_positions, sq_p - sq, -(10 ** 9))
+    kpos = _pad_seq(k_positions, sk_p - sk, 10 ** 9)
+    # (B, Hkv, G, nq·qb, hd): the query blocks stay on the sequence dim,
+    # outermost, so that an S-sharded q keeps its sharding
+    qh = _pad_seq(q, sq_p - sq).reshape(b, nq, q_block, hkv, g, hd).permute(
+        0, 3, 4, 1, 2, 5).reshape(b, hkv, g, sq_p, hd).to(acc_t)
+    kp = _pad_seq(k, sk_p - sk).to(acc_t)
+    vp = _pad_seq(v, sk_p - sk).to(acc_t)
+
+    # the running state takes q's layout (``*_like``: under a sharding
+    # context its batch and sequence shards, not a replicated whole)
+    acc = torch.zeros_like(qh)
+    m = torch.full_like(qh[..., 0], NEG_INF)
+    l = torch.zeros_like(qh[..., 0])
+    # one pass traced under a folding ``launch.op_costs`` recorder: the
+    # passes are the same ops at the same shapes (the last block padded)
+    for j in op_costs.passes(nk):
+        lo = j * k_block
+        kc = kp[:, lo:lo + k_block].permute(0, 2, 3, 1)[:, :, None]
+        vc = vp[:, lo:lo + k_block].transpose(1, 2)[:, :, None]
+        ok = _allowed(spec, qpos, kpos[lo:lo + k_block], causal)
+        # (B, Hkv, G, Sq_p, kb); out of place: under a sharding context
+        # the product may be a partial sum, which an in-place op refuses
+        s = torch.where(ok, torch.matmul(qh, kc) * spec.scale, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = s.sub_(m_new[..., None]).exp_()
+        if lo + k_block > sk:                    # the padded keys: none
+            p.masked_fill_(torch.arange(lo, lo + k_block, device=q.device)
+                           >= sk, 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.matmul(p, vc)
+        m = m_new
+        del s, p, ok
+    out = (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
+    # (B, Hkv, G, Sq_p, hd) → (B, Sq, H, hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq_p, h, hd)
+    return out[:, :sq]
+
+
 def attention_block(params, spec: AttnSpec, x: torch.Tensor,
                     positions: torch.Tensor,
                     kv_x: Optional[torch.Tensor] = None,
                     kv_positions: Optional[torch.Tensor] = None,
                     causal: bool = True) -> torch.Tensor:
     """Self (or, with ``kv_x``, cross) attention over a full sequence (the
-    full forward), as naive softmax attention in plain PyTorch, in float64
-    for a float64 input."""
+    full forward, train and prefill), through ``blockwise_attention`` in
+    plain PyTorch, in float64 for a float64 input."""
     q, k, v = _checked_qkv(params, spec, x, positions, kv_x, kv_positions)
-    out = flash_attention_ref(q, k, v, causal=causal, scale=spec.scale,
-                              **_masks(spec))
+    src_pos = positions if kv_positions is None else kv_positions
+    out = blockwise_attention(spec, q, k, v, positions, src_pos,
+                              causal=causal)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 

@@ -150,6 +150,15 @@ def build_schedule(tc: TrainConfig) -> Optional[TopologySchedule]:
     return compile_schedule(tc.schedule, tc.topology, tc.representation)
 
 
+def build_adjacency(tc: TrainConfig,
+                    device: Union[str, torch.device] = "cuda"
+                    ) -> torch.Tensor:
+    """The dense (N, N) float32 adjacency of ``tc.topology`` on ``device``,
+    for graph-statistics consumers."""
+    return torch.as_tensor(tc.topology.build(), dtype=torch.float32,
+                           device=resolve_device(device))
+
+
 def build_channel(tc: TrainConfig) -> Optional[Channel]:
     """``tc.channel`` compiled for the run's population, or None for a
     channel-free run."""

@@ -1,6 +1,6 @@
 """The JAX reference's LM outputs for the port's tests, dumped to an npz.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_lm_ref.py OUT.npz [PART]
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_lm_ref.py OUT.npz [PART [ARCH ...]]
 
 ``repro.models`` does not import on this jax (ROADMAP queue 3, item a):
 ``models/attention.py:172`` asks ``prim in batching.primitive_batchers``,
@@ -36,9 +36,17 @@ frontend's frames and llava-next-mistral-7b-smoke with its patches (see
 the placement of ``repro.launch.specs`` on the production meshes (see
 ``dump_sharding``; run with 512 forced host devices, written as JSON)
 and ``dryrun`` the reference's ``hlo_costs`` of four smoke pairs on a
-mesh of one (see ``dump_dryrun``, written as JSON).
+mesh of one (see ``dump_dryrun``, written as JSON), and ``blockwise`` the
+reference's ``blockwise_attention`` at small blocks over its patterns,
+``attention_block`` across its default blocks, the non-causal case whose
+padded keys it counts (ROADMAP, the reference's fault i) and standard
+ES's ``es_step`` on a landscape with its ε (see ``dump_blockwise``).
 The ``netes`` part's archs include whisper-tiny-smoke, whose batches
-carry the reference's frames.
+carry the reference's frames. The ``netes`` and ``consensus`` parts take
+ARCH names: the dump then holds those archs alone, each as the whole
+part's dump holds it (an arch's inputs and draws depend on its index in
+``NETES_ARCHS`` or ``CONS_ARCHS`` only), so that test files can split the
+archs between them (``tests/_torch_ref_dumps.py``).
 Everything is drawn from fixed seeds: the weights
 with the reference's own inits (mistral-nemo-12b-smoke at 2 layers,
 unrolled, and at 4 layers, scanned; moonshot-v1-16b-a3b-smoke at 2
@@ -121,7 +129,7 @@ def dump_model(out, transformer, ServeEngine, cfg, p, key, rng,
     return params
 
 
-def main(path, part="lm"):
+def main(path, part="lm", *archs):
     attention, layers, moe, transformer, ServeEngine = import_reference()
     if part == "moe":
         np.savez(path, **dump_moe(moe))
@@ -136,7 +144,7 @@ def main(path, part="lm"):
         np.savez(path, **dump_gemma(attention, transformer, ServeEngine))
         return
     if part == "netes":
-        np.savez(path, **dump_netes(transformer))
+        np.savez(path, **dump_netes(transformer, archs or NETES_ARCHS))
         return
     if part == "llama4":
         np.savez(path, **dump_llama4(attention, moe, transformer,
@@ -146,7 +154,7 @@ def main(path, part="lm"):
         np.savez(path, **dump_frontends(attention, transformer, ServeEngine))
         return
     if part == "consensus":
-        np.savez(path, **dump_consensus(transformer))
+        np.savez(path, **dump_consensus(transformer, archs or CONS_ARCHS))
         return
     if part == "sharding":
         with open(path, "w") as f:
@@ -155,6 +163,9 @@ def main(path, part="lm"):
     if part == "dryrun":
         with open(path, "w") as f:
             json.dump(dump_dryrun(), f)
+        return
+    if part == "blockwise":
+        np.savez(path, **dump_blockwise(attention))
         return
     smoke = get_config("mistral-nemo-12b-smoke")
     rng = np.random.default_rng(0)
@@ -503,7 +514,7 @@ def import_netes():
         netes_dist
 
 
-def dump_netes(transformer):
+def dump_netes(transformer, archs=NETES_ARCHS):
     """Per arch, under ``<arch>/``: ``params`` (one agent's: every agent
     starts from it), ``tokens<t>`` (N, 1, S) and the draws of step t:
     ``beta<t>`` and ``eps<t>/<agent>/...`` (ε of each leaf, per stacked
@@ -516,7 +527,8 @@ def dump_netes(transformer):
     ``<mode>/edge_mask<t>``, and the parameters after steps 1, 3 (and for
     the channel 2) ``<mode>/after<k>/...`` with the agent axis leading.
     The step keys are ``fold_in(PRNGKey(seed), t)`` for the first seed
-    whose broadcast draws give ``NETES_BCAST``."""
+    whose broadcast draws give ``NETES_BCAST``. Only ``archs`` are
+    dumped."""
     channel, topology, topology_repr, NetESConfig, make_batch, netes_dist = \
         import_netes()
     ncfg = NetESConfig(**NETES_CFG)
@@ -529,6 +541,8 @@ def dump_netes(transformer):
             for t in range(NETES_STEPS)]
     out = {}
     for a, arch in enumerate(NETES_ARCHS):
+        if arch not in archs:
+            continue
         cfg = get_config(arch)
         p0 = transformer.init_params(jax.random.PRNGKey(500 + a), cfg,
                                      jnp.float32)
@@ -776,7 +790,7 @@ def import_consensus():
             TopologySpec, make_batch, netes_dist)
 
 
-def dump_consensus(transformer):
+def dump_consensus(transformer, archs=CONS_ARCHS):
     """Per arch, under ``<arch>/``: ``params`` (θ⁽⁰⁾, from ``init_key``,
     see ``CONS_STEP0_GAP``), ``tokens<t>`` (P,
     1, S), ``k_agents<t>`` (the members' key of step t: member i's ε is
@@ -790,7 +804,8 @@ def dump_consensus(transformer):
     parameters after the steps of ``CONS_AFTER``, ``<variant>/after<k>/
     ...``. The graph is ``adj`` (ER p = 0.5, seed 0, dense) or its sparse
     ``Topology``; the step keys are the ``netes`` part's, for the
-    broadcast pattern ``NETES_BCAST``."""
+    broadcast pattern ``NETES_BCAST``. Only ``archs`` are dumped; the
+    graph's keys always are."""
     (channel, topology, topology_repr, topology_sched, NetESConfig,
      TopologySpec, make_batch, netes_dist) = import_consensus()
     ncfg = NetESConfig(**NETES_CFG)
@@ -807,6 +822,8 @@ def dump_consensus(transformer):
     out = {"adj": adj, "neighbor_idx": topo.neighbor_idx,
            "neighbor_mask": topo.neighbor_mask}
     for a, arch in enumerate(CONS_ARCHS):
+        if arch not in archs:
+            continue
         cfg = get_config(arch)
         batch_fn = jax.jit(lambda k, cfg=cfg: make_batch(
             cfg, dict(seq_len=CONS_SEQ, global_batch=n), k))
@@ -1012,6 +1029,93 @@ def dump_dryrun():
                       "mode": pair.mode, "n_agents": pair.n_agents,
                       "hlo_costs": {k: float(v) for k, v in costs.items()}})
     return {"shapes": DRYRUN_SHAPES, "cases": cases}
+
+
+# the blockwise part: ``blockwise_attention`` at q_block 40 and k_block 48
+# (Sq > q_block and Sk > k_block, neither a multiple where the pattern
+# masks padded keys; Sk a multiple where it does not: non-causal self and
+# cross attention), for G = 1 and 2 and head_dim 32 and 64; (label, kind,
+# window, causal, Sq, Sk)
+BW_Q_BLOCK, BW_K_BLOCK = 40, 48
+BW_PATTERNS = (
+    ("full", "full", 0, True, 100, 100),
+    ("sliding", "sliding", 24, True, 100, 100),
+    ("chunked", "chunked", 40, True, 100, 100),
+    ("noncausal", "full", 0, False, 100, 96),
+    ("cross", "full", 0, False, 70, 144),
+)
+BW_G = (1, 2)
+BW_HEAD_DIMS = (32, 64)
+BW_HKV = 2
+# ``attention_block`` (its default blocks of 512 queries and 1024 keys) at
+# 1100 positions, d_model 64, 4/2 heads of 32: full causal and sliding
+BW_BLOCK_SEQ, BW_BLOCK_D = 1100, 64
+BW_BLOCK_KINDS = (("full", 0), ("sliding", 300))
+# fault i: non-causal over 1500 keys (k_block 1024, 548 padded keys)
+BW_FAULT_SEQ = 1500
+# es_step: sphere, N = 16 agents, D = 12, three steps
+ES_N, ES_D, ES_STEPS = 16, 12, 3
+
+
+def dump_blockwise(attention):
+    from repro.core import netes
+    from repro.envs.landscapes import make_landscape_reward_fn
+    rng = np.random.default_rng(31)
+    out = {}
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    for label, kind, window, causal, sq, sk in BW_PATTERNS:
+        for g in BW_G:
+            for hd in BW_HEAD_DIMS:
+                p = f"bw_{label}_g{g}_hd{hd}"
+                spec = attention.AttnSpec(num_heads=BW_HKV * g,
+                                          num_kv_heads=BW_HKV, head_dim=hd,
+                                          kind=kind, window=window)
+                q = normal(B, sq, BW_HKV * g, hd)
+                k, v = normal(B, sk, BW_HKV, hd), normal(B, sk, BW_HKV, hd)
+                out.update({f"{p}/q": q, f"{p}/k": k, f"{p}/v": v})
+                out[f"{p}/out"] = attention.blockwise_attention(
+                    spec, q, k, v, jnp.arange(sq), jnp.arange(sk),
+                    causal=causal, q_block=BW_Q_BLOCK, k_block=BW_K_BLOCK)
+
+    for kind, window in BW_BLOCK_KINDS:
+        p = f"block_{kind}"
+        spec = attention.AttnSpec(num_heads=4, num_kv_heads=2, head_dim=32,
+                                  kind=kind, window=window)
+        params = attention.attn_init(jax.random.PRNGKey(70 + window),
+                                     BW_BLOCK_D, spec, jnp.float32)
+        out.update(flatten(params, f"{p}/params"))
+        x = normal(1, BW_BLOCK_SEQ, BW_BLOCK_D)
+        out[f"{p}/x"] = x
+        out[f"{p}/out"] = attention.attention_block(
+            params, spec, x, jnp.arange(BW_BLOCK_SEQ))
+
+    spec = attention.AttnSpec(num_heads=2, num_kv_heads=2, head_dim=32)
+    q, k = normal(1, BW_FAULT_SEQ, 2, 32), normal(1, BW_FAULT_SEQ, 2, 32)
+    # values of mean 3 (|out| ≈ 3): the softmax mass the 548 zero keys
+    # take shows as a shift of the output
+    v = normal(1, BW_FAULT_SEQ, 2, 32) + np.float32(3.0)
+    out.update({"fault_i/q": q, "fault_i/k": k, "fault_i/v": v})
+    pos = jnp.arange(BW_FAULT_SEQ)
+    out["fault_i/out"] = attention.blockwise_attention(spec, q, k, v, pos,
+                                                       pos, causal=False)
+
+    reward_fn = make_landscape_reward_fn("sphere")
+    cfg = netes.NetESConfig(alpha=0.05, sigma=0.1)
+    theta = jnp.asarray(normal(ES_D))
+    key = jax.random.PRNGKey(5)
+    out["es/theta0"] = theta
+    for t in range(ES_STEPS):
+        # es_step's own draw: split(key, 3), ε from the second key
+        eps = jax.random.normal(jax.random.split(key, 3)[1],
+                                (ES_N, ES_D), dtype=theta.dtype)
+        theta, key, m = netes.es_step(theta, key, reward_fn, cfg, ES_N)
+        out.update({f"es/eps{t}": eps, f"es/theta{t + 1}": theta,
+                    f"es/reward_mean{t}": m["reward_mean"],
+                    f"es/reward_max{t}": m["reward_max"]})
+    return {key: np.asarray(a) for key, a in out.items()}
 
 
 if __name__ == "__main__":

@@ -182,9 +182,10 @@ def test_attention_plan_covers_every_row_once_hd256(b, sq, h, hkv):
 
 
 def test_attention_rows_per_block_follow_the_head_width():
-    """The source's BR: 128 rows at hd 64 and 128, 64 at hd 256 (whose
+    """The source's BR: 128 rows at hd 32, 64 and 128, 64 at hd 256 (whose
     128-row tiles would need 416 KB of shared memory)."""
-    assert [fa.rows_per_block(hd) for hd in fa.HEAD_DIMS] == [128, 128, 64]
+    assert [fa.rows_per_block(hd) for hd in fa.HEAD_DIMS] == [128, 128, 128,
+                                                              64]
     assert fa.plan(1, 8192, 8, 4, 256).grid_blocks == 1024
     assert fa.plan(1, 8192, 32, 8, 128).grid_blocks == 2048
 

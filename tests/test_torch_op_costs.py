@@ -99,6 +99,21 @@ def test_touch_bytes_and_memory_tally():
     del w
 
 
+def test_peak_is_split_by_the_op_that_made_each_storage():
+    """``peak_by_op``: the storages alive at the peak, by their op; the
+    split sums to the peak."""
+    x = torch.zeros(1000)
+    with OpCosts() as rec:
+        a = x + 1.0                    # 4000 bytes
+        b = torch.exp(x)               # 4000 bytes: the peak, 8000
+        del a, b
+        c = torch.ones(1500)           # 6000 bytes, below the peak
+    assert rec.peak_by_op == {"aten.add.Tensor": 4000,
+                              "aten.exp.default": 4000}
+    assert sum(rec.peak_by_op.values()) == rec.memory()["temp_peak_bytes"]
+    del c
+
+
 @pytest.fixture(scope="module")
 def ranks():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
