@@ -1,0 +1,12 @@
+"""Device milliseconds an iteration of the kernels launched in the
+program's ``netes.broadcast`` range (the argmax, the broadcast select, the
+best-θ bookkeeping and the metrics), the union of their intervals, from
+the traced chunk's profile (``phases.py``)."""
+from portbench import phases
+
+
+def read(ctx):
+    row = phases.phase(ctx, "netes.broadcast")
+    if not row:
+        return None
+    return row["busy_s"] * 1e3 / ctx["profile"]["iters"]

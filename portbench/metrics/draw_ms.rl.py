@@ -1,0 +1,11 @@
+"""Device milliseconds an iteration of the kernels launched in the
+program's ``netes.draw`` range (ε, the evaluation draws and β), the union
+of their intervals, from the traced chunk's profile (``phases.py``)."""
+from portbench import phases
+
+
+def read(ctx):
+    row = phases.phase(ctx, "netes.draw")
+    if not row:
+        return None
+    return row["busy_s"] * 1e3 / ctx["profile"]["iters"]

@@ -1,0 +1,12 @@
+"""Device milliseconds an iteration of the kernels launched in the
+program's ``netes.mix`` range (the channel, Eq. 3, weight decay and
+θ + u), the union of their intervals, from the traced chunk's profile
+(``phases.py``)."""
+from portbench import phases
+
+
+def read(ctx):
+    row = phases.phase(ctx, "netes.mix")
+    if not row:
+        return None
+    return row["busy_s"] * 1e3 / ctx["profile"]["iters"]

@@ -66,6 +66,7 @@ from .._device import resolve_device
 from ..kernels.netes_fused_mixing import fused_broadcast_select
 from ..kernels.netes_mixing import netes_mixing
 from ..kernels.netes_sparse_mixing import netes_sparse_mixing
+from ..obs.regions import region
 from . import es_utils, topology_repr, wire_format
 from .topology_repr import Topology
 
@@ -247,12 +248,15 @@ def netes_step(state: NetESState, topo: Topology, reward_fn,
     if probes is not None and metrics_state is None:
         raise ValueError("probes need their ring: pass metrics_state="
                          "probes.init(device)")
-    if draws is None:
-        draws = draw(state, reward_fn, *state.thetas.shape)
-    candidates, evals = _perturb(state, cfg, draws)
-    rewards = reward_fn(candidates, evals)
-    return _finish(state, topo, rewards, candidates, draws, cfg, channel,
-                   chan_state, probes, metrics_state)
+    with region("netes.step"):
+        if draws is None:
+            with region("netes.draw"):
+                draws = draw(state, reward_fn, *state.thetas.shape)
+        candidates, evals = _perturb(state, cfg, draws)
+        with region("netes.rollout"):
+            rewards = reward_fn(candidates, evals)
+        return _finish(state, topo, rewards, candidates, draws, cfg,
+                       channel, chan_state, probes, metrics_state)
 
 
 def _perturb(state: NetESState, cfg: NetESConfig, draws: Draws):
@@ -260,13 +264,14 @@ def _perturb(state: NetESState, cfg: NetESConfig, draws: Draws):
     antithetic sampling the ±ε halves (2N, D), both from the same N eval
     draws, else θ + σε (N, D)."""
     eps = draws.eps
-    if not cfg.antithetic:
-        return state.thetas + cfg.sigma * eps, draws.evals
-    candidates = torch.cat([state.thetas + cfg.sigma * eps,
-                            state.thetas - cfg.sigma * eps])
-    evals = (None if draws.evals is None
-             else torch.cat([draws.evals, draws.evals]))
-    return candidates, evals
+    with region("netes.perturb"):
+        if not cfg.antithetic:
+            return state.thetas + cfg.sigma * eps, draws.evals
+        candidates = torch.cat([state.thetas + cfg.sigma * eps,
+                                state.thetas - cfg.sigma * eps])
+        evals = (None if draws.evals is None
+                 else torch.cat([draws.evals, draws.evals]))
+        return candidates, evals
 
 
 def _finish(state: NetESState, topo: Topology, rewards: torch.Tensor,
@@ -277,71 +282,79 @@ def _finish(state: NetESState, topo: Topology, rewards: torch.Tensor,
     and the metrics. Returns what ``netes_step`` returns."""
     n = state.thetas.shape[0]
     eps = draws.eps
-    if cfg.antithetic:
-        shaped_all = shape_fitness(rewards, cfg.fitness_shaping)
-        shaped = shaped_all[:n] - shaped_all[n:]          # antithetic diff
-    else:
-        shaped = shape_fitness(rewards, cfg.fitness_shaping)
+    with region("netes.shape"):
+        if cfg.antithetic:
+            shaped_all = shape_fitness(rewards, cfg.fitness_shaping)
+            shaped = shaped_all[:n] - shaped_all[n:]      # antithetic diff
+        else:
+            shaped = shape_fitness(rewards, cfg.fitness_shaping)
 
-    payload = edge_mask = info = None
-    if channel is not None:
-        chan_apply = (channel.apply_wire if channel.wire_fused(topo)
-                      else channel.apply)
-        wire, edge_mask, chan_state, info = chan_apply(
-            chan_state, topo, candidates[:n], edge_mask=draws.edge_mask)
-        # a lossless or dropout-only channel passes θ + σε through: the
-        # kernels keep reading it as (θ, ε, σ)
-        if channel.transforms_payload:
-            payload = wire
-    update = mixing_update(topo, state.thetas, eps, shaped, cfg,
-                           payload=payload, edge_mask=edge_mask)
-    update = es_utils.apply_weight_decay(state.thetas, update,
-                                         cfg.weight_decay)
-    new_thetas = state.thetas + update
+    with region("netes.mix"):
+        payload = edge_mask = info = None
+        if channel is not None:
+            chan_apply = (channel.apply_wire if channel.wire_fused(topo)
+                          else channel.apply)
+            wire, edge_mask, chan_state, info = chan_apply(
+                chan_state, topo, candidates[:n], edge_mask=draws.edge_mask)
+            # a lossless or dropout-only channel passes θ + σε through: the
+            # kernels keep reading it as (θ, ε, σ)
+            if channel.transforms_payload:
+                payload = wire
+        update = mixing_update(topo, state.thetas, eps, shaped, cfg,
+                               payload=payload, edge_mask=edge_mask)
+        update = es_utils.apply_weight_decay(state.thetas, update,
+                                             cfg.weight_decay)
+        new_thetas = state.thetas + update
 
-    # broadcast event (exploit): argmax takes the first maximum, as jnp's;
-    # index_select keeps it on the device (indexing with a 0-d tensor reads
-    # it on the host). Through a channel the receivers adopt the degraded
-    # payload; the best-θ bookkeeping keeps the true one.
-    best_idx = torch.argmax(rewards)
-    best = best_idx.reshape(1)
-    iter_best_theta = candidates.index_select(0, best)[0]
-    iter_best_reward = rewards.index_select(0, best)[0]
-    do_broadcast = draws.beta < cfg.p_broadcast
-    if channel is not None and channel.fused and channel.wire_quantized:
-        wp = channel.encode_wire(iter_best_theta, batched=False)
-        new_thetas = fused_broadcast_select(wp.codes, wp.scale,
-                                            do_broadcast, new_thetas)
-    else:
-        bcast = (iter_best_theta if channel is None
-                 else channel.codec(iter_best_theta, batched=False))
-        new_thetas = torch.where(do_broadcast, bcast[None, :], new_thetas)
+    with region("netes.broadcast"):
+        # broadcast event (exploit): argmax takes the first maximum, as
+        # jnp's; index_select keeps it on the device (indexing with a 0-d
+        # tensor reads it on the host). Through a channel the receivers
+        # adopt the degraded payload; the best-θ bookkeeping keeps the
+        # true one.
+        best_idx = torch.argmax(rewards)
+        best = best_idx.reshape(1)
+        iter_best_theta = candidates.index_select(0, best)[0]
+        iter_best_reward = rewards.index_select(0, best)[0]
+        do_broadcast = draws.beta < cfg.p_broadcast
+        if channel is not None and channel.fused and channel.wire_quantized:
+            wp = channel.encode_wire(iter_best_theta, batched=False)
+            new_thetas = fused_broadcast_select(wp.codes, wp.scale,
+                                                do_broadcast, new_thetas)
+        else:
+            bcast = (iter_best_theta if channel is None
+                     else channel.codec(iter_best_theta, batched=False))
+            new_thetas = torch.where(do_broadcast, bcast[None, :],
+                                     new_thetas)
 
-    better = iter_best_reward > state.best_reward
-    new_state = NetESState(
-        thetas=new_thetas, generator=state.generator, step=state.step + 1,
-        best_reward=torch.where(better, iter_best_reward, state.best_reward),
-        best_theta=torch.where(better, iter_best_theta, state.best_theta))
-    metrics = {
-        "reward_mean": rewards.mean(),
-        "reward_max": rewards.max(),
-        "reward_min": rewards.min(),
-        "reward_std": rewards.std(correction=0),       # fitness dispersion
-        "update_var": update.var(dim=0, correction=0).sum(),
-        "broadcast": do_broadcast.to(torch.float32),
-        "theta_spread": new_thetas.var(dim=0, correction=0).sum(),
-        "best_idx": best_idx,
-    }
-    if channel is None:
-        chan_state = None
-    else:
-        # the broadcast is one message fanned out to the population
-        bcast_msgs = do_broadcast.to(torch.float32) * n
-        chan_state = dataclasses.replace(chan_state,
-                                         msgs=chan_state.msgs + bcast_msgs)
-        metrics["msgs"] = info["msgs"] + bcast_msgs
-        metrics["trigger_frac"] = info["trigger_frac"]
-        metrics["drop_frac"] = info["drop_frac"]
+        better = iter_best_reward > state.best_reward
+        new_state = NetESState(
+            thetas=new_thetas, generator=state.generator,
+            step=state.step + 1,
+            best_reward=torch.where(better, iter_best_reward,
+                                    state.best_reward),
+            best_theta=torch.where(better, iter_best_theta,
+                                   state.best_theta))
+        metrics = {
+            "reward_mean": rewards.mean(),
+            "reward_max": rewards.max(),
+            "reward_min": rewards.min(),
+            "reward_std": rewards.std(correction=0),   # fitness dispersion
+            "update_var": update.var(dim=0, correction=0).sum(),
+            "broadcast": do_broadcast.to(torch.float32),
+            "theta_spread": new_thetas.var(dim=0, correction=0).sum(),
+            "best_idx": best_idx,
+        }
+        if channel is None:
+            chan_state = None
+        else:
+            # the broadcast is one message fanned out to the population
+            bcast_msgs = do_broadcast.to(torch.float32) * n
+            chan_state = dataclasses.replace(
+                chan_state, msgs=chan_state.msgs + bcast_msgs)
+            metrics["msgs"] = info["msgs"] + bcast_msgs
+            metrics["trigger_frac"] = info["trigger_frac"]
+            metrics["drop_frac"] = info["drop_frac"]
     if probes is None:
         return new_state, chan_state, metrics
     metrics_state = probes.record(metrics_state, metrics, topo)

@@ -72,6 +72,7 @@ from ..kernels.netes_mixing import netes_mixing
 from ..kernels.netes_sparse_mixing import netes_sparse_mixing
 from ..launch import op_costs
 from ..models import transformer
+from ..obs.regions import region
 
 # Columns of a leaf's (N, P) view mixed at once: at N = 8 an (N, W)
 # float32 operand is 512 MiB, and W stays inside every Eq. 3 kernel's
@@ -352,10 +353,15 @@ def _mirrored_rewards(cfg: ModelConfig, theta: Any,
                       microbatch: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(R⁺, R⁻) of one agent: the negated losses of θ + σε and of
     2θ − (θ + σε), the reference's θ − σε, both made in ``replica``."""
-    perturb_params(theta, noise, agent, sigma, out=replica)
-    r_pos = -_eval_loss(cfg, replica, batch, microbatch)
-    tree_map(lambda p, t: p.mul_(-1.0).add_(t, alpha=2.0), replica, theta)
-    return r_pos, -_eval_loss(cfg, replica, batch, microbatch)
+    with region("consensus.perturb"):
+        perturb_params(theta, noise, agent, sigma, out=replica)
+    with region("consensus.forward"):
+        r_pos = -_eval_loss(cfg, replica, batch, microbatch)
+    with region("consensus.perturb"):
+        tree_map(lambda p, t: p.mul_(-1.0).add_(t, alpha=2.0), replica,
+                 theta)
+    with region("consensus.forward"):
+        return r_pos, -_eval_loss(cfg, replica, batch, microbatch)
 
 
 class _Mixer:
@@ -651,13 +657,14 @@ def member_rewards(cfg: ModelConfig, params: Any,
     (``batch`` leaves (P, microbatch, S)), one shared θ (``params``, no
     agent axis). Each perturbation is made in ``replica`` (a tree like
     ``params``), so one perturbed copy is alive at a time."""
-    pairs = op_costs.repeat_map(
-        lambda i: _mirrored_rewards(cfg, params, {k: v[i] for k, v in
-                                                  batch.items()}, noise, i,
-                                    sigma, replica, 1),
-        batch["tokens"].shape[0])
-    return (_whole(torch.stack([p for p, _ in pairs])),
-            _whole(torch.stack([m for _, m in pairs])))
+    with region("consensus.members"):
+        pairs = op_costs.repeat_map(
+            lambda i: _mirrored_rewards(cfg, params,
+                                        {k: v[i] for k, v in batch.items()},
+                                        noise, i, sigma, replica, 1),
+            batch["tokens"].shape[0])
+        return (_whole(torch.stack([p for p, _ in pairs])),
+                _whole(torch.stack([m for _, m in pairs])))
 
 
 def consensus_update(params: Any, replica: Any, r_pos: torch.Tensor,
@@ -679,61 +686,62 @@ def consensus_update(params: Any, replica: Any, r_pos: torch.Tensor,
     leaf (a scale over the whole leaf), and θ' = where(β < p_b,
     candidate, θ') per slab: the fused select when the channel quantizes
     to the wire form. Returns the metrics."""
-    n = r_pos.shape[0]
-    sigma = ncfg.sigma
-    degree = _whole(degree)
-    raw = torch.cat([r_pos, r_neg])
-    shaped = es_utils.centered_rank(raw)
-    coeff = (shaped[:n] - shaped[n:]) * degree
-    best_flat = torch.argmax(raw)
-    best = torch.remainder(best_flat, n)
-    best_pos = best_flat < n
-    do_bcast = _whole(draws.beta) < ncfg.p_broadcast
-    scale = ncfg.alpha / (n * sigma)
-    wd = ncfg.weight_decay
-    fused = (channel is not None and channel.fused
-             and channel.wire_quantized)
+    with region("consensus.update"):
+        n = r_pos.shape[0]
+        sigma = ncfg.sigma
+        degree = _whole(degree)
+        raw = torch.cat([r_pos, r_neg])
+        shaped = es_utils.centered_rank(raw)
+        coeff = (shaped[:n] - shaped[n:]) * degree
+        best_flat = torch.argmax(raw)
+        best = torch.remainder(best_flat, n)
+        best_pos = best_flat < n
+        do_bcast = _whole(draws.beta) < ncfg.p_broadcast
+        scale = ncfg.alpha / (n * sigma)
+        wd = ncfg.weight_decay
+        fused = (channel is not None and channel.fused
+                 and channel.wire_quantized)
 
-    for i, (leaf, cand_leaf) in enumerate(zip(flatten(params),
-                                              flatten(replica),
-                                              strict=True)):
-        # on a mesh each device updates its own shard
-        theta_all = _local(leaf).view(-1)
-        cand_all = _local(cand_leaf).view(-1)
-        slabs = _slabs(theta_all.numel())
-        for s, c0, c1 in slabs:
-            t = theta_all[c0:c1]
-            cand = cand_all[c0:c1]
-            u = torch.zeros_like(t)
-            e = torch.empty_like(t)
-            for m in op_costs.passes(n):
-                draws.noise(e, m, i, s, c0)
-                e.mul_(sigma).add_(t)                   # θ + σε_m
-                torch.where(best == m, e, cand, out=cand)
-                u.add_(e.sub_(t).mul_(coeff[m]).div_(sigma))
-            torch.where(best_pos, cand, t * 2.0 - cand, out=cand)
-            new = u.mul_(scale).add_(t).sub_(t * wd)
+        for i, (leaf, cand_leaf) in enumerate(zip(flatten(params),
+                                                  flatten(replica),
+                                                  strict=True)):
+            # on a mesh each device updates its own shard
+            theta_all = _local(leaf).view(-1)
+            cand_all = _local(cand_leaf).view(-1)
+            slabs = _slabs(theta_all.numel())
+            for s, c0, c1 in slabs:
+                t = theta_all[c0:c1]
+                cand = cand_all[c0:c1]
+                u = torch.zeros_like(t)
+                e = torch.empty_like(t)
+                for m in op_costs.passes(n):
+                    draws.noise(e, m, i, s, c0)
+                    e.mul_(sigma).add_(t)                   # θ + σε_m
+                    torch.where(best == m, e, cand, out=cand)
+                    u.add_(e.sub_(t).mul_(coeff[m]).div_(sigma))
+                torch.where(best_pos, cand, t * 2.0 - cand, out=cand)
+                new = u.mul_(scale).add_(t).sub_(t * wd)
+                if channel is None:
+                    new = torch.where(do_bcast, cand, new)
+                t.copy_(new)
             if channel is None:
-                new = torch.where(do_bcast, cand, new)
-            t.copy_(new)
-        if channel is None:
-            continue
-        # the broadcast as the channel delivers it: one message a leaf
-        if fused:
-            msg = channel.encode_wire(cand_all, batched=False)
-        else:
-            msg = channel.codec(cand_all, batched=False)
-        for s, c0, c1 in slabs:
-            t = theta_all[c0:c1]
+                continue
+            # the broadcast as the channel delivers it: one message a leaf
             if fused:
-                t.copy_(fused_broadcast_select(msg.codes[c0:c1], msg.scale,
-                                               do_bcast, t[None])[0])
+                msg = channel.encode_wire(cand_all, batched=False)
             else:
-                t.copy_(torch.where(do_bcast, msg[c0:c1], t))
+                msg = channel.codec(cand_all, batched=False)
+            for s, c0, c1 in slabs:
+                t = theta_all[c0:c1]
+                if fused:
+                    t.copy_(fused_broadcast_select(msg.codes[c0:c1], msg.scale,
+                                                   do_bcast, t[None])[0])
+                else:
+                    t.copy_(torch.where(do_bcast, msg[c0:c1], t))
 
-    return {"reward_mean": raw.mean(), "reward_max": raw.max(),
-            "loss_mean": -raw.mean(),
-            "broadcast": do_bcast.to(torch.float32)}
+        return {"reward_mean": raw.mean(), "reward_max": raw.max(),
+                "loss_mean": -raw.mean(),
+                "broadcast": do_bcast.to(torch.float32)}
 
 
 def make_consensus_train_step(cfg: ModelConfig, ncfg: NetESConfig,
@@ -773,6 +781,10 @@ def make_consensus_train_step(cfg: ModelConfig, ncfg: NetESConfig,
             "event stage)")
 
     def step(params, adj, batch, draws: StepDraws, *states):
+        with region("consensus.step"):
+            return _step(params, adj, batch, draws, *states)
+
+    def _step(params, adj, batch, draws, *states):
         want = [s for s, on in (("sched_state", schedule),
                                 ("chan_state", channel)) if on is not None]
         if len(states) != len(want):

@@ -284,6 +284,10 @@ class OpCosts(TorchDispatchMode):
         kwargs = kwargs or {}
         if isinstance(func, torch._ops.HigherOrderOperator):
             return func(*args, **kwargs)
+        if func.namespace == "profiler":
+            # a profiler range's enter and exit (``obs.regions.region``
+            # under a profiler) annotate the step and do no work
+            return func(*args, **kwargs)
         if any(t.__name__ == "DTensor" for t in types):
             # let DTensor run first: its local ops, and the collectives of
             # the redistributions it makes, then come through this mode

@@ -29,6 +29,8 @@ from typing import Callable, Iterator, List, Sequence, Tuple, Union
 
 import torch
 
+from .regions import region
+
 _lock = threading.Lock()
 _build_callbacks: List[Callable[[str], None]] = []
 _transfer_callbacks: List[Callable[[], None]] = []
@@ -82,22 +84,25 @@ def device_get(payload: Payload) -> Union[torch.Tensor,
     tensor comes back as its ``.cpu()``; a tuple or list of tensors on one
     device is viewed as bytes, concatenated on the device, copied once and
     split back into a tuple of host tensors of the original dtypes and
-    shapes (bit for bit)."""
+    shapes (bit for bit). A profile shows it as ``obs.device_get``."""
     for cb in list(_transfer_callbacks):
         cb()
-    if isinstance(payload, torch.Tensor):
-        return payload.detach().cpu()
-    parts = [t.detach().contiguous() for t in payload]
-    if not parts:
-        return ()
-    flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in parts]).cpu()
-    out, at = [], 0
-    for t in parts:
-        size = t.numel() * t.element_size()
-        # a clone starts at offset 0, as a view to a wider dtype needs
-        out.append(flat[at:at + size].clone().view(t.dtype).reshape(t.shape))
-        at += size
-    return tuple(out)
+    with region("obs.device_get"):
+        if isinstance(payload, torch.Tensor):
+            return payload.detach().cpu()
+        parts = [t.detach().contiguous() for t in payload]
+        if not parts:
+            return ()
+        flat = torch.cat([t.reshape(-1).view(torch.uint8)
+                          for t in parts]).cpu()
+        out, at = [], 0
+        for t in parts:
+            size = t.numel() * t.element_size()
+            # a clone starts at offset 0, as a view to a wider dtype needs
+            out.append(flat[at:at + size].clone().view(t.dtype)
+                       .reshape(t.shape))
+            at += size
+        return tuple(out)
 
 
 @contextlib.contextmanager

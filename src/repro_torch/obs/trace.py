@@ -9,7 +9,7 @@ One trace = one append-only JSONL file. Line 1 is a schema-versioned
      "compiles": 0, "transfers": 1, "attrs": {...}}
     {"kind": "event", "name": "eval", "t": ..., "attrs": {...}}
 
-Spans are wall-time intervals stamped with the kernel builds (``compiles``:
+Spans are host-time intervals stamped with the kernel builds (``compiles``:
 nvcc runs and library loads, ``obs.cuda_watch``) and host transfers
 (``transfers``: calls of ``cuda_watch.device_get``) that occurred INSIDE
 the span, so "which chunk built a kernel" and "which drain transferred
@@ -18,6 +18,14 @@ twice" are greppable facts. Spans may nest; each line is self-contained
 itself: it records host-side timing only. The meta line names the
 environment: ``torch``, ``cuda`` (the toolkit torch was built with, or
 None), ``backend`` (``"gpu"``/``"cpu"``), ``devices`` and ``device_name``.
+
+A span's ``t0`` is the epoch time it opened; its ``dur_s`` is host time
+(``time.perf_counter``): how long the host took to enqueue the span's
+work, not how long the device ran it. Device time per span comes from a
+``torch.profiler`` profile: ``Trace.span`` opens ``regions.region(name)``
+around its body, a ``record_function`` range ``repro_torch.<name>`` while
+a profiler records (so on the profile's clock with the device kernels),
+and a no-op otherwise.
 
 ``validate_trace`` is the schema gate (``python -m repro_torch.obs
 validate <file>``); ``summarize`` renders a per-span table.
@@ -33,6 +41,7 @@ from typing import Any, Dict, Iterator, List, Optional, Union
 import torch
 
 from . import cuda_watch
+from .regions import region
 
 SCHEMA = "repro.trace/v1"
 
@@ -40,7 +49,6 @@ _META_REQUIRED = ("kind", "schema", "name")
 _SPAN_REQUIRED = ("kind", "name", "t0", "dur_s", "depth",
                   "compiles", "transfers")
 _EVENT_REQUIRED = ("kind", "name", "t")
-
 
 def _environment(device: Optional[Union[str, torch.device]]
                  ) -> Dict[str, Any]:
@@ -113,25 +121,28 @@ class Trace:
 
     @contextlib.contextmanager
     def span(self, name: str, **attrs: Any) -> Iterator[None]:
-        """Wall-time span stamped with the kernel builds and host
-        transfers that happened inside it."""
-        if self._fh is None:
-            yield
-            return
-        c0, x0 = self._watch.snapshot()
-        t0 = time.time()
-        self._depth += 1
-        try:
-            yield
-        finally:
-            self._depth -= 1
-            c1, x1 = self._watch.snapshot()
-            rec = {"kind": "span", "name": name, "t0": t0,
-                   "dur_s": time.time() - t0, "depth": self._depth,
-                   "compiles": c1 - c0, "transfers": x1 - x0}
-            if attrs:
-                rec["attrs"] = attrs
-            self._write(rec)
+        """Host-time span stamped with the kernel builds and host
+        transfers that happened inside it, and ``region(name)`` around
+        its body, written or not."""
+        with region(name):
+            if self._fh is None:
+                yield
+                return
+            c0, x0 = self._watch.snapshot()
+            t0, p0 = time.time(), time.perf_counter()
+            self._depth += 1
+            try:
+                yield
+            finally:
+                self._depth -= 1
+                c1, x1 = self._watch.snapshot()
+                rec = {"kind": "span", "name": name, "t0": t0,
+                       "dur_s": time.perf_counter() - p0,
+                       "depth": self._depth,
+                       "compiles": c1 - c0, "transfers": x1 - x0}
+                if attrs:
+                    rec["attrs"] = attrs
+                self._write(rec)
 
     def event(self, name: str, **attrs: Any) -> None:
         if self._fh is None:

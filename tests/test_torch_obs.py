@@ -18,7 +18,14 @@ tests/test_obs.py, and held against the reference's ``repro.obs``.
 * Trace schema and counters, ``Trace(None)`` a no-op, ``validate_trace``
   catching each kind of violation, the CLI in a subprocess, and traces
   that validate in both packages.
+* Profiler regions (``obs.regions.region``): a NetES step and a consensus
+  step show their phases as ``repro_torch.*`` ranges, nested and in
+  order, under ``torch.profiler``; without a profiler no
+  ``record_function`` is made, and the dry run's op list is the same
+  with or without them under a profiler;
+  ``Trace.span`` shows as a range.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -48,6 +55,8 @@ from repro_torch.comm.channel import compile_channel
 from repro_torch.core import netes, topology, topology_repr, topology_sched
 from repro_torch.core.netes import NetESConfig
 from repro_torch.core.topology import TopologySpec
+from repro_torch.distributed import netes_dist
+from repro_torch.launch import op_costs
 from repro_torch.obs import (SCHEMA, MetricsState, ProbeSpec, Trace,
                              compile_probes, count_host_transfers,
                              count_kernel_builds, cuda_watch, summarize,
@@ -610,3 +619,113 @@ def test_checkpoint_keys_of_the_ring_are_the_references(tmp_path):
                                   {"obs": p.init("cpu")})["obs"]
     assert torch.equal(back.buf, ms.buf) and torch.equal(back.cursor,
                                                          ms.cursor)
+
+
+# ---------------------------------------------------------------------------
+# profiler regions: the program's phases on the profile's clock
+# ---------------------------------------------------------------------------
+
+PHASES = ["draw", "perturb", "rollout", "shape", "mix", "broadcast"]
+
+
+def _ranges(prof):
+    """(name without the prefix, start, end) of the profile's program
+    ranges, in start order."""
+    return sorted(((e.name[len("repro_torch."):], e.time_range.start,
+                    e.time_range.end) for e in prof.events()
+                   if e.name.startswith("repro_torch.")),
+                  key=lambda r: (r[1], -r[2]))
+
+
+def _netes_step_operands(kind):
+    reward_fn, _, _ = _reward()
+    state = _state()
+    if kind == "q8":
+        chan = compile_channel("quantize(bits=8)", N)
+        return (state, _topo("sparse"), reward_fn, CFG, None, chan,
+                chan.init(state.thetas))
+    return state, _topo(kind), reward_fn, CFG
+
+
+def _consensus_step_operands():
+    entry = next(e for e in netes_dist.analysis_entry_points()
+                 if e.name == "netes_dist.consensus_step")
+    step, args, kwargs = entry.build("cpu")
+    return step, args, kwargs, args[2]["tokens"].shape[0]
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse", "q8"])
+def test_netes_step_phases_are_ranges_in_order(kind):
+    with torch.profiler.profile() as prof:
+        netes.netes_step(*_netes_step_operands(kind))
+    ranges = _ranges(prof)
+    assert [r[0] for r in ranges] == ["netes.step"] + [
+        f"netes.{p}" for p in PHASES]
+    _, s0, e0 = ranges[0]
+    last = s0
+    for name, s, e in ranges[1:]:
+        assert last <= s <= e <= e0, name       # inside the step, in turn
+        last = e
+
+
+def test_consensus_step_members_then_update():
+    step, args, kwargs, p = _consensus_step_operands()
+    with torch.profiler.profile() as prof:
+        step(*args, **kwargs)
+    ranges = _ranges(prof)
+    assert [r[0] for r in ranges] == (
+        ["consensus.step", "consensus.members"]
+        + ["consensus.perturb", "consensus.forward"] * (2 * p)
+        + ["consensus.update"])
+    (_, s0, e0), (_, s1, e1) = ranges[:2]
+    assert s0 <= s1 <= e1 <= ranges[-1][1] <= ranges[-1][2] <= e0
+    assert all(s1 <= s <= e <= e1 for _, s, e in ranges[2:-1])
+
+
+def _run_both_steps():
+    netes.netes_step(*_netes_step_operands("q8"))
+    step, args, kwargs, _ = _consensus_step_operands()
+    step(*args, **kwargs)
+
+
+def test_regions_make_no_range_without_a_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) without a "
+                             "profiler")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    _run_both_steps()
+
+
+def _dry_run_ops(profiled):
+    with (torch.profiler.profile() if profiled
+          else contextlib.nullcontext()):
+        with op_costs.OpCosts() as rec:
+            _run_both_steps()
+    return [(r.name, r.inputs, r.outputs) for r in rec.ops], rec.totals
+
+
+def test_regions_leave_the_dry_runs_op_list_as_it_was(monkeypatch):
+    """Under a profiler the regions open ranges, and the dry run's
+    recorder still lists the steps' ops and totals as without them, and
+    as without a profiler."""
+    with_regions = _dry_run_ops(profiled=True)
+    assert _dry_run_ops(profiled=False) == with_regions
+    for mod in (netes, netes_dist, cuda_watch):
+        monkeypatch.setattr(mod, "region",
+                            lambda name: contextlib.nullcontext())
+    assert _dry_run_ops(profiled=True) == with_regions
+
+
+@pytest.mark.parametrize("written", [True, False])
+def test_trace_span_is_a_range(tmp_path, written):
+    with Trace(tmp_path / "t.jsonl" if written else None, name="unit",
+               device="cpu") as tr:
+        with torch.profiler.profile() as prof:
+            with tr.span("chunk"):
+                with tr.span("drain"):
+                    cuda_watch.device_get(torch.ones(3))
+    assert [r[0] for r in _ranges(prof)] == ["chunk", "drain",
+                                            "obs.device_get"]
+    if written:
+        assert validate_trace(tmp_path / "t.jsonl") == []
