@@ -1826,6 +1826,171 @@ def scan_kernel_phase(results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+ROLLOUT_EPISODES = 32_768   # 2N at N = 16,384: the benchmark's RL cells
+ROLLOUT_Q90 = 2e-5          # the cells' return_q90 limit, against float64
+# (parameter rows, episodes a row) held against the loop episode by episode:
+# NetES's 2N candidates, the same episodes as 1024 rows of 32 (the
+# ``per_theta`` index), and the main phase's evaluation of one θ
+ROLLOUT_CASES = ((ROLLOUT_EPISODES, 1), (ROLLOUT_EPISODES // 32, 32),
+                 (1, EVAL_EPISODES))
+ROLLOUT_RTOL = 1e-5         # tests/test_torch_envs.py's tolerance: rtol
+ROLLOUT_SPREADS = 6.0       # plus six times the loop's rounding spread
+
+
+# An 8-sample spread is a noisy estimate of an episode's rounding
+# sensitivity: among 2N = 32,768 episodes a few that pass near the upright
+# read beyond the tolerance by chance. Those (at most one in a thousand)
+# are held again against a spread from ROLLOUT_RECHECK_SAMPLES moves.
+ROLLOUT_RECHECK_SAMPLES = 256
+
+
+def _rollout_perturbed(env, policy, thetas, states, samples=8, seed=0):
+    """The loop's returns (samples, M) after ``samples`` random ±1-ulp
+    moves of every parameter, run in batches of up to ROLLOUT_EPISODES
+    episodes: how far rounding alone moves each episode (far where an
+    episode passes near the upright)."""
+    import torch
+
+    from repro_torch.envs import rollout
+    g = torch.Generator(device=thetas.device).manual_seed(seed)
+    rows = thetas.shape[0]
+    batch = max(1, ROLLOUT_EPISODES // rows)
+    outs = []
+    for done in range(0, samples, batch):
+        k = min(batch, samples - done)
+        moved = thetas.repeat(k, 1)
+        up = torch.rand(moved.shape, generator=g, device=thetas.device)
+        moved = torch.nextafter(moved, torch.where(up < 0.5, torch.inf,
+                                                   -torch.inf))
+        outs.append(rollout.loop_return(env, policy, moved,
+                                        states.repeat(k, 1)).reshape(k, rows))
+        del moved, up
+    return torch.cat(outs)
+
+
+def rollout_kernel_phase(results: dict) -> None:
+    """The pendulum rollout kernel at 2N = 32,768 NetES-like candidates
+    (θ⁽⁰⁾ + 0.1 ε): its time against its bound and against the plain
+    loop, registers and spills. In each of ``ROLLOUT_CASES`` every
+    episode is held against the loop on the card, within rtol 1e-5 plus
+    six times the loop's own rounding spread (from 8 moves; from
+    ``ROLLOUT_RECHECK_SAMPLES`` for the few beyond that), and the
+    kernel's 90th and 99th percentiles of relative distance from the
+    loop run in float64 within twice the loop's own."""
+    import torch
+
+    from repro_torch import envs
+    from repro_torch.envs import rollout
+    from repro_torch.kernels import pendulum_rollout as pr
+
+    env, policy = envs.Pendulum(), rollout.KERNEL_POLICY
+    g = torch.Generator(device="cuda").manual_seed(35)
+    cases = []
+    for rows, per in ROLLOUT_CASES:
+        thetas = policy.init(g, rows) + 0.1 * torch.randn(
+            rows, policy.num_params, generator=g, device="cuda")
+        states = env.reset(g, rows * per)
+        got = pr.pendulum_rollout(env, thetas, states, per)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "pendulum_rollout: non-finite")
+        full = thetas.repeat_interleave(per, dim=0) if per > 1 else thetas
+        want = rollout.loop_return(env, policy, full, states)
+        exact = rollout.loop_return(env, policy, full.double(),
+                                    states.double())
+        spread = _rollout_perturbed(env, policy, full, states).std(
+            dim=0, correction=0)
+        tol = ROLLOUT_RTOL * want.abs() + ROLLOUT_SPREADS * spread
+        dist = (got - want).abs()
+        flagged = (dist > tol).nonzero().flatten()
+        name = f"pendulum_rollout ({rows} rows × {per})"
+        check(len(flagged) <= max(8, rows * per // 1000), f"{name}: "
+              f"{len(flagged)} episodes beyond rtol {ROLLOUT_RTOL} + "
+              f"{ROLLOUT_SPREADS}·spread of the loop")
+        wide = (_rollout_perturbed(env, policy, full[flagged],
+                                   states[flagged], ROLLOUT_RECHECK_SAMPLES,
+                                   seed=1) if len(flagged)
+                else want.new_zeros(ROLLOUT_RECHECK_SAMPLES, 0))
+        wide_tol = (ROLLOUT_RTOL * want[flagged].abs()
+                    + ROLLOUT_SPREADS * wide.std(dim=0, correction=0))
+        rechecked = [{"episode": int(i), "kernel": got[i].item(),
+                      "loop": want[i].item(), "float64": exact[i].item(),
+                      "spread": spread[i].item(),
+                      "wide_spread": wide[:, j].std(correction=0).item(),
+                      "wide_min": wide[:, j].min().item(),
+                      "wide_max": wide[:, j].max().item(),
+                      "over_wide_tol": (dist[i] / wide_tol[j]).item()}
+                     for j, i in enumerate(flagged.tolist())]
+
+        def rel(x):
+            return ((x.double() - exact) / exact.abs()).abs()
+
+        def qs(x):
+            return torch.quantile(rel(x), torch.tensor(
+                [0.9, 0.99], dtype=torch.float64, device="cuda")).tolist()
+
+        (k90, k99), (l90, l99) = qs(got), qs(want)
+        case = {"rows": rows, "per_theta": per, "episodes": rows * per,
+                "beyond_tol": len(flagged),
+                "beyond_wide_tol": int((dist[flagged] > wide_tol).sum()),
+                "rechecked": rechecked,
+                "max_abs_err": dist.max().item(),
+                "max_rel_err": (dist / want.abs()).max().item(),
+                "max_over_tol": (dist / tol).max().item(),
+                "q90_vs_f64": k90, "plain_q90_vs_f64": l90,
+                "q99_vs_f64": k99, "plain_q99_vs_f64": l99,
+                "max_vs_f64": rel(got).max().item(),
+                "plain_max_vs_f64": rel(want).max().item()}
+        cases.append(case)
+        check(case["beyond_wide_tol"] == 0, f"{name}: "
+              f"{case['beyond_wide_tol']} episodes beyond rtol "
+              f"{ROLLOUT_RTOL} + {ROLLOUT_SPREADS}·spread of the loop from "
+              f"{ROLLOUT_RECHECK_SAMPLES} moves: {rechecked}")
+        if rows * per >= 1000:    # quantiles of a handful read nothing
+            check(k90 <= ROLLOUT_Q90, f"{name}: q90 {k90} against float64,"
+                  f" over {ROLLOUT_Q90}")
+            check(k90 <= 2 * l90 and k99 <= 2 * l99, f"{name}: q90 / q99 "
+                  f"{k90} / {k99} against float64, over twice the loop's "
+                  f"{l90} / {l99}")
+        if per == 1 and rows == ROLLOUT_EPISODES:
+            timed = (thetas, states)
+        del full, want, exact, spread, tol, dist, got, wide
+
+    theta = policy.init(g, 1)[0]
+    resets = env.reset(g, EVAL_EPISODES)
+    best = rollout.evaluate_best(env, policy, theta, resets)
+    check(torch.equal(best, pr.pendulum_rollout(
+        env, theta[None, :], resets, EVAL_EPISODES).mean()),
+        "evaluate_best: not the kernel's mean")
+
+    thetas, states = timed
+    m = ROLLOUT_EPISODES
+    kernel = functools.partial(pr.pendulum_rollout, env, thetas, states)
+    plain = functools.partial(rollout.loop_return, env, policy, thetas,
+                              states)
+    info = pr.launch_info(m, 0)
+    ops = float(m) * env.episode_len * pr.FLOPS_PER_STEP
+    moved = 4.0 * (thetas.numel() + states.numel() + m)
+    t_ops, t_bytes = ops / F32_FLOPS, moved / HBM_BYTES_PER_S
+    row = {"phase": "kernel", "name": "pendulum_rollout", "episodes": m,
+           "steps": env.episode_len, **info, **cases[0], "cases": cases,
+           **time_stats(kernel),
+           "plain_ms": time_ms(plain, warmup=1, iters=3),
+           "plain_timed_calls": 3,
+           "library": "none (no PyTorch call runs an episode)",
+           "library_ms": None,
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_ops_ms": 1e3 * t_ops, "bound_bytes_ms": 1e3 * t_bytes,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "gflop": ops / 1e9, "mbytes": moved / 1e6}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    emit(row)
+    check(info["local_bytes"] == 0, f"pendulum_rollout: {info['local_bytes']}"
+          " bytes of local memory (spills)")
+    results["pendulum_rollout"] = row
+    del thetas, states, timed
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -1840,6 +2005,7 @@ def _counters():
     from repro_torch.kernels import netes_fused_mixing as nfm
     from repro_torch.kernels import netes_mixing as nm
     from repro_torch.kernels import netes_sparse_mixing as nsm
+    from repro_torch.kernels import pendulum_rollout as pr
     from repro_torch.kernels import rwkv6_wkv as rw
     return {"netes_mixing": nm.KERNEL, "netes_sparse_mixing": nsm.KERNEL,
             "fused_neighbor_sum": nfm.NEIGHBOR_SUM,
@@ -1848,7 +2014,8 @@ def _counters():
             "netes_sparse_mixing_rs": nsm.KERNEL_RS,
             "fused_neighbor_sum_rs": nfm.NEIGHBOR_SUM_RS,
             "flash_attention": fa.KERNEL, "moe_topk": mr.KERNEL,
-            "rwkv6_wkv": rw.KERNEL, "mamba_scan": ms.KERNEL}
+            "rwkv6_wkv": rw.KERNEL, "mamba_scan": ms.KERNEL,
+            "pendulum_rollout": pr.KERNEL}
 
 
 def main_phase(launches: dict) -> None:
@@ -1884,6 +2051,12 @@ def main_phase(launches: dict) -> None:
         check(counts[kname] > 0,
               f"{family}: {kname} never launched on the main path")
         launches[kname] = counts[kname]
+        # one launch a reward call: an iteration's 2N episodes, an eval's
+        check(counts["pendulum_rollout"] == MAIN_ITERS + len(hist["eval"]),
+              f"{family}: pendulum_rollout launched "
+              f"{counts['pendulum_rollout']} times, not once for each of "
+              f"{MAIN_ITERS} iterations and {len(hist['eval'])} evals")
+        launches["pendulum_rollout"] = counts["pendulum_rollout"]
         rewards = hist["reward_mean"] + hist["reward_max"] + hist["eval"]
         check(len(hist["reward_mean"]) == MAIN_ITERS
               and len(hist["eval"]) == 1, f"{family}: history has wrong length")
@@ -6168,6 +6341,8 @@ SOURCE_OF = {
                   "src/repro/kernels/rwkv6_wkv.py:43"),
     "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:41"),
+    "pendulum_rollout": ("src/repro_torch/csrc/pendulum_rollout.cu",
+                         "none: the lax.scan of src/repro/envs/rollout.py:19"),
 }
 
 
@@ -6219,6 +6394,7 @@ def main() -> int:
     router_kernel_phase(results)
     wkv_kernel_phase(results)
     scan_kernel_phase(results)
+    rollout_kernel_phase(results)
     masked_kernel_phase()
     kernel_shard_phase(results)
     emit({"phase": "clocks", "after": "kernel phases",

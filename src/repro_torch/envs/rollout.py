@@ -16,14 +16,43 @@ from typing import Optional
 
 import torch
 
+from ..kernels.pendulum_rollout import pendulum_rollout
+from .pendulum import Pendulum
 from .policy import MLPPolicy
+
+# The policy ``kernels.pendulum_rollout`` holds on chip: the paper's MLP.
+KERNEL_POLICY = MLPPolicy(obs_dim=3, act_dim=1, hidden=(64, 64),
+                          discrete=False)
+
+
+def uses_kernel(env, policy: MLPPolicy, dtype: torch.dtype,
+                device: torch.device) -> bool:
+    """True where ``episode_return`` launches ``kernels.pendulum_rollout``
+    for parameters of ``dtype`` on ``device``: the pendulum, the paper's
+    continuous 3 → 64 → 64 → 1 policy, and float32 on a CUDA device.
+    Everything else runs the loop."""
+    return (type(env) is Pendulum and policy == KERNEL_POLICY
+            and dtype == torch.float32 and device.type == "cuda")
 
 
 def episode_return(env, policy: MLPPolicy, thetas: torch.Tensor,
-                   state0: torch.Tensor) -> torch.Tensor:
+                   state0: torch.Tensor, per_theta: int = 1) -> torch.Tensor:
+    """Total reward of one episode per row of ``state0 (M, S)``, row i run
+    by the parameters ``thetas[i // per_theta]`` of ``thetas
+    (M / per_theta, D)``: one kernel launch where ``uses_kernel`` holds,
+    else ``loop_return``."""
+    if uses_kernel(env, policy, thetas.dtype, thetas.device):
+        return pendulum_rollout(env, thetas, state0, per_theta)
+    if per_theta > 1:
+        thetas = thetas.repeat_interleave(per_theta, dim=0)
+    return loop_return(env, policy, thetas, state0)
+
+
+def loop_return(env, policy: MLPPolicy, thetas: torch.Tensor,
+                state0: torch.Tensor) -> torch.Tensor:
     """Total reward of one episode per row: parameters ``thetas (M, D)``
     from reset states ``state0 (M, S)``; a Python loop over the episode
-    on the batched state."""
+    on the batched state. The rollout kernel's plain version."""
     params = policy.unflatten(thetas)
     state = state0
     total = torch.zeros(thetas.shape[0], dtype=torch.float32,
@@ -51,10 +80,9 @@ class EnvRewardFn:
     def __call__(self, params: torch.Tensor,
                  evals: torch.Tensor) -> torch.Tensor:
         m, e = evals.shape[0], evals.shape[1]
-        thetas = params.repeat_interleave(e, dim=0) if e > 1 else params
-        rets = episode_return(self.env, self.policy, thetas,
-                              evals.reshape(m * e, -1))
-        return rets.reshape(m, e).mean(dim=1)
+        rets = episode_return(self.env, self.policy, params,
+                              evals.reshape(m * e, -1), e)
+        return rets if e == 1 else rets.reshape(m, e).mean(dim=1)
 
 
 def make_env_reward_fn(env, policy: MLPPolicy,
@@ -73,5 +101,5 @@ def evaluate_best(env, policy: MLPPolicy, theta: torch.Tensor,
     device tensor."""
     if resets is None:
         resets = env.reset(generator, episodes)
-    thetas = theta[None, :].expand(resets.shape[0], -1).contiguous()
-    return episode_return(env, policy, thetas, resets).mean()
+    return episode_return(env, policy, theta[None, :], resets,
+                          resets.shape[0]).mean()

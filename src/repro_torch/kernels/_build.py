@@ -29,7 +29,8 @@ from ..obs import cuda_watch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("netes_mixing", "netes_sparse_mixing", "netes_fused_mixing",
-           "flash_attention", "moe_router", "rwkv6_wkv", "mamba_scan")
+           "flash_attention", "moe_router", "rwkv6_wkv", "mamba_scan",
+           "pendulum_rollout")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -7,6 +7,11 @@ import pytest
 # repro.launch.dryrun ONLY).
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (skips without one)")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

@@ -9,6 +9,11 @@ episodes (200 steps) agree with a float64 run of the same dynamics to
 about 1e-6 relative; an episode that passes near the upright equilibrium
 amplifies rounding, and there the JAX f32 return itself was measured 2e-3
 away from float64. The spread term covers exactly those episodes.
+
+The rollouts run on the CPU and, in the cases marked ``card`` (skipped
+without a CUDA card), on the card, where the pendulum's episodes run in
+the rollout kernel (``envs.rollout.uses_kernel``); the reference runs on
+the CPU either way (``JAX_PLATFORMS=cpu``).
 """
 import jax
 import jax.numpy as jnp
@@ -25,6 +30,20 @@ from repro_torch.envs import rollout
 
 TASKS = ["pendulum", "cartpole_swingup", "acrobot"]
 M = 8
+# each task's rollout on the CPU (the loop) and, where a CUDA card is
+# visible, on the card (for the pendulum the kernel,
+# ``envs.rollout.uses_kernel``); the CPU cases keep their ids
+TASK_DEVICES = ([pytest.param(t, "cpu", id=t) for t in TASKS]
+                + [pytest.param(t, "cuda", id=f"{t}-cuda", marks=pytest.mark.card)
+                   for t in TASKS])
+
+
+def _on(device):
+    """The torch device ``device`` names; skips the card's case where no
+    CUDA card is visible (decided when the test runs)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device(device)
 
 
 def _params(ref_policy, seed):
@@ -36,8 +55,9 @@ def _params(ref_policy, seed):
     return np.ascontiguousarray((thetas + 0.1 * noise).astype(np.float32))
 
 
-@pytest.mark.parametrize("task", TASKS)
-def test_episode_returns_match(task):
+@pytest.mark.parametrize("task,device", TASK_DEVICES)
+def test_episode_returns_match(task, device):
+    device = _on(device)
     ref_fn, dim, _, ref_env, ref_policy = ref_envs.resolve_task(task)
     reward_fn, port_dim, _, env, _ = envs.resolve_task(task)
     assert port_dim == dim
@@ -45,13 +65,24 @@ def test_episode_returns_match(task):
     k_eval = jax.random.PRNGKey(11)
     want = np.asarray(jax.jit(ref_fn)(jnp.asarray(params), k_eval))
     resets = reset_states(ref_env, k_eval, M)
-    got = reward_fn(torch.as_tensor(params), torch.as_tensor(resets))
+    got = reward_fn(torch.as_tensor(params, device=device),
+                    torch.as_tensor(resets, device=device))
     assert got.shape == (M,) and got.dtype == torch.float32
-    assert_returns_close(got.numpy(), want,
+    assert got.device.type == device.type
+    assert_returns_close(got.cpu().numpy(), want,
                          rounding_spread(ref_fn, params, k_eval))
 
 
 def test_episodes_per_eval_mean():
+    _episodes_per_eval_mean(torch.device("cpu"))
+
+
+@pytest.mark.card
+def test_episodes_per_eval_mean_on_card():
+    _episodes_per_eval_mean(_on("cuda"))
+
+
+def _episodes_per_eval_mean(device):
     _, _, _, ref_env, ref_policy = ref_envs.resolve_task("pendulum")
     params = _params(ref_policy, seed=3)[:4]
     k_eval = jax.random.PRNGKey(5)
@@ -62,12 +93,22 @@ def test_episodes_per_eval_mean():
     policy = envs.MLPPolicy(obs_dim=env.obs_dim, act_dim=env.act_dim)
     fn = rollout.make_env_reward_fn(env, policy, episodes_per_eval=3)
     resets = reset_states(ref_env, k_eval, 4, episodes_per_eval=3)
-    got = fn(torch.as_tensor(params), torch.as_tensor(resets))
-    assert_returns_close(got.numpy(), want,
+    got = fn(torch.as_tensor(params, device=device),
+             torch.as_tensor(resets, device=device))
+    assert_returns_close(got.cpu().numpy(), want,
                          rounding_spread(ref_fn, params, k_eval))
 
 
 def test_evaluate_best_matches():
+    _evaluate_best_matches(torch.device("cpu"))
+
+
+@pytest.mark.card
+def test_evaluate_best_matches_on_card():
+    _evaluate_best_matches(_on("cuda"))
+
+
+def _evaluate_best_matches(device):
     _, _, _, ref_env, ref_policy = ref_envs.resolve_task("pendulum")
     _, _, _, env, policy = envs.resolve_task("pendulum")
     theta = _params(ref_policy, seed=9)[0]
@@ -77,11 +118,12 @@ def test_evaluate_best_matches():
                                          6)[None]
 
     want = np.asarray(ref_eval(jnp.asarray(theta[None]), key))
-    got = rollout.evaluate_best(env, policy, torch.as_tensor(theta),
+    got = rollout.evaluate_best(env, policy,
+                                torch.as_tensor(theta, device=device),
                                 torch.as_tensor(eval_reset_states(
-                                    ref_env, key, 6)))
+                                    ref_env, key, 6), device=device))
     assert got.dim() == 0
-    assert_returns_close(got.reshape(1).numpy(), want,
+    assert_returns_close(got.reshape(1).cpu().numpy(), want,
                          rounding_spread(ref_eval, theta[None], key))
 
 
