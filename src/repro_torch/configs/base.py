@@ -6,6 +6,14 @@ are the reference's, field for field, so a config compares equal to its
 reference. The port's registry holds every architecture of the
 reference's but the NetES policy ``paper-mlp``, for which asking raises
 ``NotImplementedError`` naming where the port has it.
+
+Port-only architectures (``port_only_archs``: an architecture the
+reference has no config for) are registered beside them as a
+``PortConfig``, ``ModelConfig``'s subclass with the widths and rules that
+``ModelConfig``'s fields, which stay the reference's, cannot state (latent
+attention, the experts' own width, shared experts, sigmoid routing, the
+norms' epsilon). The settings travel with the object, through
+``dataclasses.replace`` too.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ UNPORTED = {
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """One decoder layer: a sequence-mixer + a channel-mixer."""
-    mixer: str          # attn_full | attn_sliding | attn_chunked | mamba | rwkv
+    mixer: str          # attn_full | attn_sliding | attn_chunked | mamba | rwkv | mla
     ffn: str            # swiglu | moe | rwkv_channel | gelu
     window: int = 0     # sliding/chunked window size
 
@@ -100,6 +108,12 @@ class ModelConfig:
     def is_encoder_decoder(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def expert_d_ff(self) -> int:
+        """A routed expert's width: ``d_ff`` (``PortConfig`` states its
+        own)."""
+        return self.d_ff
+
     def layer_specs(self) -> Tuple[LayerSpec, ...]:
         """Derive the per-layer layout from the pattern knobs."""
         specs = []
@@ -120,6 +134,8 @@ class ModelConfig:
                 mixer, window = "attn_sliding", self.sliding_window
             elif self.attn_kind == "chunked":
                 mixer, window = "attn_chunked", self.chunk_size
+            elif self.attn_kind == "mla":      # port-only: latent attention
+                mixer, window = "mla", 0
             else:
                 mixer, window = "attn_full", 0
             # ---- channel mixer ----
@@ -157,7 +173,8 @@ class ModelConfig:
             elif spec.ffn == "gelu":
                 n += 2 * d * self.d_ff + self.d_ff + d
             elif spec.ffn == "moe":
-                n += d * self.num_experts + 3 * self.num_experts * d * self.d_ff
+                n += (d * self.num_experts
+                      + 3 * self.num_experts * d * self.expert_d_ff)
             elif spec.ffn == "rwkv_channel":
                 n += 2 * d * self.d_ff + d * d
             n += 2 * d                                  # norms
@@ -179,8 +196,62 @@ class ModelConfig:
         n = self.count_params()
         for spec in self.layer_specs():
             if spec.ffn == "moe":
-                n -= 3 * self.num_experts * self.d_ff * self.d_model
-                n += 3 * self.experts_per_token * self.d_ff * self.d_model
+                n -= 3 * self.num_experts * self.expert_d_ff * self.d_model
+                n += 3 * self.experts_per_token * self.expert_d_ff * self.d_model
+        return n
+
+
+@dataclasses.dataclass(frozen=True)
+class PortConfig(ModelConfig):
+    """A port-only architecture: ``ModelConfig``'s fields and what they
+    cannot state.
+
+    Latent attention (MLA, DeepSeek-V2; ``attn_kind="mla"``): the query is
+    projected straight from the input (no query low-rank path) to
+    ``qk_nope_head_dim + qk_rope_head_dim`` per head; the keys and values
+    come from a latent of ``kv_lora_rank`` (RMSNorm'd) and one
+    ``qk_rope_head_dim`` rotary key that all heads share; values are
+    ``v_head_dim`` wide. Experts are ``moe_d_ff`` wide (``d_ff`` is the
+    dense layers' width), ``n_shared_experts`` of that width run on every
+    token, and the router scores by ``scoring`` (``"sigmoid"``: ids the
+    top-k of sigmoid(l) + bias, gates the chosen sigmoids over their sum,
+    times ``routed_scaling_factor``). The bias (``e_score_correction_bias``)
+    is held fixed outside the parameters: N(0, ``router_bias_std``²) from
+    ``router_bias_seed`` (``models.moe.router_bias``). RMSNorm takes
+    ``norm_eps``."""
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    scoring: str = "softmax"          # softmax | sigmoid
+    routed_scaling_factor: float = 1.0
+    router_bias_seed: int = 0
+    router_bias_std: float = 0.0
+    norm_eps: float = 1e-6
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff
+
+    def count_params(self) -> int:
+        """``ModelConfig``'s count with latent attention and the shared
+        experts."""
+        d, h, r = self.d_model, self.num_heads, self.kv_lora_rank
+        n = super().count_params()
+        for spec in self.layer_specs():
+            if spec.mixer == "mla":
+                n += (d * h * self.qk_head_dim
+                      + d * (r + self.qk_rope_head_dim) + r
+                      + r * h * (self.qk_nope_head_dim + self.v_head_dim)
+                      + h * self.v_head_dim * d)
+            if spec.ffn == "moe":
+                n += 3 * d * self.n_shared_experts * self.moe_d_ff
         return n
 
 
@@ -189,6 +260,13 @@ def register(cfg: ModelConfig) -> ModelConfig:
         raise ValueError(f"duplicate arch {cfg.name}")
     _REGISTRY[cfg.name] = cfg
     return cfg
+
+
+def port_only_archs():
+    """The registry's architectures that the reference does not have."""
+    _ensure_loaded()
+    return sorted(n for n, c in _REGISTRY.items()
+                  if isinstance(c, PortConfig))
 
 
 def _unported_slice(name: str) -> Optional[str]:
@@ -223,5 +301,5 @@ def _ensure_loaded():
     from . import (gemma3_4b, jamba_v01_52b,  # noqa: F401
                    llama4_maverick_400b_a17b, llama4_scout_17b_a16e,
                    llava_next_mistral_7b, mistral_nemo_12b,
-                   moonshot_v1_16b_a3b, phi3_medium_14b, rwkv6_7b,
-                   whisper_tiny)
+                   moonlight_16b_a3b, moonshot_v1_16b_a3b,
+                   phi3_medium_14b, rwkv6_7b, whisper_tiny)

@@ -24,7 +24,7 @@ from .core.topology_repr import Topology
 from .core.topology_sched import ScheduleState, TopologySchedule
 from .core.tree import flatten, leaf_paths, tree_map
 from .obs.probes import MetricsState
-from .models.transformer import check_ported, stack_plan
+from .models.transformer import stack_plan
 
 
 def state_from_reference(thetas, best_theta, best_reward, step, *,
@@ -200,7 +200,6 @@ def lm_params_from_reference(flat: Mapping[str, Any], cfg: ModelConfig, *,
     (a plain list, never stacked), ``enc_norm`` and ``enc_pos_embed``
     (encoder_seq, d). A key of ``flat`` that none of these take raises.
     """
-    check_ported(cfg)
     dev = resolve_device(device)
     head, period, n_rep, tail = stack_plan(cfg)
     if n_rep == 1:
@@ -233,7 +232,7 @@ def lm_params_from_reference(flat: Mapping[str, Any], cfg: ModelConfig, *,
 
 # the top-level leaves of an LM's parameter tree besides its layers: whole
 # arrays, and norms (a dict of ``scale`` and, for a LayerNorm, ``bias``)
-_LM_ARRAYS = ("embed", "pos_embed", "enc_pos_embed")
+_LM_ARRAYS = ("embed", "lm_head", "pos_embed", "enc_pos_embed")
 _LM_NORMS = ("final_norm", "enc_norm")
 
 
@@ -251,7 +250,6 @@ def lm_params_to_reference(params: Mapping[str, Any],
     parameters → the reference's flat layout (``layers_head/<i>/...``,
     ``layers_scan/<j>/...`` stacked over the ``n_rep`` repetitions,
     ``layers_tail/<i>/...``, as ``stack_plan`` says), as numpy arrays."""
-    check_ported(cfg)
     head, period, n_rep, tail = stack_plan(cfg)
     if n_rep == 1:
         head, period, tail = cfg.num_layers, 0, 0

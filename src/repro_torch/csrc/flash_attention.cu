@@ -3,8 +3,9 @@
 //
 //   out[b, q, h, :] = Σ_k softmax_k(scale · q[b,q,h]·k[b,k,h/G] + bias) v[b,k,h/G]
 //
-// with q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd), G = H / Hkv (query head h
-// reads KV head h / G, the reference's reshape(b, s, hkv, g, hd)), and the
+// with q and k (B, Sq | Sk, H | Hkv, dk), v (B, Sk, Hkv, dv), G = H / Hkv
+// (query head h reads KV head h / G, the reference's reshape(b, s, hkv, g,
+// hd)), and the
 // masks of the reference at key position kp for query position qp:
 // kp < Sk (padded keys), causal qp ≥ kp, window qp − kp < window, chunk
 // qp / chunk == kp / chunk. A masked score is −1e30, the online softmax
@@ -74,7 +75,7 @@
 // head_dim 256 (gemma3-4b, 8/4 heads): the tiling above would need 416 KB
 // of shared memory (the block gets 227 KB) and 256 accumulator registers a
 // thread (the limit is 255). That instance takes BR = 64 rows and BKN = 32
-// keys a tile (`Tile<256>`): Qᵀ 64 KB, K and V double-buffered 2 × 32 KB
+// keys a tile (`Tile<256, 256>`): Qᵀ 64 KB, K and V double-buffered 2 × 32 KB
 // each, Pᵀ 8.5 KB, 201 KB in all; a thread owns the rows ty·4 + {0..3},
 // the keys tx + {0, 16} of S and the columns 64·c + 4·tx + {0..3}
 // (c < 4) of O, 64 accumulators. Everything else (masks, skipped tiles,
@@ -88,11 +89,23 @@
 // head_dim 32 (whisper-tiny-smoke, 4 heads of 32; the contract linter's
 // nano LM, 2 heads of 32): the hd ≤ 128 tiling (BR = 128 rows, BKN = 64
 // keys) with its own map of O's columns, since 16 threads of 4 columns
-// would cover 64: a thread owns the columns 2·tx + {0, 1} (`Tile<32>::CW`),
+// would cover 64: a thread owns the columns 2·tx + {0, 1} (`Tile<32, 32>::CW`),
 // read from V and written out as float2. Qᵀ 16 KB, K and V
 // double-buffered 2 × 2 × 8 KB, Pᵀ 33 KB: 82 KB in all, so two blocks fit
 // on an SM (`__launch_bounds__` asks the register budget of two). Every
 // other part of the code is the hd ≤ 128 instances'.
+//
+// Query/key width 192, value width 128 (moonlight-16b-a3b's latent
+// attention: 128 + 64 rotary query/key columns a head, values of 128):
+// the key and value widths are two template parameters, DK and DV, the
+// instances above being DK = DV. At DK = 192 the hd ≤ 128 tiling would
+// need 290 KB of shared memory; this instance keeps BR = 128 rows (so
+// P·V keeps its 64 FMAs per 4 shared loads) and takes BKN = 32 keys a
+// tile: Qᵀ 96 KB, K double-buffered 2 × 24 KB, V 2 × 16 KB, Pᵀ 16.5 KB,
+// 194 KB in all. A thread owns the rows of the hd-128 instance, the keys
+// tx + {0, 16} of S and the columns 64·c + 4·tx + {0..3} (c < 2) of O,
+// 64 accumulators; its S step takes 64 FMAs per 10 shared loads. K's rows
+// of 48 chunks take the same swizzle (48 is a multiple of 8).
 //
 // C interface (bound with ctypes): `flash_attention_f32` returns
 // cudaGetLastError() after the launch; `flash_attention_query` reports the
@@ -107,33 +120,33 @@ namespace {
 constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
-// The tiling of the instance for HD: BR (position, head) rows per block,
-// BKN keys per tile. A thread of the 16 × 16 grid owns RT = BR / 16 rows
-// and KT = BKN / 16 keys of S, and RT rows of O, in which it holds the
-// columns 64·c + CW·tx + e (c < NCH, e < CW): 4 a 64-column chunk, or 2 of
-// the 32 at HD 32.
-template <int HD>
+// The tiling of the instance for key width DK and value width DV: BR
+// (position, head) rows per block, BKN keys per tile. A thread of the
+// 16 × 16 grid owns RT = BR / 16 rows and KT = BKN / 16 keys of S, and RT
+// rows of O, in which it holds the columns 64·c + CW·tx + e (c < NCH,
+// e < CW): 4 a 64-column chunk, or 2 of the 32 at DV 32.
+template <int DK, int DV>
 struct Tile {
-  static constexpr int BR = HD <= 128 ? 128 : 64;
-  static constexpr int BKN = HD <= 128 ? 64 : 32;
+  static constexpr int BR = DK == 256 ? 64 : 128;
+  static constexpr int BKN = DK <= 128 ? 64 : 32;
   static constexpr int RT = BR / 16;
   static constexpr int KT = BKN / 16;
-  static constexpr int CW = HD >= 64 ? 4 : 2;
-  static constexpr int NCH = HD >= 64 ? HD / 64 : 1;
-  static constexpr int MIN_BLOCKS = HD == 32 ? 2 : 1;   // resident per SM
+  static constexpr int CW = DV >= 64 ? 4 : 2;
+  static constexpr int NCH = DV >= 64 ? DV / 64 : 1;
+  static constexpr int MIN_BLOCKS = DK == 32 ? 2 : 1;   // resident per SM
 };
 
 // Shared memory: Qᵀ, two K and two V tiles, Pᵀ and the rows' key ranges.
 // K's 16-byte chunks are swizzled (chunk c of key r at c ^ (r % 8)), so that
 // the keys tx + 16j of a quarter warp hit distinct banks without padding;
 // Pᵀ's rows are padded by 4 floats for the same reason.
-template <int HD>
+template <int DK, int DV>
 struct Layout {
-  static constexpr int BR = Tile<HD>::BR, BKN = Tile<HD>::BKN;
+  static constexpr int BR = Tile<DK, DV>::BR, BKN = Tile<DK, DV>::BKN;
   static constexpr int PSTRIDE = BR + 4;
-  static constexpr int Q = HD * BR;       // Qᵀ [HD][BR]
-  static constexpr int K = BKN * HD;      // K  [BKN][HD], swizzled
-  static constexpr int V = BKN * HD;      // V  [BKN][HD]
+  static constexpr int Q = DK * BR;       // Qᵀ [DK][BR]
+  static constexpr int K = BKN * DK;      // K  [BKN][DK], swizzled
+  static constexpr int V = BKN * DV;      // V  [BKN][DV]
   static constexpr int P = BKN * PSTRIDE; // Pᵀ [BKN][BR + 4]
   static constexpr size_t BYTES = (size_t)(Q + 2 * K + 2 * V + P) * sizeof(float) +
                                   2 * BR * sizeof(int);
@@ -236,10 +249,10 @@ __device__ __forceinline__ void online_softmax(float (&s)[RT][KT], float (&m)[RT
 // Keys [k0, k0 + BKN) of a (Sk, Hkv, HD) slab at one KV head into HD-float
 // rows, chunk c of row r at c ^ (r % 8) if SWIZZLE; keys at or past Sk are
 // zero.
-template <int HD, bool SWIZZLE>
+template <int HD, int BKN, bool SWIZZLE>
 __device__ __forceinline__ void load_keys(float* dst, const float* __restrict__ src,
                                           int k0, int sk, int hkv) {
-  constexpr int C4 = HD / 4, BKN = Tile<HD>::BKN;
+  constexpr int C4 = HD / 4;
 #pragma unroll
   for (int it = 0; it < BKN * C4 / THREADS; ++it) {
     const int f = threadIdx.x + it * THREADS, r = f / C4, c = f % C4;
@@ -249,19 +262,20 @@ __device__ __forceinline__ void load_keys(float* dst, const float* __restrict__ 
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS, Tile<HD>::MIN_BLOCKS)
+template <int DK, int DV>
+__global__ void __launch_bounds__(THREADS, Tile<DK, DV>::MIN_BLOCKS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        int batch, int sq, int sk, int h, int hkv,
                        bool causal, int window, int chunk, float qscale,
                        int tiles) {
-  using L = Layout<HD>;
-  constexpr int BR = Tile<HD>::BR, BKN = Tile<HD>::BKN;
-  constexpr int RT = Tile<HD>::RT, KT = Tile<HD>::KT;
-  constexpr int NCH = Tile<HD>::NCH;  // 64-column chunks of the output
-  constexpr int CW = Tile<HD>::CW;    // a thread's columns of a chunk
+  using L = Layout<DK, DV>;
+  using T = Tile<DK, DV>;
+  constexpr int BR = T::BR, BKN = T::BKN;
+  constexpr int RT = T::RT, KT = T::KT;
+  constexpr int NCH = T::NCH;  // 64-column chunks of the output
+  constexpr int CW = T::CW;    // a thread's columns of a chunk
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
   float* ks0 = qs + L::Q;            // K tiles: ks0 + (t & 1)·L::K
@@ -278,8 +292,8 @@ flash_attention_kernel(const float* __restrict__ q,
   const int r0 = (tiles - 1 - (int)blockIdx.x / heads) * BR;
   const int kvh = blockIdx.x % heads % hkv, b = blockIdx.x % heads / hkv;
   const int p_first = r0 / g, p_last = (min(r0 + BR, rows) - 1) / g;
-  const float* kb = k + ((size_t)b * sk * hkv + kvh) * HD;
-  const float* vb = v + ((size_t)b * sk * hkv + kvh) * HD;
+  const float* kb = k + ((size_t)b * sk * hkv + kvh) * DK;
+  const float* vb = v + ((size_t)b * sk * hkv + kvh) * DV;
 
   // each row's key range; a row past the end sees nothing
   for (int r = tid; r < BR; r += THREADS) {
@@ -303,19 +317,19 @@ flash_attention_kernel(const float* __restrict__ q,
   const int kt_begin = stream_all ? 0 : lo_first / BKN;
   const int kt_end = stream_all ? (sk - 1) / BKN : hi_last / BKN;
 
-  load_keys<HD, true>(ks0, kb, kt_begin * BKN, sk, hkv);
-  load_keys<HD, false>(vs0, vb, kt_begin * BKN, sk, hkv);
+  load_keys<DK, BKN, true>(ks0, kb, kt_begin * BKN, sk, hkv);
+  load_keys<DV, BKN, false>(vs0, vb, kt_begin * BKN, sk, hkv);
   cp_async_commit();
 
   // Qᵀ, scaled by scale·log2 e: rows are (position, head), position-major
 #pragma unroll 4
-  for (int it = 0; it < BR * (HD / 4) / THREADS; ++it) {
+  for (int it = 0; it < BR * (DK / 4) / THREADS; ++it) {
     const int f = tid + it * THREADS, r = f % BR, c = f / BR, row = r0 + r;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < rows) {
       const int pos = row / g, head = kvh * g + row % g;
       val = reinterpret_cast<const float4*>(
-          q + (((size_t)b * sq + pos) * h + head) * HD)[c];
+          q + (((size_t)b * sq + pos) * h + head) * DK)[c];
     }
     qs[(4 * c + 0) * BR + r] = val.x * qscale;
     qs[(4 * c + 1) * BR + r] = val.y * qscale;
@@ -342,8 +356,8 @@ flash_attention_kernel(const float* __restrict__ q,
     cp_async_wait_all();
     __syncthreads();     // K(kt), V(kt), Qᵀ visible; everyone is done with tile kt − 1
     if (kt < kt_end) {   // tile kt + 1 into the buffers tile kt − 1 used
-      load_keys<HD, true>(ks0 + (buf ^ 1) * L::K, kb, k0 + BKN, sk, hkv);
-      load_keys<HD, false>(vs0 + (buf ^ 1) * L::V, vb, k0 + BKN, sk, hkv);
+      load_keys<DK, BKN, true>(ks0 + (buf ^ 1) * L::K, kb, k0 + BKN, sk, hkv);
+      load_keys<DV, BKN, false>(vs0 + (buf ^ 1) * L::V, vb, k0 + BKN, sk, hkv);
       cp_async_commit();
     }
 
@@ -354,12 +368,12 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < KT; ++j) s[i][j] = 0.f;
 #pragma unroll 16
-    for (int d4 = 0; d4 < HD / 4; ++d4) {
+    for (int d4 = 0; d4 < DK / 4; ++d4) {
       float4 kv[KT];
       const int kc = 4 * (d4 ^ sw);
 #pragma unroll
       for (int j = 0; j < KT; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * HD + kc);
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * DK + kc);
 #pragma unroll
       for (int dd = 0; dd < 4; ++dd) {
         const float* qrow = qs + (4 * d4 + dd) * BR;
@@ -415,7 +429,7 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int c = 0; c < NCH; ++c) {
         if constexpr (CW == 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(vs + kk * HD + 64 * c + 4 * tx);
+          const float4 vv = *reinterpret_cast<const float4*>(vs + kk * DV + 64 * c + 4 * tx);
 #pragma unroll
           for (int i = 0; i < RT; ++i) {
             o[i][c][0] = fmaf(pv[i], vv.x, o[i][c][0]);
@@ -423,8 +437,8 @@ flash_attention_kernel(const float* __restrict__ q,
             o[i][c][2] = fmaf(pv[i], vv.z, o[i][c][2]);
             o[i][c][3] = fmaf(pv[i], vv.w, o[i][c][3]);
           }
-        } else {   // HD 32: the columns 2·tx, 2·tx + 1
-          const float2 vv = *reinterpret_cast<const float2*>(vs + kk * HD + 2 * tx);
+        } else {   // DV 32: the columns 2·tx, 2·tx + 1
+          const float2 vv = *reinterpret_cast<const float2*>(vs + kk * DV + 2 * tx);
 #pragma unroll
           for (int i = 0; i < RT; ++i) {
             o[i][c][0] = fmaf(pv[i], vv.x, o[i][c][0]);
@@ -446,7 +460,7 @@ flash_attention_kernel(const float* __restrict__ q,
     if (row >= rows) continue;
     const float denom = fmaxf(total, 1e-30f);
     const int pos = row / g, head = kvh * g + row % g;
-    float* orow = out + (((size_t)b * sq + pos) * h + head) * HD;
+    float* orow = out + (((size_t)b * sq + pos) * h + head) * DV;
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       if constexpr (CW == 4) {
@@ -461,52 +475,54 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 int query_tiles(int sq, int h, int hkv) {
-  return (sq * (h / hkv) + Tile<HD>::BR - 1) / Tile<HD>::BR;
+  return (sq * (h / hkv) + Tile<DK, DV>::BR - 1) / Tile<DK, DV>::BR;
 }
 
-template <int HD>
+template <int DK, int DV>
 cudaError_t prepare() {
-  return cudaFuncSetAttribute(flash_attention_kernel<HD>,
+  return cudaFuncSetAttribute(flash_attention_kernel<DK, DV>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)Layout<HD>::BYTES);
+                              (int)Layout<DK, DV>::BYTES);
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch(const float* q, const float* k, const float* v, float* out, int b,
            int sq, int sk, int h, int hkv, int causal, int window, int chunk,
            float qscale, int tiles, cudaStream_t stream) {
-  if (tiles != query_tiles<HD>(sq, h, hkv))
+  if (tiles != query_tiles<DK, DV>(sq, h, hkv))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = prepare<HD>();
+  const cudaError_t err = prepare<DK, DV>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_kernel<HD><<<tiles * hkv * b, THREADS, Layout<HD>::BYTES, stream>>>(
-      q, k, v, out, b, sq, sk, h, hkv, causal != 0, window, chunk, qscale, tiles);
+  flash_attention_kernel<DK, DV>
+      <<<tiles * hkv * b, THREADS, Layout<DK, DV>::BYTES, stream>>>(
+          q, k, v, out, b, sq, sk, h, hkv, causal != 0, window, chunk, qscale,
+          tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int DK, int DV>
 int query(int b, int sq, int h, int hkv, int* grid_blocks, int* resident) {
-  cudaError_t err = prepare<HD>();
+  cudaError_t err = prepare<DK, DV>();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      resident, flash_attention_kernel<HD>, THREADS, Layout<HD>::BYTES);
-  *grid_blocks = query_tiles<HD>(sq, h, hkv) * hkv * b;
+      resident, flash_attention_kernel<DK, DV>, THREADS, Layout<DK, DV>::BYTES);
+  *grid_blocks = query_tiles<DK, DV>(sq, h, hkv) * hkv * b;
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// hd must be 32, 64, 128 or 256 (anything else returns cudaErrorInvalidValue),
-// and `tiles` the wrapper's count of query tiles per (batch, KV head),
-// checked against this source's; the wrapper checks shapes, layout and
-// alignment before the call.
+// (hd, hdv) must be (32, 32), (64, 64), (128, 128), (256, 256) or
+// (192, 128) (anything else returns cudaErrorInvalidValue), and `tiles` the
+// wrapper's count of query tiles per (batch, KV head), checked against this
+// source's; the wrapper checks shapes, layout and alignment before the call.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int b, int sq,
-                                   int sk, int h, int hkv, int hd, int causal,
-                                   int window, int chunk, float scale,
-                                   int tiles, void* stream) {
+                                   int sk, int h, int hkv, int hd, int hdv,
+                                   int causal, int window, int chunk,
+                                   float scale, int tiles, void* stream) {
   if (hkv <= 0 || h % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
@@ -515,27 +531,30 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   auto* st = static_cast<cudaStream_t>(stream);
   // scores in log2 units: exp(scale·x) = exp2(scale·log2 e·x)
   const float qscale = static_cast<float>((double)scale * 1.4426950408889634);
-  if (hd == 256)
-    return launch<256>(qf, kf, vf, of, b, sq, sk, h, hkv, causal, window,
-                       chunk, qscale, tiles, st);
-  if (hd == 128)
-    return launch<128>(qf, kf, vf, of, b, sq, sk, h, hkv, causal, window,
-                       chunk, qscale, tiles, st);
-  if (hd == 64)
-    return launch<64>(qf, kf, vf, of, b, sq, sk, h, hkv, causal, window,
-                      chunk, qscale, tiles, st);
-  if (hd == 32)
-    return launch<32>(qf, kf, vf, of, b, sq, sk, h, hkv, causal, window,
-                      chunk, qscale, tiles, st);
+#define FLASH_LAUNCH(DK, DV)                                                  \
+  if (hd == DK && hdv == DV)                                                  \
+    return launch<DK, DV>(qf, kf, vf, of, b, sq, sk, h, hkv, causal, window,  \
+                          chunk, qscale, tiles, st);
+  FLASH_LAUNCH(256, 256)
+  FLASH_LAUNCH(128, 128)
+  FLASH_LAUNCH(64, 64)
+  FLASH_LAUNCH(32, 32)
+  FLASH_LAUNCH(192, 128)
+#undef FLASH_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int flash_attention_query(int b, int sq, int h, int hkv, int hd,
-                                     int* grid_blocks, int* resident_per_sm) {
+                                     int hdv, int* grid_blocks,
+                                     int* resident_per_sm) {
   if (hkv <= 0 || h % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (hd == 256) return query<256>(b, sq, h, hkv, grid_blocks, resident_per_sm);
-  if (hd == 128) return query<128>(b, sq, h, hkv, grid_blocks, resident_per_sm);
-  if (hd == 64) return query<64>(b, sq, h, hkv, grid_blocks, resident_per_sm);
-  if (hd == 32) return query<32>(b, sq, h, hkv, grid_blocks, resident_per_sm);
+#define FLASH_QUERY(DK, DV) \
+  if (hd == DK && hdv == DV) return query<DK, DV>(b, sq, h, hkv, grid_blocks, resident_per_sm);
+  FLASH_QUERY(256, 256)
+  FLASH_QUERY(128, 128)
+  FLASH_QUERY(64, 64)
+  FLASH_QUERY(32, 32)
+  FLASH_QUERY(192, 128)
+#undef FLASH_QUERY
   return static_cast<int>(cudaErrorInvalidValue);
 }

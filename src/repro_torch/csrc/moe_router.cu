@@ -45,10 +45,27 @@
 // instance takes any E ≤ 128 and k ≤ 8 with four slots. The loads of a row
 // are coalesced (LANES consecutive floats per slot).
 //
-// C interface (bound with ctypes): `moe_topk_f32` returns
-// cudaGetLastError() after the launch; `moe_topk_query` reports the grid,
-// resident blocks per SM, registers and local (spill) bytes per thread of
-// the instance a shape takes. Launches on the caller's stream, never
+// The sigmoid instance (moonlight-16b-a3b's router, DeepSeek-V3's noaux_tc
+// with one group), over logits (T, E) and a bias (E,):
+//
+//   s[t, :]     = 1 / (1 + exp(−l[t, :]))
+//   ids[t, r]   = the r-th largest s[t, :] + bias, ties to the lower index
+//   gates[t, r] = s[t, ids[t, r]] / (Σ_r s[t, ids[t, r]] + 1e-20) · scale
+//
+// `moe_topk_sigmoid_kernel` takes the softmax kernel's lanes, slots and
+// rounds, with no row max and no sum before the selection: a lane's key
+// is the ordered image of s + bias (s + bias may be negative; 0 is
+// padding, below every float's image), and each lane carries its slots'
+// s beside the keys through its sort, so that a round's winner hands its
+// s to the row by one shuffle from the winner's lane. The softmax kernel
+// is a separate function, untouched. Instanced at (64, 6) with every loop
+// unrolled, and generic.
+//
+// C interface (bound with ctypes): `moe_topk_f32` and
+// `moe_topk_sigmoid_f32` return cudaGetLastError() after the launch;
+// `moe_topk_query` and `moe_topk_sigmoid_query` report the grid, resident
+// blocks per SM, registers and local (spill) bytes per thread of the
+// instance a shape takes. Launches on the caller's stream, never
 // synchronises, allocates nothing.
 
 #include <cuda_runtime.h>
@@ -178,6 +195,88 @@ __global__ void __launch_bounds__(WARP * WARPS)
 }
 
 template <int E, int K>
+__global__ void __launch_bounds__(WARP * WARPS)
+    moe_topk_sigmoid_kernel(const float* __restrict__ logits,
+                            const float* __restrict__ bias,
+                            float* __restrict__ gates, int* __restrict__ ids,
+                            int t, int e_run, int k_run, float scale) {
+  using Rt = Router<E, K>;
+  constexpr int LANES = Rt::LANES, SLOTS = Rt::SLOTS;
+  const int e = E == 0 ? e_run : E;
+  const int k = K == 0 ? k_run : K;
+  const int lane = threadIdx.x & (WARP - 1);
+  const int l = lane % LANES, sub = lane / LANES;
+  const int row = (blockIdx.x * WARPS + threadIdx.x / WARP)
+                      * (WARP / LANES) + sub;
+  if (row >= t) return;  // a whole row's lanes: the others keep their mask
+  const unsigned mask = (FULL >> (WARP - LANES)) << (sub * LANES);
+  const float* lrow = logits + (size_t)row * e;
+
+  // each lane's slots: s, and the key of s + bias, sorted by key, high
+  // first, lower index first among equal keys
+  unsigned key[SLOTS], idx[SLOTS];
+  float sc[SLOTS];
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    idx[j] = l + LANES * j;
+    const bool live = (int)idx[j] < e;
+    sc[j] = live ? 1.f / (1.f + expf(-lrow[idx[j]])) : 0.f;
+    key[j] = live ? ordered(sc[j] + bias[idx[j]]) : 0u;
+  }
+#pragma unroll
+  for (int pass = 1; pass < SLOTS; ++pass)
+#pragma unroll
+    for (int j = 0; j + pass < SLOTS; ++j)
+      if (key[j + 1] > key[j]) {
+        const unsigned tk = key[j], ti = idx[j];
+        const float ts = sc[j];
+        key[j] = key[j + 1];
+        idx[j] = idx[j + 1];
+        sc[j] = sc[j + 1];
+        key[j + 1] = tk;
+        idx[j + 1] = ti;
+        sc[j + 1] = ts;
+      }
+
+  constexpr int ROUNDS = K == 0 ? MAX_K : K;
+  float val[ROUNDS];
+  unsigned win[ROUNDS];
+  float total = 0.f;
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    val[r] = 0.f;
+    win[r] = 0u;
+    if (K == 0 && r >= k) continue;
+    const unsigned top = __reduce_max_sync(mask, key[0]);
+    win[r] = __reduce_min_sync(mask, key[0] == top ? idx[0] : NONE);
+    // the winner's s, from its lane (expert x sits on lane x % LANES)
+    val[r] = __shfl_sync(mask, sc[0], sub * LANES + win[r] % LANES);
+    if (win[r] == idx[0]) {
+#pragma unroll
+      for (int j = 0; j + 1 < SLOTS; ++j) {
+        key[j] = key[j + 1];
+        idx[j] = idx[j + 1];
+        sc[j] = sc[j + 1];
+      }
+      key[SLOTS - 1] = 0u;
+    }
+    total += val[r];
+  }
+  float mine_v = val[0];
+  unsigned mine_i = win[0];
+#pragma unroll
+  for (int r = 1; r < ROUNDS; ++r)
+    if (l == r) {
+      mine_v = val[r];
+      mine_i = win[r];
+    }
+  if (l < k) {
+    gates[(size_t)row * k + l] = mine_v / (total + 1e-20f) * scale;
+    ids[(size_t)row * k + l] = (int)mine_i;
+  }
+}
+
+template <int E, int K>
 int launch(const void* logits, void* gates, void* ids, int t, int e, int k,
            cudaStream_t stream) {
   const dim3 grid((t + Router<E, K>::ROWS - 1) / Router<E, K>::ROWS);
@@ -195,6 +294,32 @@ int query(int t, int* grid, int* resident, int* registers, int* local) {
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, moe_topk_kernel<E, K>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *registers = attr.numRegs;
+  *local = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+
+template <int E, int K>
+int launch_sigmoid(const void* logits, const void* bias, void* gates,
+                   void* ids, int t, int e, int k, float scale,
+                   cudaStream_t stream) {
+  const dim3 grid((t + Router<E, K>::ROWS - 1) / Router<E, K>::ROWS);
+  moe_topk_sigmoid_kernel<E, K><<<grid, WARP * WARPS, 0, stream>>>(
+      static_cast<const float*>(logits), static_cast<const float*>(bias),
+      static_cast<float*>(gates), static_cast<int*>(ids), t, e, k, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int E, int K>
+int query_sigmoid(int t, int* grid, int* resident, int* registers,
+                  int* local) {
+  *grid = (t + Router<E, K>::ROWS - 1) / Router<E, K>::ROWS;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      resident, moe_topk_sigmoid_kernel<E, K>, WARP * WARPS, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, moe_topk_sigmoid_kernel<E, K>);
   if (err != cudaSuccess) return static_cast<int>(err);
   *registers = attr.numRegs;
   *local = static_cast<int>(attr.localSizeBytes);
@@ -230,4 +355,26 @@ extern "C" int moe_topk_query(int t, int e, int k, int* grid,
   if (e == 16 && k == 2)
     return query<16, 2>(t, grid, resident_per_sm, registers, local_bytes);
   return query<0, 0>(t, grid, resident_per_sm, registers, local_bytes);
+}
+
+// The sigmoid instance: bias (e,) float32 and the scaling factor besides.
+extern "C" int moe_topk_sigmoid_f32(const void* logits, const void* bias,
+                                    void* gates, void* ids, int t, int e,
+                                    int k, float scale, void* stream) {
+  if (!valid(t, e, k)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (e == 64 && k == 6)
+    return launch_sigmoid<64, 6>(logits, bias, gates, ids, t, e, k, scale, st);
+  return launch_sigmoid<0, 0>(logits, bias, gates, ids, t, e, k, scale, st);
+}
+
+extern "C" int moe_topk_sigmoid_query(int t, int e, int k, int* grid,
+                                      int* resident_per_sm, int* registers,
+                                      int* local_bytes) {
+  if (!valid(t, e, k)) return static_cast<int>(cudaErrorInvalidValue);
+  if (e == 64 && k == 6)
+    return query_sigmoid<64, 6>(t, grid, resident_per_sm, registers,
+                                local_bytes);
+  return query_sigmoid<0, 0>(t, grid, resident_per_sm, registers,
+                             local_bytes);
 }

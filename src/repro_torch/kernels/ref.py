@@ -15,7 +15,8 @@ per-shard contraction of ``distributed.fleet_shard``) go through
 by source and round each product before it is added: a row's result then
 depends on its own slots alone, never on R, S or where the row sits.
 ``flash_attention_ref`` is naive softmax attention: it materialises every
-(query, key) score. ``moe_topk_ref`` is a softmax and a stable sort.
+(query, key) score. ``moe_topk_ref`` is a softmax and a stable sort,
+``moe_topk_sigmoid_ref`` a sigmoid and a stable sort.
 ``rwkv6_wkv_ref`` is the WKV-6 recurrence and ``mamba_scan_ref`` the
 mamba selective-scan recurrence, each as a loop over the sequence.
 
@@ -147,7 +148,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         chunk: int = 0, scale=None):
     """Naive softmax attention with the flash kernel's masks, in the
     reference's op order (``repro/kernels/ref.py:68-90``). q (B, Sq, H, hd);
-    k, v (B, Sk, Hkv, hd); query head h reads KV head h // (H / Hkv).
+    k (B, Sk, Hkv, hd), v (B, Sk, Hkv, hdv); query head h reads KV head
+    h // (H / Hkv); the result is (B, Sq, H, hdv).
     A row with no valid key gets the mean of v over the Sk keys. Computes
     in float32, or in float64 for float64 inputs (the full forward's
     float64 reference)."""
@@ -170,7 +172,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     s = torch.where(ok, s, -1e30)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(acc))
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
 def moe_topk_ref(logits, k: int):
@@ -186,6 +188,21 @@ def moe_topk_ref(logits, k: int):
     vals, ids = vals[..., :k], ids[..., :k]
     vals = vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9)
     return vals, ids.to(torch.int32)
+
+
+def moe_topk_sigmoid_ref(logits, bias, k: int, scale: float):
+    """The sigmoid-with-bias router (DeepSeek-V3's noaux_tc with one
+    group): s = sigmoid(logits); ids the k largest s + bias, ties to the
+    lower index (a stable descending sort); gates = s[ids] / (Σ s[ids] +
+    1e-20) · scale. logits (T, E), bias (E,) → (gates (T, k), ids (T, k)
+    int32), in float32, or in float64 for a float64 input."""
+    acc = torch.promote_types(logits.dtype, torch.float32)
+    s = torch.sigmoid(logits.to(acc))
+    ids = torch.sort(s + bias.to(acc), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    vals = s.gather(-1, ids)
+    gates = vals / (vals.sum(dim=-1, keepdim=True) + 1e-20) * scale
+    return gates, ids.to(torch.int32)
 
 
 def rwkv6_wkv_ref(r, k, v, w, u, s0=None):

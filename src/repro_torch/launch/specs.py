@@ -52,6 +52,8 @@ CONSENSUS_ARCHS = (
     "llama4-maverick-400b-a17b",     # ≈ 400 B parameters
     "llama4-scout-17b-a16e",         # ≈ 109 B total (17 B active)
     "jamba-v0.1-52b",                # 52 B
+    "moonlight-16b-a3b",             # 16 B (port-only; 3 B active)
+    "moonlight-16b-a3b-smoke",       # its CPU tests' size
 )
 
 PARAM_DTYPE = torch.bfloat16

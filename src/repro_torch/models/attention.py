@@ -177,14 +177,15 @@ def blockwise_attention(spec: AttnSpec, q: torch.Tensor, k: torch.Tensor,
     blocks with an online softmax. Never materialises (Sq, Sk): one pass
     holds (B, H, Sq, k_block) scores.
 
-    q (B, Sq, H, hd); k, v (B, Sk, Hkv, hd); positions (Sq,) and (Sk,).
-    Returns (B, Sq, H, hd) in q's dtype, accumulated in
+    q (B, Sq, H, hd); k (B, Sk, Hkv, hd), v (B, Sk, Hkv, hdv) (latent
+    attention's values are narrower than its queries and keys); positions
+    (Sq,) and (Sk,). Returns (B, Sq, H, hdv) in q's dtype, accumulated in
     ``layers.acc_dtype(q.dtype)``. A key padded onto the last block adds
     nothing to the running max, sum or accumulator in any pattern; a query
     with no valid key gets the mean of v over the Sk keys, as
     ``kernels.ref.flash_attention_ref``."""
     b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
     g = h // hkv
     # shard-friendliness: the q-block reshape splits S into (n_blocks,
     # block); with fewer blocks than the model axis (16) an S-sharded q
@@ -208,7 +209,7 @@ def blockwise_attention(spec: AttnSpec, q: torch.Tensor, k: torch.Tensor,
 
     # the running state takes q's layout (``*_like``: under a sharding
     # context its batch and sequence shards, not a replicated whole)
-    acc = torch.zeros_like(qh)
+    acc = torch.zeros_like(qh if hdv == hd else qh[..., :hdv])
     m = torch.full_like(qh[..., 0], NEG_INF)
     l = torch.zeros_like(qh[..., 0])
     # one pass traced under a folding ``launch.op_costs`` recorder: the
@@ -232,8 +233,8 @@ def blockwise_attention(spec: AttnSpec, q: torch.Tensor, k: torch.Tensor,
         m = m_new
         del s, p, ok
     out = (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
-    # (B, Hkv, G, Sq_p, hd) → (B, Sq, H, hd)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq_p, h, hd)
+    # (B, Hkv, G, Sq_p, hdv) → (B, Sq, H, hdv)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq_p, h, hdv)
     return out[:, :sq]
 
 

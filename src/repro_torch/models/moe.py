@@ -16,18 +16,28 @@ The router's top-k runs through ``kernels.moe_router.moe_topk`` (the
 hand-written kernel on the card) unless the caller passes another
 function of its signature: the full forward passes the plain
 ``ref.moe_topk_ref``, so that it also runs in float64 as a reference.
+
+A port-only architecture's MoE layer (moonlight-16b-a3b) routes by
+sigmoid with a fixed bias (``sigmoid_router``: its top-k of the kernel
+``moe_topk_sigmoid`` or of the plain version, the bias from
+``router_bias``) and adds ``shared_experts``, one SwiGLU of the shared
+experts' summed width run on every token. Its ``moe_block`` counts the
+(token, choice) pairs dropped over capacity (``MoESpec.count_drops``:
+the counters ``moe.dropped`` and ``moe.routed`` of ``obs.regions``,
+computed and kept only while a profiler records).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..distributed.context import on_shards
-from ..kernels.moe_router import moe_topk
-from ..kernels.ref import moe_topk_ref
+from ..kernels.moe_router import moe_topk, moe_topk_sigmoid
+from ..kernels.ref import moe_topk_ref, moe_topk_sigmoid_ref
+from ..obs import regions
 from . import layers
 
 
@@ -40,6 +50,7 @@ class MoESpec:
     capacity_factor: float = 1.25
     group_size: int = 512
     router_jitter: float = 0.0
+    count_drops: bool = False
 
 
 def moe_init(gen: torch.Generator, spec: MoESpec, dtype):
@@ -124,6 +135,9 @@ def moe_block(params, spec: MoESpec, x: torch.Tensor,
                            [(0, 1), (0, 1)])
     idx, dst = on_shards(lambda i: _dispatch_indices(i, k, e, cap),
                          (ids,), (0,), [0, 0])
+    if spec.count_drops:
+        regions.count("moe.dropped", lambda: (dst == e * cap).sum())
+        regions.count("moe.routed", dst.numel)
     xe = on_shards(_gather_slots, (xg, idx), (0, 0), 0)    # (G, E·C, D)
     xe = xe.reshape(n_groups, e, cap, d).transpose(0, 1).reshape(
         e, n_groups * cap, d)
@@ -163,6 +177,40 @@ def _combine(y: torch.Tensor, dst: torch.Tensor,
     rows = torch.arange(n_groups, device=y.device)[:, None, None]
     picked = y[rows, dst]                                       # (G, g, k, D)
     return (picked * gates[..., None].to(y.dtype)).sum(dim=2)
+
+
+_BIAS: Dict[Tuple, torch.Tensor] = {}
+
+
+def router_bias(seed: int, std: float, num_experts: int,
+                device) -> torch.Tensor:
+    """The sigmoid router's fixed ``e_score_correction_bias`` (E,) float32:
+    N(0, std²) drawn on the CPU from ``seed`` (the same on every device),
+    moved to ``device`` once and kept."""
+    key = (seed, std, num_experts, str(device))
+    if key not in _BIAS:
+        g = torch.Generator().manual_seed(seed)
+        _BIAS[key] = (torch.randn(num_experts, generator=g,
+                                  dtype=torch.float64) * std).to(
+            torch.float32).to(device)
+    return _BIAS[key]
+
+
+def sigmoid_router(bias: torch.Tensor, scale: float,
+                   kernel: bool) -> Callable:
+    """A ``topk(logits, k)`` of the sigmoid-with-bias router: the kernel's
+    (``kernel``) or the plain version's, the bias cast to the logits'
+    dtype."""
+    fn = moe_topk_sigmoid if kernel else moe_topk_sigmoid_ref
+    return lambda logits, k: fn(logits, bias.to(logits.dtype), k, scale)
+
+
+def shared_experts(params, x: torch.Tensor) -> torch.Tensor:
+    """The shared experts: one SwiGLU of their summed width on every token
+    (``params`` its ``w_gate``, ``w_up`` (D, n·f) and ``w_down``
+    (n·f, D))."""
+    with regions.region("moe.shared"):
+        return layers.swiglu(params, x)
 
 
 def load_balance_loss(params, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,8 @@
 """Model assembly: the port of ``repro/models/transformer.py``, every
-branch of the reference's but untied embeddings (no architecture of the
-registry has them).
+branch of the reference's (an untied unembedding is ``lm_head`` (D, V)),
+and the port-only architectures' layers (``configs.base.PortConfig``:
+latent attention, ``mla.py``; sigmoid routing with shared experts,
+``moe.py``; their norms' epsilon).
 
 A config-driven decoder (and encoder-decoder): the per-layer ``LayerSpec``
 picks the sequence mixer (full / sliding / chunked attention, mamba, or
@@ -23,6 +25,8 @@ their plain versions (mamba: the associative scan, chunked past 1024
 tokens; rwkv: the chunked form), so that in float64 it is the float64
 reference. Decode's cross attention is plain PyTorch, as in the
 reference: it projects the encoder's keys and values again at every step.
+Latent attention has no decode cache in the port: ``init_cache``,
+``prefill`` and ``decode_step`` raise ``NotImplementedError`` for it.
 Parameters are nested dicts of tensors with the decoder layers as a plain
 list (the reference stacks identical layers for ``lax.scan``;
 ``convert.lm_params_from_reference`` unstacks them).
@@ -42,20 +46,24 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from .._device import resolve_device
-from ..configs.base import LayerSpec, ModelConfig
+from ..configs.base import LayerSpec, ModelConfig, PortConfig
 from ..distributed.context import maybe_constrain
 from ..kernels.moe_router import moe_topk
 from ..kernels.ref import moe_topk_ref
 from ..launch import op_costs
-from . import attention, layers, mamba, moe, rwkv6
+from . import attention, layers, mamba, mla, moe, rwkv6
+
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the one branch of the reference
-    this port does not have."""
-    if not cfg.tie_embeddings:
+    """Raise ``NotImplementedError`` for what the port does not have: the
+    decode cache of latent attention, which would hold the compressed
+    latent and the shared rotary key (``init_cache``, ``prefill`` and
+    ``decode_step`` call it)."""
+    if any(ls.mixer == "mla" for ls in cfg.layer_specs()):
         raise NotImplementedError(
-            f"{cfg.name}: untied embeddings (no architecture of the "
-            "registry has them)")
+            f"{cfg.name}: the decode cache of latent attention (the "
+            "compressed KV latent) is not ported; the loss and the full "
+            "forward run")
 
 
 # ---------------------------------------------------------------------------
@@ -89,9 +97,22 @@ def rwkv_spec(cfg: ModelConfig) -> rwkv6.RWKV6Spec:
 def moe_spec(cfg: ModelConfig) -> moe.MoESpec:
     return moe.MoESpec(num_experts=cfg.num_experts,
                        experts_per_token=cfg.experts_per_token,
-                       d_model=cfg.d_model, d_ff=cfg.d_ff,
+                       d_model=cfg.d_model, d_ff=cfg.expert_d_ff,
                        capacity_factor=cfg.moe_capacity_factor,
-                       group_size=cfg.moe_group_size)
+                       group_size=cfg.moe_group_size,
+                       count_drops=isinstance(cfg, PortConfig))
+
+
+def moe_router(cfg: ModelConfig, kernel: bool, device):
+    """The MoE layers' ``topk(logits, k)``: the hand-written kernel
+    (``kernel``) or its plain version, of softmax routing or of a
+    ``PortConfig``'s sigmoid routing with its fixed bias."""
+    if isinstance(cfg, PortConfig) and cfg.scoring == "sigmoid":
+        return moe.sigmoid_router(
+            moe.router_bias(cfg.router_bias_seed, cfg.router_bias_std,
+                            cfg.num_experts, device),
+            cfg.routed_scaling_factor, kernel)
+    return moe_topk if kernel else moe_topk_ref
 
 
 def _norm_init(cfg: ModelConfig, d: int, dtype, device):
@@ -140,8 +161,10 @@ def layer_indices(cfg: ModelConfig):
 
 
 def _norm(cfg: ModelConfig, p, x):
-    return (layers.layernorm(p, x) if cfg.norm == "layernorm"
-            else layers.rmsnorm(p, x))
+    if cfg.norm == "layernorm":
+        return layers.layernorm(p, x)
+    return (layers.rmsnorm(p, x, eps=cfg.norm_eps)
+            if isinstance(cfg, PortConfig) else layers.rmsnorm(p, x))
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +180,8 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, lspec: LayerSpec,
         p["rwkv"] = rwkv6.rwkv6_init(gen, rwkv_spec(cfg), dtype)
     elif lspec.mixer == "mamba":
         p["mamba"] = mamba.mamba_init(gen, mamba_spec(cfg), dtype)
+    elif lspec.mixer == "mla":
+        p["mla"] = mla.mla_init(gen, cfg.d_model, mla.mla_spec(cfg), dtype)
     else:
         p["attn"] = attention.attn_init(gen, cfg.d_model,
                                         attn_spec(cfg, lspec), dtype)
@@ -166,6 +191,9 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, lspec: LayerSpec,
         p["ffn"] = layers.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
     elif lspec.ffn == "moe":
         p["moe"] = moe.moe_init(gen, moe_spec(cfg), dtype)
+        if isinstance(cfg, PortConfig) and cfg.n_shared_experts:
+            p["shared"] = layers.swiglu_init(
+                gen, cfg.d_model, cfg.n_shared_experts * cfg.moe_d_ff, dtype)
     elif lspec.ffn == "rwkv_channel":
         p["ffn"] = rwkv6.rwkv6_channel_init(gen, cfg.d_model, cfg.d_ff, dtype)
     else:
@@ -191,13 +219,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                 device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """Random weights with the reference's statistics, drawn on ``device``
     from a generator seeded with ``seed``; on ``device="meta"`` the tree's
-    shapes and dtypes alone, with nothing drawn."""
-    check_ported(cfg)
+    shapes and dtypes alone, with nothing drawn. An untied unembedding is
+    ``lm_head`` (D, V), a fan-in truncated normal as the reference's."""
     gen = layers.generator(resolve_device(device), seed)
     params: Dict[str, Any] = {
         "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": _norm_init(cfg, cfg.d_model, dtype, gen.device),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.dense_init(
+            gen, (cfg.d_model, cfg.vocab_size), dtype)
     if cfg.learned_pos:
         params["pos_embed"] = layers.embed_init(gen, cfg.max_position,
                                                 cfg.d_model, dtype)
@@ -219,16 +250,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 # forward
 # ---------------------------------------------------------------------------
 
-def _ffn(p, cfg: ModelConfig, lspec: LayerSpec, h, topk=moe_topk,
+def _ffn(p, cfg: ModelConfig, lspec: LayerSpec, h, kernel: bool = True,
          x_prev=None):
-    """The channel mixer; ``topk`` is the MoE router's top-k, ``x_prev``
-    the rwkv channel mix's token before ``h``."""
+    """The channel mixer; the MoE router's top-k through its kernel if
+    ``kernel``, else its plain version (``moe_router``); ``x_prev`` the
+    rwkv channel mix's token before ``h``."""
     if lspec.ffn == "swiglu":
         return layers.swiglu(p["ffn"], h)
     if lspec.ffn == "gelu":
         return layers.gelu_mlp(p["ffn"], h)
     if lspec.ffn == "moe":
-        return moe.moe_block(p["moe"], moe_spec(cfg), h, topk=topk)
+        out = moe.moe_block(p["moe"], moe_spec(cfg), h,
+                            topk=moe_router(cfg, kernel, h.device))
+        if "shared" in p:
+            out = out + moe.shared_experts(p["shared"], h)
+        return out
     if lspec.ffn == "rwkv_channel":
         return rwkv6.rwkv6_channel(p["ffn"], h, x_prev)
     raise ValueError(lspec.ffn)
@@ -265,13 +301,16 @@ def _layer_forward(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
         x = x + rwkv6.rwkv6_block(p["rwkv"], rwkv_spec(cfg), h)
     elif lspec.mixer == "mamba":
         x = x + mamba.mamba_block(p["mamba"], mamba_spec(cfg), h)
+    elif lspec.mixer == "mla":
+        x = x + mla.mla_block(p["mla"], mla.mla_spec(cfg), h, positions,
+                              kernel=False)
     else:
         x = x + attention.attention_block(p["attn"], attn_spec(cfg, lspec),
                                           h, positions, causal=causal)
     if enc_out is not None:
         x = _cross(p, cfg, x, positions, enc_out, kernel=False)
     h = _norm(cfg, p["norm2"], x)
-    return x + _full_ffn(p, cfg, lspec, h, topk=moe_topk_ref)
+    return x + _full_ffn(p, cfg, lspec, h, kernel=False)
 
 
 def _encode(params, cfg: ModelConfig, frames: torch.Tensor,
@@ -315,7 +354,6 @@ def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     positions, and an encoder-decoder's encoder over ``frames`` (B, T, D),
     run once, through the kernels if ``kernel``. Returns (x (B, S, D),
     positions (S,), the encoder's output (B, T, D) or None)."""
-    check_ported(cfg)
     allowed = {"tokens", "labels"}
     if cfg.frontend == "vision":
         allowed.add("patch_embeds")
@@ -354,8 +392,10 @@ def _backbone(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 
 
 def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Tied embeddings: x @ embedᵀ."""
-    return torch.einsum("bsd,vd->bsv", x, params["embed"])
+    """Tied embeddings: x @ embedᵀ; untied: x @ lm_head."""
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, params["embed"])
+    return x @ params["lm_head"]
 
 
 def forward(params, cfg: ModelConfig,
@@ -381,6 +421,9 @@ def _kernel_layer(p, cfg: ModelConfig, lspec: LayerSpec, x: torch.Tensor,
     if lspec.mixer in ("mamba", "rwkv"):
         cache = _layer_cache(cfg, lspec, x.shape[0], 0, x.dtype, x.device)
         x = x + _prefill_mix(p, cfg, lspec, h, cache, positions)[0]
+    elif lspec.mixer == "mla":
+        x = x + mla.mla_block(p["mla"], mla.mla_spec(cfg), h, positions,
+                              kernel=True)
     else:
         x = x + attention.kernel_attention(p["attn"], attn_spec(cfg, lspec),
                                            h, positions, causal=causal)
@@ -504,6 +547,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
     each below ``max_position`` where the positions are learned (the
     caller checks, ``check_lengths``: here the index runs on the device).
     Returns (logits (B, 1, V), cache), the cache updated in place."""
+    check_ported(cfg)
     x = params["embed"][token]                        # (B,1,D)
     if cfg.learned_pos:
         x = x + params["pos_embed"][pos][:, None]
@@ -560,6 +604,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     cache directly (an encoder-decoder's ``enc_out`` too). Returns
     ``(last-position logits (B, V), cache)`` — the logits that predict the
     first generated token."""
+    check_ported(cfg)
     x, positions, enc_out = embed_inputs(params, cfg, batch, kernel=True)
     if enc_out is not None:
         cache["enc_out"] = enc_out.to(cache["enc_out"].dtype)

@@ -13,7 +13,9 @@ in a process of its own (``tests/test_torch_lm.py``,
 ``tests/test_torch_mamba.py`` and ``tests/test_torch_gemma3.py`` start
 it), so no other test module ever sees the swap.
 
-Eleven parts (PART): ``lm`` (the default) dumps the models, ``moe`` the MoE
+Eleven parts (PART): ``lm`` (the default) dumps the models (and
+mistral-nemo-12b-smoke at 2 layers with an untied unembedding: its
+weights, forward logits and loss), ``moe`` the MoE
 layer's pieces, ``rwkv`` the rwkv6 pieces and the rwkv6-7b-smoke model (at
 2 layers, unrolled, and at 4, scanned as plan (0, 1, 4, 0)), ``mamba`` the
 mamba pieces and the jamba-v0.1-52b-smoke model (at 2 layers, unrolled,
@@ -225,6 +227,19 @@ def main(path, part="lm", *archs):
         cfg = dataclasses.replace(moon, num_layers=n_layers)
         dump_model(out, transformer, ServeEngine, cfg, f"moon{n_layers}",
                    100 + n_layers, moon_rng)
+    # the untied unembedding (``lm_head``), no registry arch's: the
+    # smoke at 2 layers with tie_embeddings false, its forward and loss
+    untied = dataclasses.replace(smoke, num_layers=2, tie_embeddings=False)
+    params = transformer.init_params(jax.random.PRNGKey(11), untied,
+                                     jnp.float32)
+    out.update(flatten(params, "untied/params"))
+    tokens = np.random.default_rng(2).integers(0, v, (B, FWD_LEN)).astype(
+        np.int32)
+    out["untied/tokens"] = tokens
+    out["untied/forward_logits"] = transformer.forward(
+        params, untied, {"tokens": tokens})
+    out["untied/loss"] = transformer.loss_fn(
+        params, untied, {"tokens": tokens, "labels": tokens})
     np.savez(path, **{k: np.asarray(a) for k, a in out.items()})
 
 

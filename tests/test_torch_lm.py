@@ -6,7 +6,9 @@ subprocess and loads the npz it writes: the reference's weights for
 mistral-nemo-12b-smoke at 2 layers (unrolled) and 4 layers (scanned) and
 for moonshot-v1-16b-a3b-smoke (a dense layer, then MoE layers of 4
 experts, top-2) at 2 layers (unrolled) and 6 layers (scanned as one dense
-head layer and one MoE layer 5 times), its building blocks on fixed inputs, ``prefill_attention`` and
+head layer and one MoE layer 5 times), mistral-nemo-12b-smoke at 2 layers
+with an untied unembedding (its weights, forward logits and loss), its
+building blocks on fixed inputs, ``prefill_attention`` and
 ``decode_attention`` with their caches, ``transformer.forward``,
 ``prefill`` and 4 teacher-forced ``decode_step`` logits, and greedy
 ``ServeEngine.generate`` tokens. The port takes the reference's weights
@@ -38,7 +40,7 @@ import torch
 import repro.configs as ref_configs
 from repro_torch import convert
 from repro_torch.configs import available_archs, get_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, port_only_archs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_router as mr
 from repro_torch.launch import serve as launch_serve
@@ -59,6 +61,8 @@ PORTED = {"mistral-nemo-12b", SMOKE, "phi3-medium-14b",
           "llama4-maverick-400b-a17b-smoke", "whisper-tiny",
           "whisper-tiny-smoke", "llava-next-mistral-7b",
           "llava-next-mistral-7b-smoke"}
+# the registry's archs that the reference does not have
+PORT_ONLY = {"moonlight-16b-a3b", "moonlight-16b-a3b-smoke"}
 # (arch, layers) of the reference's dumps; mistral's keep their ids
 MODELS = [pytest.param(SMOKE, 2, id="2"), pytest.param(SMOKE, 4, id="4"),
           pytest.param(MOON, 2, id="moonshot-2"),
@@ -155,7 +159,11 @@ def test_config_equals_reference(name):
 
 
 def test_registry_holds_only_ported_archs():
-    assert set(available_archs()) == PORTED
+    """The reference's archs the port has, and the port-only ones (no
+    reference config), each set apart."""
+    assert port_only_archs() == sorted(PORT_ONLY)
+    assert set(available_archs()) == PORTED | PORT_ONLY
+    assert not PORT_ONLY & set(ref_configs.available_archs())
     assert get_config("mistral-nemo-12b").count_params() == 11_576_688_640
     moon = get_config("moonshot-v1-16b-a3b")
     assert moon.count_params() == 27_177_320_448
@@ -182,13 +190,37 @@ def test_unported_arch_raises_naming_its_slice(name):
         get_config(name)
 
 
-@pytest.mark.parametrize("change", [dict(tie_embeddings=False)])
-def test_unported_branches_raise(change):
-    cfg = dataclasses.replace(get_config(SMOKE), **change)
-    with pytest.raises(NotImplementedError, match="untied"):
-        transformer.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="untied"):
-        transformer.init_cache(cfg, 1, 8, torch.float32, device="cpu")
+UNTIED = dataclasses.replace(get_config(SMOKE), num_layers=2,
+                             tie_embeddings=False)
+
+
+@pytest.mark.parametrize("part", ["init", "forward", "loss"])
+def test_untied_unembedding_matches_reference(ref, part):
+    """The reference's untied branch (``lm_head`` (D, V), ``x @
+    lm_head``), ported: the port's ``init_params`` makes the reference's
+    leaves at its shapes, ``lm_head`` a fan-in truncated normal; on the
+    reference's weights the forward's logits and ``loss_fn`` agree."""
+    flat = sub(ref, "untied/params")
+    params = convert.lm_params_from_reference(flat, UNTIED, device="cpu")
+    batch = {"tokens": t(ref["untied/tokens"])}
+    if part == "init":
+        port = transformer.init_params(UNTIED, seed=0, device="cpu")
+        mine = convert.lm_params_to_reference(port, UNTIED)
+        assert {k: a.shape for k, a in mine.items()} == \
+            {k: a.shape for k, a in flat.items()}
+        head, want = port["lm_head"], flat["lm_head"]
+        assert head.shape == (UNTIED.d_model, UNTIED.vocab_size)
+        assert abs(float(head.std()) / float(np.std(want)) - 1) < 0.05
+        assert float(head.abs().max()) <= 2.0 / UNTIED.d_model ** 0.5 * (
+            1 + 1e-6)
+        assert not torch.equal(head, port["embed"].T)
+    elif part == "forward":
+        close(transformer.forward(params, UNTIED, batch),
+              ref["untied/forward_logits"])
+    else:
+        close(transformer.loss_fn(params, UNTIED,
+                                  dict(batch, labels=batch["tokens"])),
+              ref["untied/loss"])
 
 
 # ---------------------------------------------------------------------------
