@@ -36,7 +36,12 @@ Phases, each printing one JSON line per case:
    the plain version within 2e-5; each flash row names the backend
    ``scaled_dot_product_attention`` chose for its yardstick. The sparse
    Eq. 3 kernel runs on ER p = 0.1 at N = 1000 and at the paper's N = 3000 (two sender chunks),
-   at a ragged shape and at N = 5000, p = 0.02 (four chunks); the fused
+   at a ragged shape and at N = 5000, p = 0.02 (four chunks); its band
+   instance (``kernel_band``) at the ER cell's shape (N = 16,384, G(N,
+   0.0005) from topology seed 0) against float64, two launches equal, one
+   launch a wrapper call, the slab instance and ``torch.sparse.mm`` timed
+   beside it, then both instances against float64 and timed at the shapes
+   around the choice between them (``BAND_CROSSOVER``); the fused
    neighbor sum at N = 1000, the ragged shape and N = 5000 (four chunks),
    where one call must put exactly one kernel on the card (a profiler
    trace) and must not call the plain weight fold; given unit-row codes
@@ -638,13 +643,13 @@ def _device_ms(fn) -> dict:
             if evt.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def _slab_launch(mod, n: int, cols: int) -> dict:
-    """The launch of a slab kernel (``kernels/_slab.py``) at (N, cols): grid,
-    resident blocks per SM, slab width, sender chunks, and the registers
-    and local (spill) bytes per thread from the library's queries."""
+def _slab_launch(mod, pl) -> dict:
+    """The launch of a slab kernel (``kernels/_slab.py``) on plan ``pl``:
+    grid, resident blocks per SM, slab width, sender chunks, and the
+    registers and local (spill) bytes per thread from the library's
+    queries."""
     import torch
-    pl = mod.launch_plan(n, cols, "cuda")
-    occ = mod.occupancy(n, torch.cuda.current_device())
+    occ = mod.occupancy(pl.n, torch.cuda.current_device())
     check(occ["local_bytes"] == 0, f"{mod.__name__}: {occ['local_bytes']} "
           "bytes of local memory per thread (spill)")
     return {"grid_blocks": pl.grid, "resident_blocks_per_sm": pl.resident,
@@ -741,7 +746,10 @@ def kernel_phase(results: dict, lm_results: dict) -> None:
                       "tiles_whole": pl.full, "tiles_split": pl.rem,
                       "split": pl.split}
         else:
-            launch = _slab_launch(nsm, n, p)
+            pl = nsm.launch_plan(n, p, k_max, "cuda")
+            check(not isinstance(pl, nsm.BandPlan),
+                  f"{kname}/{label}: the band instance at N = {n}")
+            launch = _slab_launch(nsm, pl)
         rel_k = _check_against_f64(f"{kname}/{label}", out_k, adj64, w, theta,
                                    eps, sigma)
         rel_p = _check_against_f64(f"{kname}/{label} plain", out_p, adj64, w,
@@ -813,6 +821,161 @@ def kernel_phase(results: dict, lm_results: dict) -> None:
         if label.startswith("lm_"):
             lm_results.setdefault(kname, {})[label] = _lm_row(row)
         del out_k, out_p, args, big_w, stacked
+        torch.cuda.empty_cache()
+
+
+# The band instance of sparse Eq. 3 (``sparse_mixing_slab_l2``) at the ER
+# cell's shape (N = 16,384, G(N, 0.0005) with self-loops, the pendulum
+# policy's P = 4481), then the shapes that place the choice between the two
+# instances (``nsm.uses_band``), both instances checked and timed at each:
+# (label, N, p, P). The graphs are the port's own (``_graph``, topology
+# seed 0); K_max as drawn there.
+BAND_CELL = ("er_16384", 16_384, 0.0005, 4481)        # 11 chunks, K_max 22
+BAND_CROSSOVER = (
+    ("er_3000", 3000, 0.1, 4481),                     # 2 chunks, K_max 358
+    ("er_5000", 5000, 0.02, 700),                     # 4 chunks, K_max 146
+    ("er_1600", 1600, 0.005, 4481),                   # 2 chunks, K_max 21
+    ("er_3000_p0.002", 3000, 0.002, 4481),            # 2 chunks, K_max 17
+    ("er_3000_p0.005", 3000, 0.005, 4481),            # 2 chunks, K_max 32
+    ("er_3000_p0.01", 3000, 0.01, 4481),              # 2 chunks, K_max 51
+    ("er_16384_p0.002", 16_384, 0.002, 4481),         # 11 chunks
+    ("er_16384_p0.004", 16_384, 0.004, 4481),         # 11 chunks
+    ("er_16384_p0.008", 16_384, 0.008, 4481),         # 11 chunks
+)
+# netes_step iterations of the main path at the ER cell's shape
+BAND_MAIN_ITERS = 3
+
+
+def _er_list(n: int, p_edge: float, seed: int = 0):
+    """The padded neighbor list of the port's G(N, p) with self-loops
+    (``_graph``), on the card, and its real directed edges."""
+    import torch
+
+    from repro_torch.core.topology_repr import sparse_neighbors
+    adj = _graph(n, "erdos_renyi", p_edge, seed)
+    idx_np, mask_np = sparse_neighbors(adj)
+    edges = int((adj != 0).sum())
+    del adj
+    return (torch.as_tensor(idx_np, device="cuda"),
+            torch.as_tensor(mask_np, device="cuda"), edges)
+
+
+def _check_sparse_f64(name, out, idx, mask, w, theta, eps, sigma):
+    """``_check_against_f64``'s bound from the padded list itself (the
+    plain sparse version in float64), ``w`` the weight of both θ and ε:
+    no (N, N) operand at N = 16,384. Returns the worst |err|/S."""
+    import torch
+
+    from repro_torch.kernels import ref
+    m64, w64 = mask.double(), w.double()
+    th64, ep64 = theta.double(), eps.double()
+    exact = ref.sparse_mixing_ref(idx, m64, w64, w64, th64, ep64,
+                                  sigma=sigma)
+    wa = m64.abs() * w64.abs()[idx.long()]
+    scale = ref.sparse_mixing_ref(idx, wa, torch.ones_like(w64),
+                                  torch.ones_like(w64), th64.abs(),
+                                  ep64.abs(), sigma=abs(sigma))
+    # the plain version subtracts Σ|a w|·|θ_j|; S adds |Σ a w|·|θ_j|
+    wsum = (m64 * w64[idx.long()]).sum(1).abs()
+    scale += (wa.sum(1) + wsum)[:, None] * th64.abs()
+    err = (out.double() - exact).abs()
+    ratio = (err / scale.clamp_min(1e-30)).max().item()
+    check((err - TOL_REL * scale).max().item() <= 0.0,
+          f"{name}: error above {TOL_REL}·S (worst |err|/S = {ratio:.3g})")
+    return ratio
+
+
+def band_kernel_phase(results: dict) -> None:
+    """The band instance at the ER cell's shape against the float64 plain
+    version, two launches equal, the wrapper's choice of it (its own
+    launch count), its time beside the 0.263 ms bound, the slab
+    instance's time and ``torch.sparse.mm``'s; then both instances
+    against float64 and timed at each crossover shape."""
+    import torch
+
+    from repro_torch.kernels import netes_sparse_mixing as nsm
+    sigma = 0.1
+    for label, n, p_edge, p in (BAND_CELL,) + BAND_CROSSOVER:
+        cell = label == BAND_CELL[0]
+        idx, mask, edges = _er_list(n, p_edge)
+        k_max = idx.shape[1]
+        theta, eps, w = _operands(n, p, seed=n + p)
+        args = (idx, mask, w, w, theta, eps)
+        band_pl = nsm.BandPlan(n=n, cols=p)
+        slab_pl = nsm.slab_plan(n, p, "cuda")
+        chosen = nsm.launch_plan(n, p, k_max, "cuda")
+        outs = {}
+
+        def instance(pl):
+            out = outs.setdefault(pl, torch.empty_like(theta))
+            return functools.partial(nsm.launch, pl, *args, out, sigma=sigma)
+
+        row = {"phase": "kernel_band", "shape": label, "n": n, "p": p,
+               "density": p_edge, "k_max": k_max, "nnz": edges,
+               "chunks": slab_pl.chunks,
+               "chosen": "band" if isinstance(chosen, nsm.BandPlan)
+               else "slab", "uses_band": nsm.uses_band(n, k_max)}
+        check(row["uses_band"] == (row["chosen"] == "band"),
+              f"band/{label}: launch_plan disagrees with uses_band")
+        for name, pl in (("band", band_pl), ("slab", slab_pl)):
+            fn = instance(pl)
+            fn()
+            torch.cuda.synchronize()
+            got = outs[pl].clone()
+            fn()
+            check(torch.equal(outs[pl], got),
+                  f"band/{label} {name}: two launches differ")
+            row[f"{name}_err_over_S"] = _check_sparse_f64(
+                f"band/{label} {name}", got, *args[:3], theta, eps, sigma)
+            row[f"{name}_ms"] = time_stats(fn)
+        occ = nsm.band_occupancy("cuda")
+        check(occ["local_bytes"] == 0, f"band/{label}: {occ['local_bytes']} "
+              "bytes of local memory per thread (spill)")
+        row.update(band_cols=nsm.BAND, bands=band_pl.bands,
+                   grid_blocks=band_pl.grid,
+                   resident_blocks_per_sm=occ["resident"],
+                   registers=occ["registers"],
+                   spill_bytes=occ["local_bytes"])
+        # Eq. 3's least time over the real edges (portbench/roofline.py's
+        # count): 2·E·P flops; θ and ε read once, θ' written once, an
+        # index and a weight an edge
+        t_ops = 2.0 * edges * p / F32_FLOPS
+        t_bytes = (4.0 * 3 * n * p + 8.0 * edges) / HBM_BYTES_PER_S
+        row.update(bound_ms=1e3 * max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        row["share_of_bound"] = row["bound_ms"] / row["band_ms"]["ms"]
+        if cell:
+            # the wrapper: one launch of the band instance a call, none of
+            # the slab instance's; its output the band instance's bits
+            before = (nsm.KERNEL_BAND.launches, nsm.KERNEL.launches)
+            out_w = nsm.netes_sparse_mixing(*args, sigma=sigma)
+            check((nsm.KERNEL_BAND.launches - before[0],
+                   nsm.KERNEL.launches - before[1]) == (1, 0),
+                  f"band/{label}: the wrapper did not launch the band "
+                  "instance once")
+            check(torch.equal(out_w, outs[band_pl]),
+                  f"band/{label}: the wrapper's output differs")
+            # W = [a⊙R̃θ − diag(wsum) | σ·a⊙R̃ε] as in ``kernel_phase``; the
+            # padding's weight-0 slots index j beside its self-loop: summed
+            wt = torch.zeros(n, n, device="cuda")
+            rows = torch.arange(n, device="cuda")[:, None].expand_as(idx)
+            wt.index_put_((rows, idx.long()), mask * w[idx.long()],
+                          accumulate=True)
+            big_w = torch.cat([wt - torch.diag(wt.sum(1)), sigma * wt], 1)
+            del wt
+            big_csr = big_w.to_sparse_csr()
+            del big_w
+            stacked = torch.cat([theta, eps], dim=0)
+            lib = functools.partial(torch.sparse.mm, big_csr, stacked)
+            row["library_err_over_S"] = _check_sparse_f64(
+                f"band/{label} torch.sparse.mm", lib(), *args[:3], theta,
+                eps, sigma)
+            row["library"] = "torch.sparse.mm (CSR)"
+            row["library_ms"] = time_stats(lib)["ms"]
+            del big_csr, stacked
+            results["netes_sparse_mixing_band"] = row
+        emit(row)
+        del outs, args, theta, eps, idx, mask
         torch.cuda.empty_cache()
 
 
@@ -945,7 +1108,8 @@ def wire_kernel_phase(results: dict, lm_results: dict) -> None:
                "max_abs_err": (out_k - out_p).abs().max().item(),
                "max_err_over_S": rel_k, "plain_err_over_S": rel_p,
                "library_err_over_S": rel_l, "tol_over_S": TOL_REL,
-               **_slab_launch(nfm, n, d), "kernels_per_call": launched,
+               **_slab_launch(nfm, nfm.launch_plan(n, d, "cuda")),
+               "kernels_per_call": launched,
                **time_stats(kernel), "plain_ms": time_ms(plain),
                "library": "torch.sparse.mm (CSR, codes cast to f32 outside)",
                "library_ms": time_ms(lib) if lib_ok else None,
@@ -2090,6 +2254,61 @@ def main_phase(launches: dict) -> None:
               "reward_mean": hist["reward_mean"],
               "reward_max": hist["reward_max"], "eval": hist["eval"],
               "eval_iter": hist["eval_iter"], "launches": counts})
+    band_main_case(launches)
+
+
+def band_main_case(launches: dict) -> None:
+    """The main path at the ER cell's shape (``BAND_CELL``: N = 16,384, ER
+    p = 0.0005 from topology seed 0, the pendulum policy's P = 4481):
+    ``BAND_MAIN_ITERS`` ``netes_step`` iterations, the sparse kernel's two
+    launch counts zeroed just before, must launch the band instance once
+    an iteration and the slab instance never. The counts go to
+    ``launches["netes_sparse_mixing_band"]``, the kernels line's band
+    row."""
+    import math
+
+    import torch
+
+    from repro_torch.core import netes
+    from repro_torch.core.netes import NetESConfig
+    from repro_torch.core.topology import TopologySpec
+    from repro_torch.core.topology_repr import from_spec
+    from repro_torch.envs import resolve_task
+    from repro_torch.kernels import netes_sparse_mixing as nsm
+
+    _, n, p_edge, cols = BAND_CELL
+    cfg = NetESConfig(alpha=0.05, sigma=0.1)
+    topo = from_spec(TopologySpec(family="erdos_renyi", n_agents=n,
+                                  p=p_edge, seed=0), device="cuda")
+    reward_fn, dim, init_fn, _, _ = resolve_task("pendulum")
+    check(topo.kind == "sparse" and dim == cols,
+          f"band main: a {topo.kind} topology at D = {dim}")
+    state = netes.init_state(n, dim, seed=1, init_fn=init_fn, device="cuda")
+    torch.cuda.synchronize()
+    nsm.KERNEL_BAND.launches = nsm.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(BAND_MAIN_ITERS):
+        state, _, metrics = netes.netes_step(state, topo, reward_fn, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"band": nsm.KERNEL_BAND.launches, "slab": nsm.KERNEL.launches}
+    check(counts == {"band": BAND_MAIN_ITERS, "slab": 0},
+          f"band main: the sparse kernel's launches {counts} in "
+          f"{BAND_MAIN_ITERS} iterations, not the band instance once each")
+    check(all(math.isfinite(float(v)) for v in metrics.values()),
+          f"band main: non-finite metrics {metrics}")
+    check(bool(torch.isfinite(state.thetas).all()),
+          "band main: non-finite θ")
+    launches["netes_sparse_mixing_band"] = {"iters": BAND_MAIN_ITERS,
+                                            **counts}
+    emit({"phase": "main", "task": "pendulum", "family": "erdos_renyi",
+          "density": p_edge, "representation": topo.kind,
+          "k_max": topo.k_max, "n_agents": n, "dim": dim,
+          "iters": BAND_MAIN_ITERS, "wall_s": wall,
+          "ms_per_iter_incl_first": 1e3 * wall / BAND_MAIN_ITERS,
+          "launches": counts})
+    del state, topo
+    torch.cuda.empty_cache()
 
 
 def channel_phase(launches: dict) -> None:
@@ -6387,6 +6606,7 @@ def main() -> int:
 
     results, launches, lm_results = {}, {}, {}
     kernel_phase(results, lm_results)
+    band_kernel_phase(results)
     wire_kernel_phase(results, lm_results)
     consensus_select_phase(results)
     fused_fold_phase()
@@ -6495,6 +6715,12 @@ def main() -> int:
                 "library", "library_ms", "bound_ms", "bound_by",
                 "share_of_bound")}
             rows[-1]["rs_cases"] = results[name + "_rs_cases"]
+        if name == "netes_sparse_mixing":
+            # the band instance at the ER cell's shape, and its launches
+            # and the slab instance's on the main path there
+            rows[-1]["band"] = {
+                **results["netes_sparse_mixing_band"],
+                "launches_main": launches["netes_sparse_mixing_band"]}
         if name == "flash_attention":
             # the head_dim-256 instance: gemma3-4b's global and sliding
             # prefill layers, and its launches per serve (a) generate;

@@ -83,12 +83,46 @@
 // and epilogues, and the lists are re-read by every block that touches a
 // receiver, slabs·nnz·8 ≈ 115 MB from L2.
 //
+// The band instance `sparse_mixing_slab_l2` (many sender chunks, few
+// slots). Past N = 1558 the slab no longer fits a block and the senders are
+// cut into chunks: at N = 16,384, 11 chunks over 141 slabs, so every
+// receiver takes 141 · 11 passes (a list copy, a butterfly, θ_j, and its
+// out segment read back and written again) for a mean degree of 9.2 (the
+// ER cell, G(N, 0.0005) with self-loops, K_max = 22): ≈ 25 M passes and
+// ≈ 9.8 GB of out and θ_j traffic against 0.88 GB compulsory, 11.3 ms on
+// an NVIDIA H100 80GB HBM3 (700 W). There a warp takes one (receiver j,
+// band of W columns) straight from neighbor_idx and neighbor_mask (no
+// lists, no scratch, no chunks, one plain launch): lane t loads the slots
+// k0 + t, skips padding as phase 1 does, and then for each live slot in
+// slot order loads the sender's θ and ε at its columns t, t + 32, .. of
+// the band (coalesced 128-byte segments; P = 4481 leaves rows 4-byte
+// aligned only), forms Y in registers and accumulates m·Y with fmaf, and
+// wsum_j = Σ m·R̃θ likewise; then out = fmaf(−wsum_j, θ_j, Σ m·Y), stored
+// once. Blocks are band-major, so the resident blocks gather from one or
+// two bands: θ and ε come from device memory about once and a row's ≈ 9
+// gathers are served from L2. W = 128 columns, 4 a lane: its band of θ and
+// ε for all N senders, N·W·8 bytes, is 16.8 MB at N = 16,384, a third of
+// the 50 MB L2 (bands of 64 and 32 columns ran 11% and 49% slower there).
+// Past N = 25,600 a band would take more than half the L2; no caller runs
+// there, and a narrower band waits for a shape that shows 128 losing.
+// What bounds it: θ and ε read once, out written once, the edges' index and
+// weight once: 0.88 GB, 0.263 ms at 3.35 TB/s, by bytes; its own traffic
+// is the L2 gathers, nnz·P·8 ≈ 5.4 GB at the ER cell. No atomics and a
+// fixed order: two launches give the same bits. The slab instance stays
+// for N ≤ 1558, where one chunk holds every sender and a receiver's slots
+// are read from shared memory once (0.13 ms at N = 1000, K_max ≈ 130, where
+// this instance would gather ≈ 4.7 GB from L2), and for lists longer than
+// 16 entries a chunk (kernels/netes_sparse_mixing.py: uses_band).
+//
 // The receiver ≠ sender instance `netes_sparse_mixing_rs_f32` (R receivers
 // over S senders of a payload, the sharded fleet's per-shard contraction)
 // is the plain slot loop of csrc/_rows.cuh; see its note.
 //
 // C interface (bound with ctypes): `netes_sparse_mixing_f32` makes the
 // cooperative launch and returns its cudaError_t;
+// `netes_sparse_mixing_band_f32` the band instance's plain launch, and
+// `netes_sparse_mixing_band_occupancy` its resident blocks, registers and
+// spills;
 // `netes_sparse_mixing_occupancy` reports resident blocks per SM at a
 // given shared memory, the SM count, registers and local (spill) bytes per
 // thread. Launches on the caller's stream, never synchronises, allocates
@@ -201,6 +235,89 @@ sparse_mixing_slab(const int* __restrict__ idx, const float* __restrict__ mask,
   slab::run(op, smem, idx, out, lists, lens, n, k_max, p, chunk_rows, chunks);
 }
 
+// ---- the band instance: many sender chunks, few slots a receiver ----
+
+namespace band {
+
+// kernels/netes_sparse_mixing.py mirrors THREADS and COLS
+constexpr int THREADS = 256;           // a warp per (receiver, band)
+constexpr int WARPS = THREADS / 32;
+constexpr int COLS = 4;                // columns a lane
+constexpr int BAND = 32 * COLS;        // W: columns of a band
+
+// Block b·groups + g takes the receivers [g·WARPS, g·WARPS + WARPS) over
+// the columns [b·BAND, (b + 1)·BAND) of band b, a warp a receiver, lane t
+// the columns t, t + 32, ... of the band. Bands are block-major, so the
+// resident blocks gather from one or two bands of θ and ε at a time.
+__global__ void __launch_bounds__(THREADS)
+sparse_mixing_slab_l2(const int* __restrict__ idx,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ w_theta,
+                      const float* __restrict__ w_eps,
+                      const float* __restrict__ theta,
+                      const float* __restrict__ eps, float* __restrict__ out,
+                      float sigma, int n, int k_max, int p, int groups) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x / groups;
+  const int j = (blockIdx.x - b * groups) * WARPS + (threadIdx.x >> 5);
+  if (j >= n) return;
+  const int col0 = b * BAND + lane;
+  const size_t row_j = (size_t)j * p;
+  float own[COLS], acc[COLS];
+#pragma unroll
+  for (int t = 0; t < COLS; ++t) {
+    const int col = col0 + 32 * t;
+    own[t] = col < p ? __ldg(theta + row_j + col) : 0.f;
+    acc[t] = 0.f;
+  }
+  float ws = 0.f;
+  for (int k0 = 0; k0 < k_max; k0 += 32) {
+    // lane t holds slot k0 + t: its sender, weight, R̃θ and σ·R̃ε
+    const int k = k0 + lane;
+    int i = j;
+    float m = 0.f, wt = 0.f, sw = 0.f;
+    if (k < k_max) {
+      i = __ldg(idx + (size_t)j * k_max + k);
+      m = __ldg(mask + (size_t)j * k_max + k);
+    }
+    // skips padding, a slot of weight 0 that indexes j itself: its term
+    // is 0·Y_j, and out_j carries θ_j through −wsum_j·θ_j
+    const bool live = k < k_max && !(m == 0.f && i == j);
+    if (live) {
+      wt = __ldg(w_theta + i);
+      sw = sigma * __ldg(w_eps + i);
+    }
+    // the live slots in slot order, each one's 2·COLS loads before its
+    // FMAs (further slots' loads in flight gave no gain: the resident
+    // warps keep the L2 busy)
+    for (unsigned left = __ballot_sync(~0u, live); left; left &= left - 1u) {
+      const int src = __ffs(left) - 1;
+      const size_t row = (size_t)__shfl_sync(~0u, i, src) * p;
+      const float sm = __shfl_sync(~0u, m, src);
+      const float swt = __shfl_sync(~0u, wt, src);
+      const float ssw = __shfl_sync(~0u, sw, src);
+      float th[COLS], ep[COLS];
+#pragma unroll
+      for (int t = 0; t < COLS; ++t) {
+        const int col = col0 + 32 * t;
+        th[t] = col < p ? __ldg(theta + row + col) : 0.f;
+        ep[t] = col < p ? __ldg(eps + row + col) : 0.f;
+      }
+      ws = fmaf(sm, swt, ws);
+#pragma unroll
+      for (int t = 0; t < COLS; ++t)
+        acc[t] = fmaf(sm, fmaf(swt, th[t], ssw * ep[t]), acc[t]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < COLS; ++t) {
+    const int col = col0 + 32 * t;
+    if (col < p) out[row_j + col] = fmaf(-ws, own[t], acc[t]);
+  }
+}
+
+}  // namespace band
+
 // ---- the R × S instance (csrc/_rows.cuh): float32 payload rows ----
 
 struct FloatRows {
@@ -238,6 +355,56 @@ extern "C" int netes_sparse_mixing_rs_f32(const void* idx, const void* mask,
       static_cast<const float*>(w), static_cast<const float*>(x),
       static_cast<const float*>(theta), static_cast<float*>(out), k_max, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The band instance: one plain launch of ⌈n/WARPS⌉·⌈p/BAND⌉ blocks; a
+// cudaError_t.
+extern "C" int netes_sparse_mixing_band_f32(const void* idx, const void* mask,
+                                            const void* w_theta,
+                                            const void* w_eps,
+                                            const void* theta, const void* eps,
+                                            void* out, float sigma, int n,
+                                            int k_max, int p, void* stream) {
+  if (n < 1 || k_max < 1 || p < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int groups = (n + band::WARPS - 1) / band::WARPS;
+  const long long grid =
+      (long long)groups * ((p + band::BAND - 1) / band::BAND);
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int* a_idx = static_cast<const int*>(idx);
+  const float* a_mask = static_cast<const float*>(mask);
+  const float* a_wt = static_cast<const float*>(w_theta);
+  const float* a_we = static_cast<const float*>(w_eps);
+  const float* a_th = static_cast<const float*>(theta);
+  const float* a_ep = static_cast<const float*>(eps);
+  float* a_out = static_cast<float*>(out);
+  void* args[] = {&a_idx, &a_mask, &a_wt, &a_we, &a_th, &a_ep, &a_out,
+                  &sigma, &n,     &k_max, &p,   &groups};
+  return static_cast<int>(cudaLaunchKernel(
+      (const void*)band::sparse_mixing_slab_l2, dim3((unsigned)grid),
+      dim3(band::THREADS), args, 0, static_cast<cudaStream_t>(stream)));
+}
+
+// Resident blocks per SM, the SM count, registers and local (spill) bytes
+// per thread of the band instance; a cudaError_t.
+extern "C" int netes_sparse_mixing_band_occupancy(int* resident_per_sm,
+                                                  int* sm_count,
+                                                  int* registers,
+                                                  int* local_bytes) {
+  const void* kernel = (const void*)band::sparse_mixing_slab_l2;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      resident_per_sm, kernel, band::THREADS, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *registers = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, dev));
 }
 
 extern "C" int netes_sparse_mixing_occupancy(int smem, int* resident_per_sm,

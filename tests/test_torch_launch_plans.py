@@ -477,6 +477,163 @@ def test_fused_replay_in_the_plans_pieces_matches_plain_version(n, d,
     assert (np.abs(got - want)[done] <= 3e-5 * scale_s[done] + 1e-30).all()
 
 
+# ---------------------------------------------------------------------------
+# the sparse kernel's band instance: column bands of θ and ε held in L2
+# ---------------------------------------------------------------------------
+
+# (N, P): the ER cell's, the smallest N past one chunk (both with a ragged
+# last band of 1 column), a P narrower than one band, and an N whose last
+# block holds one receiver
+BAND_SHAPES = [(16_384, 4481), (1559, 4481), (1600, 100), (30_001, 700)]
+
+
+@pytest.mark.parametrize("n,p", BAND_SHAPES)
+def test_band_plan_covers_every_receiver_and_column_once(n, p):
+    pl = nsm.BandPlan(n=n, cols=p)
+    w = nsm.BAND
+    # the bands tile the columns end to end; the last is ragged where W
+    # does not divide P
+    spans = [(b * w, min(p, (b + 1) * w)) for b in range(pl.bands)]
+    assert spans[0][0] == 0 and spans[-1][1] == p
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(spans, spans[1:]))
+    assert (spans[-1][1] - spans[-1][0] < w) == (p % w != 0)
+    # every (receiver, band) in exactly one block, band-major in block order
+    work = list(nsm.band_work(pl))
+    assert len(work) == pl.grid
+    assert [b for b, _, _ in work] == sorted(b for b, _, _ in work)
+    seen = {}
+    for b, r0, r1 in work:
+        assert 0 <= b < pl.bands and 0 <= r0 < r1 <= n
+        assert r1 - r0 <= nsm.BAND_WARPS
+        for j in range(r0, r1):
+            seen[b, j] = seen.get((b, j), 0) + 1
+    assert len(seen) == pl.bands * n and set(seen.values()) == {1}
+
+
+def test_band_plan_at_the_er_cells_size():
+    """At N = 16,384, P = 4481: 36 bands of 128 columns over 2048 blocks
+    of 8 receivers, and a band of θ and ε, N·W·8 = 16.8 MB, within half
+    the H100's 50 MB L2."""
+    pl = nsm.BandPlan(n=16_384, cols=4481)
+    assert (nsm.BAND, pl.bands, pl.groups, pl.grid) == (128, 36, 2048,
+                                                        36 * 2048)
+    assert 16_384 * nsm.BAND * 8 <= 50 * 2**20 // 2
+
+
+@pytest.mark.parametrize("n,k_max,band", [
+    # the ER cell (11 chunks, K_max 22)
+    pytest.param(16_384, 22, True, id="er-cell"),
+    # the paper's main path and N = 3000 (one and two chunks, long lists)
+    pytest.param(1000, 130, False, id="n1000"),
+    pytest.param(3000, 350, False, id="n3000-p0.1"),
+    # four chunks (P = 700), K_max 130 and 143: the slab instance measured
+    # faster
+    pytest.param(5000, 130, False, id="n5000"),
+    pytest.param(5000, 143, False, id="n5000-measured"),
+    # the band instance measured faster: N = 1600 at K_max 18, N = 3000 at
+    # 16 and 31, N = 16,384 at 58 and 110
+    pytest.param(1600, 18, True, id="n1600-k18"),
+    pytest.param(3000, 16, True, id="n3000-k16"),
+    pytest.param(3000, 31, True, id="n3000-k31"),
+    pytest.param(16_384, 58, True, id="n16384-k58"),
+    pytest.param(16_384, 110, True, id="n16384-k110"),
+    # past the rule's 16 entries a chunk, where the band instance measured
+    # 3% and 11% faster: the slab instance
+    pytest.param(3000, 51, False, id="n3000-k51"),
+    pytest.param(16_384, 182, False, id="n16384-k182"),
+    # the rule's edge
+    pytest.param(3000, 32, True, id="n3000-k32"),
+    pytest.param(3000, 33, False, id="n3000-k33"),
+])
+def test_band_instance_is_chosen_by_shape(n, k_max, band):
+    assert nsm.uses_band(n, k_max) is band
+
+
+@pytest.mark.parametrize("n", [1, 8, 257, 1000, 1558])
+@pytest.mark.parametrize("k_max", [1, 8, 22])
+def test_slab_instance_wherever_one_chunk_holds_the_senders(n, k_max):
+    assert _slab.chunking(n)[1] == 1
+    assert not nsm.uses_band(n, k_max)
+
+
+def _fma32(a, b, c):
+    """fmaf in float32: the exact product and sum, rounded once (through
+    float64, whose 53 bits hold a product of two float32 exactly)."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _replay_band(rows, cols, idx, mask, wt, sw, th, ep):
+    """The band instance's arithmetic for the receivers ``rows`` over the
+    columns ``cols``, in float32: the live slots (padding, weight 0 on j
+    itself, skipped) in slot order, Y = fmaf(R̃θ, θ, σR̃ε·ε), acc =
+    fmaf(m, Y, acc), wsum = fmaf(m, R̃θ, wsum), then fmaf(−wsum, θ_j,
+    acc)."""
+    acc = np.zeros((len(rows), len(cols)), np.float32)
+    ws = np.zeros(len(rows), np.float32)
+    for k in range(idx.shape[1]):
+        i, m = idx[rows, k], mask[rows, k]
+        live = ~((m == 0) & (i == rows))
+        y = _fma32(wt[i][:, None], th[i][:, cols],
+                   sw[i][:, None] * ep[i][:, cols])
+        acc = np.where(live[:, None], _fma32(m[:, None], y, acc), acc)
+        ws = np.where(live, _fma32(m, wt[i], ws), ws)
+    return _fma32(-ws[:, None], th[rows][:, cols], acc)
+
+
+@pytest.mark.parametrize("n,p,density", [(1600, 4481, 0.005),
+                                         (3000, 700, 0.004)])
+def test_band_replay_in_float32_matches_plain_version(n, p, density):
+    """Non-binary weights, an edge mask's zeros on live slots, padded
+    slots; the first band, a middle one and the ragged last one."""
+    rng = np.random.default_rng(n + p + 7)
+    idx, mask = _neighbor_list(n, density, rng, drop=0.1)
+    assert ((mask == 0) & (idx != np.arange(n)[:, None])).any()
+    assert ((mask == 0) & (idx == np.arange(n)[:, None])).any()
+    assert nsm.uses_band(n, idx.shape[1])
+    pl = nsm.BandPlan(n=n, cols=p)
+    assert p % nsm.BAND
+    wt = rng.normal(size=n).astype(np.float32)
+    we = rng.normal(size=n).astype(np.float32)
+    sigma = np.float32(0.1)
+    sw = (sigma * we).astype(np.float32)
+    th = rng.normal(size=(n, p)).astype(np.float32)
+    ep = rng.normal(size=(n, p)).astype(np.float32)
+    want = ref.sparse_mixing_ref(*(torch.as_tensor(x.astype(np.float64))
+                                   for x in (idx, mask, wt, we, th, ep)),
+                                 sigma=float(sigma)).numpy()
+    a = np.abs(mask.astype(np.float64))
+    for band in (0, pl.bands // 2, pl.bands - 1):
+        rows = np.concatenate([np.arange(r0, r1) for b, r0, r1
+                               in nsm.band_work(pl) if b == band])
+        assert np.array_equal(rows, np.arange(n))
+        cols = np.arange(band * nsm.BAND, min(p, (band + 1) * nsm.BAND))
+        got = _replay_band(rows, cols, idx.astype(np.int64), mask, wt, sw,
+                           th, ep)
+        c = np.ix_(rows, cols)
+        scale = (np.einsum("jk,jkc->jc", a * np.abs(wt[idx]),
+                           np.abs(th[idx][:, :, cols]))
+                 + float(sigma) * np.einsum("jk,jkc->jc", a * np.abs(we[idx]),
+                                            np.abs(ep[idx][:, :, cols]))
+                 + np.abs((mask * wt[idx]).sum(1))[:, None]
+                 * np.abs(th[:, cols]))
+        assert np.isfinite(got).all()
+        assert (np.abs(got - want[c]) <= 3e-5 * scale).all()
+
+
+def test_band_constants_are_the_kernels():
+    """``kernels/netes_sparse_mixing.py`` plans the band instance with the
+    block size and the band width of ``csrc/netes_sparse_mixing.cu``."""
+    src = (pathlib.Path(nsm.__file__).resolve().parent.parent / "csrc"
+           / "netes_sparse_mixing.cu").read_text()
+    body = src[src.index("namespace band {"):]
+    assert re.findall(r"constexpr int THREADS = (\d+);", body)[:1] == [
+        str(nsm.BAND_THREADS)]
+    assert re.findall(r"constexpr int COLS = (\d+);", body)[:1] == [
+        str(nsm.BAND // 32)]
+    assert "constexpr int BAND = 32 * COLS;" in body
+
+
 # (B, S, H, n): rwkv6-7b's prefills of serve runs (a) and (b), its decode
 # steps, then the ragged head widths chip_smoke.py runs
 WKV_SHAPES = [(1, 8192, 64, 64), (8, 512, 64, 64), (1, 1, 64, 64),
